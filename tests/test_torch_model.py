@@ -1,0 +1,141 @@
+"""The PyTorch port's acoustic model against the JAX ArchModel on the CPU in
+fp32, eval mode: flax ``init`` params -> ``convert_jax_params`` -> the port's
+``load_state_dict`` (strict), then the same features through both. Covers a
+narrow copy of ``recipes/streaming_convnets/network.arch`` (same mnemonics,
+right pads and strides, a stage of two TDS blocks) and
+``__graft_entry__.FALLBACK_ARCH_LINES``. The JAX side runs its default path
+(``W2L_TCONV`` unset)."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import __graft_entry__
+from wav2letter_tpu.models.arch import build_arch_from_lines as jax_build
+from wav2letter_tpu_torch.models import build_arch_from_lines, parse_arch_file
+from wav2letter_tpu_torch.runtime.checkpoint import convert_jax_params
+
+NFEAT, NLABEL = 16, 11
+
+# recipes/streaming_convnets/network.arch with channels 16/20/24/28 -> 2/3/3/4
+# and TDS blocks 11 -> 3 (two in the first stage, right pad 1; one in the
+# last, right pad 0); pads, kernels, strides and LN of the four C2 stages as
+# the recipe
+FLAGSHIP_NARROW = """
+V -1 NFEAT 1 0
+SAUG NFEAT 4 2 20 1.0 2
+PD 0 6 2
+C2 1 2 9 1 2 1 0 0
+R
+DO 0.1
+LN 1 2
+TDS 2 9 NFEAT 0.1 0 1 0
+TDS 2 9 NFEAT 0.1 0 1 0
+PD 0 8 2
+C2 2 3 11 1 2 1 0 0
+R
+DO 0.1
+LN 1 2
+PD 0 8 2
+C2 3 3 11 1 2 1 0 0
+R
+DO 0.1
+LN 1 2
+PD 0 11 0
+C2 3 4 12 1 1 1 0 0
+R
+DO 0.1
+LN 1 2
+TDS 4 11 NFEAT 0.1 0 0 0
+RO 2 1 0 3
+V 64 -1 1 0
+L 64 NLABEL
+V NLABEL 0 -1 1
+"""
+
+
+def _lines(name):
+    if name == "flagship_narrow":
+        raw = FLAGSHIP_NARROW.strip().splitlines()
+    else:
+        raw = list(__graft_entry__.FALLBACK_ARCH_LINES)
+        raw[8] = f"V {15 * NFEAT} -1 1 0"
+        raw[9] = f"L {15 * NFEAT} NLABEL"
+    return [l.replace("NFEAT", str(NFEAT)).replace("NLABEL", str(NLABEL)) for l in raw]
+
+
+@pytest.mark.parametrize("name", ["flagship_narrow", "fallback"])
+def test_emissions_match_jax(name):
+    lines = _lines(name)
+    jmodel = jax_build(lines, NLABEL)
+    rng = np.random.RandomState(7)
+    B, T = 3, 120
+    feats = rng.randn(B, T, NFEAT).astype(np.float32)
+    flen = np.asarray([120, 97, 61], np.int32)
+    # jitted: one compile is quicker on the CPU than op-by-op dispatch
+    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(3)},
+                                     jnp.asarray(feats[:1]), jnp.asarray(flen[:1]))
+    want, want_len = jax.jit(jmodel.apply)(variables, jnp.asarray(feats), jnp.asarray(flen))
+
+    model = build_arch_from_lines(lines, NLABEL)
+    model.load_state_dict(convert_jax_params(jax.device_get(variables["params"])),
+                          strict=True)
+    model.eval()
+    with torch.no_grad():
+        got, got_len = model(torch.from_numpy(feats), torch.from_numpy(flen))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    # fp32 both sides; convs, linears and per-frame LNs in another summation
+    # order, emissions O(1): 1e-4
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_cached_weights_follow_the_params():
+    """Without autograd the layers keep their re-indexed, cast weights; a
+    ``load_state_dict`` or a change of dtype rebuilds them, so the result is
+    always that of the weights built afresh (autograd on)."""
+    torch.manual_seed(0)
+    model = build_arch_from_lines(_lines("flagship_narrow"), NLABEL).eval()
+    feats = torch.from_numpy(np.random.RandomState(1).randn(2, 64, NFEAT).astype(np.float32))
+    flen = torch.tensor([64, 50])
+
+    def run(dtype, grad):
+        with torch.set_grad_enabled(grad):
+            return model(feats.to(dtype), flen)[0].detach().float()
+
+    first = run(torch.float32, False)
+    torch.testing.assert_close(run(torch.float32, False), first, rtol=0, atol=0)
+    state = {k: v * 1.5 if k.endswith("weight") else v for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
+    changed = run(torch.float32, False)
+    assert not torch.allclose(changed, first)
+    torch.testing.assert_close(changed, run(torch.float32, True), rtol=0, atol=0)
+    torch.testing.assert_close(run(torch.bfloat16, False), run(torch.bfloat16, True),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(run(torch.float32, False), changed, rtol=0, atol=0)
+
+
+def test_recipe_arch_builds_at_full_width():
+    """The flagship recipe parses into the JAX names with the folded pads;
+    its parameter count at NFEAT=80, 9998 classes is 96,660,482."""
+    path = os.path.join(os.path.dirname(__file__), "..", "recipes",
+                        "streaming_convnets", "network.arch")
+    lines = parse_arch_file(path, 80, 9998)
+    with torch.device("meta"):
+        model = build_arch_from_lines(lines, 9998)
+    assert sum(p.numel() for p in model.parameters()) == 96_660_482
+    names = dict(model.seq.named_children())
+    assert type(names["02_PD"]).__name__ == "Identity"
+    assert names["03_C2"].pads(100) == (6, 2)
+    assert names["26_C2"].pads(100) == (11, 0)
+    assert names["07_TDS"].time_pads == (7, 1)
+    assert names["30_TDS"].time_pads == (10, 0)
+
+
+def test_unported_mnemonic_names_its_slice():
+    with pytest.raises(NotImplementedError, match="transformer/conformer slice"):
+        build_arch_from_lines(["TR 64 128 4 100 0.1"], NLABEL)

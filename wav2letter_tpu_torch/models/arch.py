@@ -1,0 +1,210 @@
+"""`.arch` DSL parser -> nn.Module graph — the port of
+``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets
+flagship: V SAUG PD C2 R DO LN TDS RO L.
+
+Grammar: one layer per line, ``#`` comments, NFEAT/NLABEL substitution
+(reference ``buildSequentialModule``). The model takes features (B, T, C)
+plus valid lengths, enters the stored AF-reversed layout (B, 1, C, T), runs
+the layers, and returns emissions (B, T_out, NLABEL) with lengths scaled by
+the valid fraction of the input.
+
+Layer i is named ``f"{i:02d}_{kind}"``, as in the JAX package, so the flax
+param tree ``seq/03_C2/weight`` is the state-dict key ``seq.03_C2.weight``.
+A ``PD`` that only pads time with zeros right before a time-only ``C2`` is
+folded into that conv's in-kernel pads and stays as an ``Identity``, as the
+JAX chain pass does (``arch.py:412-423``). The JAX layout passes
+(``_fuse_chain_tconv``, ``_fuse_tds_layouts``) are TPU layout tricks and are
+not ported: parameters do not depend on layout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from types import SimpleNamespace
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..kernels import KERNELS
+from . import layers as L
+
+_LATER = {
+    "TR": "the transformer/conformer slice",
+    "CFR": "the transformer/conformer slice",
+    "POSEMB": "the transformer/conformer slice",
+    "SINPOSEMB": "the transformer/conformer slice",
+    "RES": "the slice of the remaining layers",
+    "WN": "the transformer/conformer slice",
+    "GLU": "the transformer/conformer slice",
+    "M": "the transformer/conformer slice",
+}
+
+
+@dataclasses.dataclass
+class LayerSpec:
+    kind: str
+    module_fn: Callable[[SimpleNamespace], nn.Module]  # ops -> module
+    line: str = ""
+
+
+def _num(s: str) -> float:
+    return float(s)
+
+
+def parse_arch_file(path: str, n_feat: int, n_label: int) -> List[str]:
+    with open(path) as f:
+        raw = f.readlines()
+    lines = []
+    for l in raw:
+        l = l.strip().replace("NFEAT", str(n_feat)).replace("NLABEL", str(n_label))
+        if not l or l.startswith("#"):
+            continue
+        lines.append(l)
+    return lines
+
+
+def _parse_one(p: List[str], line: str) -> LayerSpec:
+    op = p[0]
+    if op in ("V", "RO"):
+        dims = tuple(int(x) for x in p[1:5])
+        if op == "V":
+            return LayerSpec("V", lambda ops: L.View(dims), line)
+        return LayerSpec("RO", lambda ops: L.Reorder(dims), line)
+    if op == "PD":
+        val = _num(p[1])
+        rest = [int(x) for x in p[2:]] + [0] * (8 - len(p[2:]))
+        pads = tuple((rest[2 * i], rest[2 * i + 1]) for i in range(4))
+        return LayerSpec("PD", lambda ops: L.Padding(val, pads), line)
+    if op == "C2":
+        ci, co = int(p[1]), int(p[2])
+        wx, wy, sx, sy = int(p[3]), int(p[4]), int(p[5]), int(p[6])
+        px = int(p[7]) if len(p) >= 8 else 0
+        py = int(p[8]) if len(p) >= 9 else 0
+        dx = int(p[9]) if len(p) >= 10 else 1
+        dy = int(p[10]) if len(p) >= 11 else 1
+        return LayerSpec(
+            "C2", lambda ops: L.Conv2D(ci, co, wx, wy, sx, sy, px, py, dx, dy, ops=ops),
+            line)
+    if op == "TDS":
+        ci, wx, fdim = int(p[1]), int(p[2]), int(p[3])
+        do = _num(p[4]) if len(p) >= 5 else 0.0
+        l2 = int(p[5]) if len(p) >= 6 else 0
+        rpad = int(p[6]) if len(p) >= 7 else -1
+        lnt = not (len(p) >= 8 and int(p[7]) == 0)
+        return LayerSpec(
+            "TDS", lambda ops: L.TDSBlock(ci, wx, fdim, do, l2, rpad, lnt, ops=ops), line)
+    if op == "L":
+        li, lo = int(p[1]), int(p[2])
+        bias = not (len(p) == 4 and p[3] == "0")
+        return LayerSpec("L", lambda ops: L.Linear(li, lo, bias), line)
+    if op == "LN":
+        fdims = tuple(int(x) for x in p[1:])
+        return LayerSpec("LN", lambda ops: L.LayerNorm(fdims), line)
+    if op == "DO":
+        return LayerSpec("DO", lambda ops: L.Dropout(_num(p[1])), line)
+    if op == "R":
+        return LayerSpec("R", lambda ops: L.Activation("R"), line)
+    if op == "SAUG":
+        f, mf, t = int(p[1]), int(p[2]), int(p[3])
+        tt, tp, mt = int(p[4]), _num(p[5]), int(p[6])
+        return LayerSpec("SAUG", lambda ops: L.SpecAugmentLayer(f, mf, tt, tp, mt), line)
+    where = _LATER.get(op, "a later slice")
+    raise NotImplementedError(
+        f"arch mnemonic {op!r} is not in the first slice of the PyTorch port "
+        f"(V SAUG PD C2 R DO LN TDS RO L); it comes with {where}: {line!r}")
+
+
+def _time_pads(spec: LayerSpec) -> Optional[Tuple[int, int]]:
+    """The (left, right) time pads of a zero ``PD`` that pads only AF dim 0."""
+    t = spec.line.split()
+    rest = [int(x) for x in t[2:]] + [0] * 8
+    if _num(t[1]) == 0 and all(v == 0 for v in rest[2:8]):
+        return rest[0], rest[1]
+    return None
+
+
+def _fold_pads(specs: List[LayerSpec]) -> List[LayerSpec]:
+    out = list(specs)
+    for i in range(len(out) - 1):
+        if out[i].kind != "PD" or out[i + 1].kind != "C2":
+            continue
+        pads = _time_pads(out[i])
+        t = out[i + 1].line.split()
+        wy, sy = int(t[4]), int(t[6])
+        px, py, dx, dy = ([int(v) for v in t[7:11]] + [0, 0, 1, 1][len(t[7:11]):])
+        if pads is None or (wy, sy, py, dx, dy) != (1, 1, 0, 1, 1) or px < 0:
+            continue
+        ci, co, wx, sx = int(t[1]), int(t[2]), int(t[3]), int(t[5])
+        folded = (pads[0] + px, pads[1] + px)
+        out[i] = LayerSpec("PD", lambda ops: L.Identity(), out[i].line)
+        out[i + 1] = LayerSpec(
+            "C2",
+            lambda ops, ci=ci, co=co, wx=wx, sx=sx, folded=folded:
+                L.Conv2D(ci, co, wx, 1, sx, 1, folded, 0, ops=ops),
+            out[i + 1].line)
+    return out
+
+
+def parse_arch_lines(lines: List[str]) -> List[LayerSpec]:
+    return _fold_pads([_parse_one(l.split(), l) for l in lines])
+
+
+class ArchSequential(nn.Module):
+    """The layer stack; children are named ``f"{i:02d}_{kind}"``."""
+
+    def __init__(self, specs: Sequence[LayerSpec], ops: SimpleNamespace = KERNELS):
+        super().__init__()
+        for i, spec in enumerate(specs):
+            self.add_module(f"{i:02d}_{spec.kind}", spec.module_fn(ops))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for mod in self.children():
+            x = mod(x)
+        return x
+
+
+class ArchModel(nn.Module):
+    """Acoustic model: features (B, T, C) -> emissions (B, T_out, N) and
+    their lengths ``ceil(pad_frac * T_out)``, pad_frac = feat_len / T."""
+
+    def __init__(self, specs: Sequence[LayerSpec], n_label: int,
+                 force_label_dim: bool = True, ops: SimpleNamespace = KERNELS):
+        super().__init__()
+        self.n_label = n_label
+        self.force_label_dim = force_label_dim
+        self.seq = ArchSequential(specs, ops)
+
+    def forward(self, feats: torch.Tensor, feat_len: Optional[torch.Tensor] = None):
+        B, T, C = feats.shape
+        if feat_len is None:
+            feat_len = torch.full((B,), T, dtype=torch.int32, device=feats.device)
+        pad_frac = feat_len.float() / T
+        # (B, T, C) -> AF (T, C, 1, B) == stored (B, 1, C, T)
+        y = self.seq(feats.transpose(1, 2)[:, None])
+        # canonicalize to (B, T_out, N), anchored on B (see the JAX ArchModel)
+        sq = [d for d in y.shape if d != 1]
+        if len(sq) == 3 and sq[0] == B:
+            y = y.reshape(sq)
+        elif len(sq) == 2 and B == 1:
+            y = y.reshape((1,) + tuple(sq))
+        else:
+            y = y.reshape((B, -1, self.n_label))
+        if y.shape[0] != B:
+            raise ValueError(f"unexpected arch output shape {tuple(y.shape)}")
+        if self.force_label_dim and y.shape[-1] != self.n_label:
+            y = y.reshape((B, -1, self.n_label))
+        out_len = torch.ceil(pad_frac * y.shape[1]).to(torch.int32)
+        return y, out_len
+
+
+def build_arch_module(arch_path: str, n_feat: int, n_label: int,
+                      force_label_dim: bool = True,
+                      ops: SimpleNamespace = KERNELS) -> ArchModel:
+    lines = parse_arch_file(arch_path, n_feat, n_label)
+    return ArchModel(parse_arch_lines(lines), n_label, force_label_dim, ops)
+
+
+def build_arch_from_lines(lines: Sequence[str], n_label: int,
+                          ops: SimpleNamespace = KERNELS) -> ArchModel:
+    return ArchModel(parse_arch_lines(list(lines)), n_label, ops=ops)

@@ -1,0 +1,133 @@
+"""Self-describing checkpoints — the port of ``wav2letter_tpu/runtime/
+checkpoint.py``.
+
+The port writes its own format: ``torch.save`` of {version, config (the
+serialized flag json), epoch, updates, state_dict}. It also reads the JAX
+package's ``W2LTPU01`` files (8-byte magic + a flax msgpack dict whose arrays
+are msgpack ExtType 1, possibly in flax's chunked form) and converts their
+param tree with :func:`convert_jax_params`. Either way loading yields a
+:class:`Checkpoint` whose ``state_dict`` fits the port's ``ArchModel``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+JAX_MAGIC = b"W2LTPU01"
+VERSION = 1
+
+
+@dataclasses.dataclass
+class Checkpoint:
+    config: str  # serialized Config (json)
+    epoch: int
+    updates: int
+    state_dict: Dict[str, torch.Tensor]
+    version: int = VERSION
+
+
+def save_checkpoint(path: str, ckpt: Checkpoint) -> None:
+    payload = {
+        "version": ckpt.version,
+        "config": ckpt.config,
+        "epoch": ckpt.epoch,
+        "updates": ckpt.updates,
+        "state_dict": {k: v.detach().cpu() for k, v in ckpt.state_dict.items()},
+    }
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Checkpoint:
+    with open(path, "rb") as f:
+        magic = f.read(len(JAX_MAGIC))
+    if magic == JAX_MAGIC:
+        payload = read_jax_checkpoint(path)
+        return Checkpoint(
+            config=payload["config"],
+            epoch=int(payload["epoch"]),
+            updates=int(payload["updates"]),
+            state_dict=convert_jax_params(payload["model_params"]),
+            version=int(payload["version"]),
+        )
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    return Checkpoint(
+        config=payload["config"],
+        epoch=int(payload["epoch"]),
+        updates=int(payload["updates"]),
+        state_dict=payload["state_dict"],
+        version=int(payload["version"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# W2LTPU01 (flax msgpack) reader
+# ---------------------------------------------------------------------------
+def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        bits = np.frombuffer(buffer, dtype=np.uint16).astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+
+
+def _ext_unpack(code: int, data: bytes):
+    import msgpack
+
+    if code == 1:  # ndarray
+        return _ndarray_from_bytes(data)
+    if code == 2:  # native complex
+        re, im = msgpack.unpackb(data)
+        return complex(re, im)
+    if code == 3:  # numpy scalar
+        return _ndarray_from_bytes(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def _unchunk(tree: Any) -> Any:
+    """Undo flax's chunking of arrays larger than 1 GiB."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_jax_checkpoint(path: str) -> Dict[str, Any]:
+    """The payload dict of a ``W2LTPU01`` file, arrays as numpy."""
+    import msgpack  # only this reader needs it
+
+    with open(path, "rb") as f:
+        if f.read(len(JAX_MAGIC)) != JAX_MAGIC:
+            raise ValueError(f"{path}: not a wav2letter_tpu checkpoint")
+        blob = f.read()
+    return _unchunk(msgpack.unpackb(blob, ext_hook=_ext_unpack, raw=False))
+
+
+def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX param tree (nested dicts of arrays, e.g. ``{"seq": {"03_C2":
+    {"weight", "bias"}}}``) -> state dict ``{"seq.03_C2.weight": ...}``.
+
+    Names and shapes are kept (Conv2D OIHW, Linear (in, out), LayerNorm
+    scalars), so the conversion is a path rename and a copy."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Any, prefix: str) -> None:
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}.{k}" if prefix else str(k))
+        else:
+            out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+
+    walk(tree, "")
+    return out

@@ -1,0 +1,174 @@
+"""Test executor — greedy/Viterbi evaluation (the ``fl_asr_test`` binary), the
+port of ``wav2letter_tpu/runtime/test.py``:
+
+load AM checkpoint -> re-inject stored flags (CLI wins) -> dataset over
+``--test`` -> featurize (K1) -> forward (K2, K3) -> viterbi -> collapse ->
+token/word edit meters and the loss meter -> optional ``--show``,
+``--sclite`` and ``--emission_dir`` output.
+
+Everything runs on ``device``, the card unless the caller asks for the CPU;
+without a card a CUDA device is an error, never a quiet move to the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data import AsrDataset, Lexicon, PrefetchIterator, make_token_dict
+from ..data.targets import tokens_to_words
+from ..features import FeatureParams, Featurizer
+from ..kernels import disable_tf32
+from ..models.arch import build_arch_module
+from ..ops.ctc import ctc_collapse, ctc_loss, ctc_viterbi
+from .checkpoint import load_checkpoint
+from .meters import DatasetMeters
+
+# evaluation flags the command line may set over the checkpoint's
+EVAL_FLAGS = (
+    "test", "datadir", "show", "showletters", "emission_dir", "sclite",
+    "batchsize", "validbatchsize", "maxisz", "minisz", "maxtsz", "mintsz",
+    "nthread", "lexicon", "tokens", "tokensdir", "pad_multiple",
+)
+
+
+def resolve_device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass --device=cpu to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+class Evaluator:
+    """AM forward + viterbi + meters, as the JAX Evaluator (CTC only)."""
+
+    def __init__(self, cfg: Config, am_path: Optional[str] = None,
+                 device: str = "cuda"):
+        self.device = resolve_device(device)
+        disable_tf32()
+        ckpt = load_checkpoint(am_path or cfg.am)
+        merged = Config.deserialize(ckpt.config).asdict()
+        for k in EVAL_FLAGS:
+            v = cfg.get(k)
+            if v not in ("", None):
+                merged[k] = v
+        self.cfg = Config()
+        self.cfg.update(merged)
+        cfg = self.cfg
+        if cfg.criterion != "ctc":
+            raise NotImplementedError(
+                f"criterion {cfg.criterion!r}: only ctc is in the first slice of "
+                "the PyTorch port")
+
+        tokens_path = (
+            os.path.join(cfg.tokensdir, cfg.tokens) if cfg.tokensdir else cfg.tokens
+        )
+        self.token_dict = make_token_dict(
+            tokens_path, cfg.criterion, cfg.replabel, cfg.eostoken)
+        self.n_classes = len(self.token_dict)
+        self.lexicon = Lexicon.from_file(cfg.lexicon, cfg.maxword) if cfg.lexicon else None
+
+        self.featurizer = Featurizer(FeatureParams.from_config(cfg)).to(self.device)
+        self.n_feat = cfg.num_features()
+        arch_path = os.path.join(cfg.archdir, cfg.arch) if cfg.archdir else cfg.arch
+        if arch_path.endswith(".py") or ":" in arch_path:
+            raise NotImplementedError(
+                "plugin archs are not in the first slice of the PyTorch port")
+        self.model = build_arch_module(arch_path, self.n_feat, self.n_classes)
+        self.model.load_state_dict(ckpt.state_dict, strict=True)
+        self.model.to(self.device).eval()
+        self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+    @torch.no_grad()
+    def emissions(self, batch):
+        audio = torch.from_numpy(batch["audio"]).to(self.device)
+        audio_len = torch.from_numpy(batch["audio_len"]).to(self.device)
+        feats, flen = self.featurizer(audio, audio_len)
+        em, elen = self.model(feats.to(self.dtype), flen)
+        return em.float(), elen
+
+    def viterbi(self, em, elen):
+        """Returns (path, path_len)."""
+        return ctc_viterbi(em, elen), elen
+
+    @torch.no_grad()
+    def batch_loss(self, em, elen, targets, target_len) -> float:
+        """Per-batch mean criterion loss (reference Test.cpp loss meter)."""
+        tgt = torch.from_numpy(np.asarray(targets)).to(em.device)
+        tl = torch.from_numpy(np.asarray(target_len)).to(em.device)
+        return float(ctc_loss(em, tgt, elen, tl).mean())
+
+    def collapse(self, path_row, length):
+        return ctc_collapse([[int(t) for t in path_row[:length]]], self.n_classes - 1)[0]
+
+
+def run_test(cfg: Config, device: str = "cuda") -> Dict[str, float]:
+    return evaluate(Evaluator(cfg, device=device))
+
+
+def evaluate(ev: Evaluator) -> Dict[str, float]:
+    """One pass of a loaded ``Evaluator`` over its ``--test`` list: the
+    serving work of ``run_test`` without the checkpoint load and model set-up."""
+    ecfg = ev.cfg
+    ds = AsrDataset(ecfg.test, ev.token_dict, ev.lexicon, ecfg,
+                    batch_size=ecfg.batchsize)
+    meters = DatasetMeters()
+    emission_dir = ecfg.emission_dir
+    if emission_dir:
+        os.makedirs(emission_dir, exist_ok=True)
+    sclite_rows = []
+    it = PrefetchIterator(ds, ds.batch_specs(), num_threads=max(1, ecfg.nthread))
+    for batch in it:
+        em, elen = ev.emissions(batch)
+        meters.loss.add(
+            ev.batch_loss(em, elen, batch["target"], batch["target_len"]),
+            batch["audio"].shape[0],
+        )
+        vit, vlen = ev.viterbi(em, elen)
+        vit, vlen = vit.cpu().numpy(), vlen.cpu().numpy()
+        for i in range(vit.shape[0]):
+            sid = ds.samples[int(batch["sample_idx"][i])].sample_id
+            hyp_toks = ev.collapse(vit[i], int(vlen[i]))
+            ref_toks = [int(t) for t in batch["target"][i, : int(batch["target_len"][i])]]
+            meters.tkn_edit.add(ref_toks, hyp_toks)
+            ref_w = tokens_to_words(
+                ev.token_dict.map_indices(ref_toks), ecfg.wordseparator, ecfg.usewordpiece)
+            hyp_w = tokens_to_words(
+                ev.token_dict.map_indices(hyp_toks), ecfg.wordseparator, ecfg.usewordpiece)
+            meters.wrd_edit.add(ref_w, hyp_w)
+            if ecfg.sclite:
+                sclite_rows.append((sid, ref_w, hyp_w))
+            if ecfg.show:
+                print(f"|T|: {' '.join(ref_w)}")
+                print(f"|P|: {' '.join(hyp_w)}")
+            if emission_dir:
+                np.savez(
+                    os.path.join(emission_dir, f"{sid}.npz"),
+                    emission=em[i, : int(vlen[i])].cpu().numpy(),
+                    sample_id=sid,
+                )
+    if ecfg.sclite:
+        os.makedirs(ecfg.sclite, exist_ok=True)
+        base = os.path.join(ecfg.sclite, os.path.basename(ecfg.test))
+        with open(base + ".hyp", "w") as fh, open(base + ".ref", "w") as fr:
+            for sid, ref_w, hyp_w in sclite_rows:
+                fh.write(f"{' '.join(hyp_w)} ({sid})\n")
+                fr.write(f"{' '.join(ref_w)} ({sid})\n")
+    res = {
+        "TER": meters.tkn_edit.error_rate(),
+        "WER": meters.wrd_edit.error_rate(),
+        "loss": meters.loss.value(),
+    }
+    print(
+        f"[Test {ecfg.test}] loss: {res['loss']:.4f}, "
+        f"TER: {res['TER']:.2f}%, WER: {res['WER']:.2f}%"
+    )
+    return res
