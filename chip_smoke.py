@@ -8,11 +8,13 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 1. the device: name, count, ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``wav2letter_tpu_torch/csrc``;
 3. hold each kernel (K1 MFSC, K2 time conv, K3 residual LayerNorm) against
-   its plain PyTorch version at the shapes of the main path's largest batch
-   (fp32, and bf16 for K2 and K3), and time kernel, plain version, one
-   PyTorch call of the same function where there is one, and the bound;
-   times are device times with the inputs in HBM (cold L2), the kernel's
-   also with L2-warm inputs;
+   its plain PyTorch version at the shapes of the serving path's largest
+   batch (fp32, and bf16 for K2 and K3), and the backward kernels (K2 as
+   dgrad, K2b time-conv weight gradient, K3b residual LayerNorm backward) and
+   the two autograd functions at the shapes of the training path's largest
+   batch; time kernel, plain version, one PyTorch call of the same function
+   where there is one, and the bound; times are device times with the inputs
+   in HBM (cold L2), the kernel's also with L2-warm inputs;
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -21,7 +23,18 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the launch counts of each run checked (1 K1, 15 K2, 22 K3 per batch) and
    its emissions held against the plain-version forward on the card; then
    ``PASSES`` more passes of the loaded model give the steady-state rate;
-5. one profiled bf16 forward: device time by kernel.
+5. one profiled bf16 forward: device time by kernel;
+6. training at full width: the same flagship takes ``TRAIN_UPDATES`` updates
+   in bf16 (fp32 master parameters) and then in fp32 through the port's
+   ``Trainer`` on 32 synthesized utterances at batch 16 (SGD momentum 0.9,
+   gradient clipping, dropout and SpecAugment as the arch says, one validation
+   pass and checkpoints), with the launch counts of every update checked
+   (1 K1, 15 K2 + 14 dgrad, 15 K2b, 22 K3, 22 K3b), every loss finite, and
+   with dropout and SpecAugment off the first batch's loss and every
+   parameter's gradient held against the plain path on the card; then
+   ``cli.train continue`` takes 2 more updates from ``model_last.bin``, and
+   ``run_test`` serves the result; one profiled update gives the split into
+   forward, backward and optimizer, the idle share and the peak memory.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -44,16 +57,23 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARCH = os.path.join(REPO, "recipes", "streaming_convnets", "network.arch")
 N_FEAT, N_TOKENS, BATCH = 80, 9997, 4
+TRAIN_BATCH, TRAIN_UTTS = 16, 32
+TRAIN_UPDATES = {"bfloat16": 6, "float32": 4}
+CONTINUE_UPDATES = 2
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
-PASSES = 10  # steady-state passes over the served list per type
+PASSES = 5  # steady-state passes over the served list per type
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 TPU_KERNELS = {
     "mfsc": ("wav2letter_tpu/ops/pallas/mel.py:65", "wav2letter_tpu_torch/csrc/mfsc.cu"),
     "time_conv": ("wav2letter_tpu/ops/pallas/tconv.py:155",
                   "wav2letter_tpu_torch/csrc/tconv.cu"),
+    "time_conv_wgrad": ("wav2letter_tpu/ops/pallas/tconv.py:232",
+                        "wav2letter_tpu_torch/csrc/tconv_wgrad.cu"),
     "residual_ln": ("wav2letter_tpu/ops/pallas/layernorm.py:77",
                     "wav2letter_tpu_torch/csrc/layernorm.cu"),
+    "residual_ln_bwd": ("wav2letter_tpu/ops/pallas/layernorm.py:111",
+                        "wav2letter_tpu_torch/csrc/layernorm.cu"),
 }
 # kernel vs plain version, |got - want| <= atol + rtol * |want|
 TOL = {
@@ -62,7 +82,42 @@ TOL = {
     ("time_conv", "bfloat16"): (1e-2, 1e-2),  # one bf16 rounding of the output
     ("residual_ln", "float32"): (1e-5, 1e-5),
     ("residual_ln", "bfloat16"): (2e-2, 1e-2),
+    ("time_conv_dgrad", "float32"): (1e-4, 1e-4),  # <= 336-term fp32 sums
+    ("time_conv_dgrad", "bfloat16"): (1e-2, 1e-2),  # one bf16 rounding of the output
+    # dw sums N = B*Tout*F <= 1e6 products of O(1) values, exact in fp32 for
+    # either input type, in fp32 on both sides but in another order. Entries
+    # are O(sqrt N) = 1e3; the worst case of fp32 summation is
+    # eps * N * E|x*dy| = 6e-8 * 1e6 * 0.64 = 0.04, and ordered blocked sums
+    # stay far below it: half of that, plus 1e-4 relative
+    ("time_conv_wgrad", "float32"): (1e-4, 2e-2),
+    ("time_conv_wgrad", "bfloat16"): (1e-4, 2e-2),
+    ("residual_ln_bwd", "float32"): (1e-5, 1e-5),
+    ("residual_ln_bwd", "bfloat16"): (2e-2, 1e-2),
 }
+# the autograd functions against autograd of the plain forward. The two
+# forwards round a few outputs of ~0 to different sides of 0 (one or two of
+# 2e7 in fp32, more in bf16), so their ReLU masks differ there: one dy term
+# more or less in K*C entries of dx (measured: up to 9% of the largest entry,
+# in 4e-5 of the entries), in the dw of one output channel and in one dbias
+# entry (0.3% of the largest). The kernels themselves are held to TOL above;
+# this check is for the wiring (mask, bias, which gradient goes where), whose
+# faults are of order 1. Hence an elementwise bound (rtol, atol as a share
+# of the gradient's largest entry) wide enough for a few flipped terms in dw
+# and dbias, and a share of entries allowed outside it for dx.
+FN_TOL = {"float32": (1e-3, 2e-2, 1e-3), "bfloat16": (5e-2, 2e-2, 2e-3)}
+# First training batch on the card, dropout and SpecAugment off: the kernel
+# path's loss (relative) and each parameter's gradient (L2 error relative to
+# the larger of that gradient's L2 norm and 1% of the whole gradient's).
+# GRAD_TOL: against the plain-version model on the same features. This
+# seeded, untrained model amplifies fp32 rounding ~1e4-fold on the way back
+# (two plain-version runs that differ only in the conv's summation order differ
+# by 2e-3 in the first blocks' weights), hence 1e-2 in fp32.
+# GRAD_TOL_FEATS: against the whole plain path, features included. K1 and its
+# plain version agree to 1e-4, but local CMVN divides the first frames by the
+# std of windows of 1-8 frames, which carries that rounding into the first
+# layers' gradients at a few percent.
+GRAD_TOL = {"float32": (1e-5, 1e-2), "bfloat16": (2e-2, 0.25)}
+GRAD_TOL_FEATS = {"float32": (1e-4, 0.1), "bfloat16": (2e-2, 0.25)}
 # emissions of the kernel path vs the plain path, full model: (max, mean) abs
 EM_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (0.25, 0.02)}
 
@@ -104,6 +159,22 @@ def device_events(prof):
             yield evt
 
 
+def profile_device(fn):
+    """``fn()`` under the profiler, device activities only; returns the
+    profiler. Now and then one comes back without any device event (seen once
+    in some thousand uses); such a reading is taken again, never kept."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any(True for _ in device_events(prof)):
+            return prof
+    fail("the profiler reported no device event three times in a row")
+
+
 def device_ms(fn, args, cold=True, iters=20) -> float:
     """Device time per call of ``fn(*args)``: the time of the kernels it
     launches, from the profiler, without the host's launch overhead.
@@ -113,7 +184,6 @@ def device_ms(fn, args, cold=True, iters=20) -> float:
     HBM, as the bound assumes. Warm, every call reuses the same inputs, which
     stay in L2 between calls."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     sets = [args]
     if cold:
@@ -123,10 +193,12 @@ def device_ms(fn, args, cold=True, iters=20) -> float:
         iters = max(iters, 2 * len(sets))
     fn(*args)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for i in range(iters):
             fn(*sets[i % len(sets)])
-        torch.cuda.synchronize()
+
+    prof = profile_device(calls)
     return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / iters
 
 
@@ -150,36 +222,40 @@ def compare(name, dtype, got, want):
 # ---------------------------------------------------------------------------
 # data, model and checkpoints
 # ---------------------------------------------------------------------------
-def synth_dataset(root: str, seed: int, n_utts: int = 8):
+def synth_dataset(root: str, seed: int, n_utts: int = 8, name: str = "test", vocab=None):
     """Utterances of 4-15 s: white noise loud enough that no mel band sits at
     the log floor, under a slow random envelope; ~1.5 words per second from a
-    200-word lexicon spelled with 9996 word pieces plus the separator."""
+    200-word lexicon spelled with 9996 word pieces plus the separator. A second
+    list takes the first one's ``vocab`` (tokens and lexicon files)."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
     os.makedirs(root, exist_ok=True)
-    pieces = [f"p{i:04d}" for i in range(N_TOKENS - 1)]
-    words = {f"w{i:03d}": [pieces[j] for j in rng.choice(len(pieces), rng.randint(1, 4))]
-             for i in range(200)}
+    if vocab is None:
+        pieces = [f"p{i:04d}" for i in range(N_TOKENS - 1)]
+        words = {f"w{i:03d}": [pieces[j] for j in rng.choice(len(pieces), rng.randint(1, 4))]
+                 for i in range(200)}
+        tokens = os.path.join(root, "tokens.txt")
+        with open(tokens, "w") as f:
+            f.write("|\n" + "\n".join(pieces) + "\n")
+        lexicon = os.path.join(root, "lexicon.txt")
+        with open(lexicon, "w") as f:
+            f.writelines(f"{w}\t{' '.join(sp)} |\n" for w, sp in words.items())
+    else:
+        tokens, lexicon = vocab
     lines, secs = [], 0.0
     for i in range(n_utts):
         n = int(16000 * rng.uniform(4.0, 15.0))
         env = np.interp(np.arange(n), np.linspace(0, n, 20), rng.uniform(0.4, 1.0, 20))
         wav = (0.5 * env * rng.randn(n)).astype(np.float32)
-        path = os.path.join(root, f"utt{i:03d}.npy")
+        path = os.path.join(root, f"{name}{i:03d}.npy")
         np.save(path, wav)
         ws = [f"w{rng.randint(200):03d}" for _ in range(max(1, int(1.5 * n / 16000)))]
-        lines.append(f"utt{i:03d} {path} {1000.0 * n / 16000:.1f} {' '.join(ws)}")
+        lines.append(f"{name}{i:03d} {path} {1000.0 * n / 16000:.1f} {' '.join(ws)}")
         secs += n / 16000
-    lst = os.path.join(root, "test.lst")
+    lst = os.path.join(root, f"{name}.lst")
     with open(lst, "w") as f:
         f.write("\n".join(lines) + "\n")
-    tokens = os.path.join(root, "tokens.txt")
-    with open(tokens, "w") as f:
-        f.write("|\n" + "\n".join(pieces) + "\n")
-    lexicon = os.path.join(root, "lexicon.txt")
-    with open(lexicon, "w") as f:
-        f.writelines(f"{w}\t{' '.join(sp)} |\n" for w, sp in words.items())
     return lst, tokens, lexicon, secs
 
 
@@ -204,16 +280,17 @@ def save_flagship(root, seed, tokens, lexicon):
     return paths, n_params
 
 
-def batch_shapes(lst, tokens, lexicon):
+def batch_shapes(lst, tokens, lexicon, batch=BATCH):
     """(number of batches, feature frames T and audio samples S of the
-    largest batch) of the batches ``run_test`` builds from ``lst``."""
+    largest batch) of the batches ``run_test`` or the trainer builds from
+    ``lst`` at batch size ``batch``."""
     from wav2letter_tpu_torch.config import Config
     from wav2letter_tpu_torch.data import AsrDataset, Lexicon, make_token_dict
 
     cfg = Config(arch=ARCH, tokens=tokens, lexicon=lexicon, criterion="ctc",
-                 mfsc=True, filterbanks=N_FEAT, batchsize=BATCH)
+                 mfsc=True, filterbanks=N_FEAT, batchsize=batch)
     ds = AsrDataset(lst, make_token_dict(tokens, "ctc", 0, False),
-                    Lexicon.from_file(lexicon), cfg, batch_size=BATCH)
+                    Lexicon.from_file(lexicon), cfg, batch_size=batch)
     specs = ds.batch_specs()
     T = max(s.max_input_frames for s in specs)
     return len(specs), T, ds.audio_samples_for_frames(T)
@@ -356,6 +433,171 @@ def check_residual_ln(lns, dtype_name, details):
     return rows
 
 
+def _conv_inputs(key, dtype):
+    """x, w, bias and dy of one K2 call, seeded by its shape."""
+    import torch
+
+    from wav2letter_tpu_torch.kernels.tconv import out_frames
+
+    B, T, Fq, C, CO, K, s, pads = key
+    g = torch.Generator(device="cuda").manual_seed(T + K + C)
+    x = torch.randn((B, T, Fq * C), device="cuda", generator=g).to(dtype)
+    w = (0.1 * torch.randn((K, C, CO), device="cuda", generator=g)).to(dtype)
+    bias = torch.randn((CO,), device="cuda", generator=g)
+    Tout = out_frames(T, K, s, pads)
+    dy = torch.randn((B, Tout, Fq * CO), device="cuda", generator=g).to(dtype)
+    return x, w, bias, dy
+
+
+def _function_errors(got, want, dtype_name):
+    """Share of entries of each gradient outside the elementwise bound of
+    ``FN_TOL``, and the largest error as a share of the largest entry."""
+    rtol, ashare, _ = FN_TOL[dtype_name]
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        top = w.abs().max().clamp(min=1e-30)
+        outside = (err > ashare * top + rtol * w.abs()).float().mean().item()
+        out.append((outside, (err.max() / top).item()))
+    return out
+
+
+def check_time_conv_backward(convs, dtype_name, details):
+    """K2 as dgrad, K2b, and the autograd function (with bias and ReLU) at
+    every conv shape of one training forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+
+    dtype = getattr(torch, dtype_name)
+    rows = {"time_conv_dgrad": [], "time_conv_wgrad": []}
+    for n, key in enumerate(sorted(set(convs), key=convs.index)):
+        B, T, Fq, C, CO, K, s, pads = key
+        x, w, bias, dy = _conv_inputs(key, dtype)
+        Tout, item = dy.shape[1], x.element_size()
+        flops = 2 * B * Tout * Fq * CO * K * C  # the products the data needs
+        shape = list(key[:7]) + [list(pads)]
+        # the library's calls on the stored NCHW layout, pads and layout
+        # changes done before the timing
+        xn = F.pad(x.view(B, T, Fq, C).permute(0, 3, 2, 1), pads).contiguous()
+        dyn = dy.view(B, Tout, Fq, CO).permute(0, 3, 2, 1).contiguous()
+        wn = w.permute(2, 1, 0).unsqueeze(2).contiguous()
+
+        # dgrad; the first conv of the model takes the features and has none
+        if n > 0:
+            args = (dy, w, Fq, T, s, pads)
+            got = kernels.time_conv_dgrad(*args)
+            torch.cuda.synchronize()
+            err, rel, ok = compare("time_conv_dgrad", dtype_name, got,
+                                   kernels.time_conv_dgrad_plain(*args))
+            lib_ms = device_ms(
+                lambda a, b_: torch.nn.grad.conv2d_input(xn.shape, b_, a, stride=(1, s)),
+                (dyn, wn))
+            b_ms, b_by = bound(item * (dy.numel() + w.numel() + x.numel()), flops, dtype_name)
+            rows["time_conv_dgrad"].append(dict(
+                name="time_conv_dgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
+                max_rel_err=rel, tol=TOL[("time_conv_dgrad", dtype_name)], ok=ok,
+                ms=device_ms(kernels.time_conv_dgrad, args),
+                warm_ms=device_ms(kernels.time_conv_dgrad, args, cold=False),
+                plain_ms=device_ms(kernels.time_conv_dgrad_plain, args),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key)))
+
+        args = (x, dy, K, Fq, s, pads)
+        got = kernels.time_conv_wgrad(*args)
+        torch.cuda.synchronize()
+        err, rel, ok = compare("time_conv_wgrad", dtype_name, got,
+                               kernels.time_conv_wgrad_plain(*args))
+        ok = ok and torch.equal(got, kernels.time_conv_wgrad(*args))  # ordered sums
+        lib_ms = device_ms(
+            lambda a, b_: torch.nn.grad.conv2d_weight(a, wn.shape, b_, stride=(1, s)),
+            (xn, dyn))
+        b_ms, b_by = bound(item * (x.numel() + dy.numel()) + 4 * K * C * CO, flops, dtype_name)
+        row = dict(
+            name="time_conv_wgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
+            max_rel_err=rel, tol=TOL[("time_conv_wgrad", dtype_name)], ok=bool(ok),
+            ms=device_ms(kernels.time_conv_wgrad, args),
+            warm_ms=device_ms(kernels.time_conv_wgrad, args, cold=False),
+            plain_ms=device_ms(kernels.time_conv_wgrad_plain, args),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key))
+
+        # the whole function against autograd of the plain forward
+        grads = {}
+        for side, fn in (("kernel", kernels.time_conv), ("plain", kernels.time_conv_plain)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+            out = fn(leaves[0], leaves[1], Fq, s, pads, leaves[2], True)
+            grads[side] = torch.autograd.grad(out, leaves, dy)
+        errs = _function_errors(grads["kernel"], grads["plain"], dtype_name)
+        row["function_outside_share"] = [e[0] for e in errs]  # dx, dw, dbias
+        row["function_max_err_share"] = [e[1] for e in errs]
+        row["ok"] = row["ok"] and all(e[0] <= FN_TOL[dtype_name][2] for e in errs)
+        rows["time_conv_wgrad"].append(row)
+    for v in rows.values():
+        details.extend(v)
+    return rows
+
+
+def check_residual_ln_bwd(lns, dtype_name, details):
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+
+    dtype = getattr(torch, dtype_name)
+    rows = []
+    for key in sorted(set(lns), key=lns.index):
+        R, D = key
+        g = torch.Generator(device="cuda").manual_seed(R + D + 1)
+        x, y, dout = (torch.randn((R, D), device="cuda", generator=g).to(dtype)
+                      for _ in range(3))
+        w = torch.tensor([1.3], device="cuda")
+        b = torch.tensor([-0.2], device="cuda")
+        _, mu, rsig = kernels.residual_ln(x, y, w, b)
+        args = (dout, x, y, mu, rsig, w)
+        dz, row_g, row_gz = kernels.residual_ln_bwd(*args)
+        torch.cuda.synchronize()
+        want = kernels.residual_ln_bwd_plain(*args)
+        err, rel, ok = compare("residual_ln_bwd", dtype_name, dz, want[0])
+        # fp32 row sums of <= 2240 O(1) terms
+        ok = ok and torch.allclose(row_g, want[1], rtol=1e-4, atol=1e-3) \
+            and torch.allclose(row_gz, want[2], rtol=1e-4, atol=1e-3)
+        # the library's call: autograd of layer_norm on a precomputed x + y
+        z = (x + y).requires_grad_(True)
+        wd = w.to(dtype).expand(D).contiguous().requires_grad_(True)
+        bd = b.to(dtype).expand(D).contiguous().requires_grad_(True)
+        ln_out = F.layer_norm(z, (D,), wd, bd, 1e-5)
+        lib_ms = device_ms(
+            lambda a: torch.autograd.grad(ln_out, (z, wd, bd), a, retain_graph=True), (dout,))
+        item = x.element_size()
+        b_ms, b_by = bound(4 * R * D * item + 16 * R + 4, 12 * R * D, "float32")
+        row = dict(name="residual_ln_bwd", dtype=dtype_name, shape=[R, D], max_abs_err=err,
+                   max_rel_err=rel, tol=TOL[("residual_ln_bwd", dtype_name)],
+                   ms=device_ms(kernels.residual_ln_bwd, args),
+                   warm_ms=device_ms(kernels.residual_ln_bwd, args, cold=False),
+                   plain_ms=device_ms(kernels.residual_ln_bwd_plain, args),
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=lns.count(key))
+        # the whole function against autograd of the plain forward
+        grads = {}
+        for side, fn in (("kernel", kernels.residual_ln), ("plain", kernels.residual_ln_plain)):
+            leaves = [t.clone().requires_grad_(True) for t in (x, y, w, b)]
+            grads[side] = torch.autograd.grad(fn(*leaves)[0], leaves, dout)
+        errs = _function_errors(grads["kernel"][:2], grads["plain"][:2], dtype_name)
+        # dw, db: fp32 sums over R*D <= 3e7 terms of O(1) on both sides, in
+        # another order; held as a share of their spread sqrt(R*D)
+        scalar_tol = 1e-3 if dtype_name == "float32" else 2e-2
+        scale = math.sqrt(R * D)
+        scalars = [abs(float(a) - float(c)) / scale
+                   for a, c in zip(grads["kernel"][2:], grads["plain"][2:])]
+        row["function_outside_share"] = [e[0] for e in errs]  # dx, dy
+        row["function_scalar_err"] = scalars  # dw, db over sqrt(R*D)
+        row["ok"] = bool(ok) and all(e[0] <= FN_TOL[dtype_name][2] for e in errs) \
+            and all(e <= scalar_tol for e in scalars)
+        rows.append(row)
+        details.append(row)
+    return rows
+
+
 def per_forward(rows):
     """Sum a kernel's rows over one forward, weighting each shape by its calls."""
     out = {k: 0.0 for k in ("ms", "warm_ms", "plain_ms", "bound_ms")}
@@ -442,8 +684,7 @@ def main_path(paths, lst, secs, emdir, n_batches):
         t2 = time.perf_counter()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        want = {"mfsc": n_batches, "time_conv": 15 * n_batches,
-                "residual_ln": 22 * n_batches}
+        want = expected_launches(0, n_batches)
         if launches != want:
             fail(f"{dtype_name} main path launches {launches}, expected {want}")
         if run == 0:
@@ -492,7 +733,6 @@ def main_path(paths, lst, secs, emdir, n_batches):
 def profile_forward(ev, ds):
     """Device time by kernel over one bf16 forward of the largest batch."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     spec = max(ds.batch_specs(), key=lambda s: s.max_input_frames)
     batch = ds.materialize(spec)
@@ -502,15 +742,277 @@ def profile_forward(ev, ds):
     ev.emissions(batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3  # without the profiler's overhead
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ev.emissions(batch)
-        torch.cuda.synchronize()
+    prof = profile_device(lambda: ev.emissions(batch))
     rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
                    for e in device_events(prof)), reverse=True)
     busy = sum(r[0] for r in rows)
     return dict(dtype=str(ev.dtype), batch=[len(spec.indices), spec.max_input_frames],
                 wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
                 top=[dict(ms=round(ms, 4), kernel=k[:90], count=c) for ms, k, c in rows[:14]])
+
+
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+def train_flags(lst, valid_lst, tokens, lexicon, rundir, dtype_name, n_updates):
+    return dict(
+        train=lst, valid=f"dev:{valid_lst}", tokens=tokens, lexicon=lexicon, rundir=rundir,
+        runname=dtype_name, arch=ARCH, criterion="ctc", mfsc=True, filterbanks=N_FEAT,
+        localnrmlleftctx=300, compute_dtype=dtype_name, batchsize=TRAIN_BATCH,
+        validbatchsize=BATCH, nthread=2, netoptim="sgd", lr=0.05, momentum=0.9,
+        maxgradnorm=0.5, onorm="target", sqnorm=True, iter=n_updates,
+        reportiters=n_updates, seed=0)
+
+
+def expected_launches(updates, valid_batches):
+    """Launches of ``updates`` updates and ``valid_batches`` validation
+    forwards, as the arch implies them: per update 1 K1, 15 K2 forward + 14 as
+    dgrad (the first conv takes the features), 15 K2b, 22 K3, 22 K3b; per
+    validation batch the serving counts. Viterbi launches no kernel of ours."""
+    return {"mfsc": updates + valid_batches,
+            "time_conv": 29 * updates + 15 * valid_batches,
+            "time_conv_wgrad": 15 * updates,
+            "residual_ln": 22 * (updates + valid_batches),
+            "residual_ln_bwd": 22 * updates}
+
+
+def first_batch_gradients(cfg_flags, dtype_name):
+    """Loss and parameter gradients of the first training batch with dropout
+    and SpecAugment off (the modules in eval mode, autograd on), same weights:
+    the kernel path against the plain-version model on the same features (K1's),
+    and against the whole plain path, features included."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    cfg = Config()
+    cfg.update(dict(cfg_flags, rundir="", runname=""))
+    tr = Trainer(cfg, device="cuda")
+    spec = tr.train_ds.batch_specs(shuffle_seed=cfg.seed + 1)[0]
+    batch = tr._to_device(pad_batch_rows(tr.train_ds.materialize(spec), 1))
+    plain = build_arch_module(ARCH, N_FEAT, tr.n_classes, ops=kernels.PLAIN)
+    plain.load_state_dict(tr.model.state_dict())
+    plain.cuda()
+    with torch.no_grad():
+        k1_feats = tr.featurizer(batch["audio"], batch["audio_len"])
+    sides = {
+        "kernel": (tr.model, tr.featurizer),
+        "plain_model": (plain, lambda audio, audio_len: k1_feats),
+        "plain_path": (plain, Featurizer(FeatureParams.from_config(cfg),
+                                         ops=kernels.PLAIN).cuda()),
+    }
+    out = {}
+    for side, (tr.model, tr.featurizer) in sides.items():
+        tr.model.eval()
+        for p in tr.model.parameters():
+            p.grad = None
+        kernels.reset_launches()
+        loss, _, _ = tr._loss(batch, train=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[side] = (loss.item(), {k: p.grad for k, p in tr.model.named_parameters()},
+                     dict(kernels.LAUNCHES))
+    kl, kg, klaunch = out["kernel"]
+    if klaunch != expected_launches(1, 0) or any(out["plain_path"][2].values()):
+        fail(f"{dtype_name} first-batch launches {klaunch} (kernel path), "
+             f"{out['plain_path'][2]} (plain path), expected {expected_launches(1, 0)} and none")
+    zero = [k for k, g in kg.items()
+            if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0]
+    if zero:
+        fail(f"{dtype_name}: parameters without a finite, non-zero gradient: {zero}")
+    res = dict(loss_kernel=kl, n_params=len(kg), launches=klaunch, ok=math.isfinite(kl))
+    for side, tols in (("plain_model", GRAD_TOL), ("plain_path", GRAD_TOL_FEATS)):
+        pl, pg, _ = out[side]
+        # A leaf's error is held against its own norm, but not against less
+        # than 1% of the whole gradient's: the LayerNorm biases inside a TDS
+        # block are followed by another LayerNorm, which takes a constant shift
+        # out again, so their true gradient is ~0 and what is left is rounding
+        # of either path.
+        total = torch.sqrt(sum(g.float().pow(2).sum() for g in pg.values())).item()
+        diff = torch.sqrt(sum((kg[k] - pg[k]).float().pow(2).sum() for k in pg)).item()
+        leaves = sorted(((kg[k] - g).norm().item() / max(g.norm().item(), 0.01 * total), k)
+                        for k, g in pg.items())[::-1]
+        loss_tol, grad_tol = tols[dtype_name]
+        cmp = dict(loss=pl, loss_rel_err=abs(kl - pl) / abs(pl), grad_norm=total,
+                   grad_rel_l2=diff / total,
+                   worst_leaves=[dict(name=k, rel_l2=r) for r, k in leaves[:3]],
+                   tol=[loss_tol, grad_tol])
+        cmp["ok"] = bool(cmp["loss_rel_err"] <= loss_tol and leaves[0][0] <= grad_tol)
+        res[side] = cmp
+        res["ok"] = res["ok"] and cmp["ok"]
+    log(f"[train grads {dtype_name}] {json.dumps(res)}")
+    if not res["ok"]:
+        fail(f"{dtype_name} first-batch loss or gradients differ from the plain path")
+    return res
+
+
+class _ProfiledPhase:
+    """Wraps a phase of ``Trainer.train_step`` in a profiler of its own and
+    adds the device time of the kernels it saw to ``busy[name]``."""
+
+    def __init__(self, phase, name, busy):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.phase, self.name, self.busy = phase, name, busy
+        self.prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def __enter__(self):
+        self.prof.__enter__()
+        self.phase.__enter__()
+
+    def __exit__(self, *exc):
+        self.phase.__exit__(*exc)  # drains the device: the trainer's timers are synced
+        self.prof.__exit__(*exc)
+        ms = sum(e.self_device_time_total for e in device_events(self.prof)) / 1e3
+        self.busy[self.name] = self.busy.get(self.name, 0.0) + ms
+
+
+def profile_update(tr, batch):
+    """More updates of a trained ``Trainer`` on ``batch`` at learning rate 0:
+    one with the device drained at the phase boundaries, for the split by phase
+    (host clock around drained work, and device time of each phase's kernels
+    from one profiler per phase); one free-running for the wall time; one
+    free-running under the profiler for device busy time, idle share and the
+    kernels by device time."""
+    import torch
+
+    args = (batch, 0.0, 0.0, False, 12345)
+    tr.train_step(*args)
+    tr.meters.reset_train()
+    busy, timed = {}, tr._timed
+    tr._timed = lambda timer, name: _ProfiledPhase(timed(timer, name), name[4:], busy)
+    tr.sync_timers = True
+    tr.train_step(*args)
+    tr.sync_timers = False
+    tr._timed = timed
+    m = tr.meters
+    host = {"forward": m.fwd_timer.avg_ms(), "criterion": m.crit_fwd_timer.avg_ms(),
+            "backward": m.bwd_timer.avg_ms(), "optimizer": m.optim_timer.avg_ms()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_step(*args)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_device(lambda: tr.train_step(*args))
+    rows = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                   for e in device_events(prof)), reverse=True)
+    total = sum(r[0] for r in rows)
+    return dict(dtype=str(tr.compute_dtype), batch=list(batch["audio"].shape),
+                drained_ms_by_phase=host, device_ms_by_phase=busy, wall_ms=wall_ms,
+                device_busy_ms=total, idle_share=1 - total / wall_ms,
+                top=[dict(ms=round(ms, 4), kernel=k[:90], count=c) for ms, k, c in rows[:16]])
+
+
+def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
+    """The trainer at full width, bf16 then fp32; ``continue``; ``run_test``."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+    from wav2letter_tpu_torch.runtime.test import run_test
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    rundir = os.path.join(tmp, "runs")
+    results = {}
+    for dtype_name, n_updates in TRAIN_UPDATES.items():
+        flags = train_flags(train_lst, serve_lst, tokens, lexicon, rundir, dtype_name, n_updates)
+        grads = first_batch_gradients(flags, dtype_name)
+        cfg = Config()
+        cfg.update(flags)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        steps, step = [], tr.train_step
+
+        def timed_step(batch, *a):
+            # launches of this update alone; the time between the ends of two
+            # updates is one whole iteration (data, update, viterbi, meters)
+            before = dict(kernels.LAUNCHES)
+            res = step(batch, *a)
+            torch.cuda.synchronize()
+            steps.append(dict(
+                end=time.perf_counter(), loss=res[0], finite=res[1],
+                audio_s=float(batch["audio_len"].sum()) / 16000,
+                frames=int(batch["audio"].shape[1]),
+                launches={k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
+            return res
+
+        tr.train_step = timed_step
+        kernels.reset_launches()
+        tr.run()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        want = expected_launches(n_updates, valid_batches)
+        if launches != want:
+            fail(f"{dtype_name} training launches {launches}, expected {want}")
+        per_update = expected_launches(1, 0)
+        bad = [s for s in steps if s["launches"] != per_update or not s["finite"]
+               or not math.isfinite(s["loss"])]
+        if len(steps) != n_updates or bad:
+            fail(f"{dtype_name} training: {len(steps)} updates, faulty: {bad[:2]}")
+        last = os.path.join(rundir, dtype_name, "model_last.bin")
+        ckpt = load_checkpoint(last)
+        if ckpt.updates != n_updates or not ckpt.opt_state["state"]["trace"]:
+            fail(f"{dtype_name}: model_last.bin holds update {ckpt.updates}")
+        span = steps[-1]["end"] - steps[0]["end"]  # steady state: after the first update
+        steady_audio = sum(s["audio_s"] for s in steps[1:])
+        res = dict(
+            updates=n_updates, batch=TRAIN_BATCH, setup_s=setup_s,
+            losses=[s["loss"] for s in steps], frames=[s["frames"] for s in steps],
+            iteration_s=[b["end"] - a["end"] for a, b in zip(steps, steps[1:])],
+            updates_per_s=(n_updates - 1) / span, audio_s_per_s=steady_audio / span,
+            s_per_update=span / (n_updates - 1), peak_mem_gib=peak / 2**30,
+            launches=launches, launches_per_update=per_update, first_batch=grads)
+        if dtype_name == "bfloat16":
+            tr.train_step = step
+            spec = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
+            res["profile"] = profile_update(
+                tr, pad_batch_rows(tr.train_ds.materialize(spec), 1))
+        results[dtype_name] = res
+        log(f"[train {dtype_name}] {json.dumps(res)}")
+        del tr
+        torch.cuda.empty_cache()
+
+    # continue: 2 more bf16 updates from model_last.bin, through the command line's main
+    n0 = TRAIN_UPDATES["bfloat16"]
+    kernels.reset_launches()
+    tr = train_main(["continue", f"--rundir={rundir}", "--runname=bfloat16",
+                     f"--iter={n0 + CONTINUE_UPDATES}", f"--reportiters={n0 + CONTINUE_UPDATES}"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    want = expected_launches(CONTINUE_UPDATES, valid_batches)
+    last = os.path.join(rundir, "bfloat16", "model_last.bin")
+    ckpt = load_checkpoint(last)
+    if (tr.updates, ckpt.updates, tr.run_idx) != (n0 + CONTINUE_UPDATES,) * 2 + (2,) \
+            or launches != want or tr.skipped:
+        fail(f"continue ended at update {tr.updates} (checkpoint {ckpt.updates}, run index "
+             f"{tr.run_idx}, skipped {tr.skipped}), launches {launches}, expected {want}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # slice 1's test binary serves the trained checkpoint
+    kernels.reset_launches()
+    served = run_test(Config(am=last, test=serve_lst, batchsize=BATCH), device="cuda")
+    launches = dict(kernels.LAUNCHES)
+    want = expected_launches(0, valid_batches)
+    if launches != want or not math.isfinite(served["loss"]):
+        fail(f"run_test on the trained checkpoint: {served}, launches {launches}")
+    results["continue"] = dict(updates=ckpt.updates, launches=launches)
+    results["served"] = served
+    log(f"[train continue+serve] updates {ckpt.updates}, served {json.dumps(served)}")
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -568,46 +1070,84 @@ def main() -> None:
         log(f"[shapes] largest batch B={BATCH} S={S} T={T}; {len(convs)} K2 and "
             f"{len(lns)} K3 calls per forward")
 
+        train_lst, _, _, train_secs = synth_dataset(
+            os.path.join(tmp, "data"), args.seed + 1, TRAIN_UTTS, "train", (tokens, lexicon))
+        _, T_train, S_train = batch_shapes(train_lst, tokens, lexicon, TRAIN_BATCH)
+        tconvs, tlns = path_calls(model, TRAIN_BATCH, T_train)
+        log(f"[shapes] largest training batch B={TRAIN_BATCH} S={S_train} T={T_train}; "
+            f"{train_secs:.1f} s of audio in {TRAIN_UTTS} utterances")
+
         # 3. kernels against their plain versions
         details = []
         rows = {"mfsc": check_mfsc(BATCH, S, details)}
         for dt in ("float32", "bfloat16"):
             rows[("time_conv", dt)] = check_time_conv(convs, dt, details)
             rows[("residual_ln", dt)] = check_residual_ln(lns, dt, details)
+            back = check_time_conv_backward(tconvs, dt, details)
+            rows[("time_conv_dgrad", dt)] = back["time_conv_dgrad"]
+            rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
+            rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(tlns, dt, details)
+            torch.cuda.empty_cache()
         for r in details:
             r["bound_share"] = r["bound_ms"] / r["ms"]
             log(f"[kernel] {json.dumps(r)}")
+        # each kernel over one pass (its rows weighted by their calls), per type
+        sums = []
+        for key, krows in rows.items():
+            name, dt = ("mfsc", "float32") if key == "mfsc" else key
+            sums.append(dict(name=name, dtype=dt, calls=sum(r["calls"] for r in krows),
+                             **per_forward(krows)))
+            log(f"[kernel sum] {json.dumps(sums[-1])}")
         bad = [r for r in details if not r["ok"]]
         if bad:
             fail(f"{len(bad)} kernel checks disagree with the plain versions: "
                  f"{json.dumps(bad[0])}")
 
-        # 4. the main path
+        # 4. the main path: serving
         served, ev, ds_main = main_path(paths, lst, secs, os.path.join(tmp, "em"), n_batches)
 
         # 5. where one bf16 forward's device time goes
         prof = profile_forward(ev, ds_main)
         log(f"[profile] {json.dumps(prof)}")
+        del ev, ds_main
+        torch.cuda.empty_cache()
+
+        # 6. the main path: training
+        trained = training_path(tmp, train_lst, lst, tokens, lexicon, n_batches)
 
     kernels_line = []
-    for name, key, dt in (("mfsc", "mfsc", "float32"),
-                          ("time_conv", ("time_conv", "bfloat16"), "bfloat16"),
-                          ("residual_ln", ("residual_ln", "bfloat16"), "bfloat16")):
-        agg = per_forward(rows[key])
+    train_launches = trained["bfloat16"]["launches_per_update"]
+    for name, per in (("mfsc", "forward of the largest serving batch"),
+                      ("time_conv", "forward of the largest serving batch"),
+                      ("time_conv_wgrad", "update on the largest training batch"),
+                      ("residual_ln", "forward of the largest serving batch"),
+                      ("residual_ln_bwd", "update on the largest training batch")):
+        dt = "float32" if name == "mfsc" else "bfloat16"
+        agg = per_forward(rows["mfsc" if name == "mfsc" else (name, dt)])
         replaces, source = TPU_KERNELS[name]
-        kernels_line.append(dict(
+        backward = name in ("time_conv_wgrad", "residual_ln_bwd")
+        entry = dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=served["bfloat16"]["launches"][name], dtype=dt,
+            launches=(train_launches[name] if backward
+                      else served["bfloat16"]["launches"][name]),
+            launches_per_update=train_launches[name], dtype=dt,
             max_abs_err=agg["max_abs_err"], ms=agg["ms"], warm_ms=agg["warm_ms"],
             plain_ms=agg["plain_ms"],
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
-            library_ms=agg["library_ms"], per="forward of the largest batch"))
+            library_ms=agg["library_ms"], per=per)
+        if name == "time_conv":  # the same kernel as dgrad, per update
+            dg = per_forward(rows[("time_conv_dgrad", dt)])
+            entry["dgrad"] = {k: dg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms", "max_abs_err")}
+        kernels_line.append(entry)
     summary = dict(kernels=kernels_line)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(device=kind, nvidia_smi=smi_line, details=details, main=served,
-                           profile=prof, kernels=kernels_line, n_params=n_params,
+            json.dump(dict(device=kind, nvidia_smi=smi_line, details=details, sums=sums,
+                           main=served,
+                           profile=prof, training=trained, kernels=kernels_line,
+                           n_params=n_params,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card.
+"""The port's CUDA kernels, forward and backward, and the autograd functions
+built on them, against their plain PyTorch versions on the card.
 Marked ``cuda``; each test decides inside the ``cuda`` fixture whether a card
 is present and skips without one. Run them on a machine with a card; there
 ``tests/conftest.py`` (which imports JAX for the JAX package's tests) is
@@ -106,7 +107,229 @@ def test_model_kernels_match_plain(cuda):
         got, glen = model(feats, flen)
         want, wlen = plain(feats, flen)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 5, "residual_ln": 6}
+    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 5, "time_conv_wgrad": 0,
+                                "residual_ln": 6, "residual_ln_bwd": 0}
     assert torch.equal(glen, wlen)
     # fp32 end to end through 2 convs, 3 TDS blocks and per-frame LNs
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# backward kernels: K2 as dgrad, K2b (wgrad), K3b, and the autograd functions
+# ---------------------------------------------------------------------------
+def _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    x = _randn((B, T, F * C), T, cuda, dtype)
+    w = _randn((K, C, CO), K, cuda, dtype, scale=0.1)
+    Tout = (lp + T + rp - K) // s + 1
+    dy = _randn((B, Tout, F * CO), Tout, cuda, dtype)
+    return x, w, dy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", TCONV + [(1, 20, 3, 2, 3, 4, 1, 6, 0)])
+def test_time_conv_dgrad_kernel(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    _, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.time_conv_dgrad(dy, w, F, T, s, (lp, rp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 1
+    want = kernels.time_conv_dgrad_plain(dy, w, F, T, s, (lp, rp))
+    assert got.shape == (B, T, F * C)
+    # fp32 sums of <= K*CO = 336 products both sides; one bf16 output rounding
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", TCONV)
+def test_time_conv_wgrad_kernel(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    x, _, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    before = kernels.LAUNCHES["time_conv_wgrad"]
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["time_conv_wgrad"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (K, C, CO)
+    want = kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp))
+    # both sum <= B*Tout*F = 8000 exact products of O(1) values in fp32, in
+    # another order: entries are O(100), fp32 rounding of the sum ~1e-4
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+    again = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    assert torch.equal(got, again)  # two ordered passes, no atomics
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", [(3000, 1280), (187, 2240), (70, 96)])
+def test_residual_ln_bwd_kernel(cuda, dtype, R, D):
+    x = _randn((R, D), R, cuda, dtype)
+    y = _randn((R, D), D, cuda, dtype)
+    g = _randn((R, D), R + D, cuda, dtype)
+    w = torch.tensor([1.3], device=cuda)
+    b = torch.tensor([-0.2], device=cuda)
+    _, mu, rsig = kernels.residual_ln(x, y, w, b)
+    before = kernels.LAUNCHES["residual_ln_bwd"]
+    dz, row_g, row_gz = kernels.residual_ln_bwd(g, x, y, mu, rsig, w)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["residual_ln_bwd"] == before + 1
+    wdz, wg, wgz = kernels.residual_ln_bwd_plain(g, x, y, mu, rsig, w)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2  # bf16 output rounding
+    torch.testing.assert_close(dz.float(), wdz.float(), rtol=tol, atol=tol)
+    # fp32 row sums of <= 2240 O(1) terms
+    torch.testing.assert_close(row_g, wg, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(row_gz, wgz, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", TCONV[1:])
+def test_time_conv_function_grads(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    """The autograd function (K2, then mask + K2 dgrad + K2b) against autograd
+    of the plain forward, with bias and ReLU."""
+    x, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    bias = _randn((CO,), CO, cuda)
+    grads = {}
+    for name, fn in (("kernel", kernels.time_conv), ("plain", kernels.time_conv_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        before = dict(kernels.LAUNCHES)
+        out = fn(leaves[0], leaves[1], F, s, (lp, rp), leaves[2], relu=True)
+        assert out.grad_fn is not None
+        grads[name] = torch.autograd.grad(out, leaves, dy)
+        if name == "kernel":
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 2
+            assert kernels.LAUNCHES["time_conv_wgrad"] == before["time_conv_wgrad"] + 1
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want, scale in zip(grads["kernel"], grads["plain"], (1, 100, 100)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        # dw and dbias are sums of up to 8000 terms: O(100) entries
+        err = (got.float() - want.float()).abs()
+        bad = err > tol * scale + 10 * tol * want.float().abs()
+        if dtype == torch.float32:
+            assert not bad.any(), err.max().item()
+        else:
+            # in bf16 the two forwards round a few y of ~0 to different sides of
+            # 0, so their ReLU masks differ there: one dy term (|dy*w| < 1) more
+            # or less in under 0.1% of the entries
+            assert bad.float().mean().item() <= 1e-3 and err.max().item() < 1.0
+
+
+def test_time_conv_function_skips_dgrad_without_input_grad(cuda):
+    x, w, dy = _conv_case(cuda, torch.float32, 2, 40, 80, 1, 16, 9, 2, 6, 2)
+    w.requires_grad_(True)
+    before = dict(kernels.LAUNCHES)
+    out = kernels.time_conv(x, w, 80, 2, (6, 2))
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 1  # no dgrad
+    assert kernels.LAUNCHES["time_conv_wgrad"] == before["time_conv_wgrad"] + 1
+    assert x.grad is None and w.grad is not None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_ln_function_grads(cuda, dtype):
+    R, D = 187, 2240
+    x, y, g = (_randn((R, D), s, cuda, dtype) for s in (1, 2, 3))
+    w = torch.tensor([1.3], device=cuda)
+    b = torch.tensor([-0.2], device=cuda)
+    grads = {}
+    for name, fn in (("kernel", kernels.residual_ln), ("plain", kernels.residual_ln_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, y, w, b)]
+        before = kernels.LAUNCHES["residual_ln_bwd"]
+        out, mu, rsig = fn(*leaves)
+        assert out.grad_fn is not None
+        if name == "kernel":
+            assert not mu.requires_grad and not rsig.requires_grad
+        grads[name] = torch.autograd.grad(out, leaves, g)
+        if name == "kernel":
+            assert kernels.LAUNCHES["residual_ln_bwd"] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for i, (got, want) in enumerate(zip(grads["kernel"], grads["plain"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        # dw, db: fp32 sums over R*D = 4e5 terms, O(1000); the plain bf16 path
+        # rounds zhat*g to bf16 before summing, the kernel does not
+        rt, at = (tol, tol) if i < 2 else ((1e-4, 0.1) if dtype == torch.float32 else (2e-2, 5.0))
+        torch.testing.assert_close(got.float(), want.float(), rtol=rt, atol=at)
+
+
+def _fd_check(fn, leaves, n_probe, eps, tol):
+    """Central differences of L = sum(fn(*leaves) * r) at a few coordinates of
+    each leaf against the gradients autograd returns for it, in fp32."""
+    out = fn(*leaves)
+    r = _randn(tuple(out.shape), 9, out.device)
+    grads = torch.autograd.grad((out * r).sum(), leaves)
+    rng = np.random.RandomState(0)
+    with torch.no_grad():
+        for leaf, grad in zip(leaves, grads):
+            flat, gflat = leaf.view(-1), grad.reshape(-1)
+            for i in rng.choice(flat.numel(), min(n_probe, flat.numel()), replace=False):
+                old = flat[i].item()
+                flat[i] = old + eps
+                up = (fn(*leaves) * r).sum().item()
+                flat[i] = old - eps
+                down = (fn(*leaves) * r).sum().item()
+                flat[i] = old
+                assert abs((up - down) / (2 * eps) - gflat[i].item()) <= tol, \
+                    (tuple(leaf.shape), int(i))
+
+
+def test_time_conv_function_finite_differences(cuda):
+    """The conv is linear in x, w and bias, so central differences are exact
+    up to fp32 rounding of L (|L| ~ 30, eps 0.05: ~1e-4)."""
+    B, T, F, C, CO, K, s, lp, rp = 1, 13, 3, 2, 3, 4, 2, 2, 1
+    leaves = [_randn((B, T, F * C), 1, cuda).requires_grad_(True),
+              _randn((K, C, CO), 2, cuda).requires_grad_(True),
+              _randn((CO,), 3, cuda).requires_grad_(True)]
+    _fd_check(lambda x, w, b: kernels.time_conv(x, w, F, s, (lp, rp), b), leaves,
+              n_probe=12, eps=0.05, tol=2e-3)
+
+
+def test_residual_ln_function_finite_differences(cuda):
+    leaves = [_randn((5, 24), 1, cuda).requires_grad_(True),
+              _randn((5, 24), 2, cuda).requires_grad_(True),
+              torch.tensor([1.3], device=cuda, requires_grad=True),
+              torch.tensor([-0.2], device=cuda, requires_grad=True)]
+    # eps 1e-2: truncation ~1e-4, fp32 rounding of L (~10) / eps ~1e-3
+    _fd_check(lambda x, y, w, b: kernels.residual_ln(x, y, w, b)[0], leaves,
+              n_probe=10, eps=1e-2, tol=5e-3)
+
+
+def test_wrappers_keep_the_graph(cuda):
+    """A wrapper given a CUDA tensor that requires grad never returns a
+    tensor without ``grad_fn``; without autograd it records nothing."""
+    x = _randn((2, 30, 80 * 4), 1, cuda).requires_grad_(True)
+    w = _randn((9, 4, 4), 2, cuda, scale=0.1)
+    y = kernels.time_conv(x, w, 80, 1, (7, 1))
+    assert y.grad_fn is not None
+    out, _, _ = kernels.residual_ln(x.view(-1, 320), y.view(-1, 320),
+                                    torch.ones(1, device=cuda), torch.zeros(1, device=cuda))
+    assert out.grad_fn is not None
+    with torch.no_grad():
+        assert kernels.time_conv(x, w, 80, 1, (7, 1)).grad_fn is None
+
+
+def test_model_training_grads_match_plain(cuda):
+    """Loss and every parameter gradient of the narrow model in training mode
+    (dropout 0), kernel path against plain path, fp32; and the launches of one
+    forward + backward: 5 K2 + 4 dgrad (the first conv's input needs none),
+    5 K2b, 6 K3, 6 K3b."""
+    arch = [l.replace(" 0.1 ", " 0 ") for l in NARROW]
+    torch.manual_seed(0)
+    model = build_arch_from_lines(arch, 30).to(cuda).train()
+    plain = build_arch_from_lines(arch, 30, ops=kernels.PLAIN).to(cuda).train()
+    plain.load_state_dict(model.state_dict())
+    feats = _randn((3, 200, 80), 1, cuda)
+    flen = torch.tensor([200, 150, 90], device=cuda, dtype=torch.int32)
+    kernels.reset_launches()
+    losses = []
+    for m in (model, plain):
+        em, _ = m(feats, flen)
+        loss = (em * _randn(tuple(em.shape), 2, cuda)).sum()
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 9, "time_conv_wgrad": 5,
+                                "residual_ln": 6, "residual_ln_bwd": 6}
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        scale = q.grad.abs().max().item()
+        # fp32 through 2 convs and 3 TDS blocks: 1e-3 of the leaf's largest entry
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-3, atol=1e-3 * scale, msg=name)

@@ -1,11 +1,13 @@
-"""The PyTorch port's kernel plain versions (K1 MFSC, K2 time conv, K3
-residual LayerNorm) against the JAX package's Pallas kernels, run as the JAX
-package's own tests run them on the CPU (interpret mode). Inputs come from a
+"""The PyTorch port's kernel plain versions (K1 MFSC, K2 time conv with its
+dgrad recipe, K2b time-conv weight gradient, K3 residual LayerNorm, K3b its
+backward) against the JAX package's Pallas kernels, run as the JAX package's
+own tests run them on the CPU (interpret mode). Inputs come from a
 numpy seed and reach both frameworks as numpy arrays.
 
 On the card the same functions are the CUDA kernels; those comparisons are
 the ``cuda``-marked tests in ``test_torch_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -110,4 +112,95 @@ def test_kernel_wrappers_count_only_launches():
     x = torch.zeros(1, 20, 8)
     kernels.time_conv(x, torch.zeros(3, 2, 2), 4, 1, (1, 1))
     kernels.residual_ln(x[0], x[0], torch.ones(1), torch.zeros(1))
-    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "residual_ln": 0}
+    kernels.time_conv_wgrad(x, torch.zeros(1, 20, 8), 3, 4, 1, (1, 1))
+    kernels.time_conv_dgrad(x, torch.zeros(3, 2, 2), 4, 20, 1, (1, 1))
+    kernels.residual_ln_bwd(x[0], x[0], x[0], torch.zeros(20), torch.ones(20), torch.ones(1))
+    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0,
+                                "residual_ln": 0, "residual_ln_bwd": 0}
+
+
+# ---------------------------------------------------------------------------
+# backward: the JAX custom VJPs (Pallas dgrad through _fwd, _wgrad, _bwd) in
+# interpret mode against the port's plain versions
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", TCONV_CASES)
+def test_time_conv_backward_plain_matches_pallas(_interpret, B, T, F, C, CO, K, s, lp, rp):
+    rng = np.random.RandomState(T + K + 1)
+    x = rng.randn(B, T, F * C).astype(np.float32)
+    w = (rng.randn(K, C, CO) * 0.3).astype(np.float32)
+    y, vjp = jax.vjp(lambda a, b: jax_tconv.time_conv(a, b, F, s, (lp, rp)),
+                     jnp.asarray(x), jnp.asarray(w))
+    dy = rng.randn(*y.shape).astype(np.float32)
+    want_dx, want_dw = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    tdy, tw = torch.from_numpy(dy), torch.from_numpy(w)
+    got_dx = kernels.time_conv_dgrad(tdy, tw, F, T, s, (lp, rp))
+    got_dw = kernels.time_conv_wgrad(torch.from_numpy(x), tdy, K, F, s, (lp, rp))
+    assert got_dx.shape == want_dx.shape and got_dw.shape == want_dw.shape
+    assert got_dw.dtype == torch.float32
+    # dx: fp32 sums of K*CO <= 70 products; dw: of B*Tout*F <= 600, O(10) entries
+    np.testing.assert_allclose(got_dx.numpy(), want_dx, atol=1e-4)
+    np.testing.assert_allclose(got_dw.numpy(), want_dw, atol=1e-4, rtol=1e-5)
+    # autograd through the plain forward is the same function
+    tx = torch.from_numpy(x).requires_grad_(True)
+    tw.requires_grad_(True)
+    kernels.time_conv(tx, tw, F, s, (lp, rp)).backward(tdy)
+    np.testing.assert_allclose(tx.grad.numpy(), want_dx, atol=1e-4)
+    np.testing.assert_allclose(tw.grad.numpy(), want_dw, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", [TCONV_CASES[2], TCONV_CASES[4]])
+def test_time_conv_backward_with_bias_relu(_interpret, B, T, F, C, CO, K, s, lp, rp):
+    """The port fuses bias + ReLU into K2; its gradients (mask dy by y > 0, then
+    dgrad, wgrad and the bias sum) against JAX's through the unfused ops."""
+    rng = np.random.RandomState(T)
+    x = rng.randn(B, T, F * C).astype(np.float32)
+    w = (rng.randn(K, C, CO) * 0.3).astype(np.float32)
+    b = rng.randn(CO).astype(np.float32)
+
+    def jfn(a, ww, bb):
+        y = jax_tconv.time_conv(a, ww, F, s, (lp, rp))
+        return jax.nn.relu(y.reshape(B, -1, F, CO) + bb).reshape(y.shape)
+
+    y, vjp = jax.vjp(jfn, jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    dy = rng.randn(*y.shape).astype(np.float32)
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, b)]
+    out = kernels.time_conv(leaves[0], leaves[1], F, s, (lp, rp), leaves[2], relu=True)
+    out.backward(torch.from_numpy(dy))
+    for leaf, g in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), g, atol=1e-4, rtol=1e-5)
+    # the same from the pieces the CUDA autograd function is made of
+    dym = torch.from_numpy(dy) * (out.detach() > 0)
+    np.testing.assert_allclose(
+        kernels.time_conv_dgrad(dym, leaves[1].detach(), F, T, s, (lp, rp)).numpy(),
+        want[0], atol=1e-4)
+    np.testing.assert_allclose(
+        kernels.time_conv_wgrad(leaves[0].detach(), dym, K, F, s, (lp, rp)).numpy(),
+        want[1], atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(dym.reshape(-1, CO).sum(0).numpy(), want[2],
+                               atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("R,D", [(70, 96), (33, 160)])
+def test_residual_ln_bwd_plain_matches_pallas(R, D):
+    rng = np.random.RandomState(R + 1)
+    x, y, g = (rng.randn(R, D).astype(np.float32) for _ in range(3))
+    w = np.asarray([1.3], np.float32)
+    b = np.asarray([-0.2], np.float32)
+    _, vjp = jax.vjp(lambda *a: fused_residual_ln(*a, True),
+                     *(jnp.asarray(a) for a in (x, y, w, b)))
+    want_dx, want_dy, want_dw, want_db = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    tx, ty, tg, tw, tb = (torch.from_numpy(a) for a in (x, y, g, w, b))
+    _, mu, rsig = kernels.residual_ln(tx, ty, tw, tb)
+    dz, row_g, row_gz = kernels.residual_ln_bwd(tg, tx, ty, mu, rsig, tw)
+    # fp32 row statistics over <= 160 values: 1e-5 as the forward
+    np.testing.assert_allclose(dz.numpy(), want_dx, atol=1e-5)
+    np.testing.assert_allclose(dz.numpy(), want_dy, atol=1e-5)
+    # scalar gradients: sums over R*D <= 6720 terms, O(100)
+    np.testing.assert_allclose(row_gz.sum().numpy(), want_dw[0], rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(row_g.sum().numpy(), want_db[0], rtol=1e-5, atol=1e-4)
+    # autograd through the plain forward is the same function
+    leaves = [t.clone().requires_grad_(True) for t in (tx, ty, tw, tb)]
+    kernels.residual_ln(*leaves)[0].backward(tg)
+    for leaf, want in zip(leaves, (want_dx, want_dy, want_dw, want_db)):
+        np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=1e-5, atol=1e-4)

@@ -17,7 +17,7 @@ import torch
 import __graft_entry__
 from wav2letter_tpu.models.arch import build_arch_from_lines as jax_build
 from wav2letter_tpu_torch.models import build_arch_from_lines, parse_arch_file
-from wav2letter_tpu_torch.runtime.checkpoint import convert_jax_params
+from wav2letter_tpu_torch.runtime.checkpoint import convert_jax_params, params_to_jax_tree
 
 NFEAT, NLABEL = 16, 11
 
@@ -92,6 +92,51 @@ def test_emissions_match_jax(name):
     # fp32 both sides; convs, linears and per-frame LNs in another summation
     # order, emissions O(1): 1e-4
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["flagship_narrow", "fallback"])
+def test_parameter_gradients_match_jax(name):
+    """``jax.grad`` of sum(emissions * r) against the port's ``.grad``s at the
+    same weights, dropout and SpecAugment off, leaf by leaf under the JAX
+    names: the gradients reach the stored params through the OIHW -> (K, C, CO)
+    and C-major <-> f-major re-indexing and the permuted chain views."""
+    lines = _lines(name)
+    jmodel = jax_build(lines, NLABEL)
+    rng = np.random.RandomState(11)
+    B, T = 2, 96
+    feats = rng.randn(B, T, NFEAT).astype(np.float32)
+    flen = np.asarray([96, 70], np.int32)
+    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(4)},
+                                     jnp.asarray(feats[:1]), jnp.asarray(flen[:1]))
+    params = variables["params"]
+    em = jax.jit(jmodel.apply)(variables, jnp.asarray(feats), jnp.asarray(flen))[0]
+    r = rng.randn(*em.shape).astype(np.float32)
+
+    def loss(p):
+        out, _ = jmodel.apply({"params": p}, jnp.asarray(feats), jnp.asarray(flen))
+        return jnp.sum(out * jnp.asarray(r))
+
+    want = jax.device_get(jax.jit(jax.grad(loss))(params))
+
+    model = build_arch_from_lines(lines, NLABEL)
+    model.load_state_dict(convert_jax_params(jax.device_get(params)), strict=True)
+    model.eval()  # dropout and SAUG off; autograd on
+    out, _ = model(torch.from_numpy(feats), torch.from_numpy(flen))
+    (out * torch.from_numpy(r)).sum().backward()
+    got = params_to_jax_tree({k: p.grad for k, p in model.named_parameters()})
+
+    want_leaves = jax.tree_util.tree_leaves_with_path(want)
+    got_leaves = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert len(want_leaves) == len(got_leaves) == len(list(model.parameters()))
+    for path, w in want_leaves:
+        g = got_leaves[path]
+        assert g.shape == w.shape, path
+        # fp32 both sides, sums in another order through up to 9 layers:
+        # 1e-4 of the leaf's largest entry (gradients span 1e-2..1e2), plus
+        # 2e-5 for the LayerNorm scalars, sums of ~1e4 O(1) terms of both
+        # signs that cancel to ~1e-3
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * np.abs(w).max() + 2e-5,
+                                   err_msg=str(path))
 
 
 def test_cached_weights_follow_the_params():

@@ -6,6 +6,13 @@
 // with xpad = x padded by (lp, rp) zero frames in time, weights shared across
 // the F frequency positions. Bias and ReLU are fused into the epilogue.
 //
+// The same kernel computes the gradient with respect to x (dgrad), as
+// tconv.py::_time_conv_bwd_rule does with its forward kernel: a stride-1
+// correlation of dy with the tap-flipped, transposed weight. For a strided
+// conv the TPU code first writes a zero-stuffed copy of dy; here `dil` makes
+// the window loader read input frame i/dil where dil divides i and zero
+// elsewhere, so no copy is written.
+//
 // Bound on the H100: in float32, operations. At the flagship widths (C, CO
 // 16..28, K 9..12) an output element costs 2*K*C = 288..672 FLOP against 8
 // bytes moved (one input and one output element), above the 20 FLOP/byte at
@@ -37,7 +44,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 tconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
              const float* __restrict__ bias, T* __restrict__ y, int Tin, int F, int C,
-             int CO, int K, int stride, int lp, int Tout, int Fb, int relu) {
+             int CO, int K, int stride, int lp, int Tout, int Fb, int relu, int dil) {
   extern __shared__ float smem[];
   const int rows = (TT - 1) * stride + K;
   const int wsize = K * C * CO;
@@ -53,7 +60,8 @@ tconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int tid = threadIdx.x;
 
   for (int i = tid; i < wsize; i += THREADS) ws[i] = w2l::to_f(w[i]);
-  const int row0 = t0 * stride - lp;  // input frame of window row 0
+  const int row0 = t0 * stride - lp;  // (dilated) input frame of window row 0
+  const int Tdil = (Tin - 1) * dil + 1;  // input length after dilation
   const int grow = Fb * C;            // window row in global memory
   const int valid = fn * C;
   const size_t xrow = static_cast<size_t>(F) * C;
@@ -63,7 +71,8 @@ tconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int e = i - r * grow;
     const int tin = row0 + r;
     float v = 0.f;
-    if (e < valid && tin >= 0 && tin < Tin) v = w2l::to_f(xb[tin * xrow + e]);
+    if (e < valid && tin >= 0 && tin < Tdil && tin % dil == 0)
+      v = w2l::to_f(xb[(tin / dil) * xrow + e]);
     const int f = e / C;
     xs[r * wrow + f * Cp + (e - f * C)] = v;
   }
@@ -123,7 +132,7 @@ tconv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 template <typename T>
 int launch(const void* x, const void* w, const void* bias, void* y, int B, int Tin,
            int F, int C, int CO, int K, int stride, int lp, int Tout, int Fb, int relu,
-           cudaStream_t stream) {
+           int dil, cudaStream_t stream) {
   const int rows = (TT - 1) * stride + K;
   const size_t smem =
       (static_cast<size_t>(K) * C * CO + static_cast<size_t>(rows) * Fb * (C | 1)) *
@@ -133,7 +142,7 @@ int launch(const void* x, const void* w, const void* bias, void* y, int B, int T
   tconv_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(bias), static_cast<T*>(y), Tin, F, C, CO, K, stride,
-      lp, Tout, Fb, relu);
+      lp, Tout, Fb, relu, dil);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -142,16 +151,20 @@ int launch(const void* x, const void* w, const void* bias, void* y, int B, int T
 extern "C" int w2l_time_conv_tile() { return TT; }
 
 // x (B, Tin, F*C) and w (K, C, CO) of one dtype; bias (CO,) float32 or null;
-// y (B, Tout, F*CO) of x's dtype, Tout = (lp + Tin + rp - K) / stride + 1.
+// y (B, Tout, F*CO) of x's dtype. Output frame t reads the input frames
+// t*stride - lp + k of x dilated by dil (dil - 1 zero frames between
+// neighbours); frames outside it are zero, so any Tout is valid.
 extern "C" int w2l_time_conv(const void* x, const void* w, const void* bias, void* y,
                              int dtype, int B, int Tin, int F, int C, int CO, int K,
-                             int stride, int lp, int Tout, int Fb, int relu,
+                             int stride, int lp, int Tout, int Fb, int relu, int dil,
                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dil < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == w2l::kFloat32)
-    return launch<float>(x, w, bias, y, B, Tin, F, C, CO, K, stride, lp, Tout, Fb, relu, s);
+    return launch<float>(x, w, bias, y, B, Tin, F, C, CO, K, stride, lp, Tout, Fb, relu,
+                         dil, s);
   if (dtype == w2l::kBFloat16)
     return launch<__nv_bfloat16>(x, w, bias, y, B, Tin, F, C, CO, K, stride, lp, Tout, Fb,
-                                 relu, s);
+                                 relu, dil, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -115,8 +115,8 @@ class AsrDataset:
         )
         if cfg.sfx_config:
             raise NotImplementedError(
-                "--sfx_config (sound-effect augmentation) belongs to the "
-                "training slice of the PyTorch port")
+                "--sfx_config (sound-effect augmentation) is not in the slices of "
+                "the PyTorch port so far; it comes with the augmentation slice")
 
         # samples per frame for audio padding: frames*stride + framesize
         self.sr = cfg.samplerate

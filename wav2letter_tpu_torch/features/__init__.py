@@ -5,10 +5,12 @@ from .frontend import (
     mel_filterbank,
     n_fft_for,
 )
+from .specaug import SpecAugment
 
 __all__ = [
     "FeatureParams",
     "Featurizer",
+    "SpecAugment",
     "local_normalize",
     "mel_filterbank",
     "n_fft_for",

@@ -37,14 +37,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "w2l_mfsc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "w2l_mfsc_max_bins": [],
-    "w2l_time_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "w2l_time_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P],
     "w2l_time_conv_tile": [],
+    "w2l_time_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
+    "w2l_time_conv_wgrad_tile": [],
+    "w2l_time_conv_wgrad_window": [_I, _I, _I, _I],
     "w2l_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "w2l_residual_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 # Launches per kernel since the last reset. A wrapper adds one where it
 # launches its kernel and nowhere else; its plain version never counts.
-LAUNCHES = {"mfsc": 0, "time_conv": 0, "residual_ln": 0}
+LAUNCHES = {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0, "residual_ln": 0,
+            "residual_ln_bwd": 0}
 
 _lib = None
 _lock = threading.Lock()

@@ -111,7 +111,7 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         return LayerSpec("SAUG", lambda ops: L.SpecAugmentLayer(f, mf, tt, tp, mt), line)
     where = _LATER.get(op, "a later slice")
     raise NotImplementedError(
-        f"arch mnemonic {op!r} is not in the first slice of the PyTorch port "
+        f"arch mnemonic {op!r} is not in the slices of the PyTorch port so far "
         f"(V SAUG PD C2 R DO LN TDS RO L); it comes with {where}: {line!r}")
 
 
@@ -175,8 +175,14 @@ class ArchModel(nn.Module):
         self.force_label_dim = force_label_dim
         self.seq = ArchSequential(specs, ops)
 
-    def forward(self, feats: torch.Tensor, feat_len: Optional[torch.Tensor] = None):
+    def forward(self, feats: torch.Tensor, feat_len: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` feeds the SpecAugment layers in training mode; dropout
+        draws from the device's global generator."""
         B, T, C = feats.shape
+        for mod in self.seq.children():
+            if isinstance(mod, L.SpecAugmentLayer):
+                mod.generator = generator
         if feat_len is None:
             feat_len = torch.full((B,), T, dtype=torch.int32, device=feats.device)
         pad_frac = feat_len.float() / T

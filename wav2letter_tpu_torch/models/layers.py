@@ -17,7 +17,9 @@ to the activations' dtype, is kept until the params change (``_derived``).
 The time convolutions run kernel K2 and the residual LayerNorms of a TDS block
 kernel K3, both in the (B, T, F*C) f-major chain layout. A conv or TDS block
 returns its output as a permuted view of that layout, so the next one finds
-its input already f-major and ``.contiguous()`` copies nothing.
+its input already f-major and ``.contiguous()`` copies nothing. Under
+autograd the same calls record the kernels' backward (K2 as dgrad, K2b, K3b),
+and the gradients flow through the re-indexing back to the stored params.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..features.specaug import SpecAugment
 from ..kernels import KERNELS
 
 Pads = Union[int, Tuple[int, int]]
@@ -37,8 +40,8 @@ Pads = Union[int, Tuple[int, int]]
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the first slice of the PyTorch port (the "
-        "streaming-convnets TDS+CTC serving path); it comes in a later slice")
+        f"{what} is not in the slices of the PyTorch port so far (the "
+        "streaming-convnets TDS+CTC training and serving path); it comes in a later slice")
 
 
 def _derived(module: nn.Module, dtype: torch.dtype, build):
@@ -233,16 +236,25 @@ class Dropout(nn.Module):
 
 
 class SpecAugmentLayer(nn.Module):
-    """SAUG F mF T p mT nrep: identity when not training."""
+    """SAUG F mF T p mT nrep: identity when not training. In training it
+    masks the stored (B, 1, C, T) features over their whole padded length, as
+    the JAX layer does, drawing from ``generator`` (set by ``ArchModel`` for
+    each forward; None takes the global generator)."""
 
     def __init__(self, f: int, mf: int, t: int, p: float, mt: int):
         super().__init__()
         self.cfg = (f, mf, t, p, mt)
+        self.generator = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise _later("SpecAugment in training")
-        return x
+        if not self.training:
+            return x
+        f, mf, t, p, mt = self.cfg
+        sa = SpecAugment(n_freq_masks=mf, freq_mask_f=f, n_time_masks=mt, time_mask_t=t,
+                         time_mask_p=p)
+        shp = x.shape
+        feats = x.reshape(shp[0], shp[-2], shp[-1]).transpose(1, 2)  # (B, T, C)
+        return sa(feats, self.generator).transpose(1, 2).reshape(shp)
 
 
 # ---------------------------------------------------------------------------

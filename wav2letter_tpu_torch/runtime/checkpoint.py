@@ -2,18 +2,26 @@
 checkpoint.py``.
 
 The port writes its own format: ``torch.save`` of {version, config (the
-serialized flag json), epoch, updates, state_dict}. It also reads the JAX
-package's ``W2LTPU01`` files (8-byte magic + a flax msgpack dict whose arrays
-are msgpack ExtType 1, possibly in flax's chunked form) and converts their
-param tree with :func:`convert_jax_params`. Either way loading yields a
+serialized flag json), epoch, updates, state_dict, and for training the
+criterion's state dict, the two optimizers' states and ``extra`` (the AMP
+loss scale)}. It also reads the JAX package's ``W2LTPU01`` files (8-byte
+magic + a flax msgpack dict whose arrays are msgpack ExtType 1, possibly in
+flax's chunked form) and converts their param tree with
+:func:`convert_jax_params` and, where it holds one, their SGD momentum trace
+with ``optim.sgd_state_from_optax``. Either way loading yields a
 :class:`Checkpoint` whose ``state_dict`` fits the port's ``ArchModel``.
+
+Files of a run, as in the JAX package: ``model_last.bin`` at every save,
+``model_iter_NNN.bin`` per report, ``model_<tag>.bin`` for the best of each
+validation set, and ``NNN_`` run-index prefixes on logs and configs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Dict
+import re
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -29,6 +37,10 @@ class Checkpoint:
     updates: int
     state_dict: Dict[str, torch.Tensor]
     version: int = VERSION
+    crit_state_dict: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    opt_state: Optional[Dict[str, Any]] = None  # optim.Optimizer.state_dict()
+    crit_opt_state: Optional[Dict[str, Any]] = None
+    extra: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 def save_checkpoint(path: str, ckpt: Checkpoint) -> None:
@@ -38,6 +50,10 @@ def save_checkpoint(path: str, ckpt: Checkpoint) -> None:
         "epoch": ckpt.epoch,
         "updates": ckpt.updates,
         "state_dict": {k: v.detach().cpu() for k, v in ckpt.state_dict.items()},
+        "crit_state_dict": {k: v.detach().cpu() for k, v in ckpt.crit_state_dict.items()},
+        "opt_state": ckpt.opt_state,
+        "crit_opt_state": ckpt.crit_opt_state,
+        "extra": ckpt.extra,
     }
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -55,6 +71,8 @@ def load_checkpoint(path: str) -> Checkpoint:
             updates=int(payload["updates"]),
             state_dict=convert_jax_params(payload["model_params"]),
             version=int(payload["version"]),
+            crit_state_dict=convert_jax_params(payload.get("crit_params") or {}),
+            opt_state=_jax_sgd_state(payload.get("opt_state"), int(payload["updates"])),
         )
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return Checkpoint(
@@ -63,7 +81,27 @@ def load_checkpoint(path: str) -> Checkpoint:
         updates=int(payload["updates"]),
         state_dict=payload["state_dict"],
         version=int(payload["version"]),
+        crit_state_dict=payload.get("crit_state_dict", {}),
+        opt_state=payload.get("opt_state"),
+        crit_opt_state=payload.get("crit_opt_state"),
+        extra=payload.get("extra", {}),
     )
+
+
+def run_index_paths(rundir: str) -> List[int]:
+    """Existing NNN_ run indices (continue-mode bookkeeping)."""
+    idxs = set()
+    if os.path.isdir(rundir):
+        for f in os.listdir(rundir):
+            m = re.match(r"^(\d{3})_", f)
+            if m:
+                idxs.add(int(m.group(1)))
+    return sorted(idxs)
+
+
+def find_last_checkpoint(rundir: str) -> Optional[str]:
+    p = os.path.join(rundir, "model_last.bin")
+    return p if os.path.exists(p) else None
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +150,31 @@ def read_jax_checkpoint(path: str) -> Dict[str, Any]:
             raise ValueError(f"{path}: not a wav2letter_tpu checkpoint")
         blob = f.read()
     return _unchunk(msgpack.unpackb(blob, ext_hook=_ext_unpack, raw=False))
+
+
+def _jax_sgd_state(opt_state: Any, updates: int) -> Optional[Dict[str, Any]]:
+    """The port's SGD state from a JAX checkpoint's optax state, where that
+    holds a momentum trace; None for any other optimizer state."""
+    from ..optim.optimizers import sgd_state_from_optax
+
+    try:
+        return sgd_state_from_optax(opt_state, updates)
+    except ValueError:
+        return None
+
+
+def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Inverse of :func:`convert_jax_params`: a state dict, or any dict of
+    tensors under the port's dotted names (gradients, optimizer slots), as the
+    nested dict of float32 numpy arrays under the JAX names."""
+    tree: Dict[str, Any] = {}
+    for key, t in state.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach().float().cpu().numpy()
+    return tree
 
 
 def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -1,11 +1,14 @@
-"""Edit-distance and loss meters — the port of the per-dataset meters of
-``wav2letter_tpu/runtime/meters.py`` (reference ``DatasetMeters{tknEdit,
-wrdEdit, loss}``). Timers, throughput and the cross-process reduction belong
-to the training slice."""
+"""Meters: edit distance, loss, timers, throughput — the port of
+``wav2letter_tpu/runtime/meters.py`` (reference ``TrainMeters``: runtime, timer,
+sampletimer, fwdtimer, critfwdtimer, bwdtimer, optimtimer and per-dataset
+{tknEdit, wrdEdit, loss}) and of its status line. ``sync_meters`` is the
+cross-process reduction; the port runs one process so far, for which it is
+the identity."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import time
+from typing import Dict, Optional, Sequence
 
 from ..ops.editdistance import edit_distance
 
@@ -42,6 +45,56 @@ class AverageMeter:
         return self.sum / max(1, self.n)
 
 
+class TimerMeter:
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.total = 0.0
+        self._t0: Optional[float] = None
+        self.count = 0
+
+    def start(self):
+        self._t0 = time.perf_counter()
+
+    def stop(self):
+        if self._t0 is not None:
+            self.total += time.perf_counter() - self._t0
+            self._t0 = None
+            self.count += 1
+
+    def value(self) -> float:
+        return self.total
+
+    def avg_ms(self) -> float:
+        return 1000.0 * self.total / max(1, self.count)
+
+    def __enter__(self):
+        self.start()
+        return self
+
+    def __exit__(self, *a):
+        self.stop()
+
+
+class SpeedMeter:
+    """Throughput: audio seconds processed per wall second."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.audio_s = 0.0
+        self.wall_t0 = time.perf_counter()
+
+    def add_audio(self, seconds: float):
+        self.audio_s += seconds
+
+    def value(self) -> float:
+        dt = time.perf_counter() - self.wall_t0
+        return self.audio_s / max(1e-9, dt)
+
+
 class DatasetMeters:
     def __init__(self):
         self.tkn_edit = EditDistanceMeter()
@@ -52,3 +105,68 @@ class DatasetMeters:
         self.tkn_edit.reset()
         self.wrd_edit.reset()
         self.loss.reset()
+
+
+class TrainMeters:
+    def __init__(self, valid_tags: Sequence[str] = ()):
+        self.runtime = TimerMeter()
+        self.timer = TimerMeter()  # per-batch
+        self.sample_timer = TimerMeter()
+        self.fwd_timer = TimerMeter()
+        self.crit_fwd_timer = TimerMeter()
+        self.bwd_timer = TimerMeter()
+        self.optim_timer = TimerMeter()
+        self.speed = SpeedMeter()
+        self.train = DatasetMeters()
+        self.valid: Dict[str, DatasetMeters] = {t: DatasetMeters() for t in valid_tags}
+
+    def reset_train(self):
+        self.train.reset()
+        self.speed.reset()
+        for t in (
+            self.timer,
+            self.sample_timer,
+            self.fwd_timer,
+            self.crit_fwd_timer,
+            self.bwd_timer,
+            self.optim_timer,
+        ):
+            t.reset()
+
+
+def sync_meters(meters: TrainMeters) -> TrainMeters:
+    """Cross-process meter reduction. With one process, which is all the port
+    runs so far, there is nothing to reduce."""
+    return meters
+
+
+def get_log_string(
+    meters: TrainMeters,
+    epoch: int,
+    updates: int,
+    lr: float,
+    lr_crit: float = 0.0,
+) -> str:
+    """Status line in the reference's format (``getLogString`` analog)."""
+    parts = [
+        f"epoch: {epoch:8d}",
+        f"nupdates: {updates:12d}",
+        f"lr: {lr:09.6f}",
+        f"lrcriterion: {lr_crit:09.6f}",
+        f"runtime: {meters.runtime.value():.2f}s",
+        f"bch(ms): {meters.timer.avg_ms():.2f}",
+        f"smp(ms): {meters.sample_timer.avg_ms():.2f}",
+        f"fwd(ms): {meters.fwd_timer.avg_ms():.2f}",
+        f"crit-fwd(ms): {meters.crit_fwd_timer.avg_ms():.2f}",
+        f"bwd(ms): {meters.bwd_timer.avg_ms():.2f}",
+        f"optim(ms): {meters.optim_timer.avg_ms():.2f}",
+        f"loss: {meters.train.loss.value():10.5f}",
+        f"train-TER: {meters.train.tkn_edit.error_rate():5.2f}",
+        f"train-WER: {meters.train.wrd_edit.error_rate():5.2f}",
+    ]
+    for tag, ds in meters.valid.items():
+        parts.append(f"{tag}-loss: {ds.loss.value():10.5f}")
+        parts.append(f"{tag}-TER: {ds.tkn_edit.error_rate():5.2f}")
+        parts.append(f"{tag}-WER: {ds.wrd_edit.error_rate():5.2f}")
+    parts.append(f"avg-isz(audio-s/s): {meters.speed.value():08.2f}")
+    return " | ".join(parts)
