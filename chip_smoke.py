@@ -7,14 +7,18 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 
 1. the device: name, count, ``nvidia-smi`` name and power limit;
 2. build the CUDA kernels from ``wav2letter_tpu_torch/csrc``;
-3. hold each kernel (K1 MFSC, K2 time conv, K3 residual LayerNorm) against
-   its plain PyTorch version at the shapes of the serving path's largest
-   batch (fp32, and bf16 for K2 and K3), and the backward kernels (K2 as
-   dgrad, K2b time-conv weight gradient, K3b residual LayerNorm backward) and
-   the two autograd functions at the shapes of the training path's largest
-   batch; time kernel, plain version, one PyTorch call of the same function
-   where there is one, and the bound; times are device times with the inputs
-   in HBM (cold L2), the kernel's also with L2-warm inputs;
+3. hold each kernel (K1 MFSC, K2 time conv, K3 residual LayerNorm, K4 fused
+   attention) against its plain PyTorch version at the shapes of the serving
+   paths' largest batch (fp32, and bf16 for K2-K4), and the backward kernels
+   (K2 as dgrad, K2b time-conv weight gradient, K3b residual LayerNorm
+   backward, K4b attention backward) and the three autograd functions at the
+   shapes of the training paths' largest batch; K4 and K4b also at T=188
+   unmasked, at the gate's edge T=460 and at the conformer's H=4, Dh=128,
+   T=240, without dropout and at rate 0.2 with the same keep mask on both
+   sides; K2b and K4b twice for equal bits; time kernel, plain version, one
+   PyTorch call of the same function where there is one, and the bound;
+   times are device times with the inputs in HBM (cold L2), the kernel's also
+   with L2-warm inputs;
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -34,7 +38,17 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    parameter's gradient held against the plain path on the card; then
    ``cli.train continue`` takes 2 more updates from ``model_last.bin``, and
    ``run_test`` serves the result; one profiled update gives the split into
-   forward, backward and optimizer, the idle share and the peak memory.
+   forward, backward and optimizer, the idle share and the peak memory;
+7. phases 4-6 again for the transformer (``recipes/transformer_ctc/
+   network.arch`` at full width and depth, 97,670,462 parameters): served at
+   batch 4 (1 K1, 12 K4, 24 K3 and no K2 per batch), trained at batch 8 with
+   adam, gradient clipping at 0.1, dropout 0.2 and layerdrop 0.1 (per update
+   12 K4, 12 K4b, 24 K3, 24 K3b; the loss must fall), resumed and served;
+8. the conformer (``recipes/conformer_ctc/network.arch`` at full width, 4 of
+   its 16 layers): two updates and a validation pass on utterances of 4-6.3 s
+   (K4 and K4b once per layer), emissions against the plain path, and a batch
+   of 15 s utterances, beyond the relative-position table, that must take the
+   unfused path with no K4 launch.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -56,10 +70,35 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ARCH = os.path.join(REPO, "recipes", "streaming_convnets", "network.arch")
+TR_ARCH = os.path.join(REPO, "recipes", "transformer_ctc", "network.arch")
+CFR_ARCH = os.path.join(REPO, "recipes", "conformer_ctc", "network.arch")
 N_FEAT, N_TOKENS, BATCH = 80, 9997, 4
-TRAIN_BATCH, TRAIN_UTTS = 16, 32
+TRAIN_UTTS = 32
 TRAIN_UPDATES = {"bfloat16": 6, "float32": 4}
 CONTINUE_UPDATES = 2
+CFR_LAYERS = 4  # of the conformer recipe's 16
+# The two model families driven at full width. ``per_forward``: launches of
+# one forward (a serving or validation batch, or an update's forward);
+# ``per_backward``: what an update launches on top of that. The flagship's
+# first conv takes the features and has no dgrad: 14 K2 launches, not 15.
+# Layerdrop scales a layer's branch by 0 and does not skip the layer, so the
+# transformer's counts are fixed. The transformer trains with its recipe's
+# flags, but the learning rate and warm-up (0.03 after 32000 updates) are cut
+# to what a few updates can show; SpecAugment starts at update 10000 there.
+FLAGSHIP = dict(
+    name="flagship", arch=ARCH, n_params=96_660_482, flags=dict(localnrmlleftctx=300),
+    per_forward={"mfsc": 1, "time_conv": 15, "residual_ln": 22},
+    per_backward={"time_conv": 14, "time_conv_wgrad": 15, "residual_ln_bwd": 22},
+    train=dict(batchsize=16, netoptim="sgd", lr=0.05, momentum=0.9, maxgradnorm=0.5),
+    opt_slot="trace")
+TRANSFORMER = dict(
+    name="transformer", arch=TR_ARCH, n_params=97_670_462, flags={},
+    per_forward={"mfsc": 1, "mhsa": 12, "residual_ln": 24},
+    per_backward={"mhsa_bwd": 12, "residual_ln_bwd": 24},
+    train=dict(batchsize=8, netoptim="adam", adambeta1=0.9, adambeta2=0.98, lr=5e-4,
+               warmup=2, lr_sched="inv_sqrt", lr_step_decay=50000, maxgradnorm=0.1,
+               saug_start_update=10000),
+    opt_slot="mu", loss_falls=True)
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PASSES = 5  # steady-state passes over the served list per type
@@ -74,6 +113,10 @@ TPU_KERNELS = {
                     "wav2letter_tpu_torch/csrc/layernorm.cu"),
     "residual_ln_bwd": ("wav2letter_tpu/ops/pallas/layernorm.py:111",
                         "wav2letter_tpu_torch/csrc/layernorm.cu"),
+    "mhsa": ("wav2letter_tpu/ops/pallas/attention.py:236",
+             "wav2letter_tpu_torch/csrc/attention.cu"),
+    "mhsa_bwd": ("wav2letter_tpu/ops/pallas/attention.py:267",
+                 "wav2letter_tpu_torch/csrc/attention.cu"),
 }
 # kernel vs plain version, |got - want| <= atol + rtol * |want|
 TOL = {
@@ -93,6 +136,17 @@ TOL = {
     ("time_conv_wgrad", "bfloat16"): (1e-4, 2e-2),
     ("residual_ln_bwd", "float32"): (1e-5, 1e-5),
     ("residual_ln_bwd", "bfloat16"): (2e-2, 1e-2),
+    # attention: fp32 sums of Dh <= 192 and T <= 460 terms in another order,
+    # outputs O(0.1-1); in bf16 one rounding of the output, and of p and ds
+    # where the fp32 values behind them differ in the last bit
+    ("mhsa", "float32"): (1e-4, 1e-5),
+    ("mhsa", "bfloat16"): (2e-2, 1e-2),
+    # the gradients, each held as a share of its largest entry (``_worst``):
+    # dk and dv sum T, dPwin up to B*H*T = 6144 products per entry; in bf16 p
+    # and ds are rounded before their products, and the autograd of the plain
+    # forward, which the function is also held against, rounds neither
+    ("mhsa_bwd", "float32"): (1e-4, 1e-4),
+    ("mhsa_bwd", "bfloat16"): (2e-2, 2e-2),
 }
 # the autograd functions against autograd of the plain forward. The two
 # forwards round a few outputs of ~0 to different sides of 0 (one or two of
@@ -222,8 +276,9 @@ def compare(name, dtype, got, want):
 # ---------------------------------------------------------------------------
 # data, model and checkpoints
 # ---------------------------------------------------------------------------
-def synth_dataset(root: str, seed: int, n_utts: int = 8, name: str = "test", vocab=None):
-    """Utterances of 4-15 s: white noise loud enough that no mel band sits at
+def synth_dataset(root: str, seed: int, n_utts: int = 8, name: str = "test", vocab=None,
+                  dur=(4.0, 15.0)):
+    """Utterances of ``dur`` seconds (4-15 s unless said): white noise loud enough that no mel band sits at
     the log floor, under a slow random envelope; ~1.5 words per second from a
     200-word lexicon spelled with 9996 word pieces plus the separator. A second
     list takes the first one's ``vocab`` (tokens and lexicon files)."""
@@ -245,7 +300,7 @@ def synth_dataset(root: str, seed: int, n_utts: int = 8, name: str = "test", voc
         tokens, lexicon = vocab
     lines, secs = [], 0.0
     for i in range(n_utts):
-        n = int(16000 * rng.uniform(4.0, 15.0))
+        n = int(16000 * rng.uniform(*dur))
         env = np.interp(np.arange(n), np.linspace(0, n, 20), rng.uniform(0.4, 1.0, 20))
         wav = (0.5 * env * rng.randn(n)).astype(np.float32)
         path = os.path.join(root, f"{name}{i:03d}.npy")
@@ -259,8 +314,8 @@ def synth_dataset(root: str, seed: int, n_utts: int = 8, name: str = "test", voc
     return lst, tokens, lexicon, secs
 
 
-def save_flagship(root, seed, tokens, lexicon):
-    """Seeded flagship weights as two port checkpoints, bf16 and fp32."""
+def save_model(spec, root, seed, tokens, lexicon):
+    """Seeded weights of ``spec``'s arch as two port checkpoints, bf16 and fp32."""
     import torch
 
     from wav2letter_tpu_torch.config import Config
@@ -268,14 +323,16 @@ def save_flagship(root, seed, tokens, lexicon):
     from wav2letter_tpu_torch.runtime.checkpoint import Checkpoint, save_checkpoint
 
     torch.manual_seed(seed)
-    model = build_arch_module(ARCH, N_FEAT, N_TOKENS + 1)
+    model = build_arch_module(spec["arch"], N_FEAT, N_TOKENS + 1)
     n_params = sum(p.numel() for p in model.parameters())
+    if n_params != spec["n_params"]:
+        fail(f"{spec['name']} has {n_params} parameters, expected {spec['n_params']}")
     paths = {}
     for dtype in ("bfloat16", "float32"):
-        cfg = Config(arch=ARCH, tokens=tokens, lexicon=lexicon, criterion="ctc",
-                     mfsc=True, filterbanks=N_FEAT, localnrmlleftctx=300,
-                     compute_dtype=dtype, batchsize=BATCH, nthread=2)
-        paths[dtype] = os.path.join(root, f"flagship_{dtype}.pt")
+        cfg = Config(arch=spec["arch"], tokens=tokens, lexicon=lexicon, criterion="ctc",
+                     mfsc=True, filterbanks=N_FEAT, compute_dtype=dtype, batchsize=BATCH,
+                     nthread=2, **spec["flags"])
+        paths[dtype] = os.path.join(root, f"{spec['name']}_{dtype}.pt")
         save_checkpoint(paths[dtype], Checkpoint(cfg.serialize(), 0, 0, model.state_dict()))
     return paths, n_params
 
@@ -294,6 +351,13 @@ def batch_shapes(lst, tokens, lexicon, batch=BATCH):
     specs = ds.batch_specs()
     T = max(s.max_input_frames for s in specs)
     return len(specs), T, ds.audio_samples_for_frames(T)
+
+
+def pooled_frames(T: int) -> int:
+    """Frames after the transformer recipe's three stride-2 pools."""
+    for _ in range(3):
+        T = -(-T // 2)
+    return T
 
 
 def path_calls(model, B, T):
@@ -598,6 +662,138 @@ def check_residual_ln_bwd(lns, dtype_name, details):
     return rows
 
 
+def _attention_inputs(B, T, H, Dh, masked, dtype):
+    """q (scaled as the model scales it), k, v, g (B, T, H*Dh), the window of
+    the relative-position table and a ragged key mask, seeded by the shape."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(B * 1000 + T + Dh)
+    q, k, v, dout = (0.5 * torch.randn((B, T, H * Dh), device="cuda", generator=g)
+                     for _ in range(4))
+    pos = 0.1 * torch.randn((2 * T - 1, Dh), device="cuda", generator=g)
+    mask = torch.zeros((B, T), device="cuda")
+    if masked:  # the first row full, the others 50-100% valid
+        lens = torch.randint(T // 2, T + 1, (B,), device="cuda", generator=g)
+        lens[0] = T
+        mask = (torch.arange(T, device="cuda")[None] >= lens[:, None]).float() * -1e30
+    return tuple(t.to(dtype) for t in (q, k, v, pos)) + (mask, dout.to(dtype))
+
+
+def _worst(name, dtype_name, got, want):
+    """Several outputs against their references: the largest absolute error,
+    the largest error as a share of its output's largest entry, and whether
+    every entry is within ``rtol * |want| + atol * max(1, max |want|)``: the
+    gradients are sums of up to 1e5 terms whose size grows with the shape, so
+    the absolute part scales with the output."""
+    import torch
+
+    rtol, atol = TOL[(name, dtype_name)]
+    worst, share, ok = 0.0, 0.0, True
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        top = max(1.0, b.abs().max().item())
+        worst, share = max(worst, err.max().item()), max(share, err.max().item() / top)
+        ok = ok and bool(torch.all(err <= atol * top + rtol * b.abs())) \
+            and bool(torch.isfinite(a).all())
+    return worst, share, ok
+
+
+def check_attention(shapes, dtype_name, details):
+    """K4, K4b and the autograd function against their plain versions at
+    every shape of ``shapes`` [(tag, B, T, H, Dh, masked, calls)], without
+    dropout and at rate 0.2 (the same seed on both sides: the same keep mask);
+    K4b twice for equal bits. Times at the rate the path runs the shape with:
+    0 for the serving shape's forward, 0.2 for the rest. The library's call is
+    ``scaled_dot_product_attention`` on pre-split heads with the relative-
+    position bias and the key mask passed as ``attn_mask``, and its autograd
+    for q, k, v (it has no gradient for the table)."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.attention import mhsa_flops
+
+    dtype = getattr(torch, dtype_name)
+    rows = {"mhsa": [], "mhsa_bwd": []}
+    for tag, B, T, H, Dh, masked, calls in shapes:
+        q, k, v, pos, mask, dout = _attention_inputs(B, T, H, Dh, masked, dtype)
+        errs = {"mhsa": [0.0, 0.0, True], "mhsa_bwd": [0.0, 0.0, True]}
+
+        def note(name, res):
+            e = errs[name]
+            errs[name] = [max(e[0], res[0]), max(e[1], res[1]), e[2] and bool(res[2])]
+
+        for rate in (0.0, 0.2):
+            seed = 1000 + T
+            got = kernels.mhsa(q, k, v, pos, mask, H, rate, seed)
+            torch.cuda.synchronize()
+            note("mhsa", compare("mhsa", dtype_name, got,
+                                 kernels.mhsa_plain(q, k, v, pos, mask, H, rate, seed)))
+            back = kernels.mhsa_bwd(q, k, v, pos, mask, dout, H, rate, seed)
+            torch.cuda.synchronize()
+            want = kernels.mhsa_bwd_plain(q, k, v, pos, mask, dout, H, rate, seed)
+            note("mhsa_bwd", _worst("mhsa_bwd", dtype_name, back, want))
+            again = kernels.mhsa_bwd(q, k, v, pos, mask, dout, H, rate, seed)
+            same = all(torch.equal(a, b) for a, b in zip(back, again))  # ordered sums
+            # the function: K4 + K4b under autograd against autograd of the plain forward
+            grads = {}
+            for side, fn in (("kernel", kernels.mhsa), ("plain", kernels.mhsa_plain)):
+                leaves = [t.clone().requires_grad_(True) for t in (q, k, v, pos)]
+                out = fn(*leaves, mask, H, rate, seed)
+                grads[side] = torch.autograd.grad(out, leaves, dout)
+            res = _worst("mhsa_bwd", dtype_name, grads["kernel"], grads["plain"])
+            note("mhsa_bwd", (res[0], res[1], res[2] and same))
+            del got, back, want, again, grads
+
+        rate_f = 0.0 if tag == "serve" else 0.2
+        item = q.element_size()
+        qh, kh, vh = (t.view(B, T, H, Dh).transpose(1, 2).contiguous() for t in (q, k, v))
+        ar = torch.arange(T, device="cuda")
+        idx = (ar[None, :] - ar[:, None] + T - 1).expand(B, H, T, T)
+        bias = torch.einsum("bhtd,rd->bhtr", qh.float(), pos.float()).gather(-1, idx)
+        bias = (bias + mask[:, None, None, :]).to(dtype).contiguous()
+
+        def sdpa(a, b_, c, m, rate=rate_f):
+            return F.scaled_dot_product_attention(a, b_, c, attn_mask=m, dropout_p=rate,
+                                                  scale=1.0)
+
+        f_args = (q, k, v, pos, mask, H, rate_f, 7)
+        nbytes = item * (4 * q.numel() + pos.numel()) + 4 * mask.numel()
+        b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh), dtype_name)
+        e = errs["mhsa"]
+        rows["mhsa"].append(dict(
+            name="mhsa", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=rate_f,
+            max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa", dtype_name)], ok=e[2],
+            ms=device_ms(kernels.mhsa, f_args),
+            warm_ms=device_ms(kernels.mhsa, f_args, cold=False),
+            plain_ms=device_ms(kernels.mhsa_plain, f_args),
+            library_ms=device_ms(sdpa, (qh, kh, vh, bias)),
+            bound_ms=b_ms, bound_by=b_by, calls=calls))
+
+        b_args = (q, k, v, pos, mask, dout, H, 0.2, 7)
+        leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+        lib_out = sdpa(*leaves, bias, 0.2)
+        gh = dout.view(B, T, H, Dh).transpose(1, 2).contiguous()
+        nbytes = item * (7 * q.numel() + pos.numel()) + 4 * (mask.numel() + pos.numel())
+        b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh, backward=True), dtype_name)
+        e = errs["mhsa_bwd"]
+        rows["mhsa_bwd"].append(dict(
+            name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=0.2,
+            max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa_bwd", dtype_name)], ok=e[2],
+            ms=device_ms(kernels.mhsa_bwd, b_args),
+            warm_ms=device_ms(kernels.mhsa_bwd, b_args, cold=False),
+            plain_ms=device_ms(kernels.mhsa_bwd_plain, b_args),
+            library_ms=device_ms(
+                lambda a: torch.autograd.grad(lib_out, leaves, a, retain_graph=True), (gh,)),
+            bound_ms=b_ms, bound_by=b_by, calls=calls))
+        del lib_out, leaves, bias, idx
+        torch.cuda.empty_cache()
+    for v_ in rows.values():
+        details.extend(v_)
+    return rows
+
+
 def per_forward(rows):
     """Sum a kernel's rows over one forward, weighting each shape by its calls."""
     out = {k: 0.0 for k in ("ms", "warm_ms", "plain_ms", "bound_ms")}
@@ -655,7 +851,7 @@ def plain_path_emissions(am, lst):
     return out, times, ev, ds
 
 
-def main_path(paths, lst, secs, emdir, n_batches):
+def main_path(spec, paths, lst, secs, emdir, n_batches):
     import numpy as np
     import torch
 
@@ -666,7 +862,7 @@ def main_path(paths, lst, secs, emdir, n_batches):
     results, evaluators = {}, {}
     # the first run pays for CUDA library set-up; it is checked, not kept
     for run, dtype_name in enumerate(("bfloat16", "bfloat16", "float32")):
-        em_dir = os.path.join(emdir, dtype_name)
+        em_dir = os.path.join(emdir, spec["name"], dtype_name)
         # --batchsize is an evaluation flag: as in the JAX package, the command
         # line's value (default 1) replaces the checkpoint's
         cfg = Config(am=paths[dtype_name], test=lst, emission_dir=em_dir, batchsize=BATCH)
@@ -684,11 +880,12 @@ def main_path(paths, lst, secs, emdir, n_batches):
         t2 = time.perf_counter()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        want = expected_launches(0, n_batches)
+        want = expected_launches(spec, 0, n_batches)
         if launches != want:
-            fail(f"{dtype_name} main path launches {launches}, expected {want}")
+            fail(f"{spec['name']} {dtype_name} main path launches {launches}, expected {want}")
         if run == 0:
-            log(f"[main warm-up {dtype_name}] {t2 - t0:.3f} s, launches {launches}")
+            log(f"[main {spec['name']} warm-up {dtype_name}] {t2 - t0:.3f} s, "
+                f"launches {launches}")
             continue
         # steady state: more passes of the loaded model over the same list,
         # without the optional emission dumps
@@ -723,9 +920,9 @@ def main_path(paths, lst, secs, emdir, n_batches):
             em_frames=n_frames, em_max_abs_err=max_err, em_mean_abs_err=mean_err,
             em_tol=tol, forward_kernel_ms=times["kernel_ms"],
             forward_plain_ms=times["plain_ms"], ok=ok)
-        log(f"[main {dtype_name}] {json.dumps(results[dtype_name])}")
+        log(f"[main {spec['name']} {dtype_name}] {json.dumps(results[dtype_name])}")
         if not ok:
-            fail(f"{dtype_name} emissions differ from the plain path: max {max_err} mean "
+            fail(f"{spec['name']} {dtype_name} emissions differ from the plain path: max {max_err} mean "
                  f"{mean_err} (tolerance {tol})")
     return (results, *evaluators["bfloat16"])
 
@@ -754,29 +951,27 @@ def profile_forward(ev, ds):
 # ---------------------------------------------------------------------------
 # phase 6: training
 # ---------------------------------------------------------------------------
-def train_flags(lst, valid_lst, tokens, lexicon, rundir, dtype_name, n_updates):
+def train_flags(spec, lst, valid_lst, tokens, lexicon, rundir, dtype_name, n_updates):
     return dict(
         train=lst, valid=f"dev:{valid_lst}", tokens=tokens, lexicon=lexicon, rundir=rundir,
-        runname=dtype_name, arch=ARCH, criterion="ctc", mfsc=True, filterbanks=N_FEAT,
-        localnrmlleftctx=300, compute_dtype=dtype_name, batchsize=TRAIN_BATCH,
-        validbatchsize=BATCH, nthread=2, netoptim="sgd", lr=0.05, momentum=0.9,
-        maxgradnorm=0.5, onorm="target", sqnorm=True, iter=n_updates,
-        reportiters=n_updates, seed=0)
+        runname=f"{spec['name']}_{dtype_name}", arch=spec["arch"], criterion="ctc", mfsc=True,
+        filterbanks=N_FEAT, compute_dtype=dtype_name, validbatchsize=BATCH, nthread=2,
+        onorm="target", sqnorm=True, iter=n_updates, reportiters=n_updates, seed=0,
+        **spec["flags"], **spec["train"])
 
 
-def expected_launches(updates, valid_batches):
-    """Launches of ``updates`` updates and ``valid_batches`` validation
-    forwards, as the arch implies them: per update 1 K1, 15 K2 forward + 14 as
-    dgrad (the first conv takes the features), 15 K2b, 22 K3, 22 K3b; per
-    validation batch the serving counts. Viterbi launches no kernel of ours."""
-    return {"mfsc": updates + valid_batches,
-            "time_conv": 29 * updates + 15 * valid_batches,
-            "time_conv_wgrad": 15 * updates,
-            "residual_ln": 22 * (updates + valid_batches),
-            "residual_ln_bwd": 22 * updates}
+def expected_launches(spec, updates, valid_batches):
+    """Launches of ``updates`` updates and ``valid_batches`` validation or
+    serving forwards, as ``spec``'s arch implies them (flagship: per update 1
+    K1, 15 K2 forward + 14 as dgrad, 15 K2b, 22 K3, 22 K3b; transformer: 1 K1,
+    12 K4, 12 K4b, 24 K3, 24 K3b). Viterbi launches no kernel of ours."""
+    from wav2letter_tpu_torch.kernels import LAUNCHES
+
+    return {k: spec["per_forward"].get(k, 0) * (updates + valid_batches)
+            + spec["per_backward"].get(k, 0) * updates for k in LAUNCHES}
 
 
-def first_batch_gradients(cfg_flags, dtype_name):
+def first_batch_gradients(spec, cfg_flags, dtype_name):
     """Loss and parameter gradients of the first training batch with dropout
     and SpecAugment off (the modules in eval mode, autograd on), same weights:
     the kernel path against the plain-version model on the same features (K1's),
@@ -793,9 +988,9 @@ def first_batch_gradients(cfg_flags, dtype_name):
     cfg = Config()
     cfg.update(dict(cfg_flags, rundir="", runname=""))
     tr = Trainer(cfg, device="cuda")
-    spec = tr.train_ds.batch_specs(shuffle_seed=cfg.seed + 1)[0]
-    batch = tr._to_device(pad_batch_rows(tr.train_ds.materialize(spec), 1))
-    plain = build_arch_module(ARCH, N_FEAT, tr.n_classes, ops=kernels.PLAIN)
+    first = tr.train_ds.batch_specs(shuffle_seed=cfg.seed + 1)[0]
+    batch = tr._to_device(pad_batch_rows(tr.train_ds.materialize(first), 1))
+    plain = build_arch_module(spec["arch"], N_FEAT, tr.n_classes, ops=kernels.PLAIN)
     plain.load_state_dict(tr.model.state_dict())
     plain.cuda()
     with torch.no_grad():
@@ -818,11 +1013,15 @@ def first_batch_gradients(cfg_flags, dtype_name):
         out[side] = (loss.item(), {k: p.grad for k, p in tr.model.named_parameters()},
                      dict(kernels.LAUNCHES))
     kl, kg, klaunch = out["kernel"]
-    if klaunch != expected_launches(1, 0) or any(out["plain_path"][2].values()):
-        fail(f"{dtype_name} first-batch launches {klaunch} (kernel path), "
-             f"{out['plain_path'][2]} (plain path), expected {expected_launches(1, 0)} and none")
+    want = expected_launches(spec, 1, 0)
+    if klaunch != want or any(out["plain_path"][2].values()):
+        fail(f"{spec['name']} {dtype_name} first-batch launches {klaunch} (kernel path), "
+             f"{out['plain_path'][2]} (plain path), expected {want} and none")
+    # (a bias on the keys shifts every score of a row alike: softmax does not
+    # see it and its gradient is rounding, possibly exactly 0)
     zero = [k for k, g in kg.items()
-            if g is None or not torch.isfinite(g).all() or not g.abs().max() > 0]
+            if g is None or not torch.isfinite(g).all()
+            or not (g.abs().max() > 0 or k.endswith("attn.wk.bias"))]
     if zero:
         fail(f"{dtype_name}: parameters without a finite, non-zero gradient: {zero}")
     res = dict(loss_kernel=kl, n_params=len(kg), launches=klaunch, ok=math.isfinite(kl))
@@ -845,9 +1044,9 @@ def first_batch_gradients(cfg_flags, dtype_name):
         cmp["ok"] = bool(cmp["loss_rel_err"] <= loss_tol and leaves[0][0] <= grad_tol)
         res[side] = cmp
         res["ok"] = res["ok"] and cmp["ok"]
-    log(f"[train grads {dtype_name}] {json.dumps(res)}")
+    log(f"[train grads {spec['name']} {dtype_name}] {json.dumps(res)}")
     if not res["ok"]:
-        fail(f"{dtype_name} first-batch loss or gradients differ from the plain path")
+        fail(f"{spec['name']} {dtype_name} first-batch loss or gradients differ from the plain path")
     return res
 
 
@@ -908,8 +1107,9 @@ def profile_update(tr, batch):
                 top=[dict(ms=round(ms, 4), kernel=k[:90], count=c) for ms, k, c in rows[:16]])
 
 
-def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
-    """The trainer at full width, bf16 then fp32; ``continue``; ``run_test``."""
+def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
+    """The trainer at full width on ``spec``'s arch, bf16 then fp32;
+    ``continue``; ``run_test``."""
     import torch
 
     from wav2letter_tpu_torch import kernels
@@ -923,8 +1123,10 @@ def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
     rundir = os.path.join(tmp, "runs")
     results = {}
     for dtype_name, n_updates in TRAIN_UPDATES.items():
-        flags = train_flags(train_lst, serve_lst, tokens, lexicon, rundir, dtype_name, n_updates)
-        grads = first_batch_gradients(flags, dtype_name)
+        flags = train_flags(spec, train_lst, serve_lst, tokens, lexicon, rundir, dtype_name,
+                            n_updates)
+        runname = flags["runname"]
+        grads = first_batch_gradients(spec, flags, dtype_name)
         cfg = Config()
         cfg.update(flags)
         torch.cuda.synchronize()
@@ -954,22 +1156,25 @@ def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
         peak = torch.cuda.max_memory_allocated()
-        want = expected_launches(n_updates, valid_batches)
+        want = expected_launches(spec, n_updates, valid_batches)
         if launches != want:
-            fail(f"{dtype_name} training launches {launches}, expected {want}")
-        per_update = expected_launches(1, 0)
+            fail(f"{runname} training launches {launches}, expected {want}")
+        per_update = expected_launches(spec, 1, 0)
         bad = [s for s in steps if s["launches"] != per_update or not s["finite"]
                or not math.isfinite(s["loss"])]
         if len(steps) != n_updates or bad:
-            fail(f"{dtype_name} training: {len(steps)} updates, faulty: {bad[:2]}")
-        last = os.path.join(rundir, dtype_name, "model_last.bin")
+            fail(f"{runname} training: {len(steps)} updates, faulty: {bad[:2]}")
+        # (not gated for the flagship, whose SAUG line blanks nearly every cell)
+        if spec.get("loss_falls") and not steps[-1]["loss"] < steps[0]["loss"]:
+            fail(f"{runname}: the loss did not fall: {[s['loss'] for s in steps]}")
+        last = os.path.join(rundir, runname, "model_last.bin")
         ckpt = load_checkpoint(last)
-        if ckpt.updates != n_updates or not ckpt.opt_state["state"]["trace"]:
-            fail(f"{dtype_name}: model_last.bin holds update {ckpt.updates}")
+        if ckpt.updates != n_updates or not ckpt.opt_state["state"][spec["opt_slot"]]:
+            fail(f"{runname}: model_last.bin holds update {ckpt.updates}")
         span = steps[-1]["end"] - steps[0]["end"]  # steady state: after the first update
         steady_audio = sum(s["audio_s"] for s in steps[1:])
         res = dict(
-            updates=n_updates, batch=TRAIN_BATCH, setup_s=setup_s,
+            updates=n_updates, batch=spec["train"]["batchsize"], setup_s=setup_s,
             losses=[s["loss"] for s in steps], frames=[s["frames"] for s in steps],
             iteration_s=[b["end"] - a["end"] for a, b in zip(steps, steps[1:])],
             updates_per_s=(n_updates - 1) / span, audio_s_per_s=steady_audio / span,
@@ -977,23 +1182,24 @@ def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
             launches=launches, launches_per_update=per_update, first_batch=grads)
         if dtype_name == "bfloat16":
             tr.train_step = step
-            spec = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
+            largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
             res["profile"] = profile_update(
-                tr, pad_batch_rows(tr.train_ds.materialize(spec), 1))
+                tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
         results[dtype_name] = res
-        log(f"[train {dtype_name}] {json.dumps(res)}")
+        log(f"[train {runname}] {json.dumps(res)}")
         del tr
         torch.cuda.empty_cache()
 
     # continue: 2 more bf16 updates from model_last.bin, through the command line's main
     n0 = TRAIN_UPDATES["bfloat16"]
     kernels.reset_launches()
-    tr = train_main(["continue", f"--rundir={rundir}", "--runname=bfloat16",
+    runname = f"{spec['name']}_bfloat16"
+    tr = train_main(["continue", f"--rundir={rundir}", f"--runname={runname}",
                      f"--iter={n0 + CONTINUE_UPDATES}", f"--reportiters={n0 + CONTINUE_UPDATES}"])
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    want = expected_launches(CONTINUE_UPDATES, valid_batches)
-    last = os.path.join(rundir, "bfloat16", "model_last.bin")
+    want = expected_launches(spec, CONTINUE_UPDATES, valid_batches)
+    last = os.path.join(rundir, runname, "model_last.bin")
     ckpt = load_checkpoint(last)
     if (tr.updates, ckpt.updates, tr.run_idx) != (n0 + CONTINUE_UPDATES,) * 2 + (2,) \
             or launches != want or tr.skipped:
@@ -1006,13 +1212,111 @@ def training_path(tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
     kernels.reset_launches()
     served = run_test(Config(am=last, test=serve_lst, batchsize=BATCH), device="cuda")
     launches = dict(kernels.LAUNCHES)
-    want = expected_launches(0, valid_batches)
+    want = expected_launches(spec, 0, valid_batches)
     if launches != want or not math.isfinite(served["loss"]):
         fail(f"run_test on the trained checkpoint: {served}, launches {launches}")
     results["continue"] = dict(updates=ckpt.updates, launches=launches)
     results["served"] = served
-    log(f"[train continue+serve] updates {ckpt.updates}, served {json.dumps(served)}")
+    log(f"[train {spec['name']} continue+serve] updates {ckpt.updates}, served {json.dumps(served)}")
     return results
+
+
+# ---------------------------------------------------------------------------
+# the conformer: a short phase at full width
+# ---------------------------------------------------------------------------
+def conformer_path(tmp, tokens, lexicon, seed):
+    """``recipes/conformer_ctc`` at full width and ``CFR_LAYERS`` of its 16
+    layers. 8 utterances of 4-6.3 s (batches are padded to a multiple of 128
+    feature frames, so at most 640, which the stride-3 conv takes to 214,
+    within the arch's 240 relative positions): two bf16 updates and a
+    validation pass through ``Trainer`` with K4 and K4b launched once per
+    layer, then emissions of the kernel path against the plain path. A batch
+    of 15 s utterances (500 frames) is beyond the table: attention takes the
+    unfused PyTorch path, K4 is launched no time, and both paths agree."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    with open(CFR_ARCH) as f:
+        lines = [l for l in f.read().splitlines() if l.strip() and not l.startswith("#")]
+    layers = [l for l in lines if l.startswith("CFR")]
+    arch = os.path.join(tmp, "conformer_cut.arch")
+    with open(arch, "w") as f:
+        f.write("\n".join([l for l in lines if not l.startswith("CFR")][:-1]
+                          + layers[:CFR_LAYERS] + [lines[-1]]) + "\n")
+    root = os.path.join(tmp, "data")
+    lst, _, _, secs = synth_dataset(root, seed + 2, 8, "cfr", (tokens, lexicon), (4.0, 6.3))
+    long_lst, _, _, _ = synth_dataset(root, seed + 3, 4, "cfrlong", (tokens, lexicon),
+                                      (14.9, 15.0))
+    spec = dict(name="conformer", arch=arch, flags={},
+                per_forward={"mfsc": 1, "mhsa": CFR_LAYERS},
+                per_backward={"mhsa_bwd": CFR_LAYERS},
+                train=dict(batchsize=8, netoptim="adam", lr=5e-4, warmup=2,
+                           lr_sched="inv_sqrt", lr_step_decay=20000, maxgradnorm=0.5))
+    cfg = Config()
+    cfg.update(train_flags(spec, lst, lst, tokens, lexicon, os.path.join(tmp, "runs"),
+                           "bfloat16", 2))
+    tr = Trainer(cfg, device="cuda")
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    losses, step = [], tr.train_step
+
+    def recording(*a):
+        res = step(*a)
+        losses.append(res[0])
+        return res
+
+    tr.train_step = recording
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = expected_launches(spec, 2, 2)  # 8 utterances validate as 2 batches of 4
+    if launches != want or len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+        fail(f"conformer: launches {launches}, expected {want}; losses {losses}")
+
+    plain = build_arch_module(arch, N_FEAT, tr.n_classes, ops=kernels.PLAIN)
+    plain.load_state_dict(tr.model.state_dict())
+    plain.cuda().eval()
+    tr.model.eval()
+    out = {}
+    for name, path, fused in (("short", lst, True), ("long", long_lst, False)):
+        cfg_l = Config()
+        cfg_l.update(dict(cfg.asdict(), train=path, batchsize=4))
+        ds = AsrDataset(path, tr.token_dict, tr.lexicon, cfg_l, batch_size=4)
+        spec_b = max(ds.batch_specs(), key=lambda b: b.max_input_frames)
+        b = tr._to_device(pad_batch_rows(ds.materialize(spec_b), 1))
+        res = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            with torch.no_grad():
+                feats, flen = tr.featurizer(b["audio"], b["audio_len"])
+                kernels.reset_launches()
+                got, glen = tr.model(feats.to(dtype), flen)
+                n_k4 = kernels.LAUNCHES["mhsa"]
+                ref, _ = plain(feats.to(dtype), flen)
+            torch.cuda.synchronize()
+            if n_k4 != (CFR_LAYERS if fused else 0):
+                fail(f"conformer {name}: {n_k4} K4 launches at {got.shape[1]} frames")
+            err = (got.float() - ref.float()).abs()
+            dt = str(dtype).split(".")[1]
+            tol = EM_TOL[dt]
+            res[dt] = dict(frames=int(got.shape[1]), k4_launches=n_k4,
+                           em_max_abs_err=err.max().item(), em_mean_abs_err=err.mean().item(),
+                           tol=tol)
+            if not (torch.isfinite(got).all() and err.max().item() <= tol[0]
+                    and err.mean().item() <= tol[1]):
+                fail(f"conformer {name} {dt}: emissions differ from the plain path: {res[dt]}")
+        out[name] = res
+    result = dict(layers=CFR_LAYERS, n_params=n_params, audio_s=secs, losses=losses,
+                  run_s=run_s, launches=launches, **out)
+    log(f"[conformer] {json.dumps(result)}")
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -1028,7 +1332,8 @@ def main() -> None:
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
         sys.exit(2)
-    if not os.path.isdir(os.path.join(REPO, "wav2letter_tpu_torch")) or not os.path.exists(ARCH):
+    if not os.path.isdir(os.path.join(REPO, "wav2letter_tpu_torch")) \
+            or not all(os.path.exists(a) for a in (ARCH, TR_ARCH, CFR_ARCH)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, REPO)
@@ -1052,17 +1357,17 @@ def main() -> None:
     kernels.library()
     log(f"[build] {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     build_log = (kernels._build.BUILD_DIR / "build.log")
+    ptxas = []
     if build_log.exists():
-        for line in build_log.read_text().splitlines():
-            if re.search(r"Compiling entry|Used \d+ registers|spill", line):
-                log(f"[ptxas] {line.strip()}")
+        ptxas = [line.strip() for line in build_log.read_text().splitlines()
+                 if re.search(r"Compiling entry|Used \d+ registers|spill", line)]
+        for line in ptxas:
+            log(f"[ptxas] {line}")
 
     with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
         # data and flagship checkpoints for the main path
         lst, tokens, lexicon, secs = synth_dataset(os.path.join(tmp, "data"), args.seed)
-        paths, n_params = save_flagship(tmp, args.seed, tokens, lexicon)
-        if n_params != 96_660_482:
-            fail(f"flagship has {n_params} parameters, expected 96,660,482")
+        paths, n_params = save_model(FLAGSHIP, tmp, args.seed, tokens, lexicon)
         n_batches, T, S = batch_shapes(lst, tokens, lexicon)
         with torch.device("meta"):
             model = build_arch_module(ARCH, N_FEAT, N_TOKENS + 1)
@@ -1072,10 +1377,23 @@ def main() -> None:
 
         train_lst, _, _, train_secs = synth_dataset(
             os.path.join(tmp, "data"), args.seed + 1, TRAIN_UTTS, "train", (tokens, lexicon))
-        _, T_train, S_train = batch_shapes(train_lst, tokens, lexicon, TRAIN_BATCH)
-        tconvs, tlns = path_calls(model, TRAIN_BATCH, T_train)
-        log(f"[shapes] largest training batch B={TRAIN_BATCH} S={S_train} T={T_train}; "
+        fl_batch = FLAGSHIP["train"]["batchsize"]
+        _, T_train, S_train = batch_shapes(train_lst, tokens, lexicon, fl_batch)
+        tconvs, tlns = path_calls(model, fl_batch, T_train)
+        log(f"[shapes] largest training batch B={fl_batch} S={S_train} T={T_train}; "
             f"{train_secs:.1f} s of audio in {TRAIN_UTTS} utterances")
+        # the transformer: three stride-2 pools ahead of 12 layers of H=4, Dh=192
+        tr_batch = TRANSFORMER["train"]["batchsize"]
+        _, T_tr_train, _ = batch_shapes(train_lst, tokens, lexicon, tr_batch)
+        Ta, Ta_train = pooled_frames(T), pooled_frames(T_tr_train)
+        attn_shapes = [("serve", BATCH, Ta, 4, 192, True, 12),
+                       ("train", tr_batch, Ta_train, 4, 192, True, 12),
+                       ("unmasked", BATCH, 188, 4, 192, False, 0),
+                       ("gate_edge", 2, 460, 4, 192, True, 0),
+                       ("conformer", 8, 240, 4, 128, True, 0)]
+        tr_lns, tr_tlns = [(BATCH * Ta, 768)] * 24, [(tr_batch * Ta_train, 768)] * 24
+        log(f"[shapes] transformer: attention over T={Ta} (serving, B={BATCH}) and "
+            f"T={Ta_train} (training, B={tr_batch}); 12 K4 and 24 K3 calls per forward")
 
         # 3. kernels against their plain versions
         details = []
@@ -1087,6 +1405,12 @@ def main() -> None:
             rows[("time_conv_dgrad", dt)] = back["time_conv_dgrad"]
             rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
             rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(tlns, dt, details)
+            rows[("residual_ln@transformer", dt)] = check_residual_ln(tr_lns, dt, details)
+            rows[("residual_ln_bwd@transformer", dt)] = check_residual_ln_bwd(
+                tr_tlns, dt, details)
+            att = check_attention(attn_shapes, dt, details)
+            rows[("mhsa", dt)] = [r for r in att["mhsa"] if r["tag"] == "serve"]
+            rows[("mhsa_bwd", dt)] = [r for r in att["mhsa_bwd"] if r["tag"] == "train"]
             torch.cuda.empty_cache()
         for r in details:
             r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -1096,6 +1420,7 @@ def main() -> None:
         for key, krows in rows.items():
             name, dt = ("mfsc", "float32") if key == "mfsc" else key
             sums.append(dict(name=name, dtype=dt, calls=sum(r["calls"] for r in krows),
+                             per=("update" if "bwd" in name or "grad" in name else "forward"),
                              **per_forward(krows)))
             log(f"[kernel sum] {json.dumps(sums[-1])}")
         bad = [r for r in details if not r["ok"]]
@@ -1104,7 +1429,8 @@ def main() -> None:
                  f"{json.dumps(bad[0])}")
 
         # 4. the main path: serving
-        served, ev, ds_main = main_path(paths, lst, secs, os.path.join(tmp, "em"), n_batches)
+        served, ev, ds_main = main_path(FLAGSHIP, paths, lst, secs, os.path.join(tmp, "em"),
+                                        n_batches)
 
         # 5. where one bf16 forward's device time goes
         prof = profile_forward(ev, ds_main)
@@ -1113,23 +1439,41 @@ def main() -> None:
         torch.cuda.empty_cache()
 
         # 6. the main path: training
-        trained = training_path(tmp, train_lst, lst, tokens, lexicon, n_batches)
+        trained = training_path(FLAGSHIP, tmp, train_lst, lst, tokens, lexicon, n_batches)
+
+        # 7. the transformer: serving, one profiled forward, training
+        tr_paths, tr_params = save_model(TRANSFORMER, tmp, args.seed, tokens, lexicon)
+        log(f"[transformer] {tr_params} parameters")
+        tr_served, ev, ds_main = main_path(TRANSFORMER, tr_paths, lst, secs,
+                                           os.path.join(tmp, "em"), n_batches)
+        tr_prof = profile_forward(ev, ds_main)
+        log(f"[profile transformer] {json.dumps(tr_prof)}")
+        del ev, ds_main
+        torch.cuda.empty_cache()
+        tr_trained = training_path(TRANSFORMER, tmp, train_lst, lst, tokens, lexicon,
+                                   n_batches)
+
+        # 8. the conformer
+        conformer = conformer_path(tmp, tokens, lexicon, args.seed)
 
     kernels_line = []
-    train_launches = trained["bfloat16"]["launches_per_update"]
-    for name, per in (("mfsc", "forward of the largest serving batch"),
-                      ("time_conv", "forward of the largest serving batch"),
-                      ("time_conv_wgrad", "update on the largest training batch"),
-                      ("residual_ln", "forward of the largest serving batch"),
-                      ("residual_ln_bwd", "update on the largest training batch")):
+    fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
+    for name, per, model_name in (
+            ("mfsc", fwd, "flagship"), ("time_conv", fwd, "flagship"),
+            ("time_conv_wgrad", upd, "flagship"), ("residual_ln", fwd, "flagship"),
+            ("residual_ln_bwd", upd, "flagship"), ("mhsa", fwd, "transformer"),
+            ("mhsa_bwd", upd, "transformer")):
         dt = "float32" if name == "mfsc" else "bfloat16"
         agg = per_forward(rows["mfsc" if name == "mfsc" else (name, dt)])
         replaces, source = TPU_KERNELS[name]
-        backward = name in ("time_conv_wgrad", "residual_ln_bwd")
+        backward = per == upd
+        path_served, path_trained = ((served, trained) if model_name == "flagship"
+                                     else (tr_served, tr_trained))
+        train_launches = path_trained["bfloat16"]["launches_per_update"]
         entry = dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, route="cuda", source=source, replaces=replaces, model=model_name,
             launches=(train_launches[name] if backward
-                      else served["bfloat16"]["launches"][name]),
+                      else path_served["bfloat16"]["launches"][name]),
             launches_per_update=train_launches[name], dtype=dt,
             max_abs_err=agg["max_abs_err"], ms=agg["ms"], warm_ms=agg["warm_ms"],
             plain_ms=agg["plain_ms"],
@@ -1144,10 +1488,14 @@ def main() -> None:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-            json.dump(dict(device=kind, nvidia_smi=smi_line, details=details, sums=sums,
+            json.dump(dict(device=kind, nvidia_smi=smi_line, ptxas=ptxas, details=details,
+                           sums=sums,
                            main=served,
                            profile=prof, training=trained, kernels=kernels_line,
                            n_params=n_params,
+                           transformer=dict(n_params=tr_params, main=tr_served,
+                                            profile=tr_prof, training=tr_trained),
+                           conformer=conformer,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -108,7 +108,8 @@ def test_model_kernels_match_plain(cuda):
         want, wlen = plain(feats, flen)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 5, "time_conv_wgrad": 0,
-                                "residual_ln": 6, "residual_ln_bwd": 0}
+                                "residual_ln": 6, "residual_ln_bwd": 0, "mhsa": 0,
+                                "mhsa_bwd": 0}
     assert torch.equal(glen, wlen)
     # fp32 end to end through 2 convs, 3 TDS blocks and per-frame LNs
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
@@ -326,10 +327,176 @@ def test_model_training_grads_match_plain(cuda):
         losses.append(loss.item())
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 9, "time_conv_wgrad": 5,
-                                "residual_ln": 6, "residual_ln_bwd": 6}
+                                "residual_ln": 6, "residual_ln_bwd": 6, "mhsa": 0,
+                                "mhsa_bwd": 0}
     assert losses[0] == pytest.approx(losses[1], rel=1e-4)
     for (name, p), q in zip(model.named_parameters(), plain.parameters()):
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
         scale = q.grad.abs().max().item()
         # fp32 through 2 convs and 3 TDS blocks: 1e-3 of the leaf's largest entry
         torch.testing.assert_close(p.grad, q.grad, rtol=1e-3, atol=1e-3 * scale, msg=name)
+
+
+# ---------------------------------------------------------------------------
+# K4 and K4b: fused attention with the relative-position bias
+# ---------------------------------------------------------------------------
+def _attn_inputs(B, T, H, Dh, masked, device, dtype):
+    rng = np.random.RandomState(B * 100 + T)
+    q, k, v, g = (torch.from_numpy(rng.randn(B, T, H * Dh).astype(np.float32) * 0.5)
+                  .to(device=device, dtype=dtype) for _ in range(4))
+    pos = torch.from_numpy(rng.randn(2 * T - 1, Dh).astype(np.float32) * 0.1)
+    pos = pos.to(device=device, dtype=dtype)
+    mb = np.zeros((B, T), np.float32)
+    if masked:
+        lens = rng.randint(max(1, T // 2), T + 1, B)
+        mb = np.where(np.arange(T)[None] < lens[:, None], 0.0, -1e30).astype(np.float32)
+    return q, k, v, pos, torch.from_numpy(mb).to(device), g
+
+
+ATTN_SHAPES = [(2, 16, 2, 128, False), (2, 13, 2, 128, True), (1, 40, 4, 64, True),
+               (3, 17, 1, 136, True), (2, 75, 4, 192, True), (1, 1, 2, 8, False)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,T,H,Dh,masked", ATTN_SHAPES)
+def test_mhsa_kernel(cuda, B, T, H, Dh, masked, rate):
+    q, k, v, pos, mb, _ = _attn_inputs(B, T, H, Dh, masked, cuda, torch.float32)
+    before = kernels.LAUNCHES["mhsa"]
+    got = kernels.mhsa(q, k, v, pos, mb, H, rate, 77)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mhsa"] == before + 1
+    want = kernels.mhsa_plain(q, k, v, pos, mb, H, rate, 77)
+    # fp32 sums of <= 192 + T terms in another order; the same keep mask
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,T,H,Dh,masked", ATTN_SHAPES)
+def test_mhsa_bwd_kernel(cuda, B, T, H, Dh, masked, rate):
+    q, k, v, pos, mb, g = _attn_inputs(B, T, H, Dh, masked, cuda, torch.float32)
+    before = kernels.LAUNCHES["mhsa_bwd"]
+    got = kernels.mhsa_bwd(q, k, v, pos, mb, g, H, rate, 77)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mhsa_bwd"] == before + 1
+    want = kernels.mhsa_bwd_plain(q, k, v, pos, mb, g, H, rate, 77)
+    for name, a, b in zip(("dq", "dk", "dv", "dpos"), got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5, msg=name)
+    again = kernels.mhsa_bwd(q, k, v, pos, mb, g, H, rate, 77)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # ordered sums
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_mhsa_kernel_bf16(cuda, rate):
+    q, k, v, pos, mb, g = _attn_inputs(2, 50, 4, 64, True, cuda, torch.bfloat16)
+    got = kernels.mhsa(q, k, v, pos, mb, 4, rate, 5)
+    want = kernels.mhsa_plain(q, k, v, pos, mb, 4, rate, 5)
+    # one bf16 rounding of the output, and of p where the fp32 sums differ
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=1e-2)
+    gb = kernels.mhsa_bwd(q, k, v, pos, mb, g, 4, rate, 5)
+    wb = kernels.mhsa_bwd_plain(q, k, v, pos, mb, g, 4, rate, 5)
+    for name, a, b in zip(("dq", "dk", "dv", "dpos"), gb, wb):
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=1e-2, msg=name)
+
+
+def test_mhsa_function_gradients(cuda):
+    """The autograd function records K4b: a wrapper that returned a tensor
+    without grad_fn would train nothing."""
+    q, k, v, pos, mb, g = _attn_inputs(2, 21, 2, 32, True, cuda, torch.float32)
+    grads = {}
+    for side, fn in (("kernel", kernels.mhsa), ("plain", kernels.mhsa_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, pos)]
+        before = dict(kernels.LAUNCHES)
+        out = fn(*leaves, mb, 2, 0.25, 9)
+        assert out.grad_fn is not None
+        grads[side] = torch.autograd.grad(out, leaves, g)
+        if side == "kernel":
+            assert kernels.LAUNCHES["mhsa"] == before["mhsa"] + 1
+            assert kernels.LAUNCHES["mhsa_bwd"] == before["mhsa_bwd"] + 1
+    for a, b in zip(grads["kernel"], grads["plain"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_mhsa_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, pos, mb, _ = _attn_inputs(1, 8, 2, 12, False, cuda, torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        kernels.mhsa(q, k, v, pos, mb, 2)
+    q, k, v, pos, mb, _ = _attn_inputs(1, 8, 2, 16, False, cuda, torch.float32)
+    with pytest.raises(TypeError):
+        kernels.mhsa(q.half(), k.half(), v.half(), pos.half(), mb, 2)
+    with pytest.raises(ValueError):
+        kernels.mhsa(q, k, v, pos[:-1], mb, 2)
+
+
+# recipes/transformer_ctc/network.arch at width 64 and recipes/conformer_ctc at
+# width 32: head width 16 and 8, relative-position tables of 40 and 60 frames
+TRANSFORMER_NARROW = [
+    "V -1 1 80 0", "WN 3 C 80 64 3 1 -1", "GLU 2", "M 1 1 2 1", "WN 3 C 32 128 3 1 -1",
+    "GLU 2", "M 1 1 2 1", "RO 2 0 3 1", "TR 64 128 4 40 0.2 0.1", "TR 64 128 4 40 0.2 0.1",
+    "L 64 30",
+]
+CONFORMER_NARROW = [
+    "V -1 1 80 0", "C 80 32 7 3 3", "R", "RO 2 0 3 1", "CFR 32 64 4 60 7 0.1 0.05",
+    "CFR 32 64 4 60 7 0.1 0.05", "L 32 30",
+]
+
+
+@pytest.mark.parametrize("arch,k4,k3", [(TRANSFORMER_NARROW, 2, 4), (CONFORMER_NARROW, 2, 0)])
+def test_attention_model_kernels_match_plain(cuda, arch, k4, k3):
+    """Forward in eval mode and, with the layers in eval mode but autograd on,
+    every parameter gradient: kernel path (K4, K4b, K3, K3b) against plain
+    path, fp32; and the launches of one forward + backward."""
+    torch.manual_seed(0)
+    model = build_arch_from_lines(arch, 30).to(cuda).eval()
+    plain = build_arch_from_lines(arch, 30, ops=kernels.PLAIN).to(cuda).eval()
+    plain.load_state_dict(model.state_dict())
+    feats = _randn((3, 150, 80), 1, cuda)
+    flen = torch.tensor([150, 120, 70], device=cuda, dtype=torch.int32)
+    kernels.reset_launches()
+    losses = []
+    for m in (model, plain):
+        em, _ = m(feats, flen)
+        loss = (em * _randn(tuple(em.shape), 2, cuda)).sum()
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0,
+                                "residual_ln": k3, "residual_ln_bwd": k3, "mhsa": k4,
+                                "mhsa_bwd": k4}
+    assert losses[0] == pytest.approx(losses[1], rel=1e-4)
+    top = max(q.grad.abs().max().item() for q in plain.parameters())
+    for (name, p), q in zip(model.named_parameters(), plain.parameters()):
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        # against the leaf's largest entry, but not less than 1% of the whole
+        # gradient's: a bias on the keys (softmax ignores it) and a LayerNorm
+        # bias that the next LayerNorm removes have no true gradient, only rounding
+        scale = max(q.grad.abs().max().item(), 1e-2 * top)
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-3, atol=1e-3 * scale, msg=name)
+
+
+def test_attention_beyond_the_table_takes_the_unfused_path(cuda):
+    torch.manual_seed(0)
+    model = build_arch_from_lines(TRANSFORMER_NARROW, 30).to(cuda).eval()
+    kernels.reset_launches()
+    with torch.no_grad():
+        em, _ = model(_randn((2, 400, 80), 3, cuda), None)  # 100 frames > 40
+    assert em.shape == (2, 100, 30) and torch.isfinite(em).all()
+    assert kernels.LAUNCHES["mhsa"] == 0 and kernels.LAUNCHES["residual_ln"] == 4
+
+
+def test_attention_training_mode_on_the_card(cuda):
+    """Dropout, attention dropout and layerdrop on: the kernel path and the
+    plain path draw the same seeds from the same ``torch.manual_seed`` and
+    the same keep mask from them, so they still agree."""
+    torch.manual_seed(0)
+    arch = [l.replace("DO 0.1", "DO 0") for l in TRANSFORMER_NARROW]
+    model = build_arch_from_lines(arch, 30).to(cuda).train()
+    plain = build_arch_from_lines(arch, 30, ops=kernels.PLAIN).to(cuda).train()
+    plain.load_state_dict(model.state_dict())
+    feats = _randn((3, 150, 80), 1, cuda)
+    flen = torch.tensor([150, 120, 70], device=cuda, dtype=torch.int32)
+    outs = []
+    for m in (model, plain, model):
+        torch.manual_seed(11)
+        outs.append(m(feats, flen)[0])
+    assert torch.equal(outs[0], outs[2])
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)

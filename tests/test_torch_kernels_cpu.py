@@ -115,8 +115,13 @@ def test_kernel_wrappers_count_only_launches():
     kernels.time_conv_wgrad(x, torch.zeros(1, 20, 8), 3, 4, 1, (1, 1))
     kernels.time_conv_dgrad(x, torch.zeros(3, 2, 2), 4, 20, 1, (1, 1))
     kernels.residual_ln_bwd(x[0], x[0], x[0], torch.zeros(20), torch.ones(20), torch.ones(1))
+    q = torch.zeros(1, 4, 16)
+    pos, mask = torch.zeros(7, 8), torch.zeros(1, 4)
+    kernels.mhsa(q, q, q, pos, mask, 2)
+    kernels.mhsa_bwd(q, q, q, pos, mask, q, 2)
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0,
-                                "residual_ln": 0, "residual_ln_bwd": 0}
+                                "residual_ln": 0, "residual_ln_bwd": 0, "mhsa": 0,
+                                "mhsa_bwd": 0}
 
 
 # ---------------------------------------------------------------------------

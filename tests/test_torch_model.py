@@ -182,5 +182,7 @@ def test_recipe_arch_builds_at_full_width():
 
 
 def test_unported_mnemonic_names_its_slice():
-    with pytest.raises(NotImplementedError, match="transformer/conformer slice"):
-        build_arch_from_lines(["TR 64 128 4 100 0.1"], NLABEL)
+    with pytest.raises(NotImplementedError, match="slice of the remaining layers"):
+        build_arch_from_lines(["POSEMB 64 100 0.1"], NLABEL)
+    with pytest.raises(NotImplementedError, match="WN L"):
+        build_arch_from_lines(["WN 0 L 64 32"], NLABEL)

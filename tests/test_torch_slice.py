@@ -188,6 +188,9 @@ def test_port_imports_no_jax():
     files = glob.glob(os.path.join(REPO, "wav2letter_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    rel = {os.path.relpath(p, REPO) for p in files}
+    assert {"wav2letter_tpu_torch/kernels/attention.py",
+            "wav2letter_tpu_torch/models/transformer.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}

@@ -33,7 +33,9 @@ NVCC_FLAGS = [
 ]
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}  # csrc/common.cuh
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_SMEM_BYTES = 232448  # dynamic shared memory one block can get on sm_90
+
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SIGNATURES = {
     "w2l_mfsc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "w2l_mfsc_max_bins": [],
@@ -46,12 +48,16 @@ SIGNATURES = {
     "w2l_time_conv_wgrad_window": [_I, _I, _I, _I],
     "w2l_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "w2l_residual_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "w2l_mhsa_fwd": [_P] * 6 + [_I] * 7 + [_F, _U, _F, _P],
+    "w2l_mhsa_bwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _P],
+    "w2l_mhsa_smem_bytes": [_I, _I, _I],
+    "w2l_mhsa_max_head_dim": [],
 }
 
 # Launches per kernel since the last reset. A wrapper adds one where it
 # launches its kernel and nowhere else; its plain version never counts.
 LAUNCHES = {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0, "residual_ln": 0,
-            "residual_ln_bwd": 0}
+            "residual_ln_bwd": 0, "mhsa": 0, "mhsa_bwd": 0}
 
 _lib = None
 _lock = threading.Lock()

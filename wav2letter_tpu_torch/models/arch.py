@@ -1,6 +1,7 @@
 """`.arch` DSL parser -> nn.Module graph — the port of
-``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets
-flagship: V SAUG PD C2 R DO LN TDS RO L.
+``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets,
+transformer and conformer recipes: V RO PD C C1 C2 WN (of a conv) TDS L LN DO
+M A SAUG TR CFR and the activations R R6 ELU LG HT T SH GLU LSM.
 
 Grammar: one layer per line, ``#`` comments, NFEAT/NLABEL substitution
 (reference ``buildSequentialModule``). The model takes features (B, T, C)
@@ -8,8 +9,11 @@ plus valid lengths, enters the stored AF-reversed layout (B, 1, C, T), runs
 the layers, and returns emissions (B, T_out, NLABEL) with lengths scaled by
 the valid fraction of the input.
 
-Layer i is named ``f"{i:02d}_{kind}"``, as in the JAX package, so the flax
-param tree ``seq/03_C2/weight`` is the state-dict key ``seq.03_C2.weight``.
+Layer i is named ``f"{i:02d}_{kind}"``, as in the JAX package (kind ``C`` also
+for a weight-normed conv, ``POOL`` for ``M``/``A``), so the flax param tree
+``seq/03_C2/weight`` is the state-dict key ``seq.03_C2.weight``. ``TR`` and
+``CFR`` layers get the (B, T) mask of valid frames, built from the valid
+fraction of the input at whatever length the stack has reached.
 A ``PD`` that only pads time with zeros right before a time-only ``C2`` is
 folded into that conv's in-kernel pads and stays as an ``Identity``, as the
 JAX chain pass does (``arch.py:412-423``). The JAX layout passes
@@ -28,17 +32,32 @@ from torch import nn
 
 from ..kernels import KERNELS
 from . import layers as L
+from .transformer import ConformerLayer, TransformerLayer
 
+PORTED = "V RO PD C C1 C2 WN(C C1 C2) TDS L LN DO M A SAUG TR CFR R R6 ELU LG HT T SH GLU LSM"
 _LATER = {
-    "TR": "the transformer/conformer slice",
-    "CFR": "the transformer/conformer slice",
-    "POSEMB": "the transformer/conformer slice",
-    "SINPOSEMB": "the transformer/conformer slice",
+    "POSEMB": "the slice of the remaining layers",
+    "SINPOSEMB": "the slice of the remaining layers",
     "RES": "the slice of the remaining layers",
-    "WN": "the transformer/conformer slice",
-    "GLU": "the transformer/conformer slice",
-    "M": "the transformer/conformer slice",
+    "WN L": "the slice of the remaining layers",
+    "WN AC": "the slice of the remaining layers",
+    "AC": "the slice of the remaining layers",
+    "BN": "the slice of the remaining layers",
+    "RNN": "the recurrent slice",
+    "GRU": "the recurrent slice",
+    "LSTM": "the recurrent slice",
+    "E": "the language-model slice",
+    "ADAPTIVEE": "the language-model slice",
+    "PR": "the slice of the remaining layers",
+    "PC": "the slice of the remaining layers",
 }
+
+
+def _later(op: str, line: str) -> NotImplementedError:
+    where = _LATER.get(op, "a later slice")
+    return NotImplementedError(
+        f"arch mnemonic {op!r} is not in the slices of the PyTorch port so far "
+        f"({PORTED}); it comes with {where}: {line!r}")
 
 
 @dataclasses.dataclass
@@ -76,16 +95,49 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         rest = [int(x) for x in p[2:]] + [0] * (8 - len(p[2:]))
         pads = tuple((rest[2 * i], rest[2 * i + 1]) for i in range(4))
         return LayerSpec("PD", lambda ops: L.Padding(val, pads), line)
-    if op == "C2":
-        ci, co = int(p[1]), int(p[2])
-        wx, wy, sx, sy = int(p[3]), int(p[4]), int(p[5]), int(p[6])
-        px = int(p[7]) if len(p) >= 8 else 0
-        py = int(p[8]) if len(p) >= 9 else 0
-        dx = int(p[9]) if len(p) >= 10 else 1
-        dy = int(p[10]) if len(p) >= 11 else 1
+    if op == "WN":
+        wdim, child = int(p[1]), p[2:]
+        if child[0] not in ("C", "C1", "C2"):
+            if child[0] in ("L", "AC"):
+                raise _later(f"WN {child[0]}", line)
+            raise ValueError(f"WN wrapping unsupported child: {line}")
+        return _parse_conv(child, line, wdim)
+    if op in ("C", "C1", "C2"):
+        return _parse_conv(p, line, -1)
+    if op == "TR":
+        md, mlp, nh, csz = int(p[1]), int(p[2]), int(p[3]), int(p[4])
+        do = _num(p[5])
+        ld = _num(p[6]) if len(p) >= 7 else 0.0
+        preln = bool(int(p[7])) if len(p) >= 8 else False
+        fmask = bool(int(p[8])) if len(p) >= 9 else False
         return LayerSpec(
-            "C2", lambda ops: L.Conv2D(ci, co, wx, wy, sx, sy, px, py, dx, dy, ops=ops),
+            "TR", lambda ops: TransformerLayer(md, mlp, nh, csz, do, ld, preln, fmask, ops=ops),
             line)
+    if op == "CFR":
+        md, mlp, nh, csz, kern = (int(v) for v in p[1:6])
+        do = _num(p[6])
+        ld = _num(p[7]) if len(p) >= 8 else 0.0
+        cn = p[8].lower() if len(p) >= 9 else "ln"
+        if cn not in ("ln", "bn", "layernorm", "batchnorm"):
+            raise ValueError(f"CFR conv norm must be LN or BN, got {p[8]!r}: {line}")
+        cn = {"ln": "layernorm", "bn": "batchnorm"}.get(cn, cn)
+        return LayerSpec(
+            "CFR", lambda ops: ConformerLayer(md, mlp, nh, csz, kern, do, ld, cn, ops=ops),
+            line)
+    if op in ("M", "A"):
+        wx, wy, sx, sy = int(p[1]), int(p[2]), int(p[3]), int(p[4])
+        px = int(p[5]) if len(p) > 5 else 0
+        py = int(p[6]) if len(p) > 6 else 0
+        mode = "avg" if op == "A" else "max"
+        return LayerSpec("POOL", lambda ops: L.Pool2D(wx, wy, sx, sy, px, py, mode), line)
+    if op in ("ELU", "R", "R6", "LG", "HT", "T"):
+        return LayerSpec(op, lambda ops: L.Activation(op), line)
+    if op in ("GLU", "LSM"):
+        dim = int(p[1])
+        return LayerSpec(op, lambda ops: L.Activation(op, dim), line)
+    if op == "SH":
+        beta = _num(p[1]) if len(p) > 1 else 1.0
+        return LayerSpec("SH", lambda ops: L.Activation("SH", beta=beta), line)
     if op == "TDS":
         ci, wx, fdim = int(p[1]), int(p[2]), int(p[3])
         do = _num(p[4]) if len(p) >= 5 else 0.0
@@ -103,16 +155,33 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         return LayerSpec("LN", lambda ops: L.LayerNorm(fdims), line)
     if op == "DO":
         return LayerSpec("DO", lambda ops: L.Dropout(_num(p[1])), line)
-    if op == "R":
-        return LayerSpec("R", lambda ops: L.Activation("R"), line)
     if op == "SAUG":
         f, mf, t = int(p[1]), int(p[2]), int(p[3])
         tt, tp, mt = int(p[4]), _num(p[5]), int(p[6])
         return LayerSpec("SAUG", lambda ops: L.SpecAugmentLayer(f, mf, tt, tp, mt), line)
-    where = _LATER.get(op, "a later slice")
-    raise NotImplementedError(
-        f"arch mnemonic {op!r} is not in the slices of the PyTorch port so far "
-        f"(V SAUG PD C2 R DO LN TDS RO L); it comes with {where}: {line!r}")
+    raise _later(op, line)
+
+
+def _parse_conv(p: List[str], line: str, wn_dim: int) -> LayerSpec:
+    """``C``/``C1`` (time-only) or ``C2``, possibly under ``WN wn_dim``."""
+    if p[0] == "C2":
+        ci, co = int(p[1]), int(p[2])
+        wx, wy, sx, sy = int(p[3]), int(p[4]), int(p[5]), int(p[6])
+        px = int(p[7]) if len(p) >= 8 else 0
+        py = int(p[8]) if len(p) >= 9 else 0
+        dx = int(p[9]) if len(p) >= 10 else 1
+        dy = int(p[10]) if len(p) >= 11 else 1
+        return LayerSpec(
+            "C2", lambda ops: L.Conv2D(ci, co, wx, wy, sx, sy, px, py, dx, dy,
+                                       wn_dim=wn_dim, ops=ops), line)
+    ci, co, wx, sx = int(p[1]), int(p[2]), int(p[3]), int(p[4])
+    px = int(p[5]) if len(p) >= 6 else 0
+    dx = int(p[6]) if len(p) >= 7 else 1
+    cb = bool(int(p[7])) if len(p) >= 8 else True
+    cg = int(p[8]) if len(p) >= 9 else 1
+    return LayerSpec(
+        "C", lambda ops: L.Conv2D(ci, co, wx, 1, sx, 1, px, 0, dx, 1, cg, cb, wn_dim, ops=ops),
+        line)
 
 
 def _time_pads(spec: LayerSpec) -> Optional[Tuple[int, int]]:
@@ -127,7 +196,7 @@ def _time_pads(spec: LayerSpec) -> Optional[Tuple[int, int]]:
 def _fold_pads(specs: List[LayerSpec]) -> List[LayerSpec]:
     out = list(specs)
     for i in range(len(out) - 1):
-        if out[i].kind != "PD" or out[i + 1].kind != "C2":
+        if out[i].kind != "PD" or not out[i + 1].line.startswith("C2 "):
             continue
         pads = _time_pads(out[i])
         t = out[i + 1].line.split()
@@ -158,9 +227,23 @@ class ArchSequential(nn.Module):
         for i, spec in enumerate(specs):
             self.add_module(f"{i:02d}_{spec.kind}", spec.module_fn(ops))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_frac: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x stored 4-d, (B, 1, C, T) at entry; pad_frac (B,) the valid
+        fraction of each row's frames."""
         for mod in self.children():
-            x = mod(x)
+            if not getattr(mod, "needs_mask", False):
+                x = mod(x)
+                continue
+            mask = None
+            if pad_frac is not None:
+                T = x.shape[-2]  # transformer layout (..., T, C)
+                valid = torch.ceil(pad_frac * T).to(torch.int32)
+                mask = torch.arange(T, device=x.device)[None, :] < valid[:, None]  # (B, T)
+                # archs reach TR as (1, B, T, C) (RO 2 0 3 1); a (B, 1, T, C)
+                # view puts the batch first instead
+                if x.dim() == 4:
+                    mask = mask[:, None] if x.shape[1] == 1 else mask[None]
+            x = mod(x, mask)
         return x
 
 
@@ -187,7 +270,7 @@ class ArchModel(nn.Module):
             feat_len = torch.full((B,), T, dtype=torch.int32, device=feats.device)
         pad_frac = feat_len.float() / T
         # (B, T, C) -> AF (T, C, 1, B) == stored (B, 1, C, T)
-        y = self.seq(feats.transpose(1, 2)[:, None])
+        y = self.seq(feats.transpose(1, 2)[:, None], pad_frac)
         # canonicalize to (B, T_out, N), anchored on B (see the JAX ArchModel)
         sq = [d for d in y.shape if d != 1]
         if len(sq) == 3 and sq[0] == B:

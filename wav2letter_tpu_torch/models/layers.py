@@ -1,5 +1,6 @@
-"""Layers of the `.arch` DSL that the streaming-convnets flagship uses —
-the port of ``wav2letter_tpu/models/layers.py``.
+"""Layers of the `.arch` DSL that the ported recipes use (streaming convnets,
+transformer and conformer CTC) — the port of ``wav2letter_tpu/models/layers.py``;
+the transformer and conformer layers are in ``transformer.py``.
 
 Coordinate convention, as in the JAX package: the reference's column-major
 ArrayFire tensor with dims (d0, d1, d2, d3) is stored row-major with its axes
@@ -40,8 +41,9 @@ Pads = Union[int, Tuple[int, int]]
 
 def _later(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (the "
-        "streaming-convnets TDS+CTC training and serving path); it comes in a later slice")
+        f"{what} is not in the slices of the PyTorch port so far (training and serving "
+        "the streaming-convnets, transformer and conformer CTC recipes); it comes in a "
+        "later slice")
 
 
 def _derived(module: nn.Module, dtype: torch.dtype, build):
@@ -133,9 +135,9 @@ class Linear(nn.Module):
         return y
 
 
-def _same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+def _same_pads(n: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
     out = -(-n // s)
-    total = max(0, (out - 1) * s + k - n)
+    total = max(0, (out - 1) * s + (k - 1) * d + 1 - n)
     return total // 2, total - total // 2
 
 
@@ -157,26 +159,43 @@ def from_chain(y: torch.Tensor, C: int) -> torch.Tensor:
     return y.view(B, T, D // C, C).permute(0, 3, 2, 1)
 
 
+# K2 keeps all K*C*CO fp32 weights of a conv in shared memory beside its
+# input tile; wider convs (the 768- and 1536-channel frontends of the
+# transformer recipes) go to the general path.
+K2_MAX_WEIGHT_BYTES = 64 * 1024
+
+
 class Conv2D(nn.Module):
-    """AF Conv2D, weight OIHW (out, in, wy, wx) as in JAX. Only the time-only
-    form (wy=1, sy=1, py=0, no dilation, groups or weight norm) is in this
-    slice; it runs kernel K2. ``px`` is a symmetric pad, -1 for SAME, or a
-    (left, right) pair — the form a folded ``PD`` line leaves."""
+    """AF Conv2D on the stored NCHW layout (N=d3, C=d2, H=d1, W=d0=time),
+    weight OIHW (out, in/groups, wy, wx) as in JAX. ``px``/``py`` are a
+    symmetric pad or -1 for SAME; ``px`` may also be a (left, right) pair, the
+    form a folded ``PD`` line leaves. With ``wn_dim >= 0`` the weight is
+    ``g * v / sqrt(sum(v^2) + 1e-12)`` per output channel (params ``v``, ``g``).
+
+    The time-only narrow form (wy=1, sy=1, py=0, no dilation, groups or weight
+    norm, weights within ``K2_MAX_WEIGHT_BYTES``) runs kernel K2 in the
+    f-major chain layout. Every other form is one ``F.conv2d``, as the JAX
+    package leaves it to ``lax.conv_general_dilated``."""
 
     def __init__(self, in_ch: int, out_ch: int, wx: int, wy: int = 1, sx: int = 1,
                  sy: int = 1, px: Pads = 0, py: int = 0, dx: int = 1, dy: int = 1,
                  groups: int = 1, use_bias: bool = True, wn_dim: int = -1,
                  ops: SimpleNamespace = KERNELS):
         super().__init__()
-        if (wy, sy, py, dx, dy, groups, wn_dim) != (1, 1, 0, 1, 1, 1, -1):
-            raise _later(
-                f"Conv2D other than time-only (wy={wy} sy={sy} py={py} dx={dx} "
-                f"dy={dy} groups={groups} wn_dim={wn_dim})")
-        self.in_ch, self.out_ch, self.wx, self.sx, self.px = in_ch, out_ch, wx, sx, px
+        self.in_ch, self.out_ch, self.wx, self.wy = in_ch, out_ch, wx, wy
+        self.sx, self.sy, self.px, self.py, self.dx, self.dy = sx, sy, px, py, dx, dy
+        self.groups, self.wn_dim = groups, wn_dim
         self.ops = ops
-        fan_in = wx * in_ch
-        self.weight = nn.Parameter(
-            torch.randn(out_ch, in_ch, 1, wx) * math.sqrt(2.0 / max(1, fan_in)))
+        self.time_only = (
+            (wy, sy, py, dx, dy, groups) == (1, 1, 0, 1, 1, 1) and wn_dim < 0
+            and 4 * wx * in_ch * out_ch <= K2_MAX_WEIGHT_BYTES)
+        fan_in = wx * wy * in_ch // groups
+        w = torch.randn(out_ch, in_ch // groups, wy, wx) * math.sqrt(2.0 / max(1, fan_in))
+        if wn_dim >= 0:
+            self.v = nn.Parameter(w)
+            self.g = nn.Parameter(w.reshape(out_ch, -1).norm(dim=1).reshape(out_ch, 1, 1, 1))
+        else:
+            self.weight = nn.Parameter(w)
         bound = 1.0 / math.sqrt(fan_in)
         self.bias = (nn.Parameter(torch.empty(out_ch).uniform_(-bound, bound))
                      if use_bias else None)
@@ -185,15 +204,32 @@ class Conv2D(nn.Module):
         if isinstance(self.px, tuple):
             return self.px
         if self.px == -1:
-            return _same_pads(T, self.wx, self.sx)
+            return _same_pads(T, self.wx, self.sx, self.dx)
         return self.px, self.px
 
+    def _oihw(self, dtype: torch.dtype) -> torch.Tensor:
+        if self.wn_dim < 0:
+            return self.weight.to(dtype)
+        norm = torch.sqrt((self.v * self.v).sum(dim=(1, 2, 3), keepdim=True) + 1e-12)
+        return (self.g * self.v / norm).to(dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        z = to_chain(x)
-        w, bias = _derived(self, z.dtype, lambda: (
-            _kco(self.weight, z.dtype), None if self.bias is None else self.bias.float()))
-        y = self.ops.time_conv(z, w, x.shape[2], self.sx, self.pads(x.shape[3]), bias)
-        return from_chain(y, self.out_ch)
+        if self.time_only:
+            z = to_chain(x)
+            w, bias = _derived(self, z.dtype, lambda: (
+                _kco(self.weight, z.dtype), None if self.bias is None else self.bias.float()))
+            y = self.ops.time_conv(z, w, x.shape[2], self.sx, self.pads(x.shape[3]), bias)
+            return from_chain(y, self.out_ch)
+        w, bias = _derived(self, x.dtype, lambda: (
+            self._oihw(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
+        pw = self.pads(x.shape[3])
+        ph = (_same_pads(x.shape[2], self.wy, self.sy, self.dy) if self.py == -1
+              else (self.py, self.py))
+        if pw[0] != pw[1] or ph[0] != ph[1]:
+            x = F.pad(x, (*pw, *ph))
+            pw = ph = (0, 0)
+        return F.conv2d(x, w, bias, stride=(self.sy, self.sx), padding=(ph[0], pw[0]),
+                        dilation=(self.dy, self.dx), groups=self.groups)
 
 
 class LayerNorm(nn.Module):
@@ -216,14 +252,55 @@ class LayerNorm(nn.Module):
 
 
 class Activation(nn.Module):
-    def __init__(self, kind: str):
+    """The parameter-free activations: R, R6, ELU, LG, HT, T, SH (swish with
+    ``beta``), and GLU / LSM over AF dim ``dim``."""
+
+    KINDS = ("R", "R6", "ELU", "LG", "HT", "T", "SH", "GLU", "LSM")
+
+    def __init__(self, kind: str, dim: int = 0, beta: float = 1.0):
         super().__init__()
-        if kind != "R":
-            raise _later(f"activation {kind!r}")
-        self.kind = kind
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown activation {kind!r}")
+        self.kind, self.dim, self.beta = kind, dim, beta
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(x)
+        k = self.kind
+        if k == "R":
+            return torch.relu(x)
+        if k == "R6":
+            return x.clamp(0, 6)
+        if k == "ELU":
+            return F.elu(x)
+        if k == "LG":
+            return torch.log(x)
+        if k == "HT":
+            return x.clamp(-1, 1)
+        if k == "T":
+            return torch.tanh(x)
+        if k == "SH":
+            return x * torch.sigmoid(self.beta * x)
+        ax = x.dim() - 1 - self.dim
+        if k == "GLU":
+            a, b = x.chunk(2, dim=ax)
+            return a * torch.sigmoid(b)
+        return F.log_softmax(x, dim=ax)
+
+
+class Pool2D(nn.Module):
+    """AF Pool2D over (d0 = time, d1) of the stored NCHW layout: max, or the
+    average that counts the padding."""
+
+    def __init__(self, wx: int, wy: int, sx: int, sy: int, px: int = 0, py: int = 0,
+                 mode: str = "max"):
+        super().__init__()
+        self.window, self.stride, self.pad, self.mode = (wy, wx), (sy, sx), (py, px), mode
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.window == (1, 1) and self.pad == (0, 0):  # a strided subsample
+            return x[..., ::self.stride[0], ::self.stride[1]]
+        if self.mode == "max":
+            return F.max_pool2d(x, self.window, self.stride, self.pad)
+        return F.avg_pool2d(x, self.window, self.stride, self.pad, count_include_pad=True)
 
 
 class Dropout(nn.Module):
