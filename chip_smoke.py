@@ -13,12 +13,14 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (K2 as dgrad, K2b time-conv weight gradient, K3b residual LayerNorm
    backward, K4b attention backward) and the three autograd functions at the
    shapes of the training paths' largest batch; K4 and K4b also at T=188
-   unmasked, at the gate's edge T=460 and at the conformer's H=4, Dh=128,
-   T=240, without dropout and at rate 0.2 with the same keep mask on both
-   sides; K2b and K4b twice for equal bits; time kernel, plain version, one
-   PyTorch call of the same function where there is one, and the bound;
-   times are device times with the inputs in HBM (cold L2), the kernel's also
-   with L2-warm inputs;
+   unmasked, at the gate's edge T=460, at the conformer's H=4, Dh=128,
+   T=240 and at T=17 and 65, which cut K4's tiles raggedly, without dropout
+   and at rate 0.2 with the same keep mask on both sides; K2b and K4b twice
+   for equal bits; time kernel, plain version, one PyTorch call of the same
+   function where there is one, and the bound; K4 also at each tile height
+   (query rows a block) that fits, with the one it picks, its blocks and its
+   TFLOP/s; times are device times with the inputs in HBM (cold L2), the
+   kernel's also with L2-warm inputs;
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -712,9 +714,11 @@ def check_attention(shapes, dtype_name, details):
     import torch.nn.functional as F
 
     from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels import attention
     from wav2letter_tpu_torch.kernels.attention import mhsa_flops
 
     dtype = getattr(torch, dtype_name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {"mhsa": [], "mhsa_bwd": []}
     for tag, B, T, H, Dh, masked, calls in shapes:
         q, k, v, pos, mask, dout = _attention_inputs(B, T, H, Dh, masked, dtype)
@@ -762,14 +766,24 @@ def check_attention(shapes, dtype_name, details):
         nbytes = item * (4 * q.numel() + pos.numel()) + 4 * mask.numel()
         b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh), dtype_name)
         e = errs["mhsa"]
+        # K4's tile: the query rows a block it picks, and each height that fits, timed
+        tile = attention.fwd_tile_rows(B, H, T, Dh, item, sms)
+        rows_ms = {r: device_ms(lambda *a, r=r: attention._launch_fwd(*a, rows=r), f_args)
+                   for r in attention.FWD_ROWS
+                   if attention.fwd_smem_bytes(r, T, Dh, item) <= kernels._build.MAX_SMEM_BYTES}
+        ms = device_ms(kernels.mhsa, f_args)
         rows["mhsa"].append(dict(
             name="mhsa", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=rate_f,
             max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa", dtype_name)], ok=e[2],
-            ms=device_ms(kernels.mhsa, f_args),
-            warm_ms=device_ms(kernels.mhsa, f_args, cold=False),
+            ms=ms, warm_ms=device_ms(kernels.mhsa, f_args, cold=False),
             plain_ms=device_ms(kernels.mhsa_plain, f_args),
             library_ms=device_ms(sdpa, (qh, kh, vh, bias)),
-            bound_ms=b_ms, bound_by=b_by, calls=calls))
+            bound_ms=b_ms, bound_by=b_by, calls=calls, tile_rows=tile,
+            blocks=-(-T // tile) * H * B, tflops=mhsa_flops(B, T, H, Dh) / ms / 1e9,
+            rows_ms=rows_ms))
+        log(f"[K4] {tag} {dtype_name} B={B} T={T} H={H} Dh={Dh}: {tile} rows a block, "
+            f"{rows['mhsa'][-1]['blocks']} blocks, {ms:.4f} ms, "
+            f"{rows['mhsa'][-1]['tflops']:.1f} TFLOP/s; by rows {rows_ms}")
 
         b_args = (q, k, v, pos, mask, dout, H, 0.2, 7)
         leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
@@ -1390,7 +1404,9 @@ def main() -> None:
                        ("train", tr_batch, Ta_train, 4, 192, True, 12),
                        ("unmasked", BATCH, 188, 4, 192, False, 0),
                        ("gate_edge", 2, 460, 4, 192, True, 0),
-                       ("conformer", 8, 240, 4, 128, True, 0)]
+                       ("conformer", 8, 240, 4, 128, True, 0),
+                       ("ragged17", 2, 17, 4, 192, True, 0),
+                       ("ragged65", 2, 65, 4, 192, True, 0)]
         tr_lns, tr_tlns = [(BATCH * Ta, 768)] * 24, [(tr_batch * Ta_train, 768)] * 24
         log(f"[shapes] transformer: attention over T={Ta} (serving, B={BATCH}) and "
             f"T={Ta_train} (training, B={tr_batch}); 12 K4 and 24 K3 calls per forward")

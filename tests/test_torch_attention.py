@@ -99,3 +99,51 @@ def test_bf16_inputs_round_like_the_kernel():
     want = kernels.mhsa_bwd_plain(*(t.float() for t in b16), mb, g.bfloat16().float(), 2, 0.2, 3)
     for a, b in zip((dq, dk, dv, dpos), want):
         torch.testing.assert_close(a.float(), b, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_k4_tile_rows_fit_every_shape_the_kernel_took(itemsize):
+    """K4's rows per block, picked in Python from the shape: one of 16, 32 and
+    64, within the shared memory a block can get, for every T and Dh that the
+    16-row fp32-pipe kernel before it took (16 x (Dh + T) fp32 a block)."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.attention import FWD_ROWS, fwd_smem_bytes, fwd_tile_rows
+
+    limit = _build.MAX_SMEM_BYTES
+    picked = set()
+    for T in range(1, 2049):
+        for Dh in range(8, 257, 8):
+            if 4 * 16 * (Dh + T) > limit:
+                continue
+            for B, H in ((1, 1), (4, 4), (64, 16)):
+                rows = fwd_tile_rows(B, H, T, Dh, itemsize)
+                assert rows in FWD_ROWS and fwd_smem_bytes(rows, T, Dh, itemsize) <= limit
+                picked.add(rows)
+    assert picked == set(FWD_ROWS)
+
+
+def test_k4_tile_rows_fill_the_card_with_the_fewest_bytes():
+    """One block a SM where the shape allows (the most blocks that still fit
+    one a SM), else the tallest tile: the transformer's serving (B=4) and
+    training (B=8) shapes, its gate's edge and the conformer's."""
+    from wav2letter_tpu_torch.kernels.attention import fwd_tile_rows
+
+    assert fwd_tile_rows(4, 4, 192, 192, 2) == 32  # 96 blocks; 16 rows: 192
+    assert fwd_tile_rows(8, 4, 192, 192, 2) == 64  # 96 blocks
+    assert fwd_tile_rows(2, 4, 460, 192, 2) == 32  # 120 blocks
+    assert fwd_tile_rows(8, 4, 240, 128, 2) == 64  # 128 blocks
+    assert fwd_tile_rows(2, 4, 17, 192, 4) == 16
+    assert fwd_tile_rows(64, 16, 460, 192, 2) == 64  # more blocks than SMs at any height
+    assert fwd_tile_rows(64, 16, 2048, 256, 4) == 16  # the only height that fits
+
+
+def test_k4_trace_finds_its_anchors_in_the_kernel_source():
+    """``kernels/trace_k4.py`` stamps K4's chunk loop by editing a copy of
+    the source at fixed anchors; it must find each of them once."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k4 import _instrument
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    traced = _instrument(src)
+    assert traced.count("clock64()") == 5 and "w2l_k4_stamps" in traced
+    assert traced.replace("g_k4_stamps", "").count("st[") == 5

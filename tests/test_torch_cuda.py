@@ -372,6 +372,68 @@ def test_mhsa_kernel(cuda, B, T, H, Dh, masked, rate):
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("B,T,H,Dh,masked", ATTN_SHAPES)
+def test_mhsa_kernel_bf16_shapes(cuda, B, T, H, Dh, masked, rate):
+    q, k, v, pos, mb, _ = _attn_inputs(B, T, H, Dh, masked, cuda, torch.bfloat16)
+    before = kernels.LAUNCHES["mhsa"]
+    got = kernels.mhsa(q, k, v, pos, mb, H, rate, 77)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["mhsa"] == before + 1
+    want = kernels.mhsa_plain(q, k, v, pos, mb, H, rate, 77)
+    # one bf16 rounding of the output, and of p where the fp32 sums differ
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=1e-2)
+
+
+# T that cut K4's tiles of 16, 32 and 64 query rows and its chunks of 32 keys
+# raggedly; the transformer's gate edge and the conformer's head; B = 1
+K4_RAGGED = [(2, T, 2, 64, True) for T in (15, 16, 17, 31, 33, 63, 65, 129)] + [
+    (2, 460, 4, 192, True), (2, 240, 4, 128, True), (1, 50, 3, 72, False)]
+K4_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,T,H,Dh,masked", K4_RAGGED)
+def test_mhsa_kernel_ragged_tiles(cuda, B, T, H, Dh, masked, rate, dtype):
+    """Every tile height K4 can take (the picked one and each that fits)
+    against the plain version, one launch per call."""
+    from wav2letter_tpu_torch.kernels import attention
+
+    q, k, v, pos, mb, _ = _attn_inputs(B, T, H, Dh, masked, cuda, dtype)
+    want = kernels.mhsa_plain(q, k, v, pos, mb, H, rate, 77).float()
+    rtol, atol = K4_TOL[dtype]
+    for rows in (None,) + attention.FWD_ROWS:
+        if rows and attention.fwd_smem_bytes(rows, T, Dh, q.element_size()) > \
+                kernels._build.MAX_SMEM_BYTES:
+            continue
+        before = kernels.LAUNCHES["mhsa"]
+        got = attention._launch_fwd(q, k, v, pos, mb, H, rate, 77, rows)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["mhsa"] == before + 1
+        torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol, msg=f"rows {rows}")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mhsa_kernel_is_reproducible(cuda, dtype):
+    """No atomics: K4 twice on the same inputs gives the same bits."""
+    q, k, v, pos, mb, _ = _attn_inputs(2, 75, 4, 192, True, cuda, dtype)
+    a = kernels.mhsa(q, k, v, pos, mb, 4, 0.2, 5)
+    b = kernels.mhsa(q, k, v, pos, mb, 4, 0.2, 5)
+    assert torch.equal(a, b)
+
+
+def test_mhsa_smem_formula_matches_the_kernel(cuda):
+    from wav2letter_tpu_torch.kernels import attention
+
+    lib = kernels.library()
+    for dtype, item in ((0, 4), (1, 2)):
+        for rows in attention.FWD_ROWS:
+            for T, Dh in ((1, 8), (17, 136), (192, 192), (460, 192), (2048, 256)):
+                assert lib.w2l_mhsa_fwd_smem_bytes(rows, T, Dh, dtype) == \
+                    attention.fwd_smem_bytes(rows, T, Dh, item)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,T,H,Dh,masked", ATTN_SHAPES)
 def test_mhsa_bwd_kernel(cuda, B, T, H, Dh, masked, rate):
     q, k, v, pos, mb, g = _attn_inputs(B, T, H, Dh, masked, cuda, torch.float32)
     before = kernels.LAUNCHES["mhsa_bwd"]

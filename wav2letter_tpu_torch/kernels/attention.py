@@ -24,13 +24,16 @@ Pwin, the mask and the seed is saved: K4b recomputes the probabilities.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
 _M32 = 0xFFFFFFFF
+FWD_CHUNK_BYTES, FWD_VPITCH = 128, 136  # csrc/attention.cu: CHB, VP
+FWD_ROWS = (16, 32, 64)  # query rows a K4 block can take, in slabs of 16
 
 
 def hash_rows(T: int) -> int:
@@ -169,18 +172,54 @@ def _hash_args(T: int, rate: float, seed: int):
     return hash_rows(T), int(seed), float(rate), keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed):
-    """K4 on CUDA tensors."""
+def fwd_smem_bytes(rows: int, T: int, Dh: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K4 block of ``rows`` query rows
+    (``csrc/attention.cu::fwd_layout``): the rows' fp32 scores, T rounded up
+    to 8 plus 4 a row; the q tile, Dh * itemsize rounded up to 32 bytes plus
+    16 a row; two staging buffers, each a chunk of 128 / itemsize rows of k
+    or Pwin, or of v (128 columns, 136 elements a row)."""
+    chunk = FWD_CHUNK_BYTES // itemsize
+    sp = -(-T // 8) * 8 + 4
+    kp = -(-Dh * itemsize // 32) * 32 + 16
+    stage = max(chunk * kp, chunk * FWD_VPITCH * itemsize)
+    return rows * sp * 4 + rows * kp + 2 * stage
+
+
+def fwd_tile_rows(B: int, H: int, T: int, Dh: int, itemsize: int, sms: int = 132) -> int:
+    """Query rows per K4 block. Every block stages all of its head's k, v
+    and T + rows - 1 rows of Pwin through its SM, and issuing those copies
+    takes a large share of its time (``PERF.md``): so the fewest rows (most
+    blocks, most SMs busy) whose blocks still fit one a SM, else the most
+    rows (fewest copies); of 16, 32 and 64, among those whose shared memory
+    fits. Raises where none fits."""
+    fits = [r for r in FWD_ROWS
+            if fwd_smem_bytes(r, T, Dh, itemsize) <= _build.MAX_SMEM_BYTES]
+    if not fits:
+        raise ValueError(f"mhsa: T={T}, Dh={Dh} need {fwd_smem_bytes(16, T, Dh, itemsize)} "
+                         f"bytes of shared memory a block, over {_build.MAX_SMEM_BYTES}")
+    return next((r for r in fits if B * H * -(-T // r) <= sms), fits[-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed, rows: Optional[int] = None):
+    """K4 on CUDA tensors. ``rows``, the query rows a block, is picked from
+    the shape by :func:`fwd_tile_rows` unless given (to time the choices)."""
     B, T, H, Dh = _check("mhsa", q, k, v, pos_win, mask_bias, n_heads, rate)
+    item = q.element_size()
+    if rows is None:
+        rows = fwd_tile_rows(B, H, T, Dh, item, _sm_count(q.device))
+    if rows not in FWD_ROWS or fwd_smem_bytes(rows, T, Dh, item) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"mhsa: {rows} rows a block at T={T}, Dh={Dh} do not fit")
     lib = _build.library()
-    smem = lib.w2l_mhsa_smem_bytes(T, Dh, 0)
-    if smem > _build.MAX_SMEM_BYTES:
-        raise ValueError(f"mhsa: T={T}, Dh={Dh} need {smem} bytes of shared memory")
     out = torch.empty_like(q)
     rc = lib.w2l_mhsa_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_win.data_ptr(), mask_bias.data_ptr(),
         out.data_ptr(), _build.DTYPE_CODES[q.dtype], B, T, H, Dh, *_hash_args(T, rate, seed),
-        _build.stream_ptr(q))
+        rows, _build.stream_ptr(q))
     _build.check(rc, "mhsa")
     _build.LAUNCHES["mhsa"] += 1
     return out
@@ -200,7 +239,7 @@ def mhsa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_win: torch.T
     if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
         raise ValueError(f"mhsa_bwd: g must be like q; got {g.dtype} {tuple(g.shape)}")
     lib = _build.library()
-    smem = lib.w2l_mhsa_smem_bytes(T, Dh, 1)
+    smem = lib.w2l_mhsa_bwd_smem_bytes(T, Dh)
     if smem > _build.MAX_SMEM_BYTES or Dh > lib.w2l_mhsa_max_head_dim():
         raise ValueError(f"mhsa_bwd: T={T}, Dh={Dh} need {smem} bytes of shared memory, or "
                          f"the head is wider than {lib.w2l_mhsa_max_head_dim()}")
