@@ -19,8 +19,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    for equal bits; time kernel, plain version, one PyTorch call of the same
    function where there is one, and the bound; K4 also at each tile height
    (query rows a block) that fits, with the one it picks, its blocks and its
-   TFLOP/s; times are device times with the inputs in HBM (cold L2), the
-   kernel's also with L2-warm inputs;
+   TFLOP/s; K2, its dgrad and K2b also at ``CONV_EDGES`` (C = 1 with 20
+   taps, a ragged strided tile, F = 40, the largest weight the route
+   admits), each row with its route (tensor cores or CUDA cores), TFLOP/s and
+   share of the bound; times are device times with the inputs in HBM (cold
+   L2), the kernel's also with L2-warm inputs;
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -50,7 +53,11 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    its 16 layers): two updates and a validation pass on utterances of 4-6.3 s
    (K4 and K4b once per layer), emissions against the plain path, and a batch
    of 15 s utterances, beyond the relative-position table, that must take the
-   unfused path with no K4 launch.
+   unfused path with no K4 launch;
+9. the transformer at full width, 2 of its layers, with a table of 2000
+   relative positions: one bf16 update on two 134-136 s utterances (T up to
+   1712 after the pools, past K4b's limit of 1624 at Dh = 192) takes the
+   unfused path and raises nothing; serving the same batch takes K4.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -79,6 +86,15 @@ TRAIN_UTTS = 32
 TRAIN_UPDATES = {"bfloat16": 6, "float32": 4}
 CONTINUE_UPDATES = 2
 CFR_LAYERS = 4  # of the conformer recipe's 16
+# K2 and K2b at the edges of the bf16 tensor-core route, (B, T, F, C, CO, K,
+# stride, pads), beside the path's shapes: C = 1 with 20 taps (two 16-tap
+# steps); stride 2 with a ragged last tile (Tout = 50); F = 40, not a
+# multiple of a block's 16 positions; the largest weight the route admits
+# (12 x 36 x 36, 62 KB in fp32)
+CONV_EDGES = [(4, 400, 24, 1, 8, 20, 1, (10, 9)), (4, 101, 80, 16, 20, 11, 2, (8, 1)),
+              (4, 300, 40, 20, 24, 11, 1, (5, 5)), (4, 300, 80, 36, 36, 12, 1, (6, 5))]
+# the long-context transformer: its table reaches past K4b's limit
+LONG_LAYERS, LONG_BPTT = 2, 2000
 # The two model families driven at full width. ``per_forward``: launches of
 # one forward (a serving or validation batch, or an update's forward);
 # ``per_backward``: what an update launches on top of that. The flagship's
@@ -418,15 +434,25 @@ def check_mfsc(B, S, details):
     return [row]
 
 
-def check_time_conv(convs, dtype_name, details):
+def _conv_log(row, tag):
+    """One line per K2, dgrad or K2b row: route, time, TFLOP/s, bound share."""
+    log(f"[{tag}] {row['name']} {row['dtype']} {row['shape']} calls={row['calls']}: "
+        f"{row['route']}, {row['ms']:.4f} ms (library {row['library_ms']:.4f}), "
+        f"{row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['ms']:.3f} of the bound")
+
+
+def check_time_conv(convs, dtype_name, details, edges=()):
+    """K2 at every conv shape of one forward, and at ``edges`` (not on the
+    path: timed, counted 0 times)."""
     import torch
     import torch.nn.functional as F
 
     from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.tconv import route
 
     dtype = getattr(torch, dtype_name)
     rows = []
-    for key in sorted(set(convs), key=convs.index):
+    for key in sorted(set(convs), key=convs.index) + list(edges):
         B, T, Fq, C, CO, K, s, pads = key
         g = torch.Generator(device="cuda").manual_seed(T + K)
         x = torch.randn((B, T, Fq * C), device="cuda", generator=g).to(dtype)
@@ -447,16 +473,19 @@ def check_time_conv(convs, dtype_name, details):
         nbytes = item * (x.numel() + w.numel() + got.numel()) + 4 * CO
         flops = 2 * B * Tout * Fq * CO * K * C
         b_ms, b_by = bound(nbytes, flops, dtype_name)
+        ms = device_ms(kernels.time_conv, args)
         row = dict(name="time_conv", dtype=dtype_name, shape=list(key[:7]) + [list(pads)],
                    max_abs_err=err, max_rel_err=rel, tol=TOL[("time_conv", dtype_name)],
-                   ok=ok, ms=device_ms(kernels.time_conv, args),
+                   ok=ok, ms=ms,
                    warm_ms=device_ms(kernels.time_conv, args, cold=False),
-                   plain_ms=device_ms(kernels.time_conv_plain, args),
+                   plain_ms=None if key in edges else device_ms(kernels.time_conv_plain, args),
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   calls=convs.count(key))
+                   calls=convs.count(key), route=route(dtype, C, CO, K, s, Fq, "conv"),
+                   tflops=flops / ms / 1e9, edge=key in edges)
+        _conv_log(row, "K2")
         rows.append(row)
         details.append(row)
-    return rows
+    return [r for r in rows if not r["edge"]]
 
 
 def check_residual_ln(lns, dtype_name, details):
@@ -529,17 +558,19 @@ def _function_errors(got, want, dtype_name):
     return out
 
 
-def check_time_conv_backward(convs, dtype_name, details):
+def check_time_conv_backward(convs, dtype_name, details, edges=()):
     """K2 as dgrad, K2b, and the autograd function (with bias and ReLU) at
-    every conv shape of one training forward."""
+    every conv shape of one training forward, and at ``edges`` (counted 0
+    times); K2b twice for equal bits."""
     import torch
     import torch.nn.functional as F
 
     from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.tconv import route
 
     dtype = getattr(torch, dtype_name)
     rows = {"time_conv_dgrad": [], "time_conv_wgrad": []}
-    for n, key in enumerate(sorted(set(convs), key=convs.index)):
+    for n, key in enumerate(sorted(set(convs), key=convs.index) + list(edges)):
         B, T, Fq, C, CO, K, s, pads = key
         x, w, bias, dy = _conv_inputs(key, dtype)
         Tout, item = dy.shape[1], x.element_size()
@@ -562,13 +593,17 @@ def check_time_conv_backward(convs, dtype_name, details):
                 lambda a, b_: torch.nn.grad.conv2d_input(xn.shape, b_, a, stride=(1, s)),
                 (dyn, wn))
             b_ms, b_by = bound(item * (dy.numel() + w.numel() + x.numel()), flops, dtype_name)
+            ms = device_ms(kernels.time_conv_dgrad, args)
             rows["time_conv_dgrad"].append(dict(
                 name="time_conv_dgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
                 max_rel_err=rel, tol=TOL[("time_conv_dgrad", dtype_name)], ok=ok,
-                ms=device_ms(kernels.time_conv_dgrad, args),
-                warm_ms=device_ms(kernels.time_conv_dgrad, args, cold=False),
-                plain_ms=device_ms(kernels.time_conv_dgrad_plain, args),
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key)))
+                ms=ms, warm_ms=device_ms(kernels.time_conv_dgrad, args, cold=False),
+                plain_ms=(None if key in edges
+                          else device_ms(kernels.time_conv_dgrad_plain, args)),
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
+                route=route(dtype, C, CO, K, s, Fq, "dgrad"), tflops=flops / ms / 1e9,
+                edge=key in edges))
+            _conv_log(rows["time_conv_dgrad"][-1], "K2 dgrad")
 
         args = (x, dy, K, Fq, s, pads)
         got = kernels.time_conv_wgrad(*args)
@@ -580,13 +615,16 @@ def check_time_conv_backward(convs, dtype_name, details):
             lambda a, b_: torch.nn.grad.conv2d_weight(a, wn.shape, b_, stride=(1, s)),
             (xn, dyn))
         b_ms, b_by = bound(item * (x.numel() + dy.numel()) + 4 * K * C * CO, flops, dtype_name)
+        ms = device_ms(kernels.time_conv_wgrad, args)
         row = dict(
             name="time_conv_wgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
             max_rel_err=rel, tol=TOL[("time_conv_wgrad", dtype_name)], ok=bool(ok),
-            ms=device_ms(kernels.time_conv_wgrad, args),
-            warm_ms=device_ms(kernels.time_conv_wgrad, args, cold=False),
-            plain_ms=device_ms(kernels.time_conv_wgrad_plain, args),
-            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key))
+            ms=ms, warm_ms=device_ms(kernels.time_conv_wgrad, args, cold=False),
+            plain_ms=None if key in edges else device_ms(kernels.time_conv_wgrad_plain, args),
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
+            route=route(dtype, C, CO, K, s, Fq, "wgrad"), tflops=flops / ms / 1e9,
+            edge=key in edges)
+        _conv_log(row, "K2b")
 
         # the whole function against autograd of the plain forward
         grads = {}
@@ -601,7 +639,7 @@ def check_time_conv_backward(convs, dtype_name, details):
         rows["time_conv_wgrad"].append(row)
     for v in rows.values():
         details.extend(v)
-    return rows
+    return {k: [r for r in v if not r["edge"]] for k, v in rows.items()}
 
 
 def check_residual_ln_bwd(lns, dtype_name, details):
@@ -1333,6 +1371,90 @@ def conformer_path(tmp, tokens, lexicon, seed):
     return result
 
 
+def long_context_path(tmp, tokens, lexicon, seed):
+    """``recipes/transformer_ctc`` at full width, ``LONG_LAYERS`` of its 12
+    layers, with a relative-position table of ``LONG_BPTT`` frames: two
+    utterances of 134-136 s give T = 1680-1712 after the pools, inside the
+    table and past K4b's limit (T + Dh <= 1816, so T <= 1624 at Dh = 192).
+    One bf16 update through ``Trainer`` takes the unfused path (no K4 and no
+    K4b launch) and raises nothing; its validation pass, no gradient wanted,
+    takes K4 once per layer; emissions of the kernel path against the plain
+    path."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    with open(TR_ARCH) as f:
+        lines = [l for l in f.read().splitlines() if l.strip() and not l.startswith("#")]
+    layers = [l.split() for l in lines if l.startswith("TR")][:LONG_LAYERS]
+    for fields in layers:
+        fields[4] = str(LONG_BPTT)
+    arch = os.path.join(tmp, "transformer_long.arch")
+    with open(arch, "w") as f:
+        f.write("\n".join([l for l in lines if not l.startswith("TR")][:-1]
+                          + [" ".join(x) for x in layers] + [lines[-1]]) + "\n")
+    root = os.path.join(tmp, "data")
+    lst, _, _, secs = synth_dataset(root, seed + 4, 2, "long", (tokens, lexicon), (134.0, 136.0))
+    spec = dict(name="long_context", arch=arch, flags={},
+                per_forward={"mfsc": 1, "residual_ln": 2 * LONG_LAYERS},
+                per_backward={"residual_ln_bwd": 2 * LONG_LAYERS},
+                train=dict(batchsize=2, netoptim="adam", lr=5e-4, warmup=2,
+                           lr_sched="inv_sqrt", lr_step_decay=20000, maxgradnorm=0.1))
+    cfg = Config()
+    cfg.update(train_flags(spec, lst, lst, tokens, lexicon, os.path.join(tmp, "runs"),
+                           "bfloat16", 1))
+    tr = Trainer(cfg, device="cuda")
+    losses, step = [], tr.train_step
+
+    def recording(*a):
+        res = step(*a)
+        losses.append(res[0])
+        return res
+
+    tr.train_step = recording
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    tr.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want = expected_launches(spec, 1, 1)
+    want["mhsa"] = LONG_LAYERS  # the validation pass only
+    if launches != want or len(losses) != 1 or not math.isfinite(losses[0]):
+        fail(f"long context: launches {launches}, expected {want}; losses {losses}")
+
+    plain = build_arch_module(arch, N_FEAT, tr.n_classes, ops=kernels.PLAIN)
+    plain.load_state_dict(tr.model.state_dict())
+    plain.cuda().eval()
+    tr.model.eval()
+    cfg_l = Config()
+    cfg_l.update(dict(cfg.asdict(), batchsize=2))
+    ds = AsrDataset(lst, tr.token_dict, tr.lexicon, cfg_l, batch_size=2)
+    b = tr._to_device(pad_batch_rows(ds.materialize(ds.batch_specs()[0]), 1))
+    with torch.no_grad():
+        feats, flen = tr.featurizer(b["audio"], b["audio_len"])
+        kernels.reset_launches()
+        got, _ = tr.model(feats.to(torch.bfloat16), flen)
+        n_k4 = kernels.LAUNCHES["mhsa"]
+        ref, _ = plain(feats.to(torch.bfloat16), flen)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs()
+    tol = EM_TOL["bfloat16"]
+    result = dict(layers=LONG_LAYERS, bptt=LONG_BPTT, audio_s=secs, frames=int(got.shape[1]),
+                  loss=losses[0], run_s=run_s, launches=launches, serve_k4_launches=n_k4,
+                  em_max_abs_err=err.max().item(), em_mean_abs_err=err.mean().item(), tol=tol)
+    log(f"[long context] {json.dumps(result)}")
+    if not (torch.isfinite(got).all() and n_k4 == LONG_LAYERS and got.shape[1] > 1624
+            and err.max().item() <= tol[0] and err.mean().item() <= tol[1]):
+        fail(f"long context: serving past K4b's limit: {result}")
+    return result
+
+
 # ---------------------------------------------------------------------------
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1415,9 +1537,9 @@ def main() -> None:
         details = []
         rows = {"mfsc": check_mfsc(BATCH, S, details)}
         for dt in ("float32", "bfloat16"):
-            rows[("time_conv", dt)] = check_time_conv(convs, dt, details)
+            rows[("time_conv", dt)] = check_time_conv(convs, dt, details, CONV_EDGES)
             rows[("residual_ln", dt)] = check_residual_ln(lns, dt, details)
-            back = check_time_conv_backward(tconvs, dt, details)
+            back = check_time_conv_backward(tconvs, dt, details, CONV_EDGES)
             rows[("time_conv_dgrad", dt)] = back["time_conv_dgrad"]
             rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
             rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(tlns, dt, details)
@@ -1472,6 +1594,9 @@ def main() -> None:
         # 8. the conformer
         conformer = conformer_path(tmp, tokens, lexicon, args.seed)
 
+        # 9. the transformer past K4b's limit
+        long_context = long_context_path(tmp, tokens, lexicon, args.seed)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -1511,7 +1636,7 @@ def main() -> None:
                            n_params=n_params,
                            transformer=dict(n_params=tr_params, main=tr_served,
                                             profile=tr_prof, training=tr_trained),
-                           conformer=conformer,
+                           conformer=conformer, long_context=long_context,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

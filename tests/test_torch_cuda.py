@@ -212,6 +212,76 @@ def test_time_conv_function_grads(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
             assert bad.float().mean().item() <= 1e-3 and err.max().item() < 1.0
 
 
+# Edge shapes of the bf16 tensor-core route, (B, T, F, C, CO, K, stride,
+# lp, rp): C = 1 with two 16-tap steps; stride 2 with a ragged last tile
+# (Tout = 25); F not a multiple of the block's 16 positions (40, 6); the
+# largest weight the route admits (12 x 36 x 36, 62 KB in fp32); a block
+# walking several tiles (Tout = 690); C = 2 (4-byte copies); CO odd; C = 20
+# (8-byte copies and a k8 step)
+TCONV_EDGE = [
+    (1, 90, 24, 1, 8, 20, 1, 10, 9),
+    (2, 51, 80, 16, 20, 11, 2, 8, 1),
+    (2, 37, 40, 20, 24, 11, 1, 5, 5),
+    (1, 33, 6, 8, 8, 3, 1, 1, 1),
+    (1, 40, 80, 36, 36, 12, 1, 6, 5),
+    (4, 700, 80, 28, 28, 11, 1, 10, 0),
+    (1, 50, 80, 2, 6, 5, 1, 2, 2),
+    (1, 29, 16, 4, 7, 10, 2, 7, 1),
+    (3, 64, 80, 20, 20, 9, 1, 4, 4),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", TCONV_EDGE)
+def test_time_conv_edge_shapes(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    """K2, K2 as dgrad and K2b at the edges of the tensor-core route, against
+    their plain versions; K2b twice for equal bits."""
+    x, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    bias = _randn((CO,), CO, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2  # fp32 sums; one bf16 output rounding
+    got = kernels.time_conv(x, w, F, s, (lp, rp), bias, relu=True)
+    want = kernels.time_conv_plain(x, w, F, s, (lp, rp), bias, relu=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = kernels.time_conv_dgrad(dy, w, F, T, s, (lp, rp))
+    want = kernels.time_conv_dgrad_plain(dy, w, F, T, s, (lp, rp))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    want = kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp))
+    torch.cuda.synchronize()
+    # as test_time_conv_wgrad_kernel: fp32 sums of exact products, another order
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+    assert torch.equal(got, kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_conv_wgrad_first_conv_equal_bits(cuda, dtype):
+    """K2b at the flagship's first conv (C = 1, K = 9, stride 2) at B = 16:
+    equal inputs, equal bits."""
+    x, _, dy = _conv_case(cuda, dtype, 16, 600, 80, 1, 16, 9, 2, 6, 2)
+    runs = [kernels.time_conv_wgrad(x, dy, 9, 80, 2, (6, 2)) for _ in range(3)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    torch.testing.assert_close(runs[0], kernels.time_conv_wgrad_plain(x, dy, 9, 80, 2, (6, 2)),
+                               rtol=1e-4, atol=2e-2)
+
+
+def test_time_conv_smem_formulas_match_the_kernels(cuda):
+    """The Python mirrors the route and the wrappers evaluate without a card
+    against the C layouts of the tensor-core K2 and K2b."""
+    from wav2letter_tpu_torch.kernels import tconv
+
+    lib = kernels.library()
+    for C, CO, K, s in ((1, 16, 9, 2), (16, 20, 11, 2), (20, 24, 11, 2), (24, 28, 12, 1),
+                        (28, 28, 11, 1), (36, 36, 12, 1), (2, 6, 5, 1), (1, 8, 20, 1),
+                        (4, 7, 10, 2)):
+        assert lib.w2l_time_conv_tc_smem_bytes(C, CO, K, s) == tconv.tc_smem_bytes(C, CO, K, s)
+        assert lib.w2l_time_conv_wgrad_tc_smem_bytes(C, CO, K, s) == \
+            tconv.tc_wgrad_smem_bytes(C, CO, K, s)
+        assert lib.w2l_time_conv_wgrad_tc_reps(C, K) == tconv.tc_wgrad_units(C, K)[1]
+        assert lib.w2l_time_conv_wgrad_window(C, CO, K, s) * 4 == \
+            tconv.cc_wgrad_smem_bytes(C, CO, K, s, 1) - 4 * (-(-K * C * CO // 4) * 4)
+    assert lib.w2l_time_conv_tile() == lib.w2l_time_conv_wgrad_tile() == tconv.CC_TT
+
+
 def test_time_conv_function_skips_dgrad_without_input_grad(cuda):
     x, w, dy = _conv_case(cuda, torch.float32, 2, 40, 80, 1, 16, 9, 2, 6, 2)
     w.requires_grad_(True)
@@ -432,6 +502,17 @@ def test_mhsa_smem_formula_matches_the_kernel(cuda):
                     attention.fwd_smem_bytes(rows, T, Dh, item)
 
 
+def test_mhsa_bwd_limits_match_the_kernel(cuda):
+    """The Python mirrors that ``mhsa_takes`` evaluates without a card
+    against the C formulas of K4b's limits."""
+    from wav2letter_tpu_torch.kernels import attention
+
+    lib = kernels.library()
+    assert lib.w2l_mhsa_max_head_dim() == attention.bwd_max_head_dim()
+    for T, Dh in ((1, 8), (17, 136), (192, 192), (1624, 192), (1625, 192), (2048, 256)):
+        assert lib.w2l_mhsa_bwd_smem_bytes(T, Dh) == attention.bwd_smem_bytes(T, Dh)
+
+
 @pytest.mark.parametrize("rate", [0.0, 0.3])
 @pytest.mark.parametrize("B,T,H,Dh,masked", ATTN_SHAPES)
 def test_mhsa_bwd_kernel(cuda, B, T, H, Dh, masked, rate):
@@ -562,3 +643,30 @@ def test_attention_training_mode_on_the_card(cuda):
         outs.append(m(feats, flen)[0])
     assert torch.equal(outs[0], outs[2])
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_past_k4b_limit_trains_unfused(cuda, dtype):
+    """A TR layer whose table reaches past K4b's limit (Dh = 8: T <= 1808):
+    serving at T = 1812 takes K4, an update takes the unfused path, with no
+    error, and both agree with the plain path."""
+    from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
+
+    torch.manual_seed(0)
+    m = MultiHeadSelfAttention(16, 8, 2, 1830).to(cuda).eval()
+    plain = MultiHeadSelfAttention(16, 8, 2, 1830, ops=kernels.PLAIN).to(cuda).eval()
+    plain.load_state_dict(m.state_dict())
+    x = _randn((1, 2, 1812, 16), 4, cuda, dtype)
+    kernels.reset_launches()
+    with torch.no_grad():
+        served = m(x)
+    assert kernels.LAUNCHES["mhsa"] == 1
+    out = m(x)
+    out.float().square().sum().backward()
+    assert kernels.LAUNCHES["mhsa"] == 1 and kernels.LAUNCHES["mhsa_bwd"] == 0
+    assert all(torch.isfinite(p.grad).all() for p in m.parameters())
+    with torch.no_grad():
+        want = plain(x)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2  # 1812-term sums; bf16 rounding of p
+    for got in (served, out.detach()):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

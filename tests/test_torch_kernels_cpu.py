@@ -209,3 +209,124 @@ def test_residual_ln_bwd_plain_matches_pallas(R, D):
     kernels.residual_ln(*leaves)[0].backward(tg)
     for leaf, want in zip(leaves, (want_dx, want_dy, want_dw, want_db)):
         np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the K2 route and the bf16 tensor-core kernels' shapes, in Python
+# ---------------------------------------------------------------------------
+# (C, CO, K, stride) of the flagship's 15 convs and of recipes/streaming_
+# convnets_librispeech's C2 and TDS layers
+RECIPE_CONVS = [(1, 16, 9, 2), (16, 16, 9, 1), (16, 20, 11, 2), (20, 20, 9, 1),
+                (20, 24, 11, 2), (24, 24, 11, 1), (24, 28, 12, 1), (28, 28, 11, 1),
+                (1, 10, 11, 2), (10, 14, 11, 2), (14, 18, 11, 2), (10, 10, 9, 1),
+                (14, 14, 9, 1), (18, 18, 9, 1)]
+
+
+def test_conv_route_admits_only_what_the_kernels_take():
+    """Every time-only conv up to the 64 KB edge of fp32 weights that
+    ``Conv2D.time_only`` admits is one the kernels take: the CUDA-core K2,
+    its dgrad and K2b fit their shared memory at any F (so both types run),
+    and where bf16 goes to the tensor cores their layouts fit too. Shapes the
+    kernels cannot stage go to ``F.conv2d``."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels import tconv as T
+    from wav2letter_tpu_torch.models.layers import K2_MAX_WEIGHT_BYTES, Conv2D
+
+    limit = _build.MAX_SMEM_BYTES
+    widths = (1, 2, 3, 7, 8, 16, 20, 28, 36, 48, 64, 96, 128, 512, 2048, 16384)
+    admitted = refused = 0
+    for K in (1, 2, 5, 9, 12, 16, 33):
+        for C in widths:
+            for CO in widths:
+                if 4 * K * C * CO > K2_MAX_WEIGHT_BYTES:
+                    continue
+                for s in (1, 2):
+                    with torch.device("meta"):
+                        conv = Conv2D(C, CO, K, 1, s)
+                    takes = T.time_conv_takes(K, C, CO, s)
+                    assert conv.time_only == takes, (K, C, CO, s)
+                    if not takes:
+                        refused += 1
+                        continue
+                    admitted += 1
+                    for F in (1, 3, 80, 1000):
+                        assert T.cc_smem_bytes(C, CO, K, s, F) <= limit
+                        assert T.cc_smem_bytes(CO, C, K, 1, F) <= limit  # dgrad
+                        fb = T.cc_wgrad_fb(C, CO, K, s, F)
+                        assert T.cc_wgrad_smem_bytes(C, CO, K, s, fb) <= limit
+                        if T.tc_takes(C, CO, K, s, F):
+                            assert T.tc_smem_bytes(C, CO, K, s) <= limit
+                        if T.tc_wgrad_takes(C, CO, K, s, F):
+                            assert T.tc_wgrad_smem_bytes(C, CO, K, s) <= limit
+    assert admitted > 1000 and refused > 0
+    # the fault the route had: a 1-tap conv of 16384 channels admitted by
+    # weight bytes alone, whose window no block can stage
+    assert not T.time_conv_takes(1, 16384, 1, 1)
+    with torch.device("meta"):
+        assert not Conv2D(16384, 1, 1).time_only
+        assert Conv2D(36, 36, 12).time_only  # the largest weight admitted: 62 KB
+
+
+@pytest.mark.parametrize("C,CO,K,s", RECIPE_CONVS)
+def test_recipe_convs_take_the_tensor_cores_in_bf16(C, CO, K, s):
+    """At F = 80 every recipe conv runs forward, dgrad and K2b on the tensor
+    cores in bf16 (the first conv, C = 1, by its taps), and on the CUDA
+    cores in fp32."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    for kind in ("conv", "dgrad", "wgrad"):
+        assert T.route(torch.bfloat16, C, CO, K, s, 80, kind) == "tensor cores"
+        assert T.route(torch.float32, C, CO, K, s, 80, kind) == "CUDA cores"
+    assert T.time_conv_takes(K, C, CO, s)
+
+
+def test_tensor_core_layouts_and_picks():
+    """The Python mirrors of the tensor-core kernels' shapes: copy granule,
+    shared memory, K2b's units and warps a unit, tiles a block walks."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    assert [T.tc_granule(C, F) for C, F in ((16, 80), (20, 80), (28, 80), (2, 80), (1, 80),
+                                             (1, 6), (1, 3), (5, 3), (28, 3))] == \
+        [16, 8, 8, 4, 16, 4, 0, 0, 8]
+    # C = 28, CO = 28, K = 11: weight 11 x 32 rows of 40; ring 42 rows of 16 x
+    # 40; table
+    assert T.tc_smem_bytes(28, 28, 11, 1) == 2 * 352 * 40 + 2 * 42 * 640 + 32 * 28
+    # C = 1, K = 9, stride 2: 16 tap rows of 24; ring (15 * 2 + 9) + 32 rows
+    # of 24, rounded up to an even 72
+    assert T.tc_smem_bytes(1, 16, 9, 2) == 2 * 16 * 24 + 2 * 72 * 24 + 32
+    assert T.tc_wgrad_units(28, 11) == (22, 1)  # 22 items: 3 a warp at most
+    assert T.tc_wgrad_units(1, 9) == (1, 8)
+    assert T.tc_wgrad_units(16, 9) == (9, 2)  # 18 items, not 2 units on one warp of 8
+    assert T.tc_wgrad_units(8, 3) == (3, 8)
+    assert T.tc_wgrad_units(2, 5) == (5, 4)
+    assert not T.tc_wgrad_takes(36, 36, 12, 1, 80)  # 36 units: the CUDA cores
+    assert T.tc_takes(36, 36, 12, 1, 80)
+    assert not T.tc_takes(5, 7, 10, 2, 3)  # odd C
+    assert not T.tc_takes(16, 72, 3, 1, 80)  # CO past 64
+    # blocks an SM: two up to 113 KB of shared memory each
+    assert T.tc_blocks_per_sm(T.tc_smem_bytes(28, 28, 11, 1)) == 2
+    assert T.tc_blocks_per_sm(T.tc_wgrad_smem_bytes(20, 24, 11, 2)) == 2
+    assert T.tc_blocks_per_sm(T.tc_smem_bytes(64, 64, 16, 2)) == 1
+    # serving's first TDS (B=4, Tout=768, 20 pairs of batch row and 16
+    # positions) on 264 slots: 13 runs a pair, 4 of 48 tiles each, 240
+    # blocks in one wave; the last (Tout=192): one tile a block; training
+    # (B=16, 80 pairs): 3 runs of 16 tiles, or one run on 132 slots
+    assert T.tc_tiles_per_block(4, 768, 80, 264) == 4
+    assert T.tc_tiles_per_block(4, 192, 80, 264) == 1
+    assert T.tc_tiles_per_block(16, 768, 80, 264) == 16
+    assert T.tc_tiles_per_block(16, 768, 80, 132) == 48
+    # (tiles a block, blocks): the serving TDS conv fits two blocks an SM
+    assert T.tc_schedule(4, 768, 80, T.tc_smem_bytes(16, 16, 9, 1), 132) == (4, 240)
+    assert T.tc_schedule(16, 190, 80, T.tc_wgrad_smem_bytes(28, 28, 11, 1), 132) == (4, 240)
+
+
+def test_k2_trace_finds_its_anchors_in_the_kernel_sources():
+    """``kernels/trace_k2.py`` stamps the tensor-core K2 and K2b by editing
+    copies of their sources at fixed anchors; it must find each of them once."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k2 import _PROLOGUE_K2, _PROLOGUE_K2B, _instrument
+
+    for name, prologue, sym in (("tconv.cu", _PROLOGUE_K2, "g_k2_stamps"),
+                                ("tconv_wgrad.cu", _PROLOGUE_K2B, "g_k2b_stamps")):
+        traced = _instrument((_build.CSRC / name).read_text(), prologue, sym)
+        assert traced.count("clock64()") == 6 and f"{sym}_read" in traced

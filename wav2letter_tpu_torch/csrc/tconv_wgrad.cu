@@ -9,8 +9,10 @@
 //
 // Bound on the H100: the same operations as the forward conv (2*K*C FLOP per
 // element of dy), so operations in float32; in bfloat16, held against the
-// tensor cores, the bytes of x and dy. This first version runs the products
-// on the CUDA cores in fp32 for both types.
+// tensor cores, the bytes of x and dy. Two routes: bf16 runs on the tensor
+// cores (wgrad_tc_kernel, below) where the shape allows
+// (kernels/tconv.py::tc_wgrad_takes); float32, and bf16 shapes that route
+// does not take, run on the CUDA cores (wgrad_partial_kernel).
 //
 // Design. The TPU kernel carries one accumulator through its sequential
 // grid; here blocks run in parallel, so the sum over (b, t, f) is split in
@@ -29,6 +31,7 @@
 // same geometry.
 //   Pass 2: one thread per weight sums the blocks' partials in block order.
 #include "common.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
@@ -180,9 +183,284 @@ int launch(const void* x, const void* dy, void* partial, void* dw, int B, int Ti
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+// dw[k] (C x CO) = x_k^T . dy, the reduction over the positions (t, f), 16
+// at a time: the 16 frequencies of one output frame. A block walks CH tiles
+// of 16 frames of one batch row and 16 frequencies; the window of x is a
+// ring of rows as in the forward (tc_tile.cuh), dy a ring of two tiles, both
+// staged by cp.async while the previous tile's products run. Channels are
+// the M dimension here, in m-tiles of 16, but a position keeps the forward's
+// pitch (C padded to 8): where C is not a multiple of 16 the last m-tile's
+// rows past the pitch read the next position's channels (or, past the last
+// slot, the dy ring that follows), and their sums, rows c >= C, are dropped.
+//   A of tap k: ring row t * stride + k, read transposed (ldmatrix.trans:
+// positions are its rows, channels contiguous), 16 channels an m-tile.
+//   B: dy frame t, positions x CO, read by ldmatrix.trans. One B fragment
+// feeds every (tap, m-tile) unit the warp owns.
+//   At C = 1 (the first conv) the taps are the M dimension: A of a unit is
+// the 16 ring rows t * stride + kk (kk < 16 a unit), read as they lie
+// (ldmatrix: frames are rows, positions contiguous); rows for kk >= K are
+// computed and dropped.
+// Accumulators: a (tap, m-tile) unit is a 16 x CO tile, NT m16n8 fragments.
+// The frames are split into reps classes (t mod reps), and the (unit,
+// class) items are dealt to the 8 warps round-robin, at most UMAX a warp:
+// reps is the power of two up to 8 that spreads the items most evenly (9
+// units: 18 items, 3 a warp at most, where one class would leave one warp 2
+// units and the others 1). Each (k, c, co) of a class has one owner warp.
+// Sums stay bit-reproducible: a block writes its partial (one row per class)
+// once, at the end, and wgrad_reduce_kernel adds the rows in order.
+namespace tc = w2l::tc;
+using tc::Ring;
+
+constexpr int UMAX = 3;  // (unit, class) items a warp at most
+
+struct WgLayout {
+  Ring xr, dr;  // the ring of x's window, the ring of dy's tiles
+  int units;    // (tap, 16-channel m-tile) pairs; 16-tap groups at C = 1
+  int CM;       // m-tiles of channels (1 at C = 1)
+  int reps;     // classes of frames (t mod reps), each with its own partial
+  int bytes;    // dynamic shared memory
+};
+
+__host__ __device__ inline WgLayout wg_layout(int C, int CO, int K, int stride) {
+  using namespace w2l::tc;
+  WgLayout L;
+  L.xr = make_ring(C, odd_units(pad8(C)), stride, K - 1);
+  L.dr = make_ring(CO, odd_units(pad8(CO)), 1, 0);
+  L.CM = C == 1 ? 1 : pad16(C) / 16;
+  L.units = C == 1 ? (K + 15) / 16 : K * L.CM;
+  // the classes that spread units * reps items most evenly over the warps
+  L.reps = 1;
+  int best_items = 0, best_per = 1;
+  for (int r = 1; r <= WARPS; r *= 2) {
+    const int items = L.units * r, per = (items + WARPS - 1) / WARPS;
+    if (per > UMAX) break;
+    if (items * best_per > best_items * per) {
+      L.reps = r;
+      best_items = items;
+      best_per = per;
+    }
+  }
+  L.bytes = 2 * L.xr.NR * L.xr.RP + 2 * L.dr.NR * L.dr.RP +
+            4 * (table_entries(C) + table_entries(CO));
+  return L;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(w2l::tc::THREADS, 2)
+wgrad_tc_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                float* __restrict__ partial, int Tin, int F, int C, int CO, int K, int stride,
+                int lp, int Tout, int CH, int G, int Gd) {
+  using namespace w2l::tc;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const WgLayout L = wg_layout(C, CO, K, stride);
+  const Ring& xr = L.xr;
+  const Ring& dr = L.dr;
+  __nv_bfloat16* xring = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* dring = xring + xr.NR * xr.RP;
+  int* xtable = reinterpret_cast<int*>(dring + dr.NR * dr.RP);
+  int* dtable = xtable + table_entries(C);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, f0 = blockIdx.y * FB;
+  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const int nT = (Tout + tc::TT - 1) / tc::TT;
+  const int tile0 = blockIdx.x * CH;
+  const int ntiles = max(0, min(CH, nT - tile0));
+
+  uint4* rz = reinterpret_cast<uint4*>(tc_smem);
+  for (int i = tid; i < (xr.NR * xr.RP + dr.NR * dr.RP) / 8; i += tc::THREADS)
+    rz[i] = make_uint4(0, 0, 0, 0);
+  fill_table(xtable, C, xr.Pe, G, tid);
+  fill_table(dtable, CO, dr.Pe, Gd, tid);
+  __syncthreads();
+
+  // this warp's items: item i = warp + 8 j is unit i mod units on the frames
+  // of class i / units
+  int unit[UMAX], rep[UMAX], nmine = 0, classes = 0;
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    const int i = warp + WARPS * j;
+    unit[j] = i % L.units;
+    rep[j] = i / L.units;
+    if (i < L.units * L.reps) {
+      nmine = j + 1;
+      classes |= 1 << rep[j];
+    }
+  }
+
+  const int t_first = tile0 * tc::TT;
+  const int xbase = t_first * stride - lp;
+  const int fleft = F - f0;
+  const __nv_bfloat16* xb =
+      x + static_cast<size_t>(b) * Tin * F * C + static_cast<size_t>(f0) * C;
+  const __nv_bfloat16* dyb =
+      dy + static_cast<size_t>(b) * Tout * F * CO + static_cast<size_t>(f0) * CO;
+  const uint32_t xs = smem_addr(xring), ds = smem_addr(dring);
+  if (ntiles > 0) {
+    stage_rows(xs, xb, xtable, xr, xbase, xr.W, xbase, Tin, 1, F, C, fleft, G, tid);
+    stage_rows(ds, dyb, dtable, dr, t_first, tc::TT, t_first, Tout, 1, F, CO, fleft, Gd, tid);
+  }
+  cp_async_commit();
+
+  const int mat = lane >> 3, li = lane & 7;
+  const int g = lane >> 2, q = lane & 3;
+  const int b_off = 2 * (((mat & 1) * 8 + li) * dr.Pe + (mat >> 1) * 8);
+  // A: channels mode, rows are positions (mat >> 1), channels (mat & 1);
+  // taps mode, rows are frames (mat & 1), positions (mat >> 1)
+  const int a_off = 2 * (((mat >> 1) * 8 + li) * xr.Pe + (mat & 1) * 8);
+  const int tap_kk = (mat & 1) * 8 + li, tap_pos = (mat >> 1) * 8;
+  // per item: the A rows' offset from a frame's first window row (its tap k,
+  // or at C = 1 its taps and this lane's), and the byte offset in a row
+  int row_off[UMAX], col_off[UMAX];
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    if (xr.tap) {
+      row_off[j] = unit[j] * 16 + tap_kk;
+      col_off[j] = 2 * tap_pos;
+    } else {
+      row_off[j] = unit[j] / L.CM;
+      col_off[j] = 2 * (unit[j] - row_off[j] * L.CM) * 16 + a_off;
+    }
+  }
+
+  float acc[UMAX][NT][4];
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    if (it + 1 < ntiles) {
+      stage_rows(xs, xb, xtable, xr, xbase + xr.W + it * tc::TT * stride, tc::TT * stride,
+                 xbase, Tin, 1, F, C, fleft, G, tid);
+      stage_rows(ds, dyb, dtable, dr, t_first + (it + 1) * tc::TT, tc::TT, t_first, Tout, 1,
+                 F, CO, fleft, Gd, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const int tb = it * tc::TT;
+    const int d0 = tb % dr.NR;  // dy slot of the tile's first frame (NR = 32)
+    int x0 = (tb * stride) % xr.NR;  // ring slot of frame tl's first window row
+    for (int tl = 0; nmine > 0 && tl < tc::TT && t_first + tb + tl < Tout; ++tl) {
+      const int cls = tl & (L.reps - 1);
+      if ((classes >> cls) & 1) {
+        uint32_t bf[NT][2];
+        load_b16<NT>(bf, ds + 2 * (d0 + tl) * dr.RP, b_off);
+#pragma unroll
+        for (int j = 0; j < UMAX; ++j) {
+          if (j >= nmine) break;
+          if (rep[j] != cls) continue;
+          int slot = x0 + row_off[j];  // < 2 NR: one wrap at most
+          if (slot >= xr.NR) slot -= xr.NR;
+          uint32_t a[4];
+          if (xr.tap)
+            ldsm_x4(a, xs + 2 * slot * xr.RP + col_off[j]);
+          else
+            ldsm_x4_trans(a, xs + 2 * slot * xr.RP + col_off[j]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) mma_k16(acc[j][n], a, bf[n][0], bf[n][1]);
+        }
+      }
+      x0 += stride;
+      if (x0 >= xr.NR) x0 -= xr.NR;
+    }
+    __syncthreads();  // the ring slots this tile read are free for the next copies
+  }
+
+  // the block's partial: row blk * reps + class, each (k, c, co) from its owner
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    if (j >= nmine) break;
+    float* out = partial + static_cast<size_t>(blk * L.reps + rep[j]) * K * C * CO;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int k, c;
+      if (xr.tap) {
+        k = unit[j] * 16 + g + 8 * h;
+        c = 0;
+        if (k >= K) continue;
+      } else {
+        k = unit[j] / L.CM;
+        c = (unit[j] - k * L.CM) * 16 + g + 8 * h;
+        if (c >= C) continue;
+      }
+      float* op = out + (static_cast<size_t>(k) * C + c) * CO;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int co = n * 8 + 2 * q;
+        if (co < CO) op[co] = acc[j][n][2 * h];
+        if (co + 1 < CO) op[co + 1] = acc[j][n][2 * h + 1];
+      }
+    }
+  }
+}
+
+template <int NT>
+int launch_tc(const void* x, const void* dy, void* partial, void* dw, int B, int Tin, int F,
+              int C, int CO, int K, int stride, int lp, int Tout, int CH, int G, int Gd,
+              cudaStream_t stream) {
+  const WgLayout L = wg_layout(C, CO, K, stride);
+  w2l::allow_smem(wgrad_tc_kernel<NT>, L.bytes);
+  const int nT = (Tout + w2l::tc::TT - 1) / w2l::tc::TT;
+  dim3 grid((nT + CH - 1) / CH, (F + w2l::tc::FB - 1) / w2l::tc::FB, B);
+  wgrad_tc_kernel<NT><<<grid, w2l::tc::THREADS, L.bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(dy),
+      static_cast<float*>(partial), Tin, F, C, CO, K, stride, lp, Tout, CH, G, Gd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int wsize = K * C * CO;
+  const int rows = static_cast<int>(grid.x * grid.y * grid.z) * L.reps;
+  wgrad_reduce_kernel<<<(wsize + tc::THREADS - 1) / tc::THREADS, tc::THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), rows, wsize);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tc<NT> for NT = nt, the n-tiles of 8 output channels (1..8)
+template <int NT = 1, typename... A>
+int launch_nt(int nt, A... a) {
+  if constexpr (NT > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (nt == NT) return launch_tc<NT>(a...);
+    return launch_nt<NT + 1>(nt, a...);
+  }
+}
+
 }  // namespace
 
 extern "C" int w2l_time_conv_wgrad_tile() { return TT; }
+
+// Dynamic shared memory of the bf16 tensor-core K2b, and the partial rows
+// one of its blocks writes (classes of frames); kernels/tconv.py mirrors both.
+extern "C" int w2l_time_conv_wgrad_tc_smem_bytes(int C, int CO, int K, int stride) {
+  return wg_layout(C, CO, K, stride).bytes;
+}
+extern "C" int w2l_time_conv_wgrad_tc_reps(int C, int K) {
+  return wg_layout(C, 2, K, 1).reps;
+}
+
+// The bf16 K2b on the tensor cores: CO even and at most 64; C even, or C = 1;
+// at most 8 * UMAX (tap, 16-channel) units. G and Gd, the bytes of one
+// cp.async of x and of dy, divide a position's channels (x's 16 positions at
+// C = 1) and a row; a block walks CH tiles of 16 frames. partial holds
+// (blocks * reps, K*C*CO) float32.
+extern "C" int w2l_time_conv_wgrad_tc(const void* x, const void* dy, void* partial, void* dw,
+                                      int B, int Tin, int F, int C, int CO, int K, int stride,
+                                      int lp, int Tout, int CH, int G, int Gd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WgLayout L = wg_layout(C, CO, K, stride);
+  if (CH < 1 || (CO & 1) || L.units > w2l::tc::WARPS * UMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_nt((CO + 7) / 8, x, dy, partial, dw, B, Tin, F, C, CO, K, stride, lp, Tout,
+                   CH, G, Gd, s);
+}
 
 // Floats of shared memory one frequency of a tile takes, beside the K*C*CO
 // partial sum: the wrapper sizes Fb with it.

@@ -15,6 +15,7 @@ Nothing here runs at import: the first wrapper that launches a kernel calls
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -42,6 +43,11 @@ SIGNATURES = {
     "w2l_time_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P],
     "w2l_time_conv_tile": [],
+    "w2l_time_conv_tc": [_P, _P, _P, _P] + [_I] * 13 + [_P],
+    "w2l_time_conv_tc_smem_bytes": [_I, _I, _I, _I],
+    "w2l_time_conv_wgrad_tc": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    "w2l_time_conv_wgrad_tc_smem_bytes": [_I, _I, _I, _I],
+    "w2l_time_conv_wgrad_tc_reps": [_I, _I],
     "w2l_time_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     "w2l_time_conv_wgrad_tile": [],
@@ -149,6 +155,12 @@ def check(rc: int, name: str) -> None:
     """Raise when a launch reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (the kernels size their grids)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -24,7 +24,6 @@ Pwin, the mask and the seed is saved: K4b recomputes the probabilities.
 
 from __future__ import annotations
 
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -200,9 +199,37 @@ def fwd_tile_rows(B: int, H: int, T: int, Dh: int, itemsize: int, sms: int = 132
     return next((r for r in fits if B * H * -(-T // r) <= sms), fits[-1])
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+# K4b (``csrc/attention.cu``): R rows a block, RG rows a thread in its
+# accumulating products, THREADS threads
+BWD_ROWS, BWD_ROWS_A_THREAD, BWD_THREADS = 16, 8, 256
+
+
+def bwd_smem_bytes(T: int, Dh: int) -> int:
+    """Dynamic shared memory of K4b's first launch (C twin
+    ``w2l_mhsa_bwd_smem_bytes``): two fp32 tiles of R rows by Dh + T."""
+    return 2 * (BWD_ROWS * Dh + BWD_ROWS * T) * 4
+
+
+def bwd_max_head_dim() -> int:
+    """The widest head K4b's one-item-per-thread launches take (C twin
+    ``w2l_mhsa_max_head_dim``)."""
+    return 2 * BWD_THREADS // (BWD_ROWS // BWD_ROWS_A_THREAD)
+
+
+def mhsa_takes(B: int, T: int, H: int, Dh: int, dtype: torch.dtype,
+               backward: bool = False) -> bool:
+    """Whether K4 takes the shape and, with ``backward``, K4b too: the limits
+    the wrappers raise on, evaluated without a card. K4 needs a head width
+    that is a multiple of 8 and the shared memory of its smallest tile
+    (``fwd_smem_bytes``; taller tiles only need more); K4b its two R x
+    (Dh + T) fp32 tiles and Dh within its largest head width."""
+    if dtype not in _build.DTYPE_CODES or min(B, T, H) < 1 or Dh < 8 or Dh % 8:
+        return False
+    item = 2 if dtype == torch.bfloat16 else 4
+    if fwd_smem_bytes(FWD_ROWS[0], T, Dh, item) > _build.MAX_SMEM_BYTES:
+        return False
+    return not backward or (bwd_smem_bytes(T, Dh) <= _build.MAX_SMEM_BYTES
+                            and Dh <= bwd_max_head_dim())
 
 
 def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed, rows: Optional[int] = None):
@@ -211,7 +238,7 @@ def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed, rows: Optional
     B, T, H, Dh = _check("mhsa", q, k, v, pos_win, mask_bias, n_heads, rate)
     item = q.element_size()
     if rows is None:
-        rows = fwd_tile_rows(B, H, T, Dh, item, _sm_count(q.device))
+        rows = fwd_tile_rows(B, H, T, Dh, item, _build.sm_count(q.device))
     if rows not in FWD_ROWS or fwd_smem_bytes(rows, T, Dh, item) > _build.MAX_SMEM_BYTES:
         raise ValueError(f"mhsa: {rows} rows a block at T={T}, Dh={Dh} do not fit")
     lib = _build.library()
@@ -238,11 +265,10 @@ def mhsa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_win: torch.T
     _build.require_cuda("mhsa_bwd", q, g)
     if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
         raise ValueError(f"mhsa_bwd: g must be like q; got {g.dtype} {tuple(g.shape)}")
+    if not mhsa_takes(B, T, H, Dh, q.dtype, backward=True):
+        raise ValueError(f"mhsa_bwd: T={T}, Dh={Dh} need {bwd_smem_bytes(T, Dh)} bytes of "
+                         f"shared memory, or the head is wider than {bwd_max_head_dim()}")
     lib = _build.library()
-    smem = lib.w2l_mhsa_bwd_smem_bytes(T, Dh)
-    if smem > _build.MAX_SMEM_BYTES or Dh > lib.w2l_mhsa_max_head_dim():
-        raise ValueError(f"mhsa_bwd: T={T}, Dh={Dh} need {smem} bytes of shared memory, or "
-                         f"the head is wider than {lib.w2l_mhsa_max_head_dim()}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
     dpos = torch.empty((2 * T - 1, Dh), dtype=torch.float32, device=q.device)
     # scratch between K4b's launches: pd and ds in the working type, and each

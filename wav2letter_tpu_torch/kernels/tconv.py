@@ -20,11 +20,172 @@ import torch
 
 from . import _build
 
-# Shared memory the wrapper lets one block use for its window of input
-# frames, on top of the weights (which take at most 37.6 KB at the flagship's
-# widths). Sets the block's frequency extent Fb.
+# Shared memory the wrapper lets one block of the CUDA-core kernels use for
+# its window of input frames, on top of the weights (which take at most
+# 37.6 KB at the flagship's widths). Sets the block's frequency extent Fb.
 _WINDOW_BYTES = 48 * 1024
 _MAX_FB = 16
+CC_TT = 32  # csrc/tconv.cu, csrc/tconv_wgrad.cu: TT, output frames per block (CUDA cores)
+WG_KV, WG_COV = 4, 4  # csrc/tconv_wgrad.cu: KV, COV
+# the bf16 tensor-core kernels (csrc/tc_tile.cuh): frames per tile,
+# positions per block, elements per ring row at C = 1, warps, units a warp
+TC_TT, TC_FB, TC_TAP_PITCH, TC_WARPS, TC_UMAX = 16, 16, 24, 8, 3
+TC_MAX_CO = 64  # eight n-tiles of 8
+
+
+def _pad(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _odd_units(n: int) -> int:
+    """n (a multiple of 8) raised to an odd number of 16-byte units of bf16."""
+    return n if (n // 8) % 2 else n + 8
+
+
+def _ring_bytes(C: int, pe: int, stride: int, span: int) -> int:
+    """Bytes of a ring of window rows (``tc_tile.cuh::make_ring``): a
+    tile's window and the next tile's new rows, rounded up to even."""
+    rp = TC_TAP_PITCH if C == 1 else TC_FB * pe
+    return 2 * rp * _pad((TC_TT - 1) * stride + span + 1 + TC_TT * stride, 2)
+
+
+def tc_smem_bytes(C: int, CO: int, K: int, stride: int) -> int:
+    """Dynamic shared memory of the bf16 tensor-core K2 (``csrc/tconv.cu::
+    tc_layout``): the weight, K*Cp rows (C padded to 8; at C = 1 the taps
+    padded to 16) of CO padded to an odd number of 16-byte units; the ring of
+    window rows; the table of copy units (8 C ints)."""
+    kr = _pad(K, 16) if C == 1 else K * _pad(C, 8)
+    return (2 * kr * _odd_units(_pad(CO, 8)) + _ring_bytes(C, _odd_units(_pad(C, 8)), stride, K - 1)
+            + 32 * C)
+
+
+def tc_wgrad_units(C: int, K: int) -> Tuple[int, int]:
+    """(units, classes) of the bf16 tensor-core K2b: units are (tap,
+    16-channel) pairs, or 16-tap groups at C = 1; frames fall into ``classes``
+    (t mod classes, a power of two up to 8), picked so that the (unit, class)
+    items spread most evenly over 8 warps, at most ``TC_UMAX`` a warp."""
+    units = -(-K // 16) if C == 1 else K * _pad(C, 16) // 16
+    reps, best = 1, (0, 1)
+    r = 1
+    while r <= TC_WARPS:
+        items = units * r
+        per = -(-items // TC_WARPS)
+        if per > TC_UMAX:
+            break
+        if items * best[1] > best[0] * per:
+            reps, best = r, (items, per)
+        r *= 2
+    return units, reps
+
+
+def tc_wgrad_smem_bytes(C: int, CO: int, K: int, stride: int) -> int:
+    """Dynamic shared memory of the bf16 tensor-core K2b (``csrc/
+    tconv_wgrad.cu::wg_layout``): the ring of x's window (as the forward's),
+    the ring of two tiles of dy, and the two tables of copy units."""
+    return (_ring_bytes(C, _odd_units(_pad(C, 8)), stride, K - 1)
+            + _ring_bytes(CO, _odd_units(_pad(CO, 8)), 1, 0) + 32 * (C + CO))
+
+
+def tc_granule(C: int, F: int) -> int:
+    """Bytes of one cp.async of the tensor-core kernels' loaders: the largest
+    of 16, 8, 4 that divides a position's C channels (at C = 1, positions are
+    copied together) and a row of F*C; 0 where none does."""
+    return next((g for g in (16, 8, 4)
+                 if (2 * F * C) % g == 0 and (C == 1 or (2 * C) % g == 0)), 0)
+
+
+def tc_takes(C: int, CO: int, K: int, stride: int, F: int) -> bool:
+    """Whether the bf16 tensor-core K2 takes the conv (forward, or dgrad as
+    the conv from CO to C channels at stride 1)."""
+    return (min(C, CO, K, stride, F) >= 1 and CO <= TC_MAX_CO and (C == 1 or C % 2 == 0)
+            and tc_granule(C, F) > 0
+            and tc_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES)
+
+
+def tc_wgrad_takes(C: int, CO: int, K: int, stride: int, F: int) -> bool:
+    """Whether the bf16 tensor-core K2b takes the shape."""
+    units, reps = tc_wgrad_units(C, K)
+    return (min(C, CO, K, stride, F) >= 1 and CO <= TC_MAX_CO and CO % 2 == 0
+            and (C == 1 or C % 2 == 0) and tc_granule(C, F) > 0 and tc_granule(CO, F) > 0
+            and units <= TC_WARPS * TC_UMAX
+            and tc_wgrad_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES)
+
+
+def cc_fb(C: int, K: int, stride: int, F: int) -> int:
+    """Frequencies a block of the CUDA-core K2 takes: its window within
+    ``_WINDOW_BYTES``, at least one."""
+    rows = (CC_TT - 1) * stride + K
+    return max(1, min(F, _MAX_FB, _WINDOW_BYTES // (rows * (C | 1) * 4)))
+
+
+def cc_smem_bytes(C: int, CO: int, K: int, stride: int, F: int = _MAX_FB) -> int:
+    """Dynamic shared memory of the CUDA-core K2 (``csrc/tconv.cu::launch``):
+    the fp32 weight and the fp32 window of Fb frequencies."""
+    rows = (CC_TT - 1) * stride + K
+    return (K * C * CO + rows * cc_fb(C, K, stride, F) * (C | 1)) * 4
+
+
+def cc_wgrad_smem_bytes(C: int, CO: int, K: int, stride: int, fb: int) -> int:
+    """Dynamic shared memory of the CUDA-core K2b at Fb = fb frequencies
+    (``csrc/tconv_wgrad.cu::smem_bytes``)."""
+    rows = (CC_TT - 1) * stride + _pad(K, WG_KV)
+    return (_pad(K * C * CO, 4) + _pad(rows * fb * (C | 1), 4)
+            + CC_TT * fb * _pad(CO, WG_COV)) * 4
+
+
+def cc_wgrad_fb(C: int, CO: int, K: int, stride: int, F: int) -> int:
+    window = cc_wgrad_smem_bytes(C, CO, K, stride, 1) - 4 * _pad(K * C * CO, 4)
+    return max(1, min(F, _MAX_FB, _WINDOW_BYTES // window))
+
+
+def time_conv_takes(K: int, C: int, CO: int, stride: int) -> bool:
+    """Whether K2 (forward, and dgrad from CO to C channels at stride 1) and
+    K2b take a conv at any F, in either type: the CUDA-core kernels fit it
+    (bf16 goes to the tensor cores where ``tc_takes``/``tc_wgrad_takes`` say
+    so, else to them). The route of ``models.layers.Conv2D`` asks it."""
+    big = 1 << 30
+    return (min(K, C, CO, stride) >= 1
+            and cc_smem_bytes(C, CO, K, stride, big) <= _build.MAX_SMEM_BYTES
+            and cc_smem_bytes(CO, C, K, 1, big) <= _build.MAX_SMEM_BYTES
+            and cc_wgrad_smem_bytes(C, CO, K, stride, cc_wgrad_fb(C, CO, K, stride, big))
+            <= _build.MAX_SMEM_BYTES)
+
+
+def tc_blocks_per_sm(smem_bytes: int) -> int:
+    """Blocks of a tensor-core kernel resident on one SM: two at most (their
+    launch bounds cap a thread at 128 registers), fewer where their shared
+    memory (and 1 KB each that the card reserves) does not fit 228 KB."""
+    return max(1, min(2, (228 * 1024) // (smem_bytes + 1024)))
+
+
+def tc_tiles_per_block(B: int, Tout: int, F: int, slots: int) -> int:
+    """Time tiles a tensor-core block walks. A block keeps one (batch row,
+    16 positions) pair and walks consecutive tiles, so that it overlaps
+    staging with products and stages each frame once; the pairs' tiles are
+    cut into as many runs as fill the ``slots`` (resident blocks of the card)
+    in one wave, so no second, mostly idle wave of blocks follows."""
+    runs = max(1, slots // (B * -(-F // TC_FB)))
+    n_t = -(-Tout // TC_TT)
+    return -(-n_t // runs)
+
+
+def tc_schedule(B: int, Tout: int, F: int, smem_bytes: int, sms: int) -> Tuple[int, int]:
+    """(tiles a block walks, blocks) of a tensor-core launch on ``sms`` SMs."""
+    ch = tc_tiles_per_block(B, Tout, F, sms * tc_blocks_per_sm(smem_bytes))
+    n_t = -(-Tout // TC_TT)
+    return ch, B * -(-F // TC_FB) * -(-n_t // ch)
+
+
+def route(dtype: torch.dtype, C: int, CO: int, K: int, stride: int, F: int,
+          kind: str = "conv") -> str:
+    """"tensor cores" or "CUDA cores": where a call of K2 (``kind`` "conv",
+    or "dgrad" for the gradient of a conv from C to CO channels) or of K2b
+    ("wgrad") in ``dtype`` runs."""
+    if kind == "wgrad":
+        takes = tc_wgrad_takes(C, CO, K, stride, F)
+    else:
+        takes = tc_takes(CO, C, K, 1, F) if kind == "dgrad" else tc_takes(C, CO, K, stride, F)
+    return "tensor cores" if dtype == torch.bfloat16 and takes else "CUDA cores"
 
 
 def out_frames(T: int, K: int, stride: int, pads: Tuple[int, int]) -> int:
@@ -105,15 +266,22 @@ def _launch_conv(x, w, bias, F, stride, lp, Tout, relu, dil) -> torch.Tensor:
     B, T, _ = x.shape
     K, C, CO = w.shape
     lib = _build.library()
-    rows = (lib.w2l_time_conv_tile() - 1) * stride + K
-    fb = max(1, min(F, _MAX_FB, _WINDOW_BYTES // (rows * (C | 1) * 4)))
     y = torch.empty((B, Tout, F * CO), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    rc = lib.w2l_time_conv(
-        x.data_ptr(), w.data_ptr(), None if bias is None else bias.data_ptr(),
-        y.data_ptr(), _build.DTYPE_CODES[x.dtype], B, T, F, C, CO, K, stride, lp,
-        Tout, fb, int(relu), dil, _build.stream_ptr(x))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if x.dtype == torch.bfloat16 and tc_takes(C, CO, K, stride, F) \
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and y.data_ptr() % 4 == 0:
+        ch, _ = tc_schedule(B, Tout, F, tc_smem_bytes(C, CO, K, stride),
+                            _build.sm_count(x.device))
+        rc = lib.w2l_time_conv_tc(
+            x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), B, T, F, C, CO, K, stride,
+            lp, Tout, int(relu), dil, ch, tc_granule(C, F), _build.stream_ptr(x))
+    else:
+        rc = lib.w2l_time_conv(
+            x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), _build.DTYPE_CODES[x.dtype],
+            B, T, F, C, CO, K, stride, lp, Tout, cc_fb(C, K, stride, F), int(relu), dil,
+            _build.stream_ptr(x))
     _build.check(rc, "time_conv")
     _build.LAUNCHES["time_conv"] += 1
     return y
@@ -164,17 +332,25 @@ def time_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, K: int, F: int, stride: i
     if B == 0:
         return dw.zero_()
     lib = _build.library()
-    fb = max(1, min(F, _MAX_FB,
-                    _WINDOW_BYTES // (4 * lib.w2l_time_conv_wgrad_window(C, CO, K, stride))))
-    tt = lib.w2l_time_conv_wgrad_tile()
-    tiles = B * -(-Tout // tt) * -(-F // fb)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nb = min(tiles, 2 * sms)
-    partial = torch.empty((nb, K * C * CO), dtype=torch.float32, device=x.device)
-    rc = lib.w2l_time_conv_wgrad(
-        x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-        _build.DTYPE_CODES[x.dtype], B, T, F, C, CO, K, stride, pads[0], Tout, fb, nb,
-        _build.stream_ptr(x))
+    sms = _build.sm_count(x.device)
+    if x.dtype == torch.bfloat16 and tc_wgrad_takes(C, CO, K, stride, F) \
+            and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0:
+        ch, blocks = tc_schedule(B, Tout, F, tc_wgrad_smem_bytes(C, CO, K, stride), sms)
+        partial = torch.empty((blocks * tc_wgrad_units(C, K)[1], K * C * CO),
+                              dtype=torch.float32, device=x.device)
+        rc = lib.w2l_time_conv_wgrad_tc(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, F, C, CO,
+            K, stride, pads[0], Tout, ch, tc_granule(C, F), tc_granule(CO, F),
+            _build.stream_ptr(x))
+    else:
+        fb = cc_wgrad_fb(C, CO, K, stride, F)
+        tiles = B * -(-Tout // CC_TT) * -(-F // fb)
+        nb = min(tiles, 2 * sms)
+        partial = torch.empty((nb, K * C * CO), dtype=torch.float32, device=x.device)
+        rc = lib.w2l_time_conv_wgrad(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            _build.DTYPE_CODES[x.dtype], B, T, F, C, CO, K, stride, pads[0], Tout, fb, nb,
+            _build.stream_ptr(x))
     _build.check(rc, "time_conv_wgrad")
     _build.LAUNCHES["time_conv_wgrad"] += 1
     return dw

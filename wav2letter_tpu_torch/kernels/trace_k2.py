@@ -1,0 +1,194 @@
+"""Where the bf16 tensor-core K2 and K2b spend a block's cycles: a clock64
+trace of their tile loop.
+
+    python -m wav2letter_tpu_torch.kernels.trace_k2 [--out FILE]
+
+Needs a card and ``nvcc``. Builds copies of ``csrc/tconv.cu`` and
+``csrc/tconv_wgrad.cu`` with ``clock64()`` stamps added by thread 0 of each
+block (the kernels themselves are unchanged), runs K2 forward, K2 as dgrad
+and K2b at flagship shapes, and prints for the median block the SM cycles of:
+
+- ``setup``: the weight and the zeroed ring, the copy table, and issuing the
+  first window's cp.async;
+- ``issue``: issuing the next tile's cp.async (summed over the tiles);
+- ``wait``: cp.async.wait_group for the tile in use;
+- ``barrier``: the barrier after it;
+- ``compute``: the products and the epilogue, with the closing barrier.
+
+Nothing of the port imports this module.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+from . import _build
+from .tconv import (TC_TT, out_frames, tc_granule, tc_schedule, tc_smem_bytes,
+                    tc_wgrad_smem_bytes, tc_wgrad_units)
+
+_STAMPS = 256  # per block: 2 + 4 per tile
+_LOOP = ("    cp_async_commit();\n    cp_async_wait<1>();\n    __syncthreads();\n")
+_CLOSE = "    __syncthreads();  // the ring slots this tile read are free for the next copies\n"
+# the first window's copies issued, up to the end of a line
+_PROLOGUE_K2 = "  cp_async_commit();\n\n  // per-lane parts of the ldmatrix addresses (bytes)\n"
+_PROLOGUE_K2B = "  cp_async_commit();\n\n  const int mat = lane >> 3, li = lane & 7;\n"
+
+
+def _instrument(src: str, prologue: str, sym: str) -> str:
+    """One kernel source with the stamps; every anchor must be found once."""
+    start = src.index("// bf16 on the tensor cores")
+    head, tail = src[:start], src[start:]
+    stamp = "    if (threadIdx.x == 0) st[{}] = clock64();\n"
+    edits = [
+        ("  extern __shared__ __align__(16) unsigned char tc_smem[];\n",
+         "  extern __shared__ __align__(16) unsigned char tc_smem[];\n"
+         f"  long long* st = {sym} + (blockIdx.x + gridDim.x * (blockIdx.y + gridDim.y *"
+         f" blockIdx.z)) * {_STAMPS};\n"
+         "  if (threadIdx.x == 0) st[0] = clock64();\n"),
+        (prologue, prologue + "  if (threadIdx.x == 0) st[1] = clock64();\n"),
+        (_LOOP, "    cp_async_commit();\n" + stamp.format("2 + 4 * it")
+         + "    cp_async_wait<1>();\n" + stamp.format("3 + 4 * it")
+         + "    __syncthreads();\n" + stamp.format("4 + 4 * it")),
+        (_CLOSE, _CLOSE + stamp.format("5 + 4 * it")),
+    ]
+    for old, new in edits:
+        if tail.count(old) != 1:
+            raise RuntimeError(f"trace_k2: anchor not found once: {old!r}")
+        tail = tail.replace(old, new)
+    head = head.replace('#include "tc_tile.cuh"\n',
+                        f'#include "tc_tile.cuh"\n__device__ long long {sym}[1 << 20];\n', 1)
+    return (head + tail + f'\nextern "C" int {sym}_read(long long* host, int n) {{\n'
+            f"  return static_cast<int>(cudaMemcpyFromSymbol(host, {sym},"
+            " n * sizeof(long long)));\n}\n")
+
+
+def _build_traced() -> ctypes.CDLL:
+    work = _build.BUILD_DIR / "trace_k2"
+    work.mkdir(parents=True, exist_ok=True)
+    srcs = []
+    for name, prologue, sym in (
+            ("tconv.cu", _PROLOGUE_K2, "g_k2_stamps"),
+            ("tconv_wgrad.cu", _PROLOGUE_K2B, "g_k2b_stamps")):
+        src = work / name.replace(".cu", "_traced.cu")
+        src.write_text(_instrument((_build.CSRC / name).read_text(), prologue, sym))
+        srcs.append(str(src))
+    lib = work / "libk2trace.so"
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    res = subprocess.run([_build.nvcc(), *flags, "-shared", f"-I{_build.CSRC}", *srcs, "-o",
+                          str(lib)], capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"trace_k2: nvcc failed:\n{res.stdout}\n{res.stderr}")
+    cdll = ctypes.CDLL(str(lib))
+    for name in ("w2l_time_conv_tc", "w2l_time_conv_wgrad_tc"):
+        getattr(cdll, name).argtypes = _build.SIGNATURES[name]
+        getattr(cdll, name).restype = ctypes.c_int
+    for name in ("g_k2_stamps_read", "g_k2b_stamps_read"):
+        getattr(cdll, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return cdll
+
+
+def _median_block(st: np.ndarray, ntiles: np.ndarray) -> dict:
+    total = np.array([row[5 + 4 * (n - 1)] - row[0] for row, n in zip(st, ntiles)])
+    blk = int(np.argsort(total)[len(total) // 2])
+    row, n = st[blk], int(ntiles[blk])
+    out = dict(setup=int(row[1] - row[0]), issue=0, wait=0, barrier=0, compute=0, tiles=n)
+    prev = row[1]
+    for it in range(n):
+        t = row[2 + 4 * it: 6 + 4 * it]
+        out["issue"] += int(t[0] - prev)
+        out["wait"] += int(t[1] - t[0])
+        out["barrier"] += int(t[2] - t[1])
+        out["compute"] += int(t[3] - t[2])
+        prev = t[3]
+    return dict(block_cycles=dict(min=int(total.min()), median=int(np.median(total)),
+                                  max=int(total.max())), median_block=out)
+
+
+def trace(lib, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
+    """One call of K2 (``kind`` "conv" or "dgrad") or K2b ("wgrad") at the
+    conv's shape, bf16; the tiles a block walks as the wrapper picks them."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    Tout = out_frames(T, K, stride, pads)
+    x = torch.randn((B, T, F * C), device="cuda", generator=g).bfloat16()
+    w = (0.1 * torch.randn((K, C, CO), device="cuda", generator=g)).bfloat16()
+    dy = torch.randn((B, Tout, F * CO), device="cuda", generator=g).bfloat16()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "wgrad":
+        To = Tout
+        ch, nb = tc_schedule(B, To, F, tc_wgrad_smem_bytes(C, CO, K, stride), sms)
+        partial = torch.empty((nb * tc_wgrad_units(C, K)[1], K * C * CO), device="cuda")
+        dw = torch.empty((K, C, CO), device="cuda")
+
+        def run():
+            return lib.w2l_time_conv_wgrad_tc(
+                x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, F, C, CO,
+                K, stride, pads[0], Tout, ch, tc_granule(C, F), tc_granule(CO, F), stream)
+        read = lib.g_k2b_stamps_read
+    else:
+        if kind == "dgrad":  # the conv from CO to C at stride 1 over dy dilated by stride
+            src, wt, Ti, To, s, lp, dil = (dy, w.flip(0).transpose(1, 2).contiguous(), Tout,
+                                           T, 1, K - 1 - pads[0], stride)
+            Ci, Co = CO, C
+        else:
+            src, wt, Ti, To, s, lp, dil, Ci, Co = x, w, T, Tout, stride, pads[0], 1, C, CO
+        ch, nb = tc_schedule(B, To, F, tc_smem_bytes(Ci, Co, K, s), sms)
+        y = torch.empty((B, To, F * Co), device="cuda", dtype=torch.bfloat16)
+
+        def run():
+            return lib.w2l_time_conv_tc(src.data_ptr(), wt.data_ptr(), None, y.data_ptr(), B,
+                                        Ti, F, Ci, Co, K, s, lp, To, 0, dil, ch,
+                                        tc_granule(Ci, F), stream)
+        read = lib.g_k2_stamps_read
+    for _ in range(3):  # the last run's stamps are read
+        _build.check(run(), "trace_k2")
+    torch.cuda.synchronize()
+    st = np.zeros(nb * _STAMPS, np.int64)
+    _build.check(read(st.ctypes.data, st.size), "trace_k2")
+    st = st.reshape(nb, _STAMPS)
+    n_t = -(-To // TC_TT)
+    runs = -(-n_t // ch)
+    ntiles = np.array([min(ch, n_t - (i % runs) * ch) for i in range(nb)])
+    return dict(kind=kind, shape=[B, T, F, C, CO, K, stride, list(pads)], tiles_per_block=ch,
+                blocks=nb, **_median_block(st, ntiles))
+
+
+# (kind, B, T, F, C, CO, K, stride, pads): a serving TDS conv of the flagship,
+# its strided C2, the dgrad and K2b of training's largest shapes
+SHAPES = [("conv", 4, 768, 80, 16, 16, 9, 1, (7, 1)), ("conv", 4, 768, 80, 16, 20, 11, 2, (8, 2)),
+          ("conv", 4, 192, 80, 28, 28, 11, 1, (10, 0)),
+          ("dgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("dgrad", 16, 768, 80, 16, 20, 11, 2, (8, 2)),
+          ("wgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("wgrad", 16, 192, 80, 28, 28, 11, 1, (10, 0))]
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="", help="also write the readings here as JSON")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("trace_k2: needs a CUDA device", file=sys.stderr)
+        sys.exit(2)
+    lib = _build_traced()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    rows = []
+    for shape in SHAPES:
+        rows.append(trace(lib, *shape))
+        print(json.dumps(rows[-1]), flush=True)
+    print(smi)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(device=smi, traces=rows), f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

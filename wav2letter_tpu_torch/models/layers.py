@@ -35,6 +35,7 @@ from torch import nn
 
 from ..features.specaug import SpecAugment
 from ..kernels import KERNELS
+from ..kernels.tconv import time_conv_takes
 
 Pads = Union[int, Tuple[int, int]]
 
@@ -159,9 +160,10 @@ def from_chain(y: torch.Tensor, C: int) -> torch.Tensor:
     return y.view(B, T, D // C, C).permute(0, 3, 2, 1)
 
 
-# K2 keeps all K*C*CO fp32 weights of a conv in shared memory beside its
-# input tile; wider convs (the 768- and 1536-channel frontends of the
-# transformer recipes) go to the general path.
+# K2 keeps all K*C*CO weights of a conv in shared memory beside its input
+# tile; wider convs (the 768- and 1536-channel frontends of the transformer
+# recipes) go to the general path, and so do narrower ones whose window the
+# kernels cannot stage (``kernels.tconv.time_conv_takes``).
 K2_MAX_WEIGHT_BYTES = 64 * 1024
 
 
@@ -173,9 +175,9 @@ class Conv2D(nn.Module):
     ``g * v / sqrt(sum(v^2) + 1e-12)`` per output channel (params ``v``, ``g``).
 
     The time-only narrow form (wy=1, sy=1, py=0, no dilation, groups or weight
-    norm, weights within ``K2_MAX_WEIGHT_BYTES``) runs kernel K2 in the
-    f-major chain layout. Every other form is one ``F.conv2d``, as the JAX
-    package leaves it to ``lax.conv_general_dilated``."""
+    norm, weights within ``K2_MAX_WEIGHT_BYTES``, a shape the kernels take)
+    runs kernel K2 in the f-major chain layout. Every other form is one
+    ``F.conv2d``, as the JAX package leaves it to ``lax.conv_general_dilated``."""
 
     def __init__(self, in_ch: int, out_ch: int, wx: int, wy: int = 1, sx: int = 1,
                  sy: int = 1, px: Pads = 0, py: int = 0, dx: int = 1, dy: int = 1,
@@ -188,7 +190,8 @@ class Conv2D(nn.Module):
         self.ops = ops
         self.time_only = (
             (wy, sy, py, dx, dy, groups) == (1, 1, 0, 1, 1, 1) and wn_dim < 0
-            and 4 * wx * in_ch * out_ch <= K2_MAX_WEIGHT_BYTES)
+            and 4 * wx * in_ch * out_ch <= K2_MAX_WEIGHT_BYTES
+            and time_conv_takes(wx, in_ch, out_ch, sx))
         fan_in = wx * wy * in_ch // groups
         w = torch.randn(out_ch, in_ch // groups, wy, wx) * math.sqrt(2.0 / max(1, fan_in))
         if wn_dim >= 0:

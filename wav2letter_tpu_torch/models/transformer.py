@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import KERNELS
+from ..kernels.attention import mhsa_takes
 from .layers import LayerNorm, Linear
 
 NEG = -1e30
@@ -72,6 +73,17 @@ def _rel_position_bias(q: torch.Tensor, pos_emb: torch.Tensor, bptt: int) -> tor
     return torch.where(valid, out, torch.zeros((), dtype=out.dtype, device=out.device))
 
 
+def _use_kernel(B: int, T: int, H: int, Dh: int, dtype: torch.dtype, device_type: str,
+                backward: bool) -> bool:
+    """Inside the JAX gate, whether attention takes the fused function. On
+    the CPU it always does (its plain version takes any shape). On the card
+    only where K4, and K4b when a gradient is wanted, take the shape; past
+    their limits the unfused path computes the same function (in training
+    with another dropout draw). A dispatch on the shape, so the wrappers
+    keep raising on what their kernels do not take."""
+    return device_type != "cuda" or mhsa_takes(B, T, H, Dh, dtype, backward)
+
+
 class MultiHeadSelfAttention(nn.Module):
     def __init__(self, model_dim: int, head_dim: int, n_heads: int, bptt: int = 0,
                  dropout: float = 0.0, causal: bool = False, ops: SimpleNamespace = KERNELS):
@@ -89,9 +101,14 @@ class MultiHeadSelfAttention(nn.Module):
             self.pos_emb = None
 
     def fused(self, x: torch.Tensor) -> bool:
-        """The gate of the fused function, as in the JAX package."""
-        return (not self.causal and self.pos_emb is not None
-                and x.shape[-2] <= self.bptt and x.dim() >= 3)
+        """The gate of the fused function, as in the JAX package; on the card
+        also whether the kernels take the shape (:func:`_use_kernel`)."""
+        if self.causal or self.pos_emb is None or x.shape[-2] > self.bptt or x.dim() < 3:
+            return False
+        backward = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        return _use_kernel(math.prod(x.shape[:-2]), x.shape[-2], self.n_heads, self.head_dim,
+                           x.dtype, x.device.type, backward)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., T, C); pad_mask (..., T) bool, True = valid."""
