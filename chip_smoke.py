@@ -15,8 +15,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    shapes of the training paths' largest batch; K4 and K4b also at T=188
    unmasked, at the gate's edge T=460, at the conformer's H=4, Dh=128,
    T=240 and at T=17 and 65, which cut K4's tiles raggedly, without dropout
-   and at rate 0.2 with the same keep mask on both sides; K2b and K4b twice
-   for equal bits; time kernel, plain version, one PyTorch call of the same
+   and at rate 0.2 with the same keep mask on both sides; K4b alone also at
+   the long-context update (B=2, T=1712), at T=17, 65, 188 and the last T it
+   takes at Dh = 192, and at Dh = 8, 64, 128, 256 (``check_attention_bwd``),
+   and at the training row its time by launch and by tile height; K2b and K4b twice for equal bits; time kernel, plain version, one PyTorch call of the same
    function where there is one, and the bound; K4 also at each tile height
    (query rows a block) that fits, with the one it picks, its blocks and its
    TFLOP/s; K2, its dgrad and K2b also at ``CONV_EDGES`` (C = 1 with 20
@@ -56,8 +58,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    unfused path with no K4 launch;
 9. the transformer at full width, 2 of its layers, with a table of 2000
    relative positions: one bf16 update on two 134-136 s utterances (T up to
-   1712 after the pools, past K4b's limit of 1624 at Dh = 192) takes the
-   unfused path and raises nothing; serving the same batch takes K4.
+   1712 after the pools) launches K4 and K4b once per layer; serving the
+   same batch takes K4.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -93,7 +95,7 @@ CFR_LAYERS = 4  # of the conformer recipe's 16
 # (12 x 36 x 36, 62 KB in fp32)
 CONV_EDGES = [(4, 400, 24, 1, 8, 20, 1, (10, 9)), (4, 101, 80, 16, 20, 11, 2, (8, 1)),
               (4, 300, 40, 20, 24, 11, 1, (5, 5)), (4, 300, 80, 36, 36, 12, 1, (6, 5))]
-# the long-context transformer: its table reaches past K4b's limit
+# the long-context transformer: a table of 2000 positions, T = 1712 after the pools
 LONG_LAYERS, LONG_BPTT = 2, 2000
 # The two model families driven at full width. ``per_forward``: launches of
 # one forward (a serving or validation batch, or an update's forward);
@@ -249,7 +251,12 @@ def profile_device(fn):
 
 def device_ms(fn, args, cold=True, iters=20) -> float:
     """Device time per call of ``fn(*args)``: the time of the kernels it
-    launches, from the profiler, without the host's launch overhead.
+    launches, from the profiler, without the host's launch overhead."""
+    return sum(device_split(fn, args, cold, iters).values())
+
+
+def device_split(fn, args, cold=True, iters=20) -> dict:
+    """``device_ms`` by kernel: {the profiler's name of a kernel: ms per call}.
 
     Cold (the default), the calls cycle through copies of ``args`` that
     together exceed twice the L2 cache, so each call reads its inputs from
@@ -271,7 +278,23 @@ def device_ms(fn, args, cold=True, iters=20) -> float:
             fn(*sets[i % len(sets)])
 
     prof = profile_device(calls)
-    return sum(e.self_device_time_total for e in device_events(prof)) / 1e3 / iters
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in device_events(prof)}
+
+
+# K4b's four launches, by a piece of the kernel's name
+K4B_LAUNCHES = (("mhsa_bwd_rows", "rows"), ("mhsa_bwd_keys", "keys"),
+                ("mhsa_bwd_pos_sum", "pos_sum"), ("mhsa_bwd_pos", "pos"))
+
+
+def k4b_split(b_args) -> dict:
+    """K4b's cold device time per call by launch (anything else: ``other``)."""
+    from wav2letter_tpu_torch import kernels
+
+    out = {}
+    for key, ms in device_split(kernels.mhsa_bwd, b_args).items():
+        name = next((n for piece, n in K4B_LAUNCHES if piece in key), "other")
+        out[name] = out.get(name, 0.0) + ms
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -830,20 +853,86 @@ def check_attention(shapes, dtype_name, details):
         nbytes = item * (7 * q.numel() + pos.numel()) + 4 * (mask.numel() + pos.numel())
         b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh, backward=True), dtype_name)
         e = errs["mhsa_bwd"]
+        split = k4b_split(b_args)
+        # K4b's first launch at each tile height that fits, at the training row
+        b_rows_ms = {r: device_ms(lambda *a, r=r: attention._launch_bwd(*a, rows=r), b_args)
+                     for r in attention.BWD_ROWS if tag == "train"
+                     and attention.bwd_smem_bytes(r, T, Dh, item) <= kernels._build.MAX_SMEM_BYTES}
         rows["mhsa_bwd"].append(dict(
             name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=0.2,
             max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa_bwd", dtype_name)], ok=e[2],
-            ms=device_ms(kernels.mhsa_bwd, b_args),
+            ms=sum(split.values()), split_ms=split,
             warm_ms=device_ms(kernels.mhsa_bwd, b_args, cold=False),
             plain_ms=device_ms(kernels.mhsa_bwd_plain, b_args),
             library_ms=device_ms(
                 lambda a: torch.autograd.grad(lib_out, leaves, a, retain_graph=True), (gh,)),
-            bound_ms=b_ms, bound_by=b_by, calls=calls))
+            bound_ms=b_ms, bound_by=b_by, calls=calls, rows_ms=b_rows_ms,
+            tile_rows=attention.fwd_tile_rows(B, H, T, Dh, item, sms, attention.BWD_ROWS)))
+        r = rows["mhsa_bwd"][-1]
+        log(f"[K4b] {tag} {dtype_name} B={B} T={T} H={H} Dh={Dh}: {r['ms']:.4f} ms by launch "
+            f"{json.dumps({k: round(v, 4) for k, v in split.items()})}; autograd of SDPA "
+            f"{r['library_ms']:.4f} ms; {mhsa_flops(B, T, H, Dh, True) / r['ms'] / 1e9:.1f} "
+            f"TFLOP/s; by rows {b_rows_ms}")
         del lib_out, leaves, bias, idx
         torch.cuda.empty_cache()
     for v_ in rows.values():
         details.extend(v_)
     return rows
+
+
+def check_attention_bwd(shapes, dtype_name, details):
+    """K4b alone against its plain version at shapes [(tag, B, T, H, Dh)]
+    beyond the paths' (the long-context transformer's update, ragged T, the
+    last T it takes, the head widths), masked, without dropout and at rate
+    0.2; twice for equal bits; its time at rate 0.2 from CUDA events, warm
+    (``ms``), which spares the profiler."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.attention import mhsa_flops, mhsa_takes
+
+    dtype = getattr(torch, dtype_name)
+    out = []
+    for tag, B, T, H, Dh in shapes:
+        if not mhsa_takes(B, T, H, Dh, dtype, backward=True):
+            fail(f"K4b {tag}: mhsa_takes refuses B={B} T={T} H={H} Dh={Dh} {dtype_name}")
+        q, k, v, pos, mask, dout = _attention_inputs(B, T, H, Dh, True, dtype)
+        err = [0.0, 0.0, True]
+        for rate in (0.0, 0.2):
+            args = (q, k, v, pos, mask, dout, H, rate, 1000 + T)
+            got = kernels.mhsa_bwd(*args)
+            torch.cuda.synchronize()
+            res = _worst("mhsa_bwd", dtype_name, got, kernels.mhsa_bwd_plain(*args))
+            same = all(torch.equal(a, b) for a, b in zip(got, kernels.mhsa_bwd(*args)))
+            err = [max(err[0], res[0]), max(err[1], res[1]), err[2] and res[2] and same]
+            del got
+            torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: kernels.mhsa_bwd(q, k, v, pos, mask, dout, H, 0.2, 7))
+        item = q.element_size()
+        nbytes = item * (7 * q.numel() + pos.numel()) + 4 * (mask.numel() + pos.numel())
+        b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh, backward=True), dtype_name)
+        out.append(dict(name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh],
+                        rate=0.2, max_abs_err=err[0], max_rel_err=err[1],
+                        tol=TOL[("mhsa_bwd", dtype_name)], ok=err[2], ms=ms, timing="events",
+                        bound_ms=b_ms, bound_by=b_by, calls=0,
+                        tflops=mhsa_flops(B, T, H, Dh, True) / ms / 1e9))
+        log(f"[K4b] {tag} {dtype_name} B={B} T={T} H={H} Dh={Dh}: {ms:.4f} ms, "
+            f"{out[-1]['tflops']:.1f} TFLOP/s, error share {err[1]:.2e}, ok {err[2]}")
+        del q, k, v, pos, mask, dout
+        torch.cuda.empty_cache()
+    details.extend(out)
+    return out
+
+
+def k4b_edges(dtype_name):
+    """The shapes of ``check_attention_bwd``: the long-context update, T that
+    cut the tiles raggedly, the last T K4b takes at Dh = 192, head widths."""
+    last = 2728 if dtype_name == "bfloat16" else 2648
+    return [("long_context", 2, 1712, 4, 192), ("edge_T17", 2, 17, 4, 192),
+            ("edge_T65", 2, 65, 4, 192), ("edge_T188", 2, 188, 4, 192),
+            ("edge_limit", 1, last, 4, 192), ("edge_Dh8", 2, 150, 4, 8),
+            ("edge_Dh64", 2, 150, 4, 64), ("edge_Dh128", 2, 150, 4, 128),
+            ("edge_Dh256", 2, 150, 2, 256)]
 
 
 def per_forward(rows):
@@ -1375,11 +1464,10 @@ def long_context_path(tmp, tokens, lexicon, seed):
     """``recipes/transformer_ctc`` at full width, ``LONG_LAYERS`` of its 12
     layers, with a relative-position table of ``LONG_BPTT`` frames: two
     utterances of 134-136 s give T = 1680-1712 after the pools, inside the
-    table and past K4b's limit (T + Dh <= 1816, so T <= 1624 at Dh = 192).
-    One bf16 update through ``Trainer`` takes the unfused path (no K4 and no
-    K4b launch) and raises nothing; its validation pass, no gradient wanted,
-    takes K4 once per layer; emissions of the kernel path against the plain
-    path."""
+    table and inside K4b's limit (K4's: T <= 2728 in bf16 at Dh = 192). One
+    bf16 update through ``Trainer`` launches K4 and K4b once per layer, its
+    validation pass K4 once per layer; emissions of the kernel path against
+    the plain path."""
     import torch
 
     from wav2letter_tpu_torch import kernels
@@ -1401,8 +1489,8 @@ def long_context_path(tmp, tokens, lexicon, seed):
     root = os.path.join(tmp, "data")
     lst, _, _, secs = synth_dataset(root, seed + 4, 2, "long", (tokens, lexicon), (134.0, 136.0))
     spec = dict(name="long_context", arch=arch, flags={},
-                per_forward={"mfsc": 1, "residual_ln": 2 * LONG_LAYERS},
-                per_backward={"residual_ln_bwd": 2 * LONG_LAYERS},
+                per_forward={"mfsc": 1, "mhsa": LONG_LAYERS, "residual_ln": 2 * LONG_LAYERS},
+                per_backward={"mhsa_bwd": LONG_LAYERS, "residual_ln_bwd": 2 * LONG_LAYERS},
                 train=dict(batchsize=2, netoptim="adam", lr=5e-4, warmup=2,
                            lr_sched="inv_sqrt", lr_step_decay=20000, maxgradnorm=0.1))
     cfg = Config()
@@ -1424,7 +1512,6 @@ def long_context_path(tmp, tokens, lexicon, seed):
     run_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     want = expected_launches(spec, 1, 1)
-    want["mhsa"] = LONG_LAYERS  # the validation pass only
     if launches != want or len(losses) != 1 or not math.isfinite(losses[0]):
         fail(f"long context: launches {launches}, expected {want}; losses {losses}")
 
@@ -1449,9 +1536,9 @@ def long_context_path(tmp, tokens, lexicon, seed):
                   loss=losses[0], run_s=run_s, launches=launches, serve_k4_launches=n_k4,
                   em_max_abs_err=err.max().item(), em_mean_abs_err=err.mean().item(), tol=tol)
     log(f"[long context] {json.dumps(result)}")
-    if not (torch.isfinite(got).all() and n_k4 == LONG_LAYERS and got.shape[1] > 1624
+    if not (torch.isfinite(got).all() and n_k4 == LONG_LAYERS and got.shape[1] >= 1680
             and err.max().item() <= tol[0] and err.mean().item() <= tol[1]):
-        fail(f"long context: serving past K4b's limit: {result}")
+        fail(f"long context: serving at T >= 1680 through K4: {result}")
     return result
 
 
@@ -1547,6 +1634,7 @@ def main() -> None:
             rows[("residual_ln_bwd@transformer", dt)] = check_residual_ln_bwd(
                 tr_tlns, dt, details)
             att = check_attention(attn_shapes, dt, details)
+            check_attention_bwd(k4b_edges(dt), dt, details)
             rows[("mhsa", dt)] = [r for r in att["mhsa"] if r["tag"] == "serve"]
             rows[("mhsa_bwd", dt)] = [r for r in att["mhsa_bwd"] if r["tag"] == "train"]
             torch.cuda.empty_cache()
@@ -1594,7 +1682,7 @@ def main() -> None:
         # 8. the conformer
         conformer = conformer_path(tmp, tokens, lexicon, args.seed)
 
-        # 9. the transformer past K4b's limit
+        # 9. the long-context transformer
         long_context = long_context_path(tmp, tokens, lexicon, args.seed)
 
     kernels_line = []
@@ -1624,6 +1712,10 @@ def main() -> None:
             dg = per_forward(rows[("time_conv_dgrad", dt)])
             entry["dgrad"] = {k: dg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "max_abs_err")}
+        if name == "mhsa_bwd":  # K4b's time by launch
+            krows = rows[(name, dt)]
+            entry["split_ms"] = {k: sum(r["split_ms"].get(k, 0.0) * r["calls"] for r in krows)
+                                 for k in {k for r in krows for k in r["split_ms"]}}
         kernels_line.append(entry)
     summary = dict(kernels=kernels_line)
     if args.out:

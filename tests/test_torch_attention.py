@@ -149,13 +149,28 @@ def test_k4_trace_finds_its_anchors_in_the_kernel_source():
     assert traced.replace("g_k4_stamps", "").count("st[") == 5
 
 
-# The last T each kernel takes: K4 by its smallest tile's shared memory, K4b
-# by its two R x (Dh + T) fp32 tiles (T + Dh <= 1816)
+def test_k4b_trace_finds_its_anchors_in_the_kernel_source():
+    """``kernels/trace_k4b.py`` stamps the chunk loop of K4b's first launch
+    by editing a copy of the source at fixed anchors; it must find each of
+    them once, and stamp nothing else."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k4b import _instrument
+
+    src = (_build.CSRC / "attention.cu").read_text()
+    traced = _instrument(src)
+    assert traced.count("clock64()") == 5 and "w2l_k4b_stamps" in traced
+    assert traced.replace("g_k4b_stamps", "").count("st[") == 5
+    first, second = traced.index("// K4b, launch 1"), traced.index("// K4b, launch 2")
+    assert traced[first:second].count("clock64()") == 5  # K4 and the other launches untouched
+
+
+# The last T each kernel takes: K4 by its smallest tile's shared memory, and
+# K4b by the same, since its first launch has K4's layout
 @pytest.mark.parametrize("dtype,backward,Dh,last", [
     (torch.bfloat16, False, 192, 2728), (torch.float32, False, 192, 2648),
-    (torch.bfloat16, True, 192, 1624), (torch.float32, True, 192, 1624),
-    (torch.bfloat16, True, 128, 1688), (torch.float32, False, 128, 2952),
-    (torch.float32, True, 8, 1808)])
+    (torch.bfloat16, True, 192, 2728), (torch.float32, True, 192, 2648),
+    (torch.bfloat16, True, 128, 3016), (torch.float32, False, 128, 2952),
+    (torch.float32, True, 8, 3072)])
 def test_mhsa_takes_stops_at_the_kernels_limits(dtype, backward, Dh, last):
     from wav2letter_tpu_torch.kernels import _build
     from wav2letter_tpu_torch.kernels.attention import (bwd_smem_bytes, fwd_smem_bytes,
@@ -164,50 +179,60 @@ def test_mhsa_takes_stops_at_the_kernels_limits(dtype, backward, Dh, last):
     assert mhsa_takes(4, last, 4, Dh, dtype, backward)
     assert not mhsa_takes(4, last + 1, 4, Dh, dtype, backward)
     item = 2 if dtype == torch.bfloat16 else 4
-    over = (bwd_smem_bytes(last + 1, Dh) if backward
+    over = (bwd_smem_bytes(16, last + 1, Dh, item) if backward
             else fwd_smem_bytes(16, last + 1, Dh, item))
     assert over > _build.MAX_SMEM_BYTES  # refused for its shared memory, nothing else
-    if backward:  # the forward alone takes the shape K4b refuses
-        assert mhsa_takes(4, last + 1, 4, Dh, dtype, False)
+    if backward:  # K4b's limit is K4's: the forward refuses the shape as well
+        assert not mhsa_takes(4, last + 1, 4, Dh, dtype, False)
 
 
 def test_mhsa_takes_refuses_head_widths():
     from wav2letter_tpu_torch.kernels.attention import bwd_max_head_dim, mhsa_takes
 
-    assert bwd_max_head_dim() == 256
+    assert bwd_max_head_dim(4) == 720 and bwd_max_head_dim(2) == 784
     assert not mhsa_takes(1, 16, 1, 12, torch.float32)  # not a multiple of 8
     assert not mhsa_takes(1, 16, 1, 16, torch.float16)
-    assert mhsa_takes(1, 16, 1, 264, torch.float32)
-    assert not mhsa_takes(1, 16, 1, 264, torch.float32, backward=True)
-    assert mhsa_takes(1, 16, 1, 256, torch.float32, backward=True)
+    assert mhsa_takes(1, 16, 1, 264, torch.float32, backward=True)
+    assert not mhsa_takes(1, 1, 1, 728, torch.float32, backward=True)
+    assert mhsa_takes(1, 1, 1, 720, torch.float32, backward=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_dispatch_asks_the_kernels(dtype):
     """Inside the JAX gate: the kernel for a card tensor the kernels take,
-    the unfused path past K4b's limit when a gradient is wanted, and past K4's
-    for serving; the plain fused function for any CPU tensor."""
+    the unfused path past their limit (K4b's is K4's), with a gradient wanted
+    or not; the plain fused function for any CPU tensor."""
     from wav2letter_tpu_torch.models.transformer import _use_kernel
 
-    last_fwd = 2728 if dtype == torch.bfloat16 else 2648
-    assert _use_kernel(8, 1624, 4, 192, dtype, "cuda", True)
-    assert not _use_kernel(8, 1625, 4, 192, dtype, "cuda", True)
-    assert _use_kernel(8, 1625, 4, 192, dtype, "cuda", False)
-    assert _use_kernel(8, last_fwd, 4, 192, dtype, "cuda", False)
-    assert not _use_kernel(8, last_fwd + 1, 4, 192, dtype, "cuda", False)
-    assert _use_kernel(8, last_fwd + 1, 4, 192, dtype, "cpu", True)
+    last = 2728 if dtype == torch.bfloat16 else 2648
+    assert _use_kernel(8, last, 4, 192, dtype, "cuda", True)
+    assert not _use_kernel(8, last + 1, 4, 192, dtype, "cuda", True)
+    assert _use_kernel(8, last, 4, 192, dtype, "cuda", False)
+    assert not _use_kernel(8, last + 1, 4, 192, dtype, "cuda", False)
+    assert _use_kernel(8, 2000, 4, 192, dtype, "cuda", True)
+    assert _use_kernel(8, last + 1, 4, 192, dtype, "cpu", True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_long_context_shape_takes_k4b(dtype):
+    """The long-context transformer's update (B=2, T=1712, H=4, Dh=192)
+    trains through K4 and K4b on the card."""
+    from wav2letter_tpu_torch.models.transformer import _use_kernel
+
+    assert _use_kernel(2, 1712, 4, 192, dtype, "cuda", True)
 
 
 def test_attention_past_k4b_limit_matches_jax(monkeypatch):
-    """A module whose bptt lets T past K4b's limit (T + Dh > 1816): on the
-    CPU the fused function, and the unfused path that the card takes when a
-    gradient is wanted (the dispatch evaluated as for a card tensor), both
-    match the JAX module. The recipes' gates (bptt 460, 240) stay inside."""
+    """A module whose bptt lets T past K4b's limit, which is K4's (Dh = 8:
+    T <= 3072): on the CPU the fused function, and the unfused path that the
+    card takes with a gradient wanted or not (the dispatch evaluated as for a
+    card tensor), both match the JAX module. The recipes' gates (bptt 460,
+    240) stay inside."""
     from wav2letter_tpu.models import transformer as JT
     from wav2letter_tpu_torch.models import transformer as T
     from wav2letter_tpu_torch.runtime.checkpoint import convert_jax_params
 
-    B, Tn, C, H, bptt = 1, 1812, 16, 2, 1830  # Dh = 8: K4b takes T <= 1808
+    B, Tn, C, H, bptt = 1, 3076, 16, 2, 3080  # Dh = 8: K4 and K4b take T <= 3072
     rng = np.random.RandomState(5)
     x = rng.randn(1, B, Tn, C).astype(np.float32)
     mask = np.ones((1, B, Tn), bool)
@@ -226,9 +251,9 @@ def test_attention_past_k4b_limit_matches_jax(monkeypatch):
     monkeypatch.setattr(T, "_use_kernel", lambda *a: real(*a[:5], "cuda", a[6]))
     assert not m.fused(tx)  # parameters need a gradient: K4b refuses the shape
     with torch.no_grad():
-        assert m.fused(tx)  # serving: K4 takes it
+        assert not m.fused(tx)  # serving: K4 refuses it too
     unfused = m(tx, tm)
     assert unfused.requires_grad
-    # fp32, sums of 8 and 1812 terms in another order
+    # fp32, sums of 8 and 3076 terms in another order
     for got in (fused, unfused.detach()):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

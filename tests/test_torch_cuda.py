@@ -508,9 +508,39 @@ def test_mhsa_bwd_limits_match_the_kernel(cuda):
     from wav2letter_tpu_torch.kernels import attention
 
     lib = kernels.library()
-    assert lib.w2l_mhsa_max_head_dim() == attention.bwd_max_head_dim()
-    for T, Dh in ((1, 8), (17, 136), (192, 192), (1624, 192), (1625, 192), (2048, 256)):
-        assert lib.w2l_mhsa_bwd_smem_bytes(T, Dh) == attention.bwd_smem_bytes(T, Dh)
+    for dtype, item in ((0, 4), (1, 2)):
+        assert lib.w2l_mhsa_max_head_dim(dtype, kernels._build.MAX_SMEM_BYTES) == \
+            attention.bwd_max_head_dim(item)
+        for rows in attention.FWD_ROWS:
+            for T, Dh in ((1, 8), (17, 136), (192, 192), (2648, 192), (2729, 192),
+                          (2048, 256)):
+                assert lib.w2l_mhsa_bwd_smem_bytes(rows, T, Dh, dtype) == \
+                    attention.bwd_smem_bytes(rows, T, Dh, item)
+
+
+# K4b at the long-context transformer's shape (phase 9 of chip_smoke.py) and at
+# the last T it takes there
+K4B_LONG = [(2, 1712, 4, 192), (1, 2648, 1, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,Dh", K4B_LONG)
+def test_mhsa_bwd_kernel_long_context(cuda, B, T, H, Dh, dtype):
+    """K4b past the old limit of T + Dh <= 1816, dropout on, against its plain
+    version; twice for equal bits."""
+    q, k, v, pos, mb, g = _attn_inputs(B, T, H, Dh, True, cuda, dtype)
+    got = kernels.mhsa_bwd(q, k, v, pos, mb, g, H, 0.2, 77)
+    torch.cuda.synchronize()
+    want = kernels.mhsa_bwd_plain(q, k, v, pos, mb, g, H, 0.2, 77)
+    # each output against its largest entry: fp32 sums of up to B*H*T terms;
+    # in bf16 p and ds are rounded before their products
+    rtol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, b in zip(("dq", "dk", "dv", "dpos"), got, want):
+        top = b.float().abs().max().item()
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol, atol=rtol * max(1.0, top),
+                                   msg=name)
+    again = kernels.mhsa_bwd(q, k, v, pos, mb, g, H, 0.2, 77)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
@@ -647,26 +677,29 @@ def test_attention_training_mode_on_the_card(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_past_k4b_limit_trains_unfused(cuda, dtype):
-    """A TR layer whose table reaches past K4b's limit (Dh = 8: T <= 1808):
-    serving at T = 1812 takes K4, an update takes the unfused path, with no
-    error, and both agree with the plain path."""
+    """A TR layer whose table reaches past K4b's limit, which is K4's (Dh = 8:
+    T <= 3072): at T = 3072 an update takes K4 and K4b; at T = 3076 serving
+    and an update take the unfused path, with no error; each agrees with the
+    plain path."""
     from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
 
     torch.manual_seed(0)
-    m = MultiHeadSelfAttention(16, 8, 2, 1830).to(cuda).eval()
-    plain = MultiHeadSelfAttention(16, 8, 2, 1830, ops=kernels.PLAIN).to(cuda).eval()
+    m = MultiHeadSelfAttention(16, 8, 2, 3080).to(cuda).eval()
+    plain = MultiHeadSelfAttention(16, 8, 2, 3080, ops=kernels.PLAIN).to(cuda).eval()
     plain.load_state_dict(m.state_dict())
-    x = _randn((1, 2, 1812, 16), 4, cuda, dtype)
-    kernels.reset_launches()
-    with torch.no_grad():
-        served = m(x)
-    assert kernels.LAUNCHES["mhsa"] == 1
-    out = m(x)
-    out.float().square().sum().backward()
-    assert kernels.LAUNCHES["mhsa"] == 1 and kernels.LAUNCHES["mhsa_bwd"] == 0
-    assert all(torch.isfinite(p.grad).all() for p in m.parameters())
-    with torch.no_grad():
-        want = plain(x)
-    tol = 1e-4 if dtype == torch.float32 else 3e-2  # 1812-term sums; bf16 rounding of p
-    for got in (served, out.detach()):
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2  # 3076-term sums; bf16 rounding of p
+    for T, fused in ((3072, 1), (3076, 0)):
+        x = _randn((1, 2, T, 16), 4, cuda, dtype)
+        kernels.reset_launches()
+        with torch.no_grad():
+            served = m(x)
+        assert kernels.LAUNCHES["mhsa"] == fused
+        out = m(x)
+        out.float().square().sum().backward()
+        assert kernels.LAUNCHES["mhsa"] == 2 * fused and kernels.LAUNCHES["mhsa_bwd"] == fused
+        assert all(torch.isfinite(p.grad).all() for p in m.parameters())
+        m.zero_grad()
+        with torch.no_grad():
+            want = plain(x)
+        for got in (served, out.detach()):
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -55,10 +55,10 @@ SIGNATURES = {
     "w2l_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "w2l_residual_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "w2l_mhsa_fwd": [_P] * 6 + [_I] * 7 + [_F, _U, _F, _I, _P],
-    "w2l_mhsa_bwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _P],
+    "w2l_mhsa_bwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _I, _I, _P],
     "w2l_mhsa_fwd_smem_bytes": [_I, _I, _I, _I],
-    "w2l_mhsa_bwd_smem_bytes": [_I, _I],
-    "w2l_mhsa_max_head_dim": [],
+    "w2l_mhsa_bwd_smem_bytes": [_I, _I, _I, _I],
+    "w2l_mhsa_max_head_dim": [_I, _I],
 }
 
 # Launches per kernel since the last reset. A wrapper adds one where it

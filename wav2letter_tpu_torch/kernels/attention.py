@@ -33,6 +33,7 @@ from . import _build
 _M32 = 0xFFFFFFFF
 FWD_CHUNK_BYTES, FWD_VPITCH = 128, 136  # csrc/attention.cu: CHB, VP
 FWD_ROWS = (16, 32, 64)  # query rows a K4 block can take, in slabs of 16
+BWD_ROWS = (16, 32, 48, 64)  # and a block of K4b's first launch
 
 
 def hash_rows(T: int) -> int:
@@ -184,14 +185,16 @@ def fwd_smem_bytes(rows: int, T: int, Dh: int, itemsize: int) -> int:
     return rows * sp * 4 + rows * kp + 2 * stage
 
 
-def fwd_tile_rows(B: int, H: int, T: int, Dh: int, itemsize: int, sms: int = 132) -> int:
-    """Query rows per K4 block. Every block stages all of its head's k, v
-    and T + rows - 1 rows of Pwin through its SM, and issuing those copies
-    takes a large share of its time (``PERF.md``): so the fewest rows (most
-    blocks, most SMs busy) whose blocks still fit one a SM, else the most
-    rows (fewest copies); of 16, 32 and 64, among those whose shared memory
-    fits. Raises where none fits."""
-    fits = [r for r in FWD_ROWS
+def fwd_tile_rows(B: int, H: int, T: int, Dh: int, itemsize: int, sms: int = 132,
+                  choices: Tuple[int, ...] = FWD_ROWS) -> int:
+    """Query rows per K4 block (and, of ``BWD_ROWS``, per block of K4b's
+    first launch). Every block stages all of its head's k, v and
+    T + rows - 1 rows of Pwin through its SM, and issuing those copies takes
+    a large share of its time (``PERF.md``): so the fewest rows (most blocks,
+    most SMs busy) whose blocks still fit one a SM, else the most rows
+    (fewest copies); of ``choices``, among those whose shared memory fits.
+    Raises where none fits."""
+    fits = [r for r in choices
             if fwd_smem_bytes(r, T, Dh, itemsize) <= _build.MAX_SMEM_BYTES]
     if not fits:
         raise ValueError(f"mhsa: T={T}, Dh={Dh} need {fwd_smem_bytes(16, T, Dh, itemsize)} "
@@ -199,37 +202,55 @@ def fwd_tile_rows(B: int, H: int, T: int, Dh: int, itemsize: int, sms: int = 132
     return next((r for r in fits if B * H * -(-T // r) <= sms), fits[-1])
 
 
-# K4b (``csrc/attention.cu``): R rows a block, RG rows a thread in its
-# accumulating products, THREADS threads
-BWD_ROWS, BWD_ROWS_A_THREAD, BWD_THREADS = 16, 8, 256
+# K4b (``csrc/attention.cu``): launch 1 has K4's layout; launch 2 stages a
+# tile of at most 64 keys, launch 3 a window of ds for 64 rows of Pwin
+BWD_KEYS_ROWS, BWD_POS_ROWS = 64, 64
 
 
-def bwd_smem_bytes(T: int, Dh: int) -> int:
-    """Dynamic shared memory of K4b's first launch (C twin
-    ``w2l_mhsa_bwd_smem_bytes``): two fp32 tiles of R rows by Dh + T."""
-    return 2 * (BWD_ROWS * Dh + BWD_ROWS * T) * 4
+def bwd_columns(Dh: int) -> int:
+    """The columns of K4b's outputs a block of them: 64, 128 or 192, one
+    block for a head of up to 192 (``csrc/attention.cu::bwd_pw``)."""
+    return 64 * (3 if Dh > 128 else 2 if Dh > 64 else 1)
 
 
-def bwd_max_head_dim() -> int:
-    """The widest head K4b's one-item-per-thread launches take (C twin
-    ``w2l_mhsa_max_head_dim``)."""
-    return 2 * BWD_THREADS // (BWD_ROWS // BWD_ROWS_A_THREAD)
+def bwd_smem_bytes(rows: int, T: int, Dh: int, itemsize: int) -> int:
+    """Dynamic shared memory of K4b (C twin ``w2l_mhsa_bwd_smem_bytes``), the
+    largest of its three launches: the first has K4's layout at ``rows``
+    query rows (``fwd_smem_bytes``); the second two buffers, each a chunk of
+    128 / itemsize query rows by 64 keys (plus 16 bytes a row) and by
+    ``bwd_columns(Dh)`` columns of g or q (plus 8 elements a row); the third
+    two buffers, each a window of ds of that many query rows by 64 +
+    128 / itemsize + 8 columns, and the same rows of q."""
+    chunk = FWD_CHUNK_BYTES // itemsize
+    xrows = chunk * (bwd_columns(Dh) + 8) * itemsize
+    keys = 2 * (chunk * (BWD_KEYS_ROWS * itemsize + 16) + xrows)
+    pos = 2 * (chunk * (BWD_POS_ROWS + chunk + 8) * itemsize + xrows)
+    return max(fwd_smem_bytes(rows, T, Dh, itemsize), keys, pos)
+
+
+def bwd_max_head_dim(itemsize: int) -> int:
+    """The widest head K4b takes at all (C twin ``w2l_mhsa_max_head_dim``):
+    the largest multiple of 8 whose layout fits a block at T = 1 and 16
+    query rows. Nothing else in K4b bounds the head width."""
+    Dh = 0
+    while bwd_smem_bytes(FWD_ROWS[0], 1, Dh + 8, itemsize) <= _build.MAX_SMEM_BYTES:
+        Dh += 8
+    return Dh
 
 
 def mhsa_takes(B: int, T: int, H: int, Dh: int, dtype: torch.dtype,
                backward: bool = False) -> bool:
     """Whether K4 takes the shape and, with ``backward``, K4b too: the limits
-    the wrappers raise on, evaluated without a card. K4 needs a head width
-    that is a multiple of 8 and the shared memory of its smallest tile
-    (``fwd_smem_bytes``; taller tiles only need more); K4b its two R x
-    (Dh + T) fp32 tiles and Dh within its largest head width."""
+    the wrappers raise on, evaluated without a card. Both need a head width
+    that is a multiple of 8 and the shared memory of their smallest tile
+    (``fwd_smem_bytes``, ``bwd_smem_bytes``; taller tiles only need more).
+    K4b's first launch has K4's layout, so the two take the same T."""
     if dtype not in _build.DTYPE_CODES or min(B, T, H) < 1 or Dh < 8 or Dh % 8:
         return False
     item = 2 if dtype == torch.bfloat16 else 4
     if fwd_smem_bytes(FWD_ROWS[0], T, Dh, item) > _build.MAX_SMEM_BYTES:
         return False
-    return not backward or (bwd_smem_bytes(T, Dh) <= _build.MAX_SMEM_BYTES
-                            and Dh <= bwd_max_head_dim())
+    return not backward or bwd_smem_bytes(FWD_ROWS[0], T, Dh, item) <= _build.MAX_SMEM_BYTES
 
 
 def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed, rows: Optional[int] = None):
@@ -252,6 +273,43 @@ def _launch_fwd(q, k, v, pos_win, mask_bias, n_heads, rate, seed, rows: Optional
     return out
 
 
+def _launch_bwd(q, k, v, pos_win, mask_bias, g, n_heads, rate, seed,
+                rows: Optional[int] = None):
+    """K4b on CUDA tensors. ``rows``, the query rows a block of its first
+    launch, is picked as K4's, of ``BWD_ROWS`` (:func:`fwd_tile_rows`),
+    unless given (to time the choices)."""
+    B, T, H, Dh = _check("mhsa_bwd", q, k, v, pos_win, mask_bias, n_heads, rate)
+    _build.require_cuda("mhsa_bwd", q, g)
+    if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
+        raise ValueError(f"mhsa_bwd: g must be like q; got {g.dtype} {tuple(g.shape)}")
+    item = q.element_size()
+    if not mhsa_takes(B, T, H, Dh, q.dtype, backward=True):
+        raise ValueError(f"mhsa_bwd: T={T}, Dh={Dh} need {bwd_smem_bytes(16, T, Dh, item)} "
+                         f"bytes of shared memory, over {_build.MAX_SMEM_BYTES}")
+    sms = _build.sm_count(q.device)
+    if rows is None:
+        rows = fwd_tile_rows(B, H, T, Dh, item, sms, BWD_ROWS)
+    if rows not in BWD_ROWS or bwd_smem_bytes(rows, T, Dh, item) > _build.MAX_SMEM_BYTES:
+        raise ValueError(f"mhsa_bwd: {rows} rows a block at T={T}, Dh={Dh} do not fit")
+    lib = _build.library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
+    dpos = torch.empty((2 * T - 1, Dh), dtype=torch.float32, device=q.device)
+    # scratch between K4b's launches: pd and ds in the working type, rows of T
+    # rounded up to 8 (16-byte aligned), and the shares of dPwin of groups of
+    # (b, h), at most B * H of them
+    pd = torch.empty((B, H, T, -(-T // 8) * 8), dtype=q.dtype, device=q.device)
+    ds = torch.empty_like(pd)
+    part = torch.empty((B * H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
+    rc = lib.w2l_mhsa_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_win.data_ptr(), mask_bias.data_ptr(),
+        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dpos.data_ptr(),
+        pd.data_ptr(), ds.data_ptr(), part.data_ptr(), _build.DTYPE_CODES[q.dtype], B, T, H, Dh,
+        *_hash_args(T, rate, seed), rows, sms, _build.stream_ptr(q))
+    _build.check(rc, "mhsa_bwd")
+    _build.LAUNCHES["mhsa_bwd"] += 1
+    return dq, dk, dv, dpos
+
+
 def mhsa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_win: torch.Tensor,
              mask_bias: torch.Tensor, g: torch.Tensor, n_heads: int,
              dropout_rate: float = 0.0, seed: int = 0
@@ -261,29 +319,7 @@ def mhsa_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_win: torch.T
     equal bits: every sum has one owner and a fixed order."""
     if q.device.type == "cpu":
         return mhsa_bwd_plain(q, k, v, pos_win, mask_bias, g, n_heads, dropout_rate, seed)
-    B, T, H, Dh = _check("mhsa_bwd", q, k, v, pos_win, mask_bias, n_heads, dropout_rate)
-    _build.require_cuda("mhsa_bwd", q, g)
-    if g.shape != q.shape or g.dtype != q.dtype or g.data_ptr() % 16:
-        raise ValueError(f"mhsa_bwd: g must be like q; got {g.dtype} {tuple(g.shape)}")
-    if not mhsa_takes(B, T, H, Dh, q.dtype, backward=True):
-        raise ValueError(f"mhsa_bwd: T={T}, Dh={Dh} need {bwd_smem_bytes(T, Dh)} bytes of "
-                         f"shared memory, or the head is wider than {bwd_max_head_dim()}")
-    lib = _build.library()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    dpos = torch.empty((2 * T - 1, Dh), dtype=torch.float32, device=q.device)
-    # scratch between K4b's launches: pd and ds in the working type, and each
-    # (b, h)'s share of dPwin
-    pd = torch.empty((B, H, T, T), dtype=q.dtype, device=q.device)
-    ds = torch.empty_like(pd)
-    part = torch.empty((B * H, 2 * T - 1, Dh), dtype=torch.float32, device=q.device)
-    rc = lib.w2l_mhsa_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_win.data_ptr(), mask_bias.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dpos.data_ptr(),
-        pd.data_ptr(), ds.data_ptr(), part.data_ptr(), _build.DTYPE_CODES[q.dtype], B, T, H, Dh,
-        *_hash_args(T, dropout_rate, seed), _build.stream_ptr(q))
-    _build.check(rc, "mhsa_bwd")
-    _build.LAUNCHES["mhsa_bwd"] += 1
-    return dq, dk, dv, dpos
+    return _launch_bwd(q, k, v, pos_win, mask_bias, g, n_heads, dropout_rate, seed)
 
 
 class _MhsaFn(torch.autograd.Function):

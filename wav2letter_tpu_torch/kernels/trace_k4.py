@@ -71,22 +71,44 @@ def _instrument(src: str) -> str:
     return head + tail
 
 
-def _build_traced() -> ctypes.CDLL:
-    work = _build.BUILD_DIR / "trace_k4"
+def build_traced(source: str, stem: str, entry: str, stamps: str) -> ctypes.CDLL:
+    """Compile an instrumented copy of ``csrc/attention.cu`` into
+    ``build/torch_kernels/<stem>/`` and bind its ``entry`` and ``stamps``
+    (which copies the stamps to the host)."""
+    work = _build.BUILD_DIR / stem
     work.mkdir(parents=True, exist_ok=True)
     src = work / "attention_traced.cu"
-    src.write_text(_instrument((_build.CSRC / "attention.cu").read_text()))
-    lib = work / "libk4trace.so"
+    src.write_text(source)
+    lib = work / f"lib{stem}.so"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     res = subprocess.run([_build.nvcc(), *flags, "-shared", f"-I{_build.CSRC}", str(src), "-o",
                           str(lib)], capture_output=True, text=True)
     if res.returncode:
-        raise RuntimeError(f"trace_k4: nvcc failed:\n{res.stdout}\n{res.stderr}")
+        raise RuntimeError(f"{stem}: nvcc failed:\n{res.stdout}\n{res.stderr}")
     cdll = ctypes.CDLL(str(lib))
-    cdll.w2l_mhsa_fwd.argtypes = _build.SIGNATURES["w2l_mhsa_fwd"]
-    cdll.w2l_mhsa_fwd.restype = ctypes.c_int
-    cdll.w2l_k4_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    getattr(cdll, entry).argtypes = _build.SIGNATURES[entry]
+    getattr(cdll, entry).restype = ctypes.c_int
+    getattr(cdll, stamps).argtypes = [ctypes.c_void_p, ctypes.c_int]
     return cdll
+
+
+def median_block(st: np.ndarray, n: int, phase_of) -> dict:
+    """The stamps (blocks x stamps: one at the start, then 4 a step) of the
+    block of median length: its cycles of each step, issue, wait, barrier and
+    compute, summed by ``phase_of(step)``, and every block's total."""
+    total = st[:, 4 * n] - st[:, 0]
+    blk = int(np.argsort(total)[len(st) // 2])
+    phases = {}
+    prev = st[blk, 0]
+    for c in range(n):
+        t = st[blk, 1 + 4 * c: 5 + 4 * c]
+        sums = phases.setdefault(phase_of(c), np.zeros(4, np.int64))
+        sums += np.array([t[0] - prev, t[1] - t[0], t[2] - t[1], t[3] - t[2]])
+        prev = t[3]
+    return dict(block_cycles=dict(min=int(total.min()), median=int(np.median(total)),
+                                  max=int(total.max())),
+                median_block={p: dict(zip(("issue", "wait", "barrier", "compute"),
+                                          map(int, v))) for p, v in phases.items()})
 
 
 def trace(lib, dtype, B=4, T=192, H=4, Dh=192, rows=32) -> dict:
@@ -110,21 +132,10 @@ def trace(lib, dtype, B=4, T=192, H=4, Dh=192, rows=32) -> dict:
     ch = FWD_CHUNK_BYTES // torch.tensor([], dtype=dtype).element_size()
     nk, npw = -(-T // ch), -(-(T + rows - 1) // ch)
     n = nk + npw + -(-Dh // 128) * nk
-    total = st[:, 4 * n] - st[:, 0]
-    blk = int(np.argsort(total)[nb // 2])
-    phases = {p: np.zeros(4, np.int64) for p in ("k", "Pwin", "v")}
-    prev = st[blk, 0]
-    for c in range(n):
-        t = st[blk, 1 + 4 * c: 5 + 4 * c]
-        phase = "k" if c < nk else "Pwin" if c < nk + npw else "v"
-        phases[phase] += np.array([t[0] - prev, t[1] - t[0], t[2] - t[1], t[3] - t[2]])
-        prev = t[3]
     return dict(dtype=str(dtype).replace("torch.", ""), shape=[B, T, H, Dh], rows=rows,
                 chunks=dict(k=nk, Pwin=npw, v=n - nk - npw),
-                block_cycles=dict(min=int(total.min()), median=int(np.median(total)),
-                                  max=int(total.max())),
-                median_block={p: dict(zip(("issue", "wait", "barrier", "compute"),
-                                          map(int, v))) for p, v in phases.items()})
+                **median_block(st, n, lambda c: "k" if c < nk else "Pwin" if c < nk + npw
+                               else "v"))
 
 
 def main() -> None:
@@ -134,7 +145,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         print("trace_k4: needs a CUDA device", file=sys.stderr)
         sys.exit(2)
-    lib = _build_traced()
+    lib = build_traced(_instrument((_build.CSRC / "attention.cu").read_text()), "trace_k4",
+                       "w2l_mhsa_fwd", "w2l_k4_stamps")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     rows_out = []
