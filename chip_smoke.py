@@ -9,7 +9,15 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 2. build the CUDA kernels from ``wav2letter_tpu_torch/csrc``;
 3. hold each kernel (K1 MFSC, K2 time conv, K3 residual LayerNorm, K4 fused
    attention) against its plain PyTorch version at the shapes of the serving
-   paths' largest batch (fp32, and bf16 for K2-K4), and the backward kernels
+   paths' largest batch (fp32, and bf16 for K2-K4); K1 also at the training
+   row (B=16) and at ``K1_EDGES`` (8 kHz, 40 mels, and a stride the tensor
+   cores do not take, which runs K1's CUDA-core route), K3 at ``LN_EDGES``
+   (D = 100, 1, 9000, R = 1, an unaligned view: its shared-memory route
+   where the register route does not take them), each K1 and K3 row with
+   its route, K1's with its tile and the TFLOP/s of its dense products,
+   K3's with its warps a row and its library call (x + y, then
+   ``F.layer_norm``) beside ``F.layer_norm`` of a precomputed sum; and the
+   backward kernels
    (K2 as dgrad, K2b time-conv weight gradient, K3b residual LayerNorm
    backward, K4b attention backward) and the three autograd functions at the
    shapes of the training paths' largest batch; K4 and K4b also at T=188
@@ -422,39 +430,86 @@ def path_calls(model, B, T):
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_mfsc(B, S, details):
+# K1 beside the paths' rows, (sample rate, mels, stride ms, B, S): 8 kHz
+# with S % 4 != 0 (4-byte audio copies), 40 mels, a stride of 100 samples
+# (the CUDA-core route); checked, timed warm, counted 0 times
+K1_EDGES = [(8000, 40, 10.0, 4, 123457), (16000, 40, 10.0, 4, 64000),
+            (16000, 80, 6.25, 4, 64000)]
+TF32_PEAK = 495e12  # H100 SXM, dense
+
+
+def _mfsc_row(f, B, S, tag, timed=True):
+    """K1 at one shape against its plain version: time, route, tile, the
+    TFLOP/s of its dense products and their ceiling on the TF32 tensor
+    cores, beside the function's own bound."""
     import torch
 
     from wav2letter_tpu_torch import kernels
-    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+    from wav2letter_tpu_torch.kernels.mfsc import TENSOR_CORES, dense_flops, route, tile_frames
 
-    f = Featurizer(FeatureParams(n_filterbanks=N_FEAT)).cuda()
-    g = torch.Generator(device="cuda").manual_seed(1)
+    p = f.p
+    g = torch.Generator(device="cuda").manual_seed(B + S)
     pre = 0.5 * torch.randn((B, S), device="cuda", generator=g)
-    args = (pre, f.cos_mat, f.sin_mat, f.mel_fb, 400, 160, 1.0)
+    frame, stride = p.frame_samples, p.stride_samples
+    args = (pre, f.cos_mat, f.sin_mat, f.mel_fb, frame, stride, p.mel_floor)
+    nb, nm = f.mel_fb.shape
+    way = route(frame, stride, nb, nm)
     got = kernels.mfsc(*args)
     torch.cuda.synchronize()
     want = kernels.mfsc_plain(*args)
     err, rel, ok = compare("mfsc", "float32", got, want)
     T = got.shape[1]
-    nb, nm = f.mel_fb.shape
-    nbytes = 4 * (B * S + 2 * 400 * nb + nb * nm + B * T * nm)
+    nbytes = 4 * (B * S + 2 * frame * nb + nb * nm + B * T * nm)
     # the operations the function needs per frame, not the dense products
     # the kernel does: a real FFT of n_fft points (2.5 N log2 N), the
     # magnitude of each bin, a multiply-add per nonzero of the triangular
     # filterbank, and the log of each mel
-    n_fft = f.p.n_fft
+    n_fft = p.n_fft
     nnz = int((f.mel_fb != 0).sum())
     flops = B * T * (2.5 * n_fft * math.log2(n_fft) + 4 * nb + 2 * nnz + nm)
     b_ms, b_by = bound(nbytes, flops, "float32")
-    row = dict(name="mfsc", dtype="float32", shape=[B, S, T], max_abs_err=err,
-               max_rel_err=rel, tol=TOL[("mfsc", "float32")], ok=ok,
-               ms=device_ms(kernels.mfsc, args),
-               warm_ms=device_ms(kernels.mfsc, args, cold=False),
-               plain_ms=device_ms(kernels.mfsc_plain, args),
-               library_ms=None, bound_ms=b_ms, bound_by=b_by, calls=1)
+    dense = dense_flops(B, T, frame, nb, nm)
+    if timed:
+        ms, warm = device_ms(kernels.mfsc, args), device_ms(kernels.mfsc, args, cold=False)
+        plain = device_ms(kernels.mfsc_plain, args)
+    else:
+        ms = warm = cuda_ms(lambda: kernels.mfsc(*args))
+        plain = None
+    row = dict(name="mfsc", dtype="float32", shape=[B, S, T], tag=tag, max_abs_err=err,
+               max_rel_err=rel, tol=TOL[("mfsc", "float32")], ok=ok, ms=ms, warm_ms=warm,
+               plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               calls=1 if timed else 0, route=way,
+               tile=tile_frames(B, T, torch.cuda.get_device_properties(0).multi_processor_count)
+               if way == TENSOR_CORES else 32,
+               frame=frame, stride=stride, n_mels=nm, dense_gflop=dense / 1e9,
+               dense_tflops=dense / ms / 1e9, dense_ceiling_ms=dense / TF32_PEAK * 1e3)
+    log(f"[K1] {tag} {[B, S, T]} frame {frame} stride {stride} mels {nm}: {way}, tile "
+        f"{row['tile']}, {ms:.4f} ms cold, {warm:.4f} warm; dense products "
+        f"{row['dense_tflops']:.1f} TFLOP/s (ceiling {row['dense_ceiling_ms']:.4f} ms at the "
+        f"TF32 peak); function bound {b_ms:.4f} ms ({b_by}); max err {err:.2e}")
+    return row
+
+
+def check_mfsc(B, S, details, tag="serve"):
+    """K1 at a path's row, on the route it takes."""
+    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+
+    f = Featurizer(FeatureParams(n_filterbanks=N_FEAT)).cuda()
+    row = _mfsc_row(f, B, S, tag)
     details.append(row)
     return [row]
+
+
+def check_mfsc_edges(details):
+    """K1 at ``K1_EDGES``, each on the route it takes."""
+    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+
+    for rate, mels, stride_ms, B, S in K1_EDGES:
+        f = Featurizer(FeatureParams(sample_rate=rate, n_filterbanks=mels,
+                                     frame_stride_ms=stride_ms)).cuda()
+        row = _mfsc_row(f, B, S, f"edge_{rate}_{mels}_{f.p.stride_samples}", timed=False)
+        row["edge"] = True
+        details.append(row)
 
 
 def _conv_log(row, tag):
@@ -511,7 +566,46 @@ def check_time_conv(convs, dtype_name, details, edges=()):
     return [r for r in rows if not r["edge"]]
 
 
+def _ln_log(row):
+    log(f"[K3] {row['dtype']} {row['shape']} calls={row['calls']}: {row['route']}"
+        + (f", {row['warps_per_row']} warps a row" if row["route"] == "registers" else "")
+        + f", {row['ms']:.4f} ms cold, {row['warm_ms']:.4f} warm; x + y and F.layer_norm "
+        f"{row['library_ms']}, F.layer_norm of the sum {row.get('layer_norm_ms')}; bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']})")
+
+
+def _ln_inputs(R, D, dtype, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((R, D), device="cuda", generator=g).to(dtype)
+    y = torch.randn((R, D), device="cuda", generator=g).to(dtype)
+    return x, y, torch.tensor([1.3], device="cuda"), torch.tensor([-0.2], device="cuda")
+
+
+def _ln_compare(dtype_name, got, want):
+    import torch
+
+    err, rel, ok = compare("residual_ln", dtype_name, got[0], want[0])
+    ok = ok and torch.allclose(got[1], want[1], rtol=1e-5, atol=1e-5) \
+        and torch.allclose(got[2], want[2], rtol=1e-5, atol=1e-5)
+    return err, rel, bool(ok)
+
+
+def _ln_layout(x):
+    from wav2letter_tpu_torch.kernels.layernorm import REGISTERS, route, warps_per_row
+
+    D = x.shape[1]
+    way = route(D, x.element_size(), x.data_ptr() % 16 == 0)
+    return dict(route=way, warps_per_row=warps_per_row(D, x.element_size())
+                if way == REGISTERS else 0)
+
+
 def check_residual_ln(lns, dtype_name, details):
+    """K3 at every row shape of one forward, on the route it takes. Its
+    library call is K3's own function unfused: x + y, then ``F.layer_norm``
+    (two launches); ``F.layer_norm`` of a precomputed sum, which reads one
+    tensor where K3 reads two, stands beside it as ``layer_norm_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -521,34 +615,66 @@ def check_residual_ln(lns, dtype_name, details):
     rows = []
     for key in sorted(set(lns), key=lns.index):
         R, D = key
-        g = torch.Generator(device="cuda").manual_seed(R + D)
-        x = torch.randn((R, D), device="cuda", generator=g).to(dtype)
-        y = torch.randn((R, D), device="cuda", generator=g).to(dtype)
-        w = torch.tensor([1.3], device="cuda")
-        b = torch.tensor([-0.2], device="cuda")
-        out, mu, rsig = kernels.residual_ln(x, y, w, b)
+        x, y, w, b = _ln_inputs(R, D, dtype, R + D)
+        got = kernels.residual_ln(x, y, w, b)
         torch.cuda.synchronize()
         want = kernels.residual_ln_plain(x, y, w, b)
-        err, rel, ok = compare("residual_ln", dtype_name, out, want[0])
-        ok = ok and torch.allclose(mu, want[1], rtol=1e-5, atol=1e-5) \
-            and torch.allclose(rsig, want[2], rtol=1e-5, atol=1e-5)
-        z = x + y  # the yardstick normalizes a precomputed sum
+        err, rel, ok = _ln_compare(dtype_name, got, want)
         wd, bd = w.to(dtype).expand(D).contiguous(), b.to(dtype).expand(D).contiguous()
-        lib_ms = device_ms(lambda a, b_, c: F.layer_norm(a, (D,), b_, c, 1e-5), (z, wd, bd))
+        lib_ms = device_ms(lambda a, a2, c, d: F.layer_norm(a + a2, (D,), c, d, 1e-5),
+                           (x, y, wd, bd))
+        ln_ms = device_ms(lambda a, c, d: F.layer_norm(a, (D,), c, d, 1e-5), (x + y, wd, bd))
         item = x.element_size()
         nbytes = 3 * R * D * item + 8 * R + 8
         flops = 8 * R * D
         b_ms, b_by = bound(nbytes, flops, "float32")  # statistics in fp32
         args = (x, y, w, b)
         row = dict(name="residual_ln", dtype=dtype_name, shape=[R, D], max_abs_err=err,
-                   max_rel_err=rel, tol=TOL[("residual_ln", dtype_name)], ok=bool(ok),
+                   max_rel_err=rel, tol=TOL[("residual_ln", dtype_name)], ok=ok,
                    ms=device_ms(kernels.residual_ln, args),
                    warm_ms=device_ms(kernels.residual_ln, args, cold=False),
                    plain_ms=device_ms(kernels.residual_ln_plain, args),
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=lns.count(key))
+                   library_ms=lib_ms, layer_norm_ms=ln_ms, bound_ms=b_ms, bound_by=b_by,
+                   calls=lns.count(key), **_ln_layout(x))
+        _ln_log(row)
         rows.append(row)
         details.append(row)
     return rows
+
+
+# K3 beside the paths' rows, (R, D): D not a multiple of 8 (bf16 through
+# shared memory), D = 1, D past the register route (8192 bf16, 4096 fp32),
+# R = 1, and a view one element past an aligned start (through shared
+# memory); checked, timed warm, counted 0 times
+LN_EDGES = [(256, 100), (256, 1), (64, 9000), (1, 1280), ("unaligned", 1280)]
+
+
+def check_residual_ln_edges(dtype_name, details):
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+
+    dtype = getattr(torch, dtype_name)
+    for R, D in LN_EDGES:
+        if R == "unaligned":
+            R = 50
+            x, y, w, b = _ln_inputs(R * D + 1, 1, dtype, D)
+            x = x.view(-1)[1:].view(R, D)
+            y = y.view(-1)[1:].view(R, D)
+        else:
+            x, y, w, b = _ln_inputs(R, D, dtype, R + D)
+        got = kernels.residual_ln(x, y, w, b)
+        torch.cuda.synchronize()
+        err, rel, ok = _ln_compare(dtype_name, got, kernels.residual_ln_plain(x, y, w, b))
+        ms = cuda_ms(lambda: kernels.residual_ln(x, y, w, b))
+        b_ms, b_by = bound(3 * R * D * x.element_size() + 8 * R + 8, 8 * R * D, "float32")
+        row = dict(name="residual_ln", dtype=dtype_name, shape=[R, D], max_abs_err=err,
+                   max_rel_err=rel, tol=TOL[("residual_ln", dtype_name)], ok=ok, ms=ms,
+                   warm_ms=ms, plain_ms=None, library_ms=None, layer_norm_ms=None,
+                   bound_ms=b_ms, bound_by=b_by, calls=0, edge=True,
+                   aligned=x.data_ptr() % 16 == 0, **_ln_layout(x))
+        _ln_log(row)
+        details.append(row)
 
 
 def _conv_inputs(key, dtype):
@@ -1623,9 +1749,12 @@ def main() -> None:
         # 3. kernels against their plain versions
         details = []
         rows = {"mfsc": check_mfsc(BATCH, S, details)}
+        check_mfsc(fl_batch, S_train, details, "train")  # the update's K1, B = 16
+        check_mfsc_edges(details)
         for dt in ("float32", "bfloat16"):
             rows[("time_conv", dt)] = check_time_conv(convs, dt, details, CONV_EDGES)
             rows[("residual_ln", dt)] = check_residual_ln(lns, dt, details)
+            check_residual_ln_edges(dt, details)
             back = check_time_conv_backward(tconvs, dt, details, CONV_EDGES)
             rows[("time_conv_dgrad", dt)] = back["time_conv_dgrad"]
             rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
@@ -1708,6 +1837,11 @@ def main() -> None:
             plain_ms=agg["plain_ms"],
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
             library_ms=agg["library_ms"], per=per)
+        if name in ("mfsc", "residual_ln"):  # which of the kernel's two routes ran
+            krows = rows["mfsc" if name == "mfsc" else (name, dt)]
+            entry["kernel_route"] = sorted({r["route"] for r in krows})
+        if name == "residual_ln":  # F.layer_norm of a precomputed sum, the old yardstick
+            entry["layer_norm_ms"] = sum(r["layer_norm_ms"] * r["calls"] for r in krows)
         if name == "time_conv":  # the same kernel as dgrad, per update
             dg = per_forward(rows[("time_conv_dgrad", dt)])
             entry["dgrad"] = {k: dg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",

@@ -45,6 +45,79 @@ def test_mfsc_kernel(cuda, B, S):
     torch.testing.assert_close(got, kernels.mfsc_plain(*args), rtol=1e-4, atol=1e-4)
 
 
+# K1 at its edges, (sample rate, mels, stride ms, B, S): a ragged last tile
+# (T = 98, 16-frame tiles), S < frame (T = 0), 8 kHz with S % 4 != 0 (4-byte
+# audio copies), 40 mels, a stride of 100 samples (the CUDA-core route), the
+# serving row (48-frame tiles), 32-frame tiles (B = 4, T = 1000), and B = 16
+K1_CASES = [(16000, 80, 10.0, 2, 16000), (16000, 80, 10.0, 2, 300),
+            (8000, 40, 10.0, 3, 12345), (16000, 40, 10.0, 2, 16000),
+            (16000, 80, 6.25, 2, 16000), (16000, 80, 10.0, 4, 246000),
+            (16000, 80, 10.0, 4, 160240), (16000, 80, 10.0, 16, 48000)]
+
+
+@pytest.mark.parametrize("rate,n_mels,stride_ms,B,S", K1_CASES)
+def test_mfsc_kernel_routes(cuda, rate, n_mels, stride_ms, B, S):
+    from wav2letter_tpu_torch.kernels.mfsc import route, tile_frames
+
+    p = FeatureParams(sample_rate=rate, n_filterbanks=n_mels, frame_stride_ms=stride_ms)
+    f = Featurizer(p).to(cuda)
+    pre = _randn((B, S), S + rate, cuda, scale=0.3)
+    args = (pre, f.cos_mat, f.sin_mat, f.mel_fb, p.frame_samples, p.stride_samples,
+            p.mel_floor)
+    T = 1 + (S - p.frame_samples) // p.stride_samples if S >= p.frame_samples else 0
+    assert route(p.frame_samples, p.stride_samples, f.mel_fb.shape[0], n_mels) == \
+        ("tensor cores" if p.stride_samples % 8 == 0 else "CUDA cores")
+    if (B, T) in ((2, 98), (4, 1536), (4, 1000)):
+        assert tile_frames(B, T) == {98: 16, 1536: 48, 1000: 32}[T]
+    before = kernels.LAUNCHES["mfsc"]
+    got = kernels.mfsc(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (B, T, n_mels)
+    assert kernels.LAUNCHES["mfsc"] == before + (T > 0)
+    # fp32 sums (3xTF32 on the tensor cores) in another order; log-mel O(1-10)
+    torch.testing.assert_close(got, kernels.mfsc_plain(*args), rtol=1e-4, atol=1e-4)
+
+
+def test_mfsc_kernel_unaligned_audio_and_refusals(cuda):
+    """Audio rows that do not start 16-byte aligned take 4-byte copies on the
+    tensor-core route; a shape neither route takes raises."""
+    f = Featurizer(FeatureParams(n_filterbanks=80)).to(cuda)
+    full = _randn((1, 16001), 5, cuda, scale=0.3)
+    pre = full[:, 1:]  # 4 bytes past an aligned start, still contiguous
+    assert pre.is_contiguous() and pre.data_ptr() % 16 == 4
+    args = (pre, f.cos_mat, f.sin_mat, f.mel_fb, 400, 160, 1.0)
+    got = kernels.mfsc(*args)
+    torch.testing.assert_close(got, kernels.mfsc_plain(*args), rtol=1e-4, atol=1e-4)
+    wide = torch.zeros((400, 321), device=cuda)
+    with pytest.raises(ValueError, match="CUDA-core kernel"):
+        kernels.mfsc(pre, wide, wide, torch.zeros((321, 80), device=cuda), 400, 160, 1.0)
+
+
+def test_mfsc_layout_twins_match(cuda):
+    """The C twins of K1's layout (shared memory, route, tile) against the
+    Python helpers the wrapper asks."""
+    import importlib
+
+    from wav2letter_tpu_torch.kernels import _build
+
+    # the module, not the wrapper function that kernels/__init__.py exports
+    K1 = importlib.import_module("wav2letter_tpu_torch.kernels.mfsc")
+    lib = kernels.library()
+    assert lib.w2l_mfsc_cc_max_bins() == K1.CC_MAX_BINS
+    for frame, stride, nb, nm in [(400, 160, 257, 80), (200, 80, 129, 40), (400, 100, 257, 80),
+                                  (40000, 8, 257, 80), (400, 160, 320, 80),
+                                  (400, 160, 321, 80), (401, 160, 3, 1), (7, 8, 1, 200)]:
+        for tt in K1.TC_TILES:
+            assert lib.w2l_mfsc_tc_smem_bytes(tt, frame, stride, nb) == \
+                K1.tc_smem_bytes(tt, frame, stride, nb)
+        assert bool(lib.w2l_mfsc_tc_takes(frame, stride, nb, nm, _build.MAX_SMEM_BYTES)) == \
+            K1.tc_takes(frame, stride, nb, nm)
+    for B in range(1, 33):
+        for T in (1, 15, 16, 17, 98, 500, 1536, 3000):
+            for sms in (132, 114):
+                assert lib.w2l_mfsc_tile_frames(B, T, sms) == K1.tile_frames(B, T, sms)
+
+
 # (B, T, F, C, CO, K, stride, lp, rp): the flagship's C2 and TDS convs at a
 # short T, plus small odd shapes
 TCONV = [
@@ -85,6 +158,70 @@ def test_residual_ln_kernel(cuda, dtype, R, D):
     torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
     torch.testing.assert_close(mu, wmu, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(rsig, wrsig, rtol=1e-5, atol=1e-5)
+
+
+# K3 at its edges, (R, D): D not a multiple of 8 (bf16 to shared memory,
+# fp32 to registers), D = 1, D past the register route (8192 bf16, 4096
+# fp32), R = 1, the flagship's and the transformer's rows, the register
+# route's widest rows
+LN_EDGES = [(64, 100), (64, 1), (64, 9000), (1, 1280), (3000, 1280), (187, 2240),
+            (768, 768), (5, 4096), (5, 8192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D", LN_EDGES)
+def test_residual_ln_kernel_routes(cuda, dtype, R, D):
+    from wav2letter_tpu_torch.kernels.layernorm import route
+
+    x = _randn((R, D), R + 1, cuda, dtype)
+    y = _randn((R, D), D + 1, cuda, dtype)
+    w = torch.tensor([0.7], device=cuda)
+    b = torch.tensor([0.3], device=cuda)
+    n = 16 // x.element_size()
+    assert (route(D, x.element_size()) == "registers") == (D % n == 0 and D <= 1024 * n)
+    before = kernels.LAUNCHES["residual_ln"]
+    out, mu, rsig = kernels.residual_ln(x, y, w, b)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["residual_ln"] == before + 1
+    want, wmu, wrsig = kernels.residual_ln_plain(x, y, w, b)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2  # bf16 output rounding
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mu, wmu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rsig, wrsig, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_residual_ln_kernel_unaligned_view(cuda, dtype):
+    """Rows of a view that starts one element past an aligned address go
+    through shared memory."""
+    from wav2letter_tpu_torch.kernels.layernorm import route
+
+    R, D = 50, 1280
+    buf = _randn((R * D + 1,), 3, cuda, dtype)
+    x = buf[1:].view(R, D)
+    y = _randn((R, D), 4, cuda, dtype)
+    w, b = torch.tensor([1.1], device=cuda), torch.tensor([0.1], device=cuda)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert route(D, x.element_size(), aligned=False) == "shared memory"
+    out, mu, rsig = kernels.residual_ln(x, y, w, b)
+    torch.cuda.synchronize()
+    want, wmu, wrsig = kernels.residual_ln_plain(x, y, w, b)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(mu, wmu, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(rsig, wrsig, rtol=1e-5, atol=1e-5)
+
+
+def test_residual_ln_layout_twins_match(cuda):
+    """The C twin of K3's register layout against the Python helper."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.layernorm import warps_per_row
+
+    lib = kernels.library()
+    for dtype, code in _build.DTYPE_CODES.items():
+        item = torch.tensor([], dtype=dtype).element_size()
+        for D in list(range(1, 8400, 3)) + [768, 1280, 1600, 1920, 2240, 4096, 8192, 8200]:
+            assert lib.w2l_residual_ln_warps(D, code) == warps_per_row(D, item), (D, dtype)
 
 
 NARROW = [

@@ -330,3 +330,208 @@ def test_k2_trace_finds_its_anchors_in_the_kernel_sources():
                                 ("tconv_wgrad.cu", _PROLOGUE_K2B, "g_k2b_stamps")):
         traced = _instrument((_build.CSRC / name).read_text(), prologue, sym)
         assert traced.count("clock64()") == 6 and f"{sym}_read" in traced
+
+
+# ---------------------------------------------------------------------------
+# K1's tensor-core route: its 3xTF32 arithmetic in numpy, and the layouts
+# of K1's and K3's two routes in Python
+# ---------------------------------------------------------------------------
+def _rna_tf32(x):
+    """cvt.rna.tf32.f32: fp32 rounded to 10 explicit mantissa bits, to
+    nearest with ties away from zero (the low 13 bits of the word become 0)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _split_tf32(x):
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _mma_3xtf32(a, b):
+    """a (M, K) @ b (K, N), K a multiple of 8, as the kernel's m16n8k8 TF32
+    steps: per 8-deep step small.big, then big.small, then big.big, each added
+    to the fp32 sums."""
+    (ab, asm), (bb, bsm) = _split_tf32(a), _split_tf32(b)
+    d = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 8):
+        s = slice(k, k + 8)
+        for x, y in ((asm, bb), (ab, bsm), (ab, bb)):
+            d = d + x[:, s] @ y[s]
+    return d
+
+
+def _mfsc_3xtf32(pre, cos_mat, sin_mat, mel_fb, frame, stride, mel_floor):
+    """K1 on the tensor cores, in numpy: the DFT as one product with cos |
+    sin (bins padded to 8, depth to 8, zeros), the magnitudes (0 in the pad
+    bins), the mel product, the log."""
+    B, S = pre.shape
+    T = 1 + (S - frame) // stride
+    nb, nm = mel_fb.shape
+    kf, np_, nmp = (-(-n // 8) * 8 for n in (frame, nb, nm))
+    idx = np.arange(T)[:, None] * stride + np.arange(frame)[None, :]
+    frames = np.zeros((B * T, kf), np.float32)
+    frames[:, :frame] = pre[:, idx].reshape(B * T, frame)
+    bmat = np.zeros((kf, 2 * np_), np.float32)
+    bmat[:frame, :nb] = cos_mat
+    bmat[:frame, np_:np_ + nb] = sin_mat
+    d = _mma_3xtf32(frames, bmat)
+    re, im = d[:, :nb], d[:, np_:np_ + nb]
+    mag = np.zeros((B * T, np_), np.float32)
+    mag[:, :nb] = np.sqrt(np.maximum(re * re + im * im, np.float32(1e-20)))
+    fb = np.zeros((np_, nmp), np.float32)
+    fb[:nb, :nm] = mel_fb
+    mel = _mma_3xtf32(mag, fb)[:, :nm]
+    return np.log(np.maximum(mel, np.float32(mel_floor))).reshape(B, T, nm)
+
+
+def test_tf32_split_rounds_ties_away_from_zero():
+    """cvt.rna, not round-half-even: 1 + 2^-11 lies halfway between two TF32
+    values and goes up. big + small keeps x to ~2^-22 of it (22 bits of 24)."""
+    x = np.float32([1 + 2**-11, -(1 + 2**-11), 1 + 2**-12, 1 + 2**-11 + 2**-23])
+    np.testing.assert_array_equal(
+        _rna_tf32(x), np.float32([1 + 2**-10, -(1 + 2**-10), 1, 1 + 2**-10]))
+    big, small = _split_tf32(x)
+    assert np.all(np.abs((big + small) - x) <= 2.0**-22 * np.abs(x))
+    np.testing.assert_array_equal((big + small)[:3], x[:3])
+
+
+# the flagship's frontend (frame 400, n_fft 512, 80 mels) and 8 kHz
+# (frame 200, n_fft 256, 40 mels); S gives ragged 16- and 32-frame tiles
+@pytest.mark.parametrize("rate,n_mels,S,B", [(16000, 80, 16000, 2), (8000, 40, 8000, 2)])
+def test_mfsc_tensor_core_arithmetic_matches_pallas(rate, n_mels, S, B):
+    """The kernel's 3xTF32 products (emulated bit for bit in their operand
+    rounding, with fp32 sums) hold the TPU kernel's 1e-4, on rows with
+    silence (every bin at the 1e-20 floor) and quiet stretches."""
+    p = FeatureParams(sample_rate=rate, n_filterbanks=n_mels)
+    f = Featurizer(p)
+    rng = np.random.RandomState(rate + n_mels)
+    audio = (rng.randn(B, S) * 0.1).astype(np.float32)
+    audio[0, :S // 4] = 0
+    audio[-1, S // 4:S // 2] *= 1e-3
+    pre = _pre(audio, p.preem_coef).astype(np.float32)
+    frames = f.frame_signal(jnp.asarray(pre))
+    want = np.asarray(pallas_mfsc(frames, f.cos_mat, f.sin_mat, f.mel_fb,
+                                  mel_floor=p.mel_floor, interpret=True))
+    got = _mfsc_3xtf32(pre, np.asarray(f.cos_mat), np.asarray(f.sin_mat),
+                       np.asarray(f.mel_fb), p.frame_samples, p.stride_samples, p.mel_floor)
+    assert got.shape == want.shape and p.n_fft // 2 + 1 == f.mel_fb.shape[0]
+    # the CUDA tests' and chip_smoke's tolerance for the kernel
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_mfsc_routes_and_tiles():
+    """K1's routes and tiles in Python (the C twins are held to these on the
+    card): every frontend of the recipes takes the tensor cores, and the tile
+    fills the SMs in whole waves."""
+    from wav2letter_tpu_torch.features import FeatureParams as TorchFeatureParams
+    import importlib
+
+    from wav2letter_tpu_torch.kernels import _build
+
+    # the module, not the wrapper function that kernels/__init__.py exports
+    K1 = importlib.import_module("wav2letter_tpu_torch.kernels.mfsc")
+
+    # audio 34 rows x 164 floats; 4 x 8 rows x 2 x 276 floats of cos | sin
+    assert K1.tc_smem_bytes(32, 400, 160, 257) == 4 * (34 * 164 + 4 * 8 * 2 * 276)
+    assert K1.tc_smem_bytes(16, 400, 160, 257) == 4 * (18 * 164 + 4 * 8 * 2 * 276)
+    assert K1.tc_smem_bytes(48, 400, 160, 257) == 4 * (50 * 164 + 4 * 8 * 2 * 276)
+    assert K1.tc_smem_bytes(32, 200, 80, 129) == 4 * (34 * 84 + 4 * 8 * 2 * 148)
+    for rate, mels in ((16000, 80), (16000, 40), (8000, 40), (16000, 24)):
+        p = TorchFeatureParams(sample_rate=rate, n_filterbanks=mels)
+        nb = p.n_fft // 2 + 1
+        assert K1.route(p.frame_samples, p.stride_samples, nb, mels) == K1.TENSOR_CORES
+        for tt in K1.TC_TILES[1:]:  # two blocks an SM (one of 48 frames)
+            assert K1.tc_smem_bytes(tt, p.frame_samples, p.stride_samples, nb) + 1024 \
+                <= 228 * 1024 // 2
+    assert K1.route(400, 100, 257, 80) == K1.CUDA_CORES  # an 8-deep step crosses rows
+    assert K1.route(400, 160, 257, 80, aligned=False) == K1.CUDA_CORES
+    assert K1.tc_takes(400, 160, K1.TC_MAX_BINS, 80)
+    assert not K1.tc_takes(400, 160, K1.TC_MAX_BINS + 1, 80)
+    assert K1.tc_takes(4000, 8, 257, 80)  # 531 rows of 12 floats: 25 KB of audio
+    assert not K1.tc_takes(40000, 8, 257, 80)  # 5031 rows: 241 KB
+    assert K1.tc_smem_bytes(32, 40000, 8, 257) > _build.MAX_SMEM_BYTES
+    # serving, 4 x 1536 frames: 128 blocks of 48, one on the busiest SM
+    # (1 x 88), 192 of 32 (2 x 72) or 384 of 16 (3 x 56); training, 16 x 1536:
+    # 4 x 88, 6 x 72 or 12 x 56; one row of 1536 frames: 1 x 88, 1 x 72, 1 x 56
+    assert K1.tile_frames(4, 1536) == 48
+    assert K1.tile_frames(16, 1536) == 48
+    assert K1.tile_frames(1, 10) == 16
+    assert K1.tile_frames(1, 1536) == 16
+    assert K1.tile_frames(8, 1536) == 48  # 256 of 48: 2 x 88; 384 of 32: 3 x 72
+    def load(B, T, tt):
+        return -(-(B * -(-T // tt)) // 132) * (tt + K1.TILE_FIXED_FRAMES)
+
+    for B in range(1, 17):
+        for T in (1, 15, 16, 17, 98, 500, 1536, 3000):
+            tt = K1.tile_frames(B, T)
+            assert all(load(B, T, tt) <= load(B, T, o) for o in K1.TC_TILES)
+    # the two dense products, 3 passes: 6144 frames x 400 x 528 and x 264 x 80
+    assert K1.dense_flops(4, 1536, 400, 257, 80) == 6 * 6144 * (400 * 528 + 264 * 80)
+
+
+@pytest.mark.parametrize("D,itemsize,wpr", [
+    (1280, 2, 2), (1600, 2, 2), (1920, 2, 2), (2240, 2, 4), (768, 2, 1),
+    (1280, 4, 4), (1600, 4, 4), (1920, 4, 4), (2240, 4, 8), (768, 4, 2),
+])
+def test_residual_ln_register_layout(D, itemsize, wpr):
+    """Every flagship (TDS rows of C x 80) and transformer (768) row takes
+    K3's register route: one block a row, the fewest warps that keep a lane
+    at four 16-byte vectors of each input."""
+    from wav2letter_tpu_torch.kernels import layernorm as K3
+
+    assert K3.route(D, itemsize) == K3.REGISTERS
+    assert K3.warps_per_row(D, itemsize) == wpr
+    nvec = D // (16 // itemsize)
+    assert -(-nvec // (32 * wpr)) <= K3.LN_VECTORS  # a lane's vectors
+    assert wpr == 1 or -(-nvec // (16 * wpr)) > K3.LN_VECTORS
+
+
+def test_residual_ln_routes():
+    """The flagship's TDS rows are the widths above; what the register route
+    leaves to the shared-memory route."""
+    from pathlib import Path
+
+    from wav2letter_tpu_torch.kernels import layernorm as K3
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.models.layers import TDSBlock
+
+    arch = Path(__file__).resolve().parents[1] / "recipes" / "streaming_convnets" / "network.arch"
+    with torch.device("meta"):
+        model = build_arch_module(str(arch), 80, 9998)
+    assert sorted({m.c * m.f for m in model.modules() if isinstance(m, TDSBlock)}) == \
+        [1280, 1600, 1920, 2240]
+    assert K3.route(100, 2) == K3.SHARED_MEMORY  # 200 bytes: no 16-byte vectors
+    assert K3.route(100, 4) == K3.REGISTERS
+    assert K3.route(1, 4) == K3.SHARED_MEMORY
+    # past 8 warps x 32 lanes x 4 vectors
+    assert K3.warps_per_row(8192, 2) == 8 and K3.route(8200, 2) == K3.SHARED_MEMORY
+    assert K3.warps_per_row(4096, 4) == 8 and K3.route(4100, 4) == K3.SHARED_MEMORY
+    assert K3.route(1280, 2, aligned=False) == K3.SHARED_MEMORY
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """An edit to a header the kernels share (``mma.cuh``: K1's and K4's
+    3xTF32 pieces) rebuilds the library."""
+    import shutil
+
+    from wav2letter_tpu_torch.kernels import _build
+
+    for p in _build.CSRC.iterdir():
+        shutil.copy(p, tmp_path / p.name)
+    assert {"mma.cuh", "tc_tile.cuh", "common.cuh"} <= {p.name for p in tmp_path.iterdir()}
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._digest()
+    with open(tmp_path / "mma.cuh", "a") as f:
+        f.write("\n")
+    assert _build._digest() != before
+
+
+def test_k1_trace_finds_its_anchors_in_the_kernel_source():
+    """``kernels/trace_k1.py`` stamps the tensor-core K1 by editing a copy of
+    its source at fixed anchors; it must find each of them once."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k1 import _instrument
+
+    traced = _instrument((_build.CSRC / "mfsc.cu").read_text())
+    assert traced.count("clock64()") == 12 and "w2l_k1_stamps" in traced

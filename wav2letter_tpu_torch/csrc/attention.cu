@@ -75,6 +75,7 @@
 // in order. The only limit on T and Dh is launch 1's shared memory, which is
 // K4's.
 #include "common.cuh"
+#include "mma.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -172,66 +173,7 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-// d += a . b on one 16 x 8 tile, 32 bytes deep, fp32 sums.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// x = big + small, both TF32 (fp32 bits with the low 13 of the mantissa 0).
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(__uint_as_float(x)));
-  const float rest = __uint_as_float(x) - __uint_as_float(big);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
-}
-
-// The A operand of one 32-byte deep step of a 16-row tile product, from the
-// four registers ldmatrix.x4 gives for it (rows 0-7 and 8-15 of the first and
-// of the second 16 bytes), and its product with a B fragment, d + e += a . b.
-// bf16: d += a . b by one m16n8k16, e untouched. fp32: three m16n8k8 TF32
-// passes, d += big . big and e += small . big + big . small, two chains that
-// the tensor cores can overlap.
-template <typename T>
-struct AFrag;
-template <>
-struct AFrag<__nv_bfloat16> {
-  uint32_t a[4];
-  __device__ __forceinline__ explicit AFrag(const uint32_t (&r)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = r[i];
-  }
-  __device__ __forceinline__ void mma(float (&d)[4], float (&)[4], uint32_t b0,
-                                      uint32_t b1) const {
-    mma_bf16(d, a, b0, b1);
-  }
-};
-template <>
-struct AFrag<float> {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ explicit AFrag(const uint32_t (&r)[4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) split_tf32(r[i], big[i], small[i]);
-  }
-  __device__ __forceinline__ void mma(float (&d)[4], float (&e)[4], uint32_t b0,
-                                      uint32_t b1) const {
-    uint32_t bb0, bs0, bb1, bs1;
-    split_tf32(b0, bb0, bs0);
-    split_tf32(b1, bb1, bs1);
-    mma_tf32(e, small, bb0, bb1);
-    mma_tf32(e, big, bs0, bs1);
-    mma_tf32(d, big, bb0, bb1);
-  }
-};
+using w2l::AFrag;  // csrc/mma.cuh: the bf16 and 3xTF32 tile products
 
 // The registers ldmatrix.x4 would give for the A operand of one 32-byte deep
 // step (see AFrag), from el(row, col), the element at row < 16 and column

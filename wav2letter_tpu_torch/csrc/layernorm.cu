@@ -11,11 +11,25 @@
 // ~8 FLOP per element against 6 (bf16) or 12 (fp32) bytes moved (x and y in,
 // out back), far below the ~20 FLOP/byte at which compute would bind.
 //
-// Design: one block per row. z = x + y is formed once, in fp32, in shared
-// memory (D <= 12 K elements fits in the default 48 KB), so x and y are read
-// from HBM once and out is written once. The mean and then the variance of
-// z - mu are block reductions (warp shuffles, then one value per warp), the
-// same two-pass statistics the TPU kernel computes.
+// Design, two routes (kernels/layernorm.py::route, C twin
+// w2l_residual_ln_warps). Registers (residual_ln_reg_kernel; D * itemsize a
+// multiple of 16, D <= 8192 bf16 / 4096 fp32, x, y, out 16-byte aligned):
+// one block a row, of 1, 2, 4 or 8 warps, the fewest that keep a lane at
+// four 16-byte vectors of each input (8 bf16 or 4 fp32 a vector). Each lane
+// reads its vectors of x and y once, keeps z = x + y in registers in fp32,
+// and writes out as 16-byte vectors: the row's bytes move once, with no pass
+// over shared memory. The mean and then the mean of (z - mu)^2, both in
+// fp32, are warp shuffles; a row of several warps adds its warps' sums
+// through a few floats of shared memory, in a fixed order. Rows of this
+// route's shapes are a few microseconds of bytes each, so a call is bound
+// by its ramp and tail as much as by HBM: one row a block, of as few warps
+// as four vectors a lane allow, came out faster than several rows a block
+// (kernels/time_k1k3.py, PERF.md). Shared memory (residual_ln_kernel; any
+// D, any alignment): one block of 256 threads a row; z = x + y is formed
+// once, in fp32, in shared memory, so x and y are read from HBM once and
+// out is written once; the mean and the variance are block reductions
+// (warp shuffles, then one value per warp). Both compute the TPU kernel's
+// two-pass statistics.
 //
 // K3b: its backward. Replaces layernorm.py::_bwd (_bwd_kernel):
 //   zhat = (z - mu) * rsig;  ghat = g * w
@@ -99,6 +113,144 @@ int launch(const void* x, const void* y, const void* w, const void* b, void* out
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K3, registers
+// ---------------------------------------------------------------------------
+constexpr int LN_VECTORS = 4;    // 16-byte vectors of x (and of y) a lane holds at most
+constexpr int LN_MAX_WARPS = 8;  // warps a row, and a block
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 16 bytes of T as N fp32 values: read through the read-only cache, written
+// as one 16-byte store. bf16 goes by its bits (the top half of an fp32),
+// rounded to nearest even on the way out.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float (&v)[N]) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    v[0] = __uint_as_float(u.x);
+    v[1] = __uint_as_float(u.y);
+    v[2] = __uint_as_float(u.z);
+    v[3] = __uint_as_float(u.w);
+  }
+  __device__ __forceinline__ static void store(float* p, const float (&v)[N]) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                                              __float_as_uint(v[2]), __float_as_uint(v[3]));
+  }
+};
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void unpack(unsigned w, float& lo, float& hi) {
+    lo = __uint_as_float(w << 16);
+    hi = __uint_as_float(w & 0xffff0000u);
+  }
+  __device__ __forceinline__ static unsigned pack(float lo, float hi) {
+    return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+           (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+  }
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&v)[N]) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    unpack(u.x, v[0], v[1]);
+    unpack(u.y, v[2], v[3]);
+    unpack(u.z, v[4], v[5]);
+    unpack(u.w, v[6], v[7]);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float (&v)[N]) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+  }
+};
+
+// The sum over the block (one row), for every thread: warp shuffles, then
+// (several warps) the warps' sums added in order through red.
+__device__ __forceinline__ float row_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int warps = blockDim.x >> 5;
+  if (warps == 1) return v;
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int i = 0; i < warps; ++i) t += red[i];
+  return t;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * LN_MAX_WARPS)
+residual_ln_reg_kernel(const T* __restrict__ x, const T* __restrict__ y,
+                       const float* __restrict__ w, const float* __restrict__ b,
+                       T* __restrict__ out, float* __restrict__ mu_out,
+                       float* __restrict__ rsig_out, int D, float eps) {
+  constexpr int N = Vec16<T>::N;
+  __shared__ float red[2][LN_MAX_WARPS];  // the sums, then the squares
+  const size_t base = static_cast<size_t>(blockIdx.x) * D;
+  const int nvec = D / N, step = blockDim.x;
+
+  float z[LN_VECTORS][N];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < LN_VECTORS; ++k) {
+    const int v = threadIdx.x + k * step;
+    if (v < nvec) {
+      float a[N], c[N];
+      Vec16<T>::load(x + base + static_cast<size_t>(v) * N, a);
+      Vec16<T>::load(y + base + static_cast<size_t>(v) * N, c);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        z[k][e] = a[e] + c[e];
+        s += z[k][e];
+      }
+    }
+  }
+  const float mu = row_sum(s, red[0]) / D;
+  float q = 0.f;
+#pragma unroll
+  for (int k = 0; k < LN_VECTORS; ++k) {
+    if (threadIdx.x + k * step < nvec) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float d = z[k][e] - mu;
+        q = fmaf(d, d, q);
+      }
+    }
+  }
+  const float rsig = rsqrtf(row_sum(q, red[1]) / D + eps);
+  const float wv = w[0];
+  const float bv = b[0];
+#pragma unroll
+  for (int k = 0; k < LN_VECTORS; ++k) {
+    const int v = threadIdx.x + k * step;
+    if (v < nvec) {
+      float o[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) o[e] = (z[k][e] - mu) * rsig * wv + bv;
+      Vec16<T>::store(out + base + static_cast<size_t>(v) * N, o);
+    }
+  }
+  if (threadIdx.x == 0) {
+    mu_out[blockIdx.x] = mu;
+    rsig_out[blockIdx.x] = rsig;
+  }
+}
+
+template <typename T>
+int launch_reg(const void* x, const void* y, const void* w, const void* b, void* out,
+               void* mu, void* rsig, int R, int D, float eps, int wpr, cudaStream_t stream) {
+  if (wpr < 1 || wpr > LN_MAX_WARPS) return static_cast<int>(cudaErrorInvalidValue);
+  residual_ln_reg_kernel<T><<<R, 32 * wpr, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<T*>(out), static_cast<float*>(mu),
+      static_cast<float*>(rsig), D, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 residual_ln_bwd_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -171,11 +323,34 @@ extern "C" int w2l_residual_ln_bwd(const void* g, const void* x, const void* y,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Warps a row of the register route for D elements of the dtype, 0 where it
+// does not take D (kernels/layernorm.py::warps_per_row): the fewest of 1, 2,
+// 4, 8 that keep a lane at LN_VECTORS 16-byte vectors of each input or
+// fewer, D * itemsize a multiple of 16.
+extern "C" int w2l_residual_ln_warps(int D, int dtype) {
+  const int n = dtype == w2l::kBFloat16 ? 8 : 4;
+  if (D <= 0 || D % n != 0) return 0;
+  const int nvec = D / n;
+  for (int wpr = 1; wpr <= LN_MAX_WARPS; wpr *= 2)
+    if ((nvec + 32 * wpr - 1) / (32 * wpr) <= LN_VECTORS) return wpr;
+  return 0;
+}
+
 // x, y, out (R, D) of one dtype; w, b (1,) float32; mu, rsig (R,) float32.
+// wpr > 0: the register route, a block of wpr warps a row (x, y and out
+// 16-byte aligned, D * itemsize a multiple of 16); wpr = 0: the
+// shared-memory route.
 extern "C" int w2l_residual_ln(const void* x, const void* y, const void* w, const void* b,
                                void* out, void* mu, void* rsig, int dtype, int R, int D,
-                               float eps, void* stream) {
+                               float eps, int wpr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wpr > 0) {
+    if (dtype == w2l::kFloat32)
+      return launch_reg<float>(x, y, w, b, out, mu, rsig, R, D, eps, wpr, s);
+    if (dtype == w2l::kBFloat16)
+      return launch_reg<__nv_bfloat16>(x, y, w, b, out, mu, rsig, R, D, eps, wpr, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == w2l::kFloat32) return launch<float>(x, y, w, b, out, mu, rsig, R, D, eps, s);
   if (dtype == w2l::kBFloat16)
     return launch<__nv_bfloat16>(x, y, w, b, out, mu, rsig, R, D, eps, s);

@@ -5,8 +5,9 @@ pointer and the stream go in as ``c_void_p``, and every entry point returns
 ``cudaGetLastError()`` after its launch. Each ``.cu`` file is compiled by its
 own ``nvcc`` process, all started together, and the objects are linked into
 ``build/torch_kernels/libw2l_kernels_<hash>.so`` at the repository root. The
-hash covers the sources and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as built.
+hash covers the sources, the headers they share (``*.cuh``: ``common.cuh``,
+``mma.cuh``, ``tc_tile.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged tree is loaded as built.
 
 Nothing here runs at import: the first wrapper that launches a kernel calls
 ``library()``, which builds on first use.
@@ -38,8 +39,12 @@ MAX_SMEM_BYTES = 232448  # dynamic shared memory one block can get on sm_90
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 SIGNATURES = {
-    "w2l_mfsc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "w2l_mfsc_max_bins": [],
+    "w2l_mfsc_cc": [_P] * 5 + [_I] * 7 + [_F, _P],
+    "w2l_mfsc_tc": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+    "w2l_mfsc_cc_max_bins": [],
+    "w2l_mfsc_tc_smem_bytes": [_I, _I, _I, _I],
+    "w2l_mfsc_tc_takes": [_I] * 5,
+    "w2l_mfsc_tile_frames": [_I, _I, _I],
     "w2l_time_conv": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                       _P],
     "w2l_time_conv_tile": [],
@@ -52,7 +57,8 @@ SIGNATURES = {
                             _P],
     "w2l_time_conv_wgrad_tile": [],
     "w2l_time_conv_wgrad_window": [_I, _I, _I, _I],
-    "w2l_residual_ln": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "w2l_residual_ln": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
+    "w2l_residual_ln_warps": [_I, _I],
     "w2l_residual_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "w2l_mhsa_fwd": [_P] * 6 + [_I] * 7 + [_F, _U, _F, _I, _P],
     "w2l_mhsa_bwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _I, _I, _P],

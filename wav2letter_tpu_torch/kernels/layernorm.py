@@ -9,7 +9,13 @@ differentiable PyTorch code. On a CUDA tensor it launches K3 and, where a
 gradient is wanted, records :class:`_ResidualLNFn`, whose backward launches
 K3b. The forward saves x and y, not z = x + y: K3b forms z in fp32 again,
 which moves as many bytes in all as writing z would and leaves the forward
-as serving runs it."""
+as serving runs it.
+
+K3 has two routes (``route``; C twin ``w2l_residual_ln_warps``): rows held
+in registers, a block of 1, 2, 4 or 8 warps a row, read and written as
+16-byte vectors, where D * itemsize is a multiple of 16, a lane holds at most
+four vectors of each input and x and y start 16-byte aligned; one block a
+row through shared memory elsewhere."""
 
 from __future__ import annotations
 
@@ -20,6 +26,32 @@ import torch
 from . import _build
 
 EPS = 1e-5
+REGISTERS, SHARED_MEMORY = "registers", "shared memory"
+LN_VECTORS = 4    # 16-byte vectors of x (and of y) a lane of the register route holds
+LN_MAX_WARPS = 8  # warps a row
+
+
+def warps_per_row(D: int, itemsize: int) -> int:
+    """Warps a row of the register route (C twin ``w2l_residual_ln_warps``):
+    the fewest of 1, 2, 4, 8 whose lanes hold at most ``LN_VECTORS``
+    16-byte vectors of each input; 0 where the route does not take D."""
+    n = 16 // itemsize
+    if D <= 0 or D % n:
+        return 0
+    nvec = D // n
+    wpr = 1
+    while wpr <= LN_MAX_WARPS:
+        if -(-nvec // (32 * wpr)) <= LN_VECTORS:
+            return wpr
+        wpr *= 2
+    return 0
+
+
+def route(D: int, itemsize: int, aligned: bool = True) -> str:
+    """Where K3 runs rows of D elements: in registers where
+    ``warps_per_row`` takes D and x, y start 16-byte aligned (``aligned``),
+    else through shared memory."""
+    return REGISTERS if aligned and warps_per_row(D, itemsize) else SHARED_MEMORY
 
 
 def residual_ln_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -86,8 +118,10 @@ def residual_ln_bwd(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mu: torch
 
 
 def _launch_ln(x, y, w, b):
-    """K3 on checked CUDA tensors."""
+    """K3 on checked CUDA tensors, on the route :func:`route` picks."""
     R, D = x.shape
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    wpr = warps_per_row(D, x.element_size()) if aligned else 0  # 0: shared memory
     w32 = w.reshape(1).float()
     b32 = b.reshape(1).float()
     out = torch.empty_like(x)
@@ -98,7 +132,7 @@ def _launch_ln(x, y, w, b):
     lib = _build.library()
     rc = lib.w2l_residual_ln(
         x.data_ptr(), y.data_ptr(), w32.data_ptr(), b32.data_ptr(), out.data_ptr(),
-        mu.data_ptr(), rsig.data_ptr(), _build.DTYPE_CODES[x.dtype], R, D, EPS,
+        mu.data_ptr(), rsig.data_ptr(), _build.DTYPE_CODES[x.dtype], R, D, EPS, wpr,
         _build.stream_ptr(x))
     _build.check(rc, "residual_ln")
     _build.LAUNCHES["residual_ln"] += 1
