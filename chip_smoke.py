@@ -67,7 +67,21 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
 9. the transformer at full width, 2 of its layers, with a table of 2000
    relative positions: one bf16 update on two 134-136 s utterances (T up to
    1712 after the pools) launches K4 and K4b once per layer; serving the
-   same batch takes K4.
+   same batch takes K4;
+10. the lexicon beam decode of phase 4's flagship checkpoints through
+   ``cli.decode`` with ``W2L_REQUIRE_NATIVE=1`` (the native decoder built by
+   ``g++`` from ``wav2letter_tpu_torch/ops/native/decoder.cpp``), a 3-gram
+   ARPA of the list's transcripts and its probing ``.bin``, in bf16 and
+   fp32 at batch 4, beam 100, ``--beamsizetoken=100``: the top-k-shipped
+   decode (timed: audio s per wall s, the forward's device time, the beam's
+   host time), the full-row decode that fills ``--emission_dir`` and the
+   ``.bin`` over that cache, with the launch counts checked (1 K1, 15 K2, 22
+   K3 per batch), the emissions held against the plain-version forward, the
+   shipped top-k's words against the host's cut of the full rows on every
+   utterance without a tie at the k-th value (tied frames, and frames whose
+   top k leaves out the blank or the separator, counted), the ``.bin``'s
+   words against the ARPA's, and the native beam's against the Python
+   beam's on the two shortest utterances.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -241,20 +255,26 @@ def device_events(prof):
             yield evt
 
 
+PROFILE_TRIES = 10
+
+
 def profile_device(fn):
     """``fn()`` under the profiler, device activities only; returns the
     profiler. Now and then one comes back without any device event (seen once
-    in some thousand uses); such a reading is taken again, never kept."""
+    in some thousand uses, and once three in a row); such a reading is taken
+    again after a pause, never kept, and each retry is logged."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         if any(True for _ in device_events(prof)):
             return prof
-    fail("the profiler reported no device event three times in a row")
+        log(f"[profiler] reading {attempt + 1} held no device event; taken again")
+        time.sleep(0.5)
+    fail(f"the profiler reported no device event {PROFILE_TRIES} times in a row")
 
 
 def device_ms(fn, args, cold=True, iters=20) -> float:
@@ -1668,6 +1688,177 @@ def long_context_path(tmp, tokens, lexicon, seed):
     return result
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the lexicon beam decode
+# ---------------------------------------------------------------------------
+DECODE_K = 100  # --beamsizetoken: the top-k the producer ships of 9998 classes
+DECODE_FLAGS = [f"--batchsize={BATCH}", "--beamsize=100", f"--beamsizetoken={DECODE_K}",
+                "--beamthreshold=25", "--lmweight=1", "--wordscore=0.5", "--smearing=max",
+                "--nthread_decoder=2"]
+PY_BEAM = 20  # the Python beam's width on the two shortest utterances
+
+
+def read_hyps(sclite_dir, lst):
+    """{sample id: hypothesis words} of a decode's sclite ``.hyp``."""
+    with open(os.path.join(sclite_dir, os.path.basename(lst) + ".hyp")) as f:
+        rows = [l.rsplit(" (", 1) for l in f.read().splitlines()]
+    return {sid.rstrip(")"): words.split() for words, sid in rows}
+
+
+def decode_path(paths, lst, secs, tmp, n_batches, smi_line):
+    """The flagship through ``cli.decode`` (``W2L_REQUIRE_NATIVE=1``) with a
+    3-gram ARPA of the list's transcripts, per type: (A) the top-k-shipped
+    decode, timed; (B) the full-row decode that fills ``--emission_dir``;
+    (C) the probing ``.bin`` of the LM over that cache. Checks the launches of
+    A and B (1 K1, 15 K2, 22 K3 per batch, none in C), the decoder's class,
+    B's emissions against the plain-version forward, C's words against B's,
+    A's words against the decode of B's rows cut to their top k on the host
+    on every utterance without a tie at the k-th value, and the native beam's
+    words against the Python beam's on the two shortest utterances."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.decoder.native import NativeBeamDecoder
+    from wav2letter_tpu_torch.runtime.decode import build_decoder, result_to_words, sparse_rows
+    from wav2letter_tpu_torch.tools.ngram_lm import build_binary, train_ngram_lm
+
+    t_phase = time.perf_counter()
+    os.environ["W2L_REQUIRE_NATIVE"] = "1"
+    root = os.path.join(tmp, "decode")
+    os.makedirs(root, exist_ok=True)
+    corpus = os.path.join(root, "corpus.txt")
+    with open(lst) as f, open(corpus, "w") as out:
+        out.writelines(" ".join(line.split()[3:]) + "\n" for line in f)
+    arpa = os.path.join(root, "lm.arpa")
+    t0 = time.perf_counter()
+    train_ngram_lm(corpus, arpa, order=3)
+    lm_bin = build_binary(arpa, os.path.join(root, "lm.bin"))  # builds decoder.cpp
+    prep_s = time.perf_counter() - t0
+    serve = expected_launches(FLAGSHIP, 0, n_batches)
+    results = {}
+    for dt in ("bfloat16", "float32"):
+        d = os.path.join(root, dt)
+        em_dir = os.path.join(d, "em")
+        base = [f"--am={paths[dt]}", f"--test={lst}", *DECODE_FLAGS]
+        runs = {}
+        for name, extra, want in (
+                ("topk", [f"--lm={arpa}"], serve),
+                ("full", [f"--lm={arpa}", f"--emission_dir={em_dir}"], serve),
+                ("bin", [f"--lm={lm_bin}", f"--emission_dir={em_dir}"],
+                 {k: 0 for k in serve})):
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            res = decode_main(base + extra + [f"--sclite={os.path.join(d, name)}"])
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            if launches != want:
+                fail(f"decode {dt} {name}: launches {launches}, expected {want}")
+            if res["decoder"] != "NativeBeamDecoder":
+                fail(f"decode {dt} {name}: the beam ran on {res['decoder']}")
+            runs[name] = dict(res, launches=launches,
+                              hyps=read_hyps(os.path.join(d, name), lst))
+        if runs["bin"]["hyps"] != runs["full"]["hyps"]:
+            fail(f"decode {dt}: the .bin LM decodes otherwise than the ARPA")
+        # B's emissions against the plain-version forward on the card
+        ref, _, ev, ds = plain_path_emissions(paths[dt], lst)
+        ems, err_max, err_sum, n = {}, 0.0, 0.0, 0
+        for sid, want_em in ref.items():
+            got = np.load(os.path.join(em_dir, f"{sid}.npz"))["emission"]
+            if got.shape != tuple(want_em.shape) or not np.isfinite(got).all():
+                fail(f"decode {dt} {sid}: emissions {got.shape} vs {tuple(want_em.shape)}")
+            e = (torch.from_numpy(got).cuda() - want_em).abs()
+            err_max, err_sum, n = max(err_max, e.max().item()), err_sum + e.sum().item(), \
+                n + e.numel()
+            ems[sid] = got
+        tol = EM_TOL[dt]
+        if err_max > tol[0] or err_sum / n > tol[1]:
+            fail(f"decode {dt}: emissions differ from the plain path: max {err_max} "
+                 f"mean {err_sum / n} (tolerance {tol})")
+        # device time of the top-k forward, summed over the list's batches
+        fwd_ms = 0.0
+        for spec in ds.batch_specs():
+            batch = ds.materialize(spec)
+            ev.emissions_topk(batch, DECODE_K)
+            prof = profile_device(lambda: ev.emissions_topk(batch, DECODE_K))
+            fwd_ms += sum(e.self_device_time_total for e in device_events(prof)) / 1e3
+        # the top-k cut against the full rows, utterance by utterance
+        cfg = Config()
+        cfg.update(ev.cfg.asdict())
+        cfg.update(dict(lm=arpa, beamsize=100, beamsizetoken=DECODE_K, beamthreshold=25.0,
+                        lmweight=1.0, wordscore=0.5, smearing="max"))
+        dec, word_dict = build_decoder(cfg, ev.token_dict, ev.lexicon)
+        if not isinstance(dec, NativeBeamDecoder):
+            fail(f"decode {dt}: build_decoder gave {type(dec).__name__}")
+        blank, sep = ev.n_classes - 1, ev.token_dict.get_index(cfg.wordseparator)
+        per_utt, bad = {}, []
+        for sid, e in ems.items():
+            top = -np.partition(-e, DECODE_K, axis=1)[:, :DECODE_K + 1]
+            top.sort(axis=1)
+            kth, next_ = top[:, 1], top[:, 0]  # the k-th and (k+1)-th largest
+            vals, idx = torch.topk(torch.from_numpy(e), DECODE_K, dim=-1)
+            cut = sparse_rows(vals.numpy(), idx.to(torch.int32).numpy(), ev.n_classes)
+            words = result_to_words(dec.decode(cut)[0], word_dict, ev.token_dict, cfg,
+                                    ev.n_classes)
+            row = dict(frames=len(e), tied_frames=int((kth == next_).sum()),
+                       blank_outside_k=int((e[:, blank] < kth).sum()),
+                       separator_outside_k=int((e[:, sep] < kth).sum()),
+                       topk_equals_host_cut=words == runs["topk"]["hyps"][sid],
+                       topk_equals_full=runs["topk"]["hyps"][sid] == runs["full"]["hyps"][sid])
+            per_utt[sid] = row
+            if row["tied_frames"] == 0 and not row["topk_equals_host_cut"]:
+                bad.append(sid)
+        if bad:
+            fail(f"decode {dt}: the shipped top-k decodes otherwise than the host's cut "
+                 f"on {bad}, which tie at no k-th value")
+        # the native beam against the Python beam at width PY_BEAM
+        cfg.update(dict(beamsize=PY_BEAM))
+        nat, _ = build_decoder(cfg, ev.token_dict, ev.lexicon)
+        py, _ = build_decoder(cfg, ev.token_dict, ev.lexicon, use_native=False)
+        py_rows = []
+        for sid in sorted(ems, key=lambda k: len(ems[k]))[:2]:
+            t0 = time.perf_counter()
+            rn = nat.decode(ems[sid])[0]
+            t1 = time.perf_counter()
+            rp = py.decode(ems[sid])[0]
+            t2 = time.perf_counter()
+            wn, wp = (result_to_words(r, word_dict, ev.token_dict, cfg, ev.n_classes)
+                      for r in (rn, rp))
+            py_rows.append(dict(sid=sid, frames=len(ems[sid]), words=len(wn),
+                                score_diff=abs(rn.score - rp.score), native_s=t1 - t0,
+                                python_s=t2 - t1))
+            if wn != wp or abs(rn.score - rp.score) > 1e-3 * max(1.0, abs(rp.score)):
+                fail(f"decode {dt} {sid}: native {wn} ({rn.score}) vs Python {wp} "
+                     f"({rp.score})")
+        del ev, ds, ref, dec, nat, py
+        torch.cuda.empty_cache()
+        a = runs["topk"]
+        decode_s = a["wall_s"] - a["setup_s"]
+        results[dt] = dict(
+            utterances=len(ems), audio_s=secs, lm_prep_s=prep_s,
+            decode_s=decode_s, audio_s_per_wall_s=secs / decode_s,
+            setup_s=a["setup_s"], forward_host_s=a["forward_s"],
+            forward_device_ms=fwd_ms, beam_host_s=a["beam_s"],
+            WER={k: r["WER"] for k, r in runs.items()},
+            launches=a["launches"], em_max_abs_err=err_max, em_mean_abs_err=err_sum / n,
+            em_tol=tol, tied_frames=sum(r["tied_frames"] for r in per_utt.values()),
+            frames=sum(r["frames"] for r in per_utt.values()),
+            utterances_without_tie=sum(r["tied_frames"] == 0 for r in per_utt.values()),
+            blank_outside_k=sum(r["blank_outside_k"] for r in per_utt.values()),
+            separator_outside_k=sum(r["separator_outside_k"] for r in per_utt.values()),
+            topk_equals_full=sum(r["topk_equals_full"] for r in per_utt.values()),
+            per_utterance=per_utt, python_beam=py_rows)
+        log(f"[decode flagship {dt}] {json.dumps(results[dt])}")
+        log(f"[decode rate] {dt}: {secs / decode_s:.1f} audio s per wall s "
+            f"(forward {fwd_ms:.2f} ms device, {a['forward_s']:.3f} s host; beam "
+            f"{a['beam_s']:.3f} s host over 2 threads) | {smi_line}")
+    results["phase_s"] = time.perf_counter() - t_phase
+    log(f"[decode] phase 10 in {results['phase_s']:.1f} s")
+    return results
+
 # ---------------------------------------------------------------------------
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1814,6 +2005,9 @@ def main() -> None:
         # 9. the long-context transformer
         long_context = long_context_path(tmp, tokens, lexicon, args.seed)
 
+        # 10. the lexicon beam decode of the flagship
+        decoded = decode_path(paths, lst, secs, tmp, n_batches, smi_line)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -1863,6 +2057,7 @@ def main() -> None:
                            transformer=dict(n_params=tr_params, main=tr_served,
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
+                           decode=decoded,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -840,3 +840,41 @@ def test_attention_past_k4b_limit_trains_unfused(cuda, dtype):
             want = plain(x)
         for got in (served, out.detach()):
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_emissions_topk_on_the_card(cuda, tmp_path):
+    """``Evaluator.emissions_topk`` on the card: exactly ``torch.topk`` of its
+    own emissions, and the top-k of the CPU's emissions (plain versions) where
+    a frame's k-th and (k+1)-th values lie apart by more than twice the fp32
+    emission tolerance of ``test_model_kernels_match_plain``."""
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.checkpoint import Checkpoint, save_checkpoint
+    from wav2letter_tpu_torch.runtime.test import Evaluator
+
+    arch, tokens, am = tmp_path / "narrow.arch", tmp_path / "tokens.txt", tmp_path / "m.pt"
+    arch.write_text("\n".join(NARROW) + "\n")
+    tokens.write_text("|\n" + "\n".join(f"t{i}" for i in range(28)) + "\n")
+    torch.manual_seed(0)
+    model = build_arch_from_lines(NARROW, 30)
+    cfg = Config(arch=str(arch), tokens=str(tokens), criterion="ctc", mfsc=True,
+                 filterbanks=80, compute_dtype="float32")
+    save_checkpoint(str(am), Checkpoint(cfg.serialize(), 0, 0, model.state_dict()))
+    audio = np.random.RandomState(3).randn(3, 32000).astype(np.float32) * 0.5
+    batch = {"audio": audio, "audio_len": np.asarray([32000, 24000, 15000], np.int32)}
+    k = 5
+    ev = Evaluator(Config(am=str(am)), device="cuda")
+    vals, idx, elen = ev.emissions_topk(batch, k)
+    assert idx.dtype == torch.int32 and vals.dtype == torch.float32
+    em, elen2 = ev.emissions(batch)
+    want_v, want_i = torch.topk(em, k, dim=-1)
+    assert torch.equal(vals, want_v) and torch.equal(idx, want_i.int())
+    assert torch.equal(elen, elen2)
+    cpu_em, cpu_len = Evaluator(Config(am=str(am)), device="cpu").emissions(batch)
+    assert torch.equal(elen.cpu(), cpu_len)
+    srt = cpu_em.sort(dim=-1, descending=True).values
+    apart = (srt[..., k - 1] - srt[..., k]) > 2e-3
+    assert apart.float().mean() > 0.9
+    cv, ci = torch.topk(cpu_em, k, dim=-1)
+    got_sets = idx.cpu().sort(dim=-1).values
+    assert torch.equal(got_sets[apart], ci.int().sort(dim=-1).values[apart])
+    torch.testing.assert_close(vals.cpu(), cv, rtol=1e-3, atol=1e-3)

@@ -5,9 +5,9 @@ __all__ = ["CriterionScaleMode", "get_scale_mode", "scale_losses", "CTCCriterion
            "make_criterion"]
 
 _LATER = {
-    "asg": "the ASG slice",
-    "seq2seq": "the seq2seq slice",
-    "transformer": "the seq2seq slice",
+    "asg": "the ASG slice (M10)",
+    "seq2seq": "the seq2seq slice (M11)",
+    "transformer": "the seq2seq slice (M11)",
 }
 
 

@@ -1,8 +1,8 @@
 """Audio file loading (sox-free), copied from the JAX package.
 
-WAV is decoded with scipy (any PCM/float encoding) and ``.npy`` holds raw
-float arrays. FLAC needs the native decoder, which this package does not
-carry yet, so a ``.flac`` path raises a clear error.
+WAV is decoded with scipy (any PCM/float encoding), ``.npy`` holds raw
+float arrays, and FLAC decodes through the port's native decoder
+(``ops/native/flac.cpp``), built with ``g++`` at first use.
 """
 
 from __future__ import annotations
@@ -25,10 +25,22 @@ def load_audio(path: str, expected_sr: int = 16000) -> np.ndarray:
             raise ValueError(f"{path}: sample rate {sr} != expected {expected_sr}")
         return data
     if ext == ".flac":
-        raise NotImplementedError(
-            f"{path}: FLAC decoding needs the native FLAC reader, which the "
-            "PyTorch port does not include yet; convert the audio to .wav or "
-            ".npy")
+        return _load_flac(path, expected_sr)
+    raise ValueError(f"unsupported audio format: {path}")
+
+
+def load_audio_with_sr(path: str) -> Tuple[int, np.ndarray]:
+    """Like load_audio but returns (sample_rate, mono float32 samples)
+    without asserting a rate (used by conversion tools)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npy":
+        return 16000, np.load(path).astype(np.float32).reshape(-1)
+    if ext == ".wav":
+        return _load_wav(path)
+    if ext == ".flac":
+        from ..ops.native import flac_decode
+
+        return flac_decode(path)
     raise ValueError(f"unsupported audio format: {path}")
 
 
@@ -47,3 +59,12 @@ def _load_wav(path: str) -> Tuple[int, np.ndarray]:
     if data.ndim > 1:
         data = data.mean(axis=1)
     return sr, np.ascontiguousarray(data, dtype=np.float32)
+
+
+def _load_flac(path: str, expected_sr: int) -> np.ndarray:
+    from ..ops.native import flac_decode
+
+    sr, data = flac_decode(path)
+    if expected_sr and sr != expected_sr:
+        raise ValueError(f"{path}: sample rate {sr} != expected {expected_sr}")
+    return data

@@ -1,0 +1,28 @@
+"""Beam-search decoding of CTC emissions: n-gram LMs, the lexicon trie, the
+Python beam (the reference the native decoder is held against) and, in
+``decoder.native``, the native C++ beam decoder."""
+
+from .lm import LM, ZeroLM, KenLM, ArpaLM
+from .trie import Trie, TrieNode, SmearingMode
+from .beam import (
+    CriterionType,
+    DecodeResult,
+    DecoderOptions,
+    LexiconDecoder,
+    LexiconFreeDecoder,
+)
+
+__all__ = [
+    "LM",
+    "ZeroLM",
+    "KenLM",
+    "ArpaLM",
+    "Trie",
+    "TrieNode",
+    "SmearingMode",
+    "CriterionType",
+    "DecodeResult",
+    "DecoderOptions",
+    "LexiconDecoder",
+    "LexiconFreeDecoder",
+]

@@ -64,9 +64,12 @@ class Evaluator:
         self.cfg.update(merged)
         cfg = self.cfg
         if cfg.criterion != "ctc":
+            from ..criterions import _LATER
+
             raise NotImplementedError(
-                f"criterion {cfg.criterion!r}: only ctc is in the first slice of "
-                "the PyTorch port")
+                f"criterion {cfg.criterion!r}: the PyTorch port evaluates and decodes "
+                f"ctc only; {cfg.criterion} comes with "
+                f"{_LATER.get(cfg.criterion, 'a later slice')}")
 
         tokens_path = (
             os.path.join(cfg.tokensdir, cfg.tokens) if cfg.tokensdir else cfg.tokens
@@ -86,6 +89,7 @@ class Evaluator:
         self.model.load_state_dict(ckpt.state_dict, strict=True)
         self.model.to(self.device).eval()
         self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+        self.transitions = None  # CTC has none; ASG's come with M10
 
     @torch.no_grad()
     def emissions(self, batch):
@@ -94,6 +98,16 @@ class Evaluator:
         feats, flen = self.featurizer(audio, audio_len)
         em, elen = self.model(feats.to(self.dtype), flen)
         return em.float(), elen
+
+    @torch.no_grad()
+    def emissions_topk(self, batch, k: int):
+        """The ``k`` largest emissions of each frame, for the beam decode, which
+        reads only the top ``--beamsizetoken`` tokens of a frame: (values fp32,
+        indices int32, emission lengths), on the device. Shipping these instead
+        of full rows cuts the device-to-host copy by V/k."""
+        em, elen = self.emissions(batch)
+        vals, idx = torch.topk(em, k, dim=-1)
+        return vals, idx.to(torch.int32), elen
 
     def viterbi(self, em, elen):
         """Returns (path, path_len)."""
