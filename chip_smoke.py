@@ -81,7 +81,24 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    utterance without a tie at the k-th value (tied frames, and frames whose
    top k leaves out the blank or the separator, counted), the ``.bin``'s
    words against the ARPA's, and the native beam's against the Python
-   beam's on the two shortest utterances.
+   beam's on the two shortest utterances;
+11. chunked streaming inference: phase 4's fp32 checkpoint through
+   ``cli.convert_streaming``, the list streamed at batch 1 in 500 ms chunks
+   through the Python API (``StreamingFeaturizer``, ``StreamingNetwork``)
+   into the online Python beam (phase 10's lexicon and ARPA, beam 100,
+   ``beamSizeToken`` 100, threshold 25, ``prune`` to 250 ms after every
+   chunk), with every chunk's launches checked (1 K1 when frames come out, a
+   K2 for each conv and TDS block that emits frames, two K3 for each such
+   block), the streamed emissions against the batch fp32 forward on the same
+   features (max 1e-4), the streamed features against the batch featurizer's
+   K1 with its local CMVN in float64 (2e-3; the distance to its fp32 CMVN is
+   reported), the streamed words against the same beam fed the batch emissions
+   cut at the stream's chunk boundaries, ``cli.streaming_asr`` (a
+   subprocess, the shortest utterance) and ``cli.streaming_asr_multi`` (the
+   4 shortest, 4 threads) against the single-stream words, and K1, K2 and
+   K3 at a steady chunk's shapes against their plain versions; the real-time
+   factor, each chunk's latency (featurizer, network, beam; p50 and p95)
+   and one utterance's device busy time and idle share.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -1860,6 +1877,478 @@ def decode_path(paths, lst, secs, tmp, n_batches, smi_line):
     return results
 
 # ---------------------------------------------------------------------------
+# phase 11: chunked streaming inference
+# ---------------------------------------------------------------------------
+STREAM_CHUNK = 8000  # samples, 500 ms at 16 kHz
+STREAM_LOOK_BACK = 25  # frames: cli.streaming_asr's prune(look_back=250 ms / 10 ms)
+STREAM_DECODER = {"beamSize": 100, "beamSizeToken": DECODE_K, "beamThreshold": 25,
+                  "lmWeight": 1.0, "wordScore": 0.5}
+STREAM_MULTI = 4  # utterances (the shortest) and threads of cli.streaming_asr_multi
+STREAM_EM_TOL = 1e-4  # max |streamed - batch| emissions (tests/test_streaming.py)
+# max |streamed - batch| features (tests/test_streaming.py), on every frame,
+# against the batch featurizer's K1 on the whole utterance with its local CMVN
+# in float64, as the stream's. The batch featurizer's own fp32 CMVN is not the
+# yardstick: its fp32 E[x^2] - E[x]^2 cancels in short or steady windows
+# (ROADMAP.md queue 3), so its distance is reported beside, not held
+STREAM_FEAT_TOL = 2e-3
+
+
+def stream_launches(layers, frames, n_in, start=0):
+    """(K2, K3, calls) of pushing ``n_in`` frames into layer ``start`` of a
+    stream whose layers hold ``frames`` frames of state (updated in place):
+    one K2 for each time-only conv and each TDS block that emits frames (by
+    its ``out_frames``), two K3 for each such block; ``calls`` lists their
+    shapes, [("time_conv", (B, T, F, C, CO, K, stride, pads))] and
+    [("residual_ln", (R, D))]."""
+    from wav2letter_tpu_torch.inference.streaming import StreamConv, StreamTDS
+
+    k2 = k3 = 0
+    calls, n = [], n_in
+    for i in range(start, len(layers)):
+        layer = layers[i]
+        if not isinstance(layer, (StreamConv, StreamTDS)):
+            continue
+        m = frames[i] + n
+        n, frames[i] = layer.out_frames(frames[i], n)
+        tds = isinstance(layer, StreamTDS)
+        if n and (tds or layer.module.time_only):
+            k2 += 1
+            mod = layer.module
+            if tds:
+                k3 += 2
+                calls += [("time_conv", (1, m, mod.f, mod.c, mod.c, mod.w, 1, (0, 0))),
+                          ("residual_ln", (n, mod.c * mod.f))]
+            else:
+                calls.append(("time_conv", (1, m, layer.freq_dim, mod.in_ch, mod.out_ch,
+                                            mod.wx, mod.sx, (0, 0))))
+    return k2, k3, calls
+
+
+def finish_launches(layers, frames):
+    """(K2, K3) of ``StreamingNetwork.finish``: each layer's right pad pushed
+    through it and the layers after it."""
+    k2 = k3 = 0
+    for i, layer in enumerate(layers):
+        if layer.flush_frames():
+            a, b, _ = stream_launches(layers, frames, layer.flush_frames(), i)
+            k2, k3 = k2 + a, k3 + b
+    return k2, k3
+
+
+def stream_one(net, featp, audio, dec, check=True):
+    """One utterance through the streaming featurizer, network and the
+    online beam at batch 1 in ``STREAM_CHUNK`` chunks, as
+    ``cli.streaming_asr`` does it (best hypothesis, then ``prune``, after
+    every chunk). With ``check``, every chunk's launches are held to what
+    its frames imply. Returns the per-chunk rows, the features, the
+    emissions, the frames each chunk emitted and the final words' result."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.inference import StreamingFeaturizer
+
+    sf = StreamingFeaturizer(featp, "cuda")
+    fstate, states = sf.start(), net.start(1)
+    dec.decode_begin()
+    rows, feats, ems, cut, calls = [], [], [], [], []
+    for pos in range(0, len(audio), STREAM_CHUNK):
+        t0 = time.perf_counter()
+        kernels.reset_launches()
+        fstate, f = sf.run(fstate, audio[pos:pos + STREAM_CHUNK])
+        torch.cuda.synchronize()
+        k1 = kernels.LAUNCHES["mfsc"]
+        t1 = time.perf_counter()
+        em = np.zeros((0, 0), np.float32)
+        k2 = k3 = 0
+        frames = [0 if s is None else s.shape[1] for s in states]
+        if len(f):
+            kernels.reset_launches()
+            states, y = net.run(states, f[None, :, :, None])
+            em = y[0, :, 0, :].cpu().numpy()
+            k2, k3 = kernels.LAUNCHES["time_conv"], kernels.LAUNCHES["residual_ln"]
+        t2 = time.perf_counter()
+        if len(em):
+            dec.decode_step(em)
+        dec.get_best_hypothesis(0)
+        dec.prune(look_back=STREAM_LOOK_BACK)
+        t3 = time.perf_counter()
+        if check:
+            want = stream_launches(net.layers, frames, len(f))
+            if k1 != int(len(f) > 0) or (k2, k3) != want[:2]:
+                fail(f"stream chunk at {pos}: launches K1 {k1} K2 {k2} K3 {k3}, expected "
+                     f"{int(len(f) > 0)} {want[0]} {want[1]}")
+            calls.append(want[2])
+        rows.append(dict(feat_ms=1e3 * (t1 - t0), net_ms=1e3 * (t2 - t1),
+                         beam_ms=1e3 * (t3 - t2), frames_in=len(f), frames_out=len(em),
+                         k1=k1, k2=k2, k3=k3))
+        feats.append(f)
+        ems.append(em)
+        cut.append(len(em))
+    frames = [0 if s is None else s.shape[1] for s in states]
+    kernels.reset_launches()
+    states, y = net.finish(states)
+    got = (kernels.LAUNCHES["time_conv"], kernels.LAUNCHES["residual_ln"])
+    if check and got != finish_launches(net.layers, frames):
+        fail(f"stream finish: launches {got}, expected {finish_launches(net.layers, frames)}")
+    tail = np.zeros((0, 0), np.float32) if y is None else y[0, :, 0, :].cpu().numpy()
+    if len(tail):
+        dec.decode_step(tail)
+    dec.decode_end()
+    ems.append(tail)
+    return dict(rows=rows, feats=torch.cat(feats), em=np.concatenate([e for e in ems if len(e)]),
+                cut=cut, tail=len(tail), result=dec.get_best_hypothesis(), calls=calls)
+
+
+def decode_cut(dec, em, cut, tail):
+    """The beam fed ``em`` cut at a stream's chunk boundaries (``cut`` frames
+    a chunk, then ``tail`` at finish), with the stream's ``prune`` calls."""
+    dec.decode_begin()
+    pos = 0
+    for n in cut:
+        if n:
+            dec.decode_step(em[pos:pos + n])
+        dec.get_best_hypothesis(0)
+        dec.prune(look_back=STREAM_LOOK_BACK)
+        pos += n
+    if tail:
+        dec.decode_step(em[pos:pos + tail])
+    dec.decode_end()
+    return dec.get_best_hypothesis()
+
+
+def graph_ms(fn, args, iters=20, reps=10) -> float:
+    """Device time per call of ``fn(*args)``, L2-warm and back to back: CUDA
+    events around replays of a CUDA graph of ``iters`` calls, so the host's
+    launch cost, which exceeds these kernels' device time, is left out. The
+    profiler is not used for these: at a few microseconds a call, some of its
+    readings held a tenth of the launches made."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, before capture
+        for _ in range(3):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def stream_kernel_rows(featurizer, S, convs, lns, details):
+    """K1 at a chunk's samples S, K2 and K3 at streaming shapes (B = 1
+    windows, a few rows), against their plain versions and one PyTorch call
+    of the same function where there is one, timed per launch by
+    ``graph_ms``, with L2-warm inputs as a stream finds them."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.layernorm import route as ln_route
+    from wav2letter_tpu_torch.kernels.tconv import route
+
+    from wav2letter_tpu_torch.kernels.mfsc import route as mfsc_route
+
+    rows = []
+    p = featurizer.p
+    pre = 0.5 * torch.randn((1, S), device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(S))
+    args = (pre, featurizer.cos_mat, featurizer.sin_mat, featurizer.mel_fb, p.frame_samples,
+            p.stride_samples, p.mel_floor)
+    got = kernels.mfsc(*args)
+    err, rel, ok = compare("mfsc", "float32", got, kernels.mfsc_plain(*args))
+    nb, nm = featurizer.mel_fb.shape
+    T = got.shape[1]
+    nnz = int((featurizer.mel_fb != 0).sum())
+    b_ms, b_by = bound(4 * (S + 2 * p.frame_samples * nb + nb * nm + T * nm),
+                       T * (2.5 * p.n_fft * math.log2(p.n_fft) + 4 * nb + 2 * nnz + nm),
+                       "float32")  # as _mfsc_row counts the function's work
+    rows.append(dict(
+        name="mfsc", dtype="float32", shape=[1, S, T], tag="stream", max_abs_err=err,
+        max_rel_err=rel, tol=TOL[("mfsc", "float32")], ok=ok, ms=graph_ms(kernels.mfsc, args),
+        plain_ms=graph_ms(kernels.mfsc_plain, args), library_ms=None, bound_ms=b_ms,
+        bound_by=b_by, route=mfsc_route(p.frame_samples, p.stride_samples, nb, nm)))
+    for key in convs:
+        B, T, Fq, C, CO, K, s, pads = key
+        g = torch.Generator(device="cuda").manual_seed(T + K)
+        x = torch.randn((B, T, Fq * C), device="cuda", generator=g)
+        w = 0.1 * torch.randn((K, C, CO), device="cuda", generator=g)
+        bias = torch.randn((CO,), device="cuda", generator=g)
+        args = (x, w, Fq, s, pads, bias, True)
+        got = kernels.time_conv(*args)
+        err, rel, ok = compare("time_conv", "float32", got, kernels.time_conv_plain(*args))
+        xn = x.view(B, T, Fq, C).permute(0, 3, 2, 1).contiguous()
+        wn = w.permute(2, 1, 0).unsqueeze(2).contiguous()
+        b_ms, b_by = bound(4 * (x.numel() + w.numel() + got.numel() + CO),
+                           2 * B * got.shape[1] * Fq * CO * K * C, "float32")
+        rows.append(dict(
+            name="time_conv", dtype="float32", shape=list(key[:7]) + [list(pads)],
+            tag="stream", max_abs_err=err, max_rel_err=rel, tol=TOL[("time_conv", "float32")],
+            ok=ok, ms=graph_ms(kernels.time_conv, args),
+            plain_ms=graph_ms(kernels.time_conv_plain, args),
+            library_ms=graph_ms(lambda a, b_, c: F.conv2d(a, b_, c, stride=(1, s)),
+                                (xn, wn, bias)),
+            bound_ms=b_ms, bound_by=b_by, route=route(torch.float32, C, CO, K, s, Fq)))
+    for R, D in lns:
+        x, y, w, b = _ln_inputs(R + 4, D, torch.float32, R + D)
+        x, y = x[2:2 + R], y[:R].contiguous()  # the residual: a time slice of a window
+        args = (x, y, w, b)
+        err, rel, ok = _ln_compare("float32", kernels.residual_ln(*args),
+                                   kernels.residual_ln_plain(*args))
+        wd, bd = w.expand(D).contiguous(), b.expand(D).contiguous()
+        b_ms, b_by = bound(12 * R * D + 8 * R + 8, 8 * R * D, "float32")
+        rows.append(dict(
+            name="residual_ln", dtype="float32", shape=[R, D], tag="stream", max_abs_err=err,
+            max_rel_err=rel, tol=TOL[("residual_ln", "float32")], ok=ok,
+            ms=graph_ms(kernels.residual_ln, args),
+            plain_ms=graph_ms(kernels.residual_ln_plain, args),
+            library_ms=graph_ms(lambda a, a2, c, d: F.layer_norm(a + a2, (D,), c, d, 1e-5),
+                                (x, y, wd, bd)),
+            bound_ms=b_ms, bound_by=b_by, route=ln_route(D, 4, x.data_ptr() % 16 == 0)))
+    for r in rows:
+        r["warm_ms"] = r["ms"]
+        log(f"[stream kernel] {json.dumps(r)}")
+        details.append(r)
+    return rows
+
+
+def stream_path(paths, lst, secs, tmp, smi_line):
+    """Phase 11: the flagship's fp32 checkpoint through
+    ``cli.convert_streaming``, then the list's utterances streamed at batch 1
+    in 500 ms chunks through the Python API with the online Python beam
+    (phase 10's lexicon and ARPA; beam 100, beamSizeToken 100, threshold 25).
+    Checks each chunk's launches, the streamed emissions against the batch
+    fp32 forward on the same features, the streamed features against the
+    batch featurizer, the streamed words against the same decoder fed the
+    batch emissions at the stream's chunk boundaries, ``cli.streaming_asr``
+    (a subprocess) and ``cli.streaming_asr_multi`` (4 threads) against the
+    in-process words, and K2 and K3 at streaming shapes against their plain
+    versions."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli import convert_streaming, streaming_asr, streaming_asr_multi
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import read_list_file
+    from wav2letter_tpu_torch.data.audio import load_audio
+    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+    from wav2letter_tpu_torch.features.frontend import local_normalize
+    from wav2letter_tpu_torch.inference import StreamingFeaturizer, load_streaming_bundle
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "stream")
+    os.makedirs(root, exist_ok=True)
+    bundle = os.path.join(root, "flagship.stream")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_streaming.main([f"--am={paths['float32']}", f"--out={bundle}"])
+    t0 = time.perf_counter()
+    net, featp, meta = load_streaming_bundle(bundle, "cuda")
+    opts = os.path.join(root, "decoder.json")
+    with open(opts, "w") as f:
+        json.dump(STREAM_DECODER, f)
+    ckpt = load_checkpoint(paths["float32"])
+    cfg = Config.deserialize(ckpt.config)
+    dargs = {"lexicon_file": cfg.lexicon,
+             "language_model_file": os.path.join(tmp, "decode", "lm.arpa"),
+             "decoder_options_file": opts}
+    dec, word_dict, tok_dict, blank = streaming_asr.build_decoder(dargs, meta)
+    wsep = str(meta["wordseparator"])
+    setup_s = time.perf_counter() - t0
+    samples = read_list_file(lst)
+    audio = {s.sample_id: load_audio(s.audio_path, featp.sample_rate) for s in samples}
+
+    # warm-up (cuBLAS, the modules' re-indexed weights): 2 s, checked, not kept
+    stream_one(net, featp, audio[samples[0].sample_id][:32000], dec)
+    torch.cuda.synchronize()
+    t_stream = time.perf_counter()
+    streamed = {sid: stream_one(net, featp, a, dec) for sid, a in audio.items()}
+    stream_s = time.perf_counter() - t_stream
+    words = {sid: streaming_asr.result_words(r["result"], word_dict, tok_dict, blank, wsep)
+             for sid, r in streamed.items()}
+
+    # against the batch path: features, emissions, and the beam on batch emissions
+    model = build_arch_module(ARCH, N_FEAT, len(meta["tokens"]))
+    model.load_state_dict(ckpt.state_dict)
+    model.cuda().eval()
+    batch_feat = Featurizer(FeatureParams.from_config(cfg)).cuda()
+    raw_feat = Featurizer(FeatureParams(n_filterbanks=N_FEAT)).cuda()
+    em_err = feat_err = feat_err_head = feat_err_fp32 = 0.0
+    fp32_worst = None
+    ref_dec, _, _, _ = streaming_asr.build_decoder(dargs, meta)
+    bad_words = []
+    for sid, r in streamed.items():
+        x = torch.from_numpy(audio[sid]).cuda()[None]
+        with torch.no_grad():
+            bf = batch_feat(x)[0][0]
+            # the batch path's K1 on the whole utterance, its CMVN in float64
+            bf64 = local_normalize(raw_feat(x)[0].double(), featp.local_norm_left, 0)[0]
+            bem = model(r["feats"][None])[0][0].cpu().numpy()
+        if bf.shape != r["feats"].shape or bem.shape != r["em"].shape:
+            fail(f"stream {sid}: features {tuple(r['feats'].shape)} vs {tuple(bf.shape)}, "
+                 f"emissions {r['em'].shape} vs {bem.shape}")
+        if not np.isfinite(r["em"]).all():
+            fail(f"stream {sid}: non-finite emissions")
+        fe = (r["feats"].double() - bf64).abs()
+        feat_err, feat_err_head = max(feat_err, fe[8:].max().item()), max(feat_err_head,
+                                                                         fe[:8].max().item())
+        e32 = (r["feats"] - bf).abs().amax(dim=1)
+        if e32[8:].max().item() > feat_err_fp32:
+            feat_err_fp32 = e32[8:].max().item()
+            fp32_worst = dict(utterance=sid, frame=8 + int(e32[8:].argmax()),
+                              frames=len(e32))
+        em_err = max(em_err, float(np.abs(r["em"] - bem).max()))
+        ref = decode_cut(ref_dec, bem, r["cut"], r["tail"])
+        ref_words = streaming_asr.result_words(ref, word_dict, tok_dict, blank, wsep)
+        if ref_words != words[sid]:
+            bad_words.append(sid)
+    if em_err >= STREAM_EM_TOL or max(feat_err, feat_err_head) >= STREAM_FEAT_TOL:
+        fail(f"stream: emissions {em_err} (bound {STREAM_EM_TOL}) or features {feat_err}, "
+             f"first 8 frames {feat_err_head} (bound {STREAM_FEAT_TOL}) differ from the "
+             f"batch path")
+    if bad_words:
+        fail(f"stream: streamed words differ from the batch-fed beam's on {bad_words}")
+
+    # the CLIs: streaming_asr as a subprocess on the shortest utterance,
+    # streaming_asr_multi on the 4 shortest with 4 threads, in this process
+    by_len = sorted(audio, key=lambda k: len(audio[k]))
+    short = next(s for s in samples if s.sample_id == by_len[0])
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "wav2letter_tpu_torch.cli.streaming_asr", f"--bundle={bundle}",
+         f"--input_audio_file={short.audio_path}", f"--lexicon_file={dargs['lexicon_file']}",
+         f"--language_model_file={dargs['language_model_file']}",
+         f"--decoder_options_file={opts}"], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    cli_s = time.perf_counter() - t0
+    if cli.returncode != 0:
+        fail(f"cli.streaming_asr exited {cli.returncode}: {cli.stderr[-2000:]}")
+    cli_words = cli.stdout.split("[final]")[-1].split()
+    if cli_words != words[short.sample_id]:
+        fail(f"cli.streaming_asr printed {cli_words}, the stream gave {words[short.sample_id]}")
+    multi = [s for s in samples if s.sample_id in by_len[:STREAM_MULTI]]
+    margs = [f"--bundle={bundle}", f"--input_files={','.join(s.audio_path for s in multi)}",
+             f"--max_num_threads={STREAM_MULTI}", f"--lexicon_file={dargs['lexicon_file']}",
+             f"--language_model_file={dargs['language_model_file']}", "--beam_size=100",
+             "--beam_threshold=25", "--lm_weight=1", "--word_score=0.5"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        streaming_asr_multi.main(margs)
+    multi_s = time.perf_counter() - t0
+    printed = dict(line.split(": ", 1) for line in out.getvalue().splitlines())
+    factory, _, _, _ = streaming_asr_multi.bundle_factory(
+        streaming_asr_multi.parse_args(margs), meta)
+    for s in multi:  # each stream's single-thread words, from its own emissions
+        r = streamed[s.sample_id]
+        d = factory.make()
+        d.decode_begin()
+        pos = 0
+        for n in r["cut"] + [r["tail"]]:
+            if n:
+                d.decode_step(r["em"][pos:pos + n])
+            pos += n
+        d.decode_end()
+        want = " ".join(streaming_asr.result_words(d.get_best_hypothesis(),
+                                                   factory.word_dict, tok_dict, blank, wsep))
+        if printed.get(s.audio_path, None) != want:
+            fail(f"cli.streaming_asr_multi printed {printed.get(s.audio_path)!r} for "
+                 f"{s.sample_id}, a single stream gives {want!r}")
+
+    # device time of one utterance's featurizer and network, and their wall
+    first = audio[samples[0].sample_id]
+    sf = StreamingFeaturizer(featp, "cuda")
+
+    def feat_net():
+        fs, st = sf.start(), net.start(1)
+        for pos in range(0, len(first), STREAM_CHUNK):
+            fs, f = sf.run(fs, first[pos:pos + STREAM_CHUNK])
+            if len(f):
+                st, y = net.run(st, f[None, :, :, None])
+                y.cpu()
+        net.finish(st)
+
+    feat_net()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feat_net()
+    torch.cuda.synchronize()
+    fn_wall_ms = 1e3 * (time.perf_counter() - t0)
+    prof = profile_device(feat_net)
+    by_kernel = sorted(((e.self_device_time_total / 1e3, e.key, e.count)
+                        for e in device_events(prof)), reverse=True)
+    busy = sum(r[0] for r in by_kernel)
+    n_chunks = len(streamed[samples[0].sample_id]["rows"])
+
+    # K1, K2 and K3 at the shapes of a steady chunk of the first utterance
+    calls = streamed[samples[0].sample_id]["calls"][len(streamed[samples[0].sample_id]
+                                                         ["calls"]) // 2]
+    convs = [c for k, c in calls if k == "time_conv"]
+    lns = [c for k, c in calls if k == "residual_ln"]
+    details = []
+    S = featp.frame_samples + featp.stride_samples * (
+        max(r["frames_in"] for r in streamed[samples[0].sample_id]["rows"]) - 1)
+    k_rows = stream_kernel_rows(sf.featurizer, S, [convs[0], convs[1], convs[-1]],
+                                [lns[0], lns[4], lns[-1]], details)
+    if not all(r["ok"] for r in k_rows):
+        fail(f"stream kernels disagree with their plain versions: "
+             f"{[r for r in k_rows if not r['ok']]}")
+
+    rows = [row for r in streamed.values() for row in r["rows"]]
+    lat = {k: np.asarray([row[k] for row in rows]) for k in ("feat_ms", "net_ms", "beam_ms")}
+    total = lat["feat_ms"] + lat["net_ms"] + lat["beam_ms"]
+
+    def pct(a):
+        return dict(p50=float(np.percentile(a, 50)), p95=float(np.percentile(a, 95)))
+
+    results = dict(
+        utterances=len(streamed), audio_s=secs, chunks=len(rows), setup_s=setup_s,
+        stream_s=stream_s, x_real_time=secs / stream_s,
+        latency_ms=dict(total=pct(total), **{k[:-3]: pct(v) for k, v in lat.items()}),
+        launches={k: sum(row[k] for row in rows) for k in ("k1", "k2", "k3")},
+        em_max_abs_err=em_err, em_tol=STREAM_EM_TOL, feat_max_abs_err_after_8=feat_err,
+        feat_max_abs_err_first_8=feat_err_head, feat_tol=STREAM_FEAT_TOL,
+        feat_max_abs_err_fp32_cmvn_after_8=feat_err_fp32, feat_fp32_cmvn_worst=fp32_worst,
+        words=sum(len(w) for w in words.values()), cli_s=cli_s, multi_s=multi_s,
+        multi_utterances=len(multi),
+        profile=dict(utterance=samples[0].sample_id, chunks=n_chunks, wall_ms=fn_wall_ms,
+                     device_busy_ms=busy, device_busy_ms_per_chunk=busy / n_chunks,
+                     idle_share=1 - busy / fn_wall_ms,
+                     idle_share_with_beam=1 - busy / sum(
+                         row["feat_ms"] + row["net_ms"] + row["beam_ms"]
+                         for row in streamed[samples[0].sample_id]["rows"]),
+                     top=[dict(ms=round(ms, 4), kernel=k[:90], count=c)
+                          for ms, k, c in by_kernel[:12]]),
+        kernels=details, phase_s=time.perf_counter() - t_phase)
+    log(f"[stream flagship float32] {json.dumps({k: v for k, v in results.items() if k != 'kernels'})}")
+    log(f"[stream rate] {secs / stream_s:.1f} audio s per wall s; chunk latency p50 "
+        f"{results['latency_ms']['total']['p50']:.2f} ms, p95 "
+        f"{results['latency_ms']['total']['p95']:.2f} ms (featurizer "
+        f"{results['latency_ms']['feat']['p50']:.2f}, network "
+        f"{results['latency_ms']['net']['p50']:.2f}, beam "
+        f"{results['latency_ms']['beam']['p50']:.2f} ms p50); device busy "
+        f"{busy / n_chunks:.3f} ms a chunk, idle share {1 - busy / fn_wall_ms:.3f} | {smi_line}")
+    log(f"[stream] phase 11 in {results['phase_s']:.1f} s")
+    return results
+
+
+# ---------------------------------------------------------------------------
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
@@ -2008,6 +2497,9 @@ def main() -> None:
         # 10. the lexicon beam decode of the flagship
         decoded = decode_path(paths, lst, secs, tmp, n_batches, smi_line)
 
+        # 11. chunked streaming inference of the flagship
+        streamed = stream_path(paths, lst, secs, tmp, smi_line)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -2044,6 +2536,15 @@ def main() -> None:
             krows = rows[(name, dt)]
             entry["split_ms"] = {k: sum(r["split_ms"].get(k, 0.0) * r["calls"] for r in krows)
                                  for k in {k for r in krows for k in r["split_ms"]}}
+        if name in ("mfsc", "time_conv", "residual_ln"):  # phase 11, per launch
+            srows = [r for r in streamed["kernels"] if r["name"] == name]
+            entry["stream"] = dict(
+                launches=streamed["launches"][{"mfsc": "k1", "time_conv": "k2",
+                                               "residual_ln": "k3"}[name]],
+                dtype="float32", shapes=[r["shape"] for r in srows],
+                **{k: [r[k] for r in srows]
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                max_abs_err=max(r["max_abs_err"] for r in srows))
         kernels_line.append(entry)
     summary = dict(kernels=kernels_line)
     if args.out:
@@ -2057,7 +2558,7 @@ def main() -> None:
                            transformer=dict(n_params=tr_params, main=tr_served,
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
-                           decode=decoded,
+                           decode=decoded, streaming=streamed,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -878,3 +878,129 @@ def test_emissions_topk_on_the_card(cuda, tmp_path):
     got_sets = idx.cpu().sort(dim=-1).values
     assert torch.equal(got_sets[apart], ci.int().sort(dim=-1).values[apart])
     torch.testing.assert_close(vals.cpu(), cv, rtol=1e-3, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# streaming: the flagship's structure narrowed, chunk by chunk on the card
+# ---------------------------------------------------------------------------
+def _narrow_flagship():
+    """``recipes/streaming_convnets/network.arch`` without SAUG, its TDS
+    frequency width and NFEAT at 16, 30 labels (as
+    ``tests/test_torch_streaming.py``)."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "recipes/streaming_convnets/network.arch")) as f:
+        lines = [l.strip() for l in f if l.strip() and not l.startswith("#")]
+    return [l.replace(" 80 ", " 16 ").replace("2240", "448").replace("NFEAT", "16")
+            .replace("NLABEL", "30") for l in lines if not l.startswith("SAUG")]
+
+
+def _stream_launches(net, states, n_in):
+    """(K2, K3) launches of pushing n_in frames through ``net`` from these
+    states: one K2 for each time-only conv and TDS block that emits frames,
+    two K3 for each such block (``out_frames`` of each layer)."""
+    from wav2letter_tpu_torch.inference.streaming import StreamConv, StreamTDS
+
+    k2 = k3 = 0
+    n = n_in
+    for layer, st in zip(net.layers, states):
+        if isinstance(layer, (StreamConv, StreamTDS)):
+            n, _ = layer.out_frames(st.shape[1], n)
+            if n and (isinstance(layer, StreamTDS) or layer.module.time_only):
+                k2 += 1
+                k3 += 2 * isinstance(layer, StreamTDS)
+    return k2, k3
+
+
+@pytest.mark.parametrize("chunk", [8, 37, 50])
+def test_stream_on_the_card_matches_the_cpu(cuda, chunk):
+    """The stream through K2 and K3 on the card against the same stream on
+    the CPU through their plain versions, chunk by chunk, with the launches
+    of each step counted against ``out_frames``."""
+    from wav2letter_tpu_torch.inference import StreamingNetwork
+    from wav2letter_tpu_torch.inference.convert import build_streaming_layers, map_params
+
+    lines = _narrow_flagship()
+    torch.manual_seed(0)
+    sd = build_arch_from_lines(lines, 30).state_dict()
+    params = map_params(build_streaming_layers(lines, 16)[1], sd)
+    nets = {d: StreamingNetwork(build_streaming_layers(lines, 16)[0], params, device=d)
+            for d in ("cuda", "cpu")}
+    feats = np.random.RandomState(2).randn(1, 200, 16, 1).astype(np.float32)
+    states = {d: n.start(1) for d, n in nets.items()}
+    outs = {"cuda": [], "cpu": []}
+    for s in range(0, 200, chunk):
+        want_k2, want_k3 = _stream_launches(nets["cuda"], states["cuda"],
+                                            feats[:, s:s + chunk].shape[1])
+        kernels.reset_launches()
+        for d, net in nets.items():
+            states[d], y = net.run(states[d], feats[:, s:s + chunk])
+            outs[d].append(y.cpu())
+        torch.cuda.synchronize()
+        assert (kernels.LAUNCHES["time_conv"], kernels.LAUNCHES["residual_ln"]) == \
+            (want_k2, want_k3)
+    for d, net in nets.items():
+        states[d], y = net.finish(states[d])
+        outs[d].append(y.cpu())
+    got, want = torch.cat(outs["cuda"], 1), torch.cat(outs["cpu"], 1)
+    assert got.shape == want.shape == (1, 25, 1, 30)
+    # fp32 through 4 convs and 11 TDS blocks, as test_model_kernels_match_plain
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
+
+
+def test_streaming_featurizer_on_the_card(cuda):
+    """K1 on 500 ms chunks with the running local CMVN on the card against
+    the CPU's plain K1; the first frames' short CMVN windows amplify the
+    rounding (``tests/test_torch_streaming.py``)."""
+    from wav2letter_tpu_torch.inference import StreamingFeaturizer
+
+    p = FeatureParams(n_filterbanks=80, local_norm_left=300)
+    audio = (0.4 * np.random.RandomState(6).randn(3 * 16000 + 123)).astype(np.float32)
+    outs = {}
+    for d in ("cuda", "cpu"):
+        sf = StreamingFeaturizer(p, device=d)
+        st, got = sf.start(), []
+        for s in range(0, len(audio), 8000):
+            kernels.reset_launches()
+            st, f = sf.run(st, audio[s:s + 8000])
+            assert kernels.LAUNCHES["mfsc"] == (d == "cuda" and len(f) > 0)
+            got.append(f.cpu())
+        outs[d] = torch.cat(got)
+    torch.testing.assert_close(outs["cuda"][8:], outs["cpu"][8:], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(outs["cuda"][:8], outs["cpu"][:8], rtol=2e-3, atol=2e-3)
+
+
+# K2 on one-output windows at B = 1, the shapes a stream's last steps give:
+# (F, C, CO, K, stride) of the flagship's convs and TDS blocks
+STREAM_CONVS = [(80, 1, 16, 9, 2), (80, 16, 20, 11, 2), (80, 20, 24, 11, 2),
+                (80, 24, 28, 12, 1), (80, 16, 16, 9, 1), (80, 28, 28, 11, 1)]
+
+
+@pytest.mark.parametrize("F,C,CO,K,s", STREAM_CONVS)
+@pytest.mark.parametrize("extra", [0, 1])
+def test_time_conv_stream_windows(cuda, F, C, CO, K, s, extra):
+    """A window of K + extra frames, no pads: Tout = 1 (extra < stride, or
+    2 at stride 1 with one extra frame), bias and ReLU as a TDS block."""
+    x = _randn((1, K + extra, F * C), K + C, cuda)
+    w = _randn((K, C, CO), K, cuda, scale=0.1)
+    bias = _randn((CO,), CO, cuda)
+    for relu in (False, True):
+        args = (x, w, F, s, (0, 0), bias, relu)
+        got = kernels.time_conv(*args)
+        assert got.shape == (1, extra // s + 1, F * CO)
+        torch.testing.assert_close(got, kernels.time_conv_plain(*args), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("R", [1, 2, 7, 25])
+@pytest.mark.parametrize("D", [1280, 1600, 1920, 2240])
+def test_residual_ln_stream_rows(cuda, R, D):
+    """K3 on the few rows of a streaming step, x a time slice of a window
+    (the residual's aligned frames) as the stream passes it."""
+    win = _randn((R + 3, D), R + D, cuda)
+    x, y = win[2:2 + R], _randn((R, D), D, cuda)
+    w, b = torch.tensor([1.3], device=cuda), torch.tensor([-0.2], device=cuda)
+    got = kernels.residual_ln(x, y, w, b)
+    want = kernels.residual_ln_plain(x, y, w, b)
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=1e-5, atol=1e-5)

@@ -1,7 +1,8 @@
 """`.arch` DSL parser -> nn.Module graph — the port of
 ``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets,
-transformer and conformer recipes: V RO PD C C1 C2 WN (of a conv) TDS L LN DO
-M A SAUG TR CFR and the activations R R6 ELU LG HT T SH GLU LSM.
+transformer and conformer recipes and of streaming: V RO PD C C1 C2 AC WN (of a
+conv) TDS L LN DO M A SAUG TR CFR and the activations R R6 ELU LG HT T SH GLU
+LSM.
 
 Grammar: one layer per line, ``#`` comments, NFEAT/NLABEL substitution
 (reference ``buildSequentialModule``). The model takes features (B, T, C)
@@ -34,14 +35,13 @@ from ..kernels import KERNELS
 from . import layers as L
 from .transformer import ConformerLayer, TransformerLayer
 
-PORTED = "V RO PD C C1 C2 WN(C C1 C2) TDS L LN DO M A SAUG TR CFR R R6 ELU LG HT T SH GLU LSM"
+PORTED = ("V RO PD C C1 C2 AC WN(C C1 C2 AC) TDS L LN DO M A SAUG TR CFR R R6 ELU LG HT T "
+          "SH GLU LSM")
 _LATER = {
     "POSEMB": "the slice of the remaining layers",
     "SINPOSEMB": "the slice of the remaining layers",
     "RES": "the slice of the remaining layers",
     "WN L": "the slice of the remaining layers",
-    "WN AC": "the slice of the remaining layers",
-    "AC": "the slice of the remaining layers",
     "BN": "the slice of the remaining layers",
     "RNN": "the recurrent slice",
     "GRU": "the recurrent slice",
@@ -97,12 +97,12 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         return LayerSpec("PD", lambda ops: L.Padding(val, pads), line)
     if op == "WN":
         wdim, child = int(p[1]), p[2:]
-        if child[0] not in ("C", "C1", "C2"):
-            if child[0] in ("L", "AC"):
-                raise _later(f"WN {child[0]}", line)
+        if child[0] not in ("C", "C1", "C2", "AC"):
+            if child[0] == "L":
+                raise _later("WN L", line)
             raise ValueError(f"WN wrapping unsupported child: {line}")
         return _parse_conv(child, line, wdim)
-    if op in ("C", "C1", "C2"):
+    if op in ("C", "C1", "C2", "AC"):
         return _parse_conv(p, line, -1)
     if op == "TR":
         md, mlp, nh, csz = int(p[1]), int(p[2]), int(p[3]), int(p[4])
@@ -163,7 +163,16 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
 
 
 def _parse_conv(p: List[str], line: str, wn_dim: int) -> LayerSpec:
-    """``C``/``C1`` (time-only) or ``C2``, possibly under ``WN wn_dim``."""
+    """``C``/``C1`` (time-only), ``AC`` (time-only, asymmetric pads) or
+    ``C2``, possibly under ``WN wn_dim``."""
+    if p[0] == "AC":
+        ci, co, wx, sx = int(p[1]), int(p[2]), int(p[3]), int(p[4])
+        px = int(p[5]) if len(p) >= 6 else 0
+        fpx = _num(p[6]) if len(p) >= 7 else 1.0
+        dx = int(p[7]) if len(p) >= 8 else 1
+        return LayerSpec(
+            "AC", lambda ops: L.AsymmetricConv1D(ci, co, wx, sx, px, fpx, dx, wn_dim, ops=ops),
+            line)
     if p[0] == "C2":
         ci, co = int(p[1]), int(p[2])
         wx, wy, sx, sy = int(p[3]), int(p[4]), int(p[5]), int(p[6])

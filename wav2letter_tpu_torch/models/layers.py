@@ -218,14 +218,21 @@ class Conv2D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.time_only:
-            z = to_chain(x)
-            w, bias = _derived(self, z.dtype, lambda: (
-                _kco(self.weight, z.dtype), None if self.bias is None else self.bias.float()))
-            y = self.ops.time_conv(z, w, x.shape[2], self.sx, self.pads(x.shape[3]), bias)
+            y = self.chain(to_chain(x), x.shape[2], self.pads(x.shape[3]))
             return from_chain(y, self.out_ch)
+        return self.general(x, self.pads(x.shape[3]))
+
+    def chain(self, z: torch.Tensor, freq: int, pads: Tuple[int, int]) -> torch.Tensor:
+        """The time-only form on the f-major (B, T, freq*in_ch): kernel K2
+        with the time pads ``pads``; returns (B, Tout, freq*out_ch)."""
+        w, bias = _derived(self, z.dtype, lambda: (
+            _kco(self.weight, z.dtype), None if self.bias is None else self.bias.float()))
+        return self.ops.time_conv(z, w, freq, self.sx, pads, bias)
+
+    def general(self, x: torch.Tensor, pw: Tuple[int, int]) -> torch.Tensor:
+        """Any form on the stored (B, C, H, T), time pads ``pw``: ``F.conv2d``."""
         w, bias = _derived(self, x.dtype, lambda: (
             self._oihw(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
-        pw = self.pads(x.shape[3])
         ph = (_same_pads(x.shape[2], self.wy, self.sy, self.dy) if self.py == -1
               else (self.py, self.py))
         if pw[0] != pw[1] or ph[0] != ph[1]:
@@ -233,6 +240,38 @@ class Conv2D(nn.Module):
             pw = ph = (0, 0)
         return F.conv2d(x, w, bias, stride=(self.sy, self.sx), padding=(ph[0], pw[0]),
                         dilation=(self.dy, self.dx), groups=self.groups)
+
+
+class AsymmetricConv1D(nn.Module):
+    """Future-context-limited 1-D conv (reference ``AC``; JAX
+    ``layers.py::AsymmetricConv1D``): of the pad, a ``future_px`` share goes
+    to the right. With ``px == -1`` the pad is (wx-1)*dx in all, right
+    ``round(future_px * total)``; else 2*px in all, right
+    ``round(future_px * px)``. The conv is a ``Conv2D`` named ``conv``
+    with that (left, right) pair, so the params are ``conv.weight`` (or
+    ``conv.v``/``conv.g``) and ``conv.bias``, as in JAX."""
+
+    def __init__(self, in_ch: int, out_ch: int, wx: int, sx: int = 1, px: int = 0,
+                 future_px: float = 1.0, dx: int = 1, wn_dim: int = -1,
+                 ops: SimpleNamespace = KERNELS):
+        super().__init__()
+        self.time_pads = asymmetric_pads(wx, px, future_px, dx)
+        self.conv = Conv2D(in_ch, out_ch, wx, 1, sx, 1, self.time_pads, 0, dx, 1,
+                           wn_dim=wn_dim, ops=ops)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)
+
+
+def asymmetric_pads(wx: int, px: int, future_px: float, dx: int = 1) -> Tuple[int, int]:
+    """(left, right) time pads of an ``AC`` layer, as JAX computes them."""
+    if px == -1:
+        total = (wx - 1) * dx
+        right = int(round(future_px * total))
+    else:
+        total = 2 * px
+        right = int(round(future_px * total / 2.0))
+    return total - right, right
 
 
 class LayerNorm(nn.Module):
@@ -406,20 +445,27 @@ class TDSBlock(nn.Module):
                 self.lin1.bias.to(dt), w2.to(dt), b2.to(dt))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, C, Fq, T = x.shape
+        _, C, Fq, _ = x.shape
         c, f = self.c, self.f
         if (C, Fq) != (c, f):
             raise ValueError(f"TDS({c}, {f}) got input {tuple(x.shape)}")
         z = to_chain(x)
+        return from_chain(self.chain(z, self.time_pads, z), c)
+
+    def chain(self, z: torch.Tensor, pads: Tuple[int, int], res: torch.Tensor
+              ) -> torch.Tensor:
+        """The block on the f-major (B, T, F*C): K2 with time pads ``pads``,
+        then the residual ``res`` (B, Tout, F*C), the frames of z that the
+        conv's outputs align with; returns (B, Tout, F*C)."""
         kco, cb, w1, b1, w2, b2 = _derived(self, z.dtype, lambda: self._weights(z.dtype))
-        y = self.ops.time_conv(z, kco, f, 1, self.time_pads, cb, relu=True)
+        y = self.ops.time_conv(z, kco, self.f, 1, pads, cb, relu=True)
         y = F.dropout(y, self.rate, self.training)
-        D = c * f
-        z = self.ops.residual_ln(z.view(-1, D), y.view(-1, D), self.ln1.weight,
+        B, T, D = y.shape
+        z = self.ops.residual_ln(res.reshape(-1, D), y.view(-1, D), self.ln1.weight,
                                  self.ln1.bias)[0]
         h = torch.relu(z @ w1 + b1)
         h = F.dropout(h, self.rate, self.training)
         h = h @ w2 + b2
         h = F.dropout(h, self.rate, self.training)
         z = self.ops.residual_ln(z, h, self.ln2.weight, self.ln2.bias)[0]
-        return from_chain(z.view(B, T, D), c)
+        return z.view(B, T, D)

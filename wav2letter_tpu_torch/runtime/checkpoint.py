@@ -143,12 +143,18 @@ def _unchunk(tree: Any) -> Any:
 
 def read_jax_checkpoint(path: str) -> Dict[str, Any]:
     """The payload dict of a ``W2LTPU01`` file, arrays as numpy."""
-    import msgpack  # only this reader needs it
-
     with open(path, "rb") as f:
         if f.read(len(JAX_MAGIC)) != JAX_MAGIC:
             raise ValueError(f"{path}: not a wav2letter_tpu checkpoint")
         blob = f.read()
+    return unpack_flax_msgpack(blob)
+
+
+def unpack_flax_msgpack(blob: bytes) -> Dict[str, Any]:
+    """A flax ``msgpack_serialize`` payload (the JAX package's checkpoints
+    and streaming bundles) as a dict, arrays as numpy."""
+    import msgpack  # only the readers of JAX files need it
+
     return _unchunk(msgpack.unpackb(blob, ext_hook=_ext_unpack, raw=False))
 
 
