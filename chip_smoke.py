@@ -31,9 +31,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    (query rows a block) that fits, with the one it picks, its blocks and its
    TFLOP/s; K2, its dgrad and K2b also at ``CONV_EDGES`` (C = 1 with 20
    taps, a ragged strided tile, F = 40, the largest weight the route
-   admits), each row with its route (tensor cores or CUDA cores), TFLOP/s and
-   share of the bound; times are device times with the inputs in HBM (cold
-   L2), the kernel's also with L2-warm inputs;
+   admits), each row with its route (tensor cores, in bf16 or in fp32 as
+   3xTF32, or CUDA cores), the schedule it launches (frames a tile, tiles a
+   block, warps, blocks; fp32's split taps), TFLOP/s and share of the
+   bound; times are device times with the inputs in HBM (cold L2), the
+   kernel's also with L2-warm inputs; fp32 bounds count operations at
+   3xTF32's 165 TFLOP/s (``PEAK_FLOPS``);
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -52,8 +55,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    with dropout and SpecAugment off the first batch's loss and every
    parameter's gradient held against the plain path on the card; then
    ``cli.train continue`` takes 2 more updates from ``model_last.bin``, and
-   ``run_test`` serves the result; one profiled update gives the split into
-   forward, backward and optimizer, the idle share and the peak memory;
+   ``run_test`` serves the result; one profiled update of each type gives
+   the split into forward, backward and optimizer, the idle share and the
+   peak memory;
 7. phases 4-6 again for the transformer (``recipes/transformer_ctc/
    network.arch`` at full width and depth, 97,670,462 parameters): served at
    batch 4 (1 K1, 12 K4, 24 K3 and no K2 per batch), trained at batch 8 with
@@ -96,9 +100,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    cut at the stream's chunk boundaries, ``cli.streaming_asr`` (a
    subprocess, the shortest utterance) and ``cli.streaming_asr_multi`` (the
    4 shortest, 4 threads) against the single-stream words, and K1, K2 and
-   K3 at a steady chunk's shapes against their plain versions; the real-time
-   factor, each chunk's latency (featurizer, network, beam; p50 and p95)
-   and one utterance's device busy time and idle share.
+   K3 at a steady chunk's shapes against their plain versions (K2's dgrad
+   and K2b there too, checked and timed though a chunk runs no backward,
+   K2b twice for equal bits); the device time of a steady chunk's 15 K2
+   launches replayed from one CUDA graph; the real-time factor, each
+   chunk's latency (featurizer, network, beam; p50 and p95) and one
+   utterance's device busy time and idle share.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -161,7 +168,11 @@ TRANSFORMER = dict(
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PASSES = 5  # steady-state passes over the served list per type
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
+TF32_PEAK = 495e12  # H100 SXM, dense
+# The least time for a function's operations, H100 SXM, dense. fp32 counts at
+# the fastest fp32-accurate rate the card has: 3xTF32 on the tensor cores
+# (three TF32 products a product, 495 / 3 TFLOP/s), above the CUDA cores' 67.
+PEAK_FLOPS = {"float32": TF32_PEAK / 3, "bfloat16": 989e12}
 TPU_KERNELS = {
     "mfsc": ("wav2letter_tpu/ops/pallas/mel.py:65", "wav2letter_tpu_torch/csrc/mfsc.cu"),
     "time_conv": ("wav2letter_tpu/ops/pallas/tconv.py:155",
@@ -472,7 +483,6 @@ def path_calls(model, B, T):
 # (the CUDA-core route); checked, timed warm, counted 0 times
 K1_EDGES = [(8000, 40, 10.0, 4, 123457), (16000, 40, 10.0, 4, 64000),
             (16000, 80, 6.25, 4, 64000)]
-TF32_PEAK = 495e12  # H100 SXM, dense
 
 
 def _mfsc_row(f, B, S, tag, timed=True):
@@ -550,10 +560,26 @@ def check_mfsc_edges(details):
 
 
 def _conv_log(row, tag):
-    """One line per K2, dgrad or K2b row: route, time, TFLOP/s, bound share."""
+    """One line per K2, dgrad or K2b row: route, schedule, time, TFLOP/s, bound
+    share."""
     log(f"[{tag}] {row['name']} {row['dtype']} {row['shape']} calls={row['calls']}: "
-        f"{row['route']}, {row['ms']:.4f} ms (library {row['library_ms']:.4f}), "
-        f"{row['tflops']:.1f} TFLOP/s, {row['bound_ms'] / row['ms']:.3f} of the bound")
+        f"{row['route']} {json.dumps(row['schedule'])}, {row['ms']:.4f} ms (library "
+        f"{row['library_ms']:.4f}), {row['tflops']:.1f} TFLOP/s, "
+        f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+
+
+def _conv_layout(dtype, key, kind, Tout):
+    """The route of one K2 (``kind`` "conv" or "dgrad") or K2b ("wgrad") call
+    at ``key`` and, on the tensor cores, the schedule it launches."""
+    import torch
+
+    from wav2letter_tpu_torch.kernels.tconv import route, schedule
+
+    B, T, Fq, C, CO, K, s = key[:7]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    frames = T if kind == "dgrad" else Tout
+    return dict(route=route(dtype, C, CO, K, s, Fq, kind),
+                schedule=schedule(dtype, B, frames, C, CO, K, s, Fq, sms, kind))
 
 
 def check_time_conv(convs, dtype_name, details, edges=()):
@@ -563,7 +589,6 @@ def check_time_conv(convs, dtype_name, details, edges=()):
     import torch.nn.functional as F
 
     from wav2letter_tpu_torch import kernels
-    from wav2letter_tpu_torch.kernels.tconv import route
 
     dtype = getattr(torch, dtype_name)
     rows = []
@@ -595,8 +620,8 @@ def check_time_conv(convs, dtype_name, details, edges=()):
                    warm_ms=device_ms(kernels.time_conv, args, cold=False),
                    plain_ms=None if key in edges else device_ms(kernels.time_conv_plain, args),
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   calls=convs.count(key), route=route(dtype, C, CO, K, s, Fq, "conv"),
-                   tflops=flops / ms / 1e9, edge=key in edges)
+                   calls=convs.count(key), tflops=flops / ms / 1e9, edge=key in edges,
+                   **_conv_layout(dtype, key, "conv", Tout))
         _conv_log(row, "K2")
         rows.append(row)
         details.append(row)
@@ -752,7 +777,6 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
     import torch.nn.functional as F
 
     from wav2letter_tpu_torch import kernels
-    from wav2letter_tpu_torch.kernels.tconv import route
 
     dtype = getattr(torch, dtype_name)
     rows = {"time_conv_dgrad": [], "time_conv_wgrad": []}
@@ -787,8 +811,8 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
                 plain_ms=(None if key in edges
                           else device_ms(kernels.time_conv_dgrad_plain, args)),
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
-                route=route(dtype, C, CO, K, s, Fq, "dgrad"), tflops=flops / ms / 1e9,
-                edge=key in edges))
+                tflops=flops / ms / 1e9, edge=key in edges,
+                **_conv_layout(dtype, key, "dgrad", Tout)))
             _conv_log(rows["time_conv_dgrad"][-1], "K2 dgrad")
 
         args = (x, dy, K, Fq, s, pads)
@@ -808,8 +832,7 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
             ms=ms, warm_ms=device_ms(kernels.time_conv_wgrad, args, cold=False),
             plain_ms=None if key in edges else device_ms(kernels.time_conv_wgrad_plain, args),
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
-            route=route(dtype, C, CO, K, s, Fq, "wgrad"), tflops=flops / ms / 1e9,
-            edge=key in edges)
+            tflops=flops / ms / 1e9, edge=key in edges, **_conv_layout(dtype, key, "wgrad", Tout))
         _conv_log(row, "K2b")
 
         # the whole function against autograd of the plain forward
@@ -1484,11 +1507,9 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
             updates_per_s=(n_updates - 1) / span, audio_s_per_s=steady_audio / span,
             s_per_update=span / (n_updates - 1), peak_mem_gib=peak / 2**30,
             launches=launches, launches_per_update=per_update, first_batch=grads)
-        if dtype_name == "bfloat16":
-            tr.train_step = step
-            largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
-            res["profile"] = profile_update(
-                tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
+        tr.train_step = step
+        largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
+        res["profile"] = profile_update(tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
         results[dtype_name] = res
         log(f"[train {runname}] {json.dumps(res)}")
         del tr
@@ -2046,6 +2067,76 @@ def graph_ms(fn, args, iters=20, reps=10) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
+def stream_conv_rows(key):
+    """K2, its dgrad and K2b in fp32 at one conv of a steady stream chunk
+    (B = 1, a window of state and chunk frames, no pads) against their plain
+    versions and one PyTorch call each, timed by ``graph_ms``; K2b twice for
+    equal bits. Only K2 runs on the stream (a chunk has no backward): the
+    gradients' rows check and time the kernels at the stream's small B * T,
+    where the schedule splits the taps."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+
+    B, T, Fq, C, CO, K, s, pads = key
+    x, w, bias, dy = _conv_inputs(key, torch.float32)
+    xn = x.view(B, T, Fq, C).permute(0, 3, 2, 1).contiguous()
+    wn = w.permute(2, 1, 0).unsqueeze(2).contiguous()
+    Tout = dy.shape[1]
+    dyn = dy.view(B, Tout, Fq, CO).permute(0, 3, 2, 1).contiguous()
+    flops = 2 * B * Tout * Fq * CO * K * C
+    shape = list(key[:7]) + [list(pads)]
+    calls = (
+        ("time_conv", "conv", (x, w, Fq, s, pads, bias, True), kernels.time_conv,
+         kernels.time_conv_plain, lambda a, b_, c: F.conv2d(a, b_, c, stride=(1, s)),
+         (xn, wn, bias), 4 * (x.numel() + w.numel() + dy.numel() + CO)),
+        ("time_conv_dgrad", "dgrad", (dy, w, Fq, T, s, pads), kernels.time_conv_dgrad,
+         kernels.time_conv_dgrad_plain,
+         lambda a, b_: torch.nn.grad.conv2d_input(xn.shape, b_, a, stride=(1, s)), (dyn, wn),
+         4 * (dy.numel() + w.numel() + x.numel())),
+        ("time_conv_wgrad", "wgrad", (x, dy, K, Fq, s, pads), kernels.time_conv_wgrad,
+         kernels.time_conv_wgrad_plain,
+         lambda a, b_: torch.nn.grad.conv2d_weight(a, wn.shape, b_, stride=(1, s)), (xn, dyn),
+         4 * (x.numel() + dy.numel() + w.numel())))
+    rows = []
+    for name, kind, args, fn, plain, lib, lib_args, nbytes in calls:
+        got = fn(*args)
+        err, rel, ok = compare(name, "float32", got, plain(*args))
+        if kind == "wgrad":
+            ok = ok and torch.equal(got, fn(*args))  # ordered sums
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        ms = graph_ms(fn, args)
+        rows.append(dict(
+            name=name, dtype="float32", shape=shape, tag="stream", max_abs_err=err,
+            max_rel_err=rel, tol=TOL[(name, "float32")], ok=ok, ms=ms,
+            plain_ms=graph_ms(plain, args), library_ms=graph_ms(lib, lib_args), bound_ms=b_ms,
+            bound_by=b_by, tflops=flops / ms / 1e9, calls=int(kind == "conv"),
+            **_conv_layout(torch.float32, key, kind, Tout)))
+        _conv_log(rows[-1], "stream")
+    return rows
+
+
+def stream_chunk_k2_ms(convs):
+    """Device time of a steady chunk's K2 launches (``convs``, one per call,
+    in order), replayed back to back from one CUDA graph: what the chunk's
+    device time holds of K2, without the host's launch cost."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+
+    args = []
+    for key in convs:
+        x, w, bias, _ = _conv_inputs(key, torch.float32)
+        args.append((x, w, key[2], key[6], key[7], bias, True))
+
+    def chunk():
+        for a in args:
+            kernels.time_conv(*a)
+
+    return graph_ms(chunk, ())
+
+
 def stream_kernel_rows(featurizer, S, convs, lns, details):
     """K1 at a chunk's samples S, K2 and K3 at streaming shapes (B = 1
     windows, a few rows), against their plain versions and one PyTorch call
@@ -2056,8 +2147,6 @@ def stream_kernel_rows(featurizer, S, convs, lns, details):
 
     from wav2letter_tpu_torch import kernels
     from wav2letter_tpu_torch.kernels.layernorm import route as ln_route
-    from wav2letter_tpu_torch.kernels.tconv import route
-
     from wav2letter_tpu_torch.kernels.mfsc import route as mfsc_route
 
     rows = []
@@ -2080,26 +2169,7 @@ def stream_kernel_rows(featurizer, S, convs, lns, details):
         plain_ms=graph_ms(kernels.mfsc_plain, args), library_ms=None, bound_ms=b_ms,
         bound_by=b_by, route=mfsc_route(p.frame_samples, p.stride_samples, nb, nm)))
     for key in convs:
-        B, T, Fq, C, CO, K, s, pads = key
-        g = torch.Generator(device="cuda").manual_seed(T + K)
-        x = torch.randn((B, T, Fq * C), device="cuda", generator=g)
-        w = 0.1 * torch.randn((K, C, CO), device="cuda", generator=g)
-        bias = torch.randn((CO,), device="cuda", generator=g)
-        args = (x, w, Fq, s, pads, bias, True)
-        got = kernels.time_conv(*args)
-        err, rel, ok = compare("time_conv", "float32", got, kernels.time_conv_plain(*args))
-        xn = x.view(B, T, Fq, C).permute(0, 3, 2, 1).contiguous()
-        wn = w.permute(2, 1, 0).unsqueeze(2).contiguous()
-        b_ms, b_by = bound(4 * (x.numel() + w.numel() + got.numel() + CO),
-                           2 * B * got.shape[1] * Fq * CO * K * C, "float32")
-        rows.append(dict(
-            name="time_conv", dtype="float32", shape=list(key[:7]) + [list(pads)],
-            tag="stream", max_abs_err=err, max_rel_err=rel, tol=TOL[("time_conv", "float32")],
-            ok=ok, ms=graph_ms(kernels.time_conv, args),
-            plain_ms=graph_ms(kernels.time_conv_plain, args),
-            library_ms=graph_ms(lambda a, b_, c: F.conv2d(a, b_, c, stride=(1, s)),
-                                (xn, wn, bias)),
-            bound_ms=b_ms, bound_by=b_by, route=route(torch.float32, C, CO, K, s, Fq)))
+        rows.extend(stream_conv_rows(key))
     for R, D in lns:
         x, y, w, b = _ln_inputs(R + 4, D, torch.float32, R + D)
         x, y = x[2:2 + R], y[:R].contiguous()  # the residual: a time slice of a window
@@ -2309,6 +2379,9 @@ def stream_path(paths, lst, secs, tmp, smi_line):
     if not all(r["ok"] for r in k_rows):
         fail(f"stream kernels disagree with their plain versions: "
              f"{[r for r in k_rows if not r['ok']]}")
+    k2_chunk_ms = stream_chunk_k2_ms(convs)
+    log(f"[stream] a steady chunk's {len(convs)} K2 launches: {k2_chunk_ms:.4f} ms of device "
+        f"time (graph replay) | {smi_line}")
 
     rows = [row for r in streamed.values() for row in r["rows"]]
     lat = {k: np.asarray([row[k] for row in rows]) for k in ("feat_ms", "net_ms", "beam_ms")}
@@ -2322,6 +2395,7 @@ def stream_path(paths, lst, secs, tmp, smi_line):
         stream_s=stream_s, x_real_time=secs / stream_s,
         latency_ms=dict(total=pct(total), **{k[:-3]: pct(v) for k, v in lat.items()}),
         launches={k: sum(row[k] for row in rows) for k in ("k1", "k2", "k3")},
+        k2_chunk=dict(launches=len(convs), ms=k2_chunk_ms, shapes=convs),
         em_max_abs_err=em_err, em_tol=STREAM_EM_TOL, feat_max_abs_err_after_8=feat_err,
         feat_max_abs_err_first_8=feat_err_head, feat_tol=STREAM_FEAT_TOL,
         feat_max_abs_err_fp32_cmvn_after_8=feat_err_fp32, feat_fp32_cmvn_worst=fp32_worst,
@@ -2532,6 +2606,17 @@ def main() -> None:
             dg = per_forward(rows[("time_conv_dgrad", dt)])
             entry["dgrad"] = {k: dg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "max_abs_err")}
+        if name in ("time_conv", "time_conv_wgrad"):  # the fp32 route (3xTF32)
+            parts = ([("forward", name), ("dgrad", "time_conv_dgrad")] if name == "time_conv"
+                     else [("wgrad", name)])
+            entry["float32"] = {}
+            for part, key in parts:
+                krows = rows[(key, "float32")]
+                agg = per_forward(krows)
+                entry["float32"][part] = dict(
+                    routes=sorted({r["route"] for r in krows}),
+                    **{k: agg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "max_abs_err")})
         if name == "mhsa_bwd":  # K4b's time by launch
             krows = rows[(name, dt)]
             entry["split_ms"] = {k: sum(r["split_ms"].get(k, 0.0) * r["calls"] for r in krows)
@@ -2545,6 +2630,8 @@ def main() -> None:
                 **{k: [r[k] for r in srows]
                    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 max_abs_err=max(r["max_abs_err"] for r in srows))
+            if name == "time_conv":
+                entry["stream"]["chunk_ms"] = streamed["k2_chunk"]["ms"]
         kernels_line.append(entry)
     summary = dict(kernels=kernels_line)
     if args.out:

@@ -1004,3 +1004,91 @@ def test_residual_ln_stream_rows(cuda, R, D):
     want = kernels.residual_ln_plain(x, y, w, b)
     for g, v in zip(got, want):
         torch.testing.assert_close(g, v, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# fp32 K2, dgrad and K2b on the tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+# (T, F, C, CO, K, stride) of the stream's batch-1 windows (16-60 frames, no
+# pads): the first C2, the first and the last TDS conv, and the C2s between
+TF32_STREAM = [(58, 80, 1, 16, 9, 2), (33, 80, 16, 16, 9, 1), (16, 80, 28, 28, 11, 1),
+               (60, 80, 16, 20, 11, 2), (44, 80, 20, 24, 11, 2), (27, 80, 24, 28, 12, 1)]
+
+
+@pytest.mark.parametrize("T,F,C,CO,K,s", TF32_STREAM)
+def test_time_conv_fp32_stream_windows(cuda, T, F, C, CO, K, s):
+    """fp32 K2, its dgrad and K2b at B = 1 windows route to the tensor cores
+    (the split-tap or one-frame-a-warp schedule) and hold their plain
+    versions; K2b twice for equal bits."""
+    from wav2letter_tpu_torch.kernels import tconv
+
+    x, w, dy = _conv_case(cuda, torch.float32, 1, T, F, C, CO, K, s, 0, 0)
+    bias = _randn((CO,), CO, cuda)
+    for kind in ("conv", "dgrad", "wgrad"):
+        assert tconv.route(torch.float32, C, CO, K, s, F, kind) == "tensor cores"
+    Tout = dy.shape[1]
+    plan = tconv.tf32_plan(1, Tout, F, C, CO, K, s, torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
+    assert plan[3] == 1 and (plan[2] > 1 or C == 1)  # one frame a block, or C = 1
+    got = kernels.time_conv(x, w, F, s, (0, 0), bias, relu=True)
+    torch.testing.assert_close(got, kernels.time_conv_plain(x, w, F, s, (0, 0), bias, True),
+                               rtol=1e-4, atol=1e-4)
+    got = kernels.time_conv_dgrad(dy, w, F, T, s, (0, 0))
+    torch.testing.assert_close(got, kernels.time_conv_dgrad_plain(dy, w, F, T, s, (0, 0)),
+                               rtol=1e-4, atol=1e-4)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (0, 0))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, kernels.time_conv_wgrad_plain(x, dy, K, F, s, (0, 0)),
+                               rtol=1e-4, atol=2e-3)
+    assert torch.equal(got, kernels.time_conv_wgrad(x, dy, K, F, s, (0, 0)))
+
+
+@pytest.mark.parametrize("case", [(2, 51, 80, 16, 20, 11, 2, 8, 1),
+                                  (1, 45, 40, 20, 24, 11, 2, 3, 4),
+                                  (3, 70, 80, 28, 28, 11, 1, 10, 0)])
+def test_time_conv_fp32_ragged_strided_tiles(cuda, case):
+    """fp32 K2, dgrad and K2b where the last tile is ragged (Tout not a
+    multiple of the tile), strided, F not a multiple of 16; the fp32 route
+    is the tensor cores'."""
+    from wav2letter_tpu_torch.kernels import tconv
+
+    B, T, F, C, CO, K, s, lp, rp = case
+    x, w, dy = _conv_case(cuda, torch.float32, *case)
+    bias = _randn((CO,), CO, cuda)
+    assert all(tconv.route(torch.float32, C, CO, K, s, F, k) == "tensor cores"
+               for k in ("conv", "dgrad", "wgrad"))
+    got = kernels.time_conv(x, w, F, s, (lp, rp), bias, relu=True)
+    torch.testing.assert_close(got, kernels.time_conv_plain(x, w, F, s, (lp, rp), bias, True),
+                               rtol=1e-4, atol=1e-4)
+    got = kernels.time_conv_dgrad(dy, w, F, T, s, (lp, rp))
+    torch.testing.assert_close(got, kernels.time_conv_dgrad_plain(dy, w, F, T, s, (lp, rp)),
+                               rtol=1e-4, atol=1e-4)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    torch.testing.assert_close(got, kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp)),
+                               rtol=1e-4, atol=2e-3)
+    assert torch.equal(got, kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp)))
+
+
+def test_time_conv_fp32_twins_match_the_kernels(cuda):
+    """The fp32 route's Python shared-memory formulas and schedule against
+    their C twins."""
+    import ctypes
+
+    from wav2letter_tpu_torch.kernels import tconv
+
+    lib = kernels.library()
+    shapes = [(1, 16, 9, 2), (16, 16, 9, 1), (16, 20, 11, 2), (20, 20, 9, 1), (20, 24, 11, 2),
+              (24, 24, 11, 1), (24, 28, 12, 1), (28, 28, 11, 1), (36, 36, 12, 1), (2, 6, 5, 1),
+              (1, 8, 20, 1), (4, 7, 10, 2), (5, 3, 3, 1), (8, 1, 4, 1)]
+    for C, CO, K, s in shapes:
+        for mw, mt, ks in ((8, 2, 1), (8, 1, 1), (4, 1, 1), (1, 1, 4), (1, 1, 2)):
+            assert lib.w2l_time_conv_tf32_smem_bytes(C, CO, K, s, mw, mt, ks) == \
+                tconv.tf32_smem_bytes(C, CO, K, s, mw, mt, ks)
+        assert lib.w2l_time_conv_wgrad_tf32_smem_bytes(C, CO, K, s) == \
+            tconv.tf32_wgrad_smem_bytes(C, CO, K, s)
+        for B, Tout, F in ((1, 25, 80), (1, 6, 80), (4, 768, 80), (16, 192, 80), (4, 50, 40),
+                           (16, 768, 80), (2, 3, 24)):
+            for sms in (132, 114):
+                plan = (ctypes.c_int * 5)()
+                assert lib.w2l_time_conv_tf32_plan(B, Tout, F, C, CO, K, s, sms, plan) == 0
+                assert tuple(plan) == tconv.tf32_plan(B, Tout, F, C, CO, K, s, sms)

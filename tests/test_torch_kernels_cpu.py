@@ -21,6 +21,18 @@ from wav2letter_tpu.ops.pallas.mel import pallas_mfsc
 from wav2letter_tpu_torch import kernels
 
 
+@pytest.fixture(autouse=True)
+def _jax_on_the_cpu_in_fp32():
+    """The JAX side of every comparison here on the CPU, its dots at full
+    fp32, whatever JAX's platform in the process. ``tests/conftest.py`` pins
+    JAX to the CPU; run without it (``--noconftest``, as the ``cuda`` tests
+    are run on a card machine) in one process with this file, JAX takes the
+    card, where the Pallas kernels' interpret-mode dots at their default
+    precision are not full fp32 (K1's log features then move by ~1.5e-4)."""
+    with jax.default_device(jax.devices("cpu")[0]), jax.default_matmul_precision("highest"):
+        yield
+
+
 def _pre(audio, coef):
     return np.concatenate([audio[..., :1], audio[..., 1:] - coef * audio[..., :-1]], -1)
 
@@ -270,13 +282,13 @@ def test_conv_route_admits_only_what_the_kernels_take():
 @pytest.mark.parametrize("C,CO,K,s", RECIPE_CONVS)
 def test_recipe_convs_take_the_tensor_cores_in_bf16(C, CO, K, s):
     """At F = 80 every recipe conv runs forward, dgrad and K2b on the tensor
-    cores in bf16 (the first conv, C = 1, by its taps), and on the CUDA
-    cores in fp32."""
+    cores in bf16 (the first conv, C = 1, by its taps), and in fp32 too
+    (3xTF32)."""
     from wav2letter_tpu_torch.kernels import tconv as T
 
     for kind in ("conv", "dgrad", "wgrad"):
         assert T.route(torch.bfloat16, C, CO, K, s, 80, kind) == "tensor cores"
-        assert T.route(torch.float32, C, CO, K, s, 80, kind) == "CUDA cores"
+        assert T.route(torch.float32, C, CO, K, s, 80, kind) == "tensor cores"
     assert T.time_conv_takes(K, C, CO, s)
 
 
@@ -320,6 +332,103 @@ def test_tensor_core_layouts_and_picks():
     assert T.tc_schedule(16, 190, 80, T.tc_wgrad_smem_bytes(28, 28, 11, 1), 132) == (4, 240)
 
 
+def test_fp32_tensor_core_layouts():
+    """The Python mirrors of the fp32 (3xTF32) K2 and K2b shapes: copy
+    granule, shared memory by hand, the takes and the routes."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    assert [T.tf32_granule(C, F) for C, F in ((16, 80), (20, 80), (28, 80), (2, 80), (1, 80),
+                                               (1, 6), (1, 3), (5, 3), (28, 3))] == \
+        [16, 16, 16, 8, 16, 8, 4, 4, 16]
+    assert T.tf32_granule(1, 80, taps=False) == 4  # dy's CO = 1: a float a position
+    # C = 28 -> 28, K = 11, 8 warps x 2 frames: the weight twice, 11 x 32 rows
+    # of 40 floats; the ring (15 + 11) + 16 = 42 rows of 16 x 36 floats
+    assert T.tf32_smem_bytes(28, 28, 11, 1, 8, 2, 1) == 4 * (2 * 352 * 40 + 42 * 16 * 36)
+    # the same conv with its taps split over 4 warps, one frame: 11 ring rows
+    # and 3 warps' sums of 16 x 32
+    assert T.tf32_smem_bytes(28, 28, 11, 1, 1, 1, 4) == \
+        4 * (2 * 352 * 40 + 11 * 16 * 36 + 3 * 16 * 32)
+    # C = 1, K = 9, stride 2: 16 tap rows of 24 floats; ring (15 * 2 + 9) + 32
+    # rows of 24, rounded up to an even 72
+    assert T.tf32_smem_bytes(1, 16, 9, 2, 8, 2, 1) == 4 * (2 * 16 * 24 + 72 * 24)
+    # K2b, C = 28 -> 28, K = 11: x ring (7 + 11) + 8 rows of 16 x 40; dy 16 rows
+    assert T.tf32_wgrad_smem_bytes(28, 28, 11, 1) == 4 * (26 * 16 * 40 + 16 * 16 * 40)
+    # C = 1: taps rows of 20 floats, (14 + 9) + 16 -> 40 rows
+    assert T.tf32_wgrad_smem_bytes(1, 16, 9, 2) == 4 * (40 * 20 + 16 * 16 * 24)
+    assert T.tf32_steps(1, 9) == 2 and T.tf32_steps(28, 11) == 44 and T.tf32_steps(20, 9) == 27
+    # fp32 takes odd C and CO (no pairs to copy), up to CO = 64 and the
+    # shared memory; the largest weight the route admits fits to the byte
+    assert T.tc_takes(5, 7, 10, 2, 3, torch.float32) and not T.tc_takes(5, 7, 10, 2, 3)
+    assert not T.tc_takes(16, 72, 3, 1, 80, torch.float32)
+    assert T.tf32_smem_bytes(36, 36, 12, 1, 8, 1, 1) == _build.MAX_SMEM_BYTES
+    assert T.tc_takes(36, 36, 12, 1, 80, torch.float32)
+    assert not T.tc_takes(48, 48, 12, 1, 80, torch.float32)
+    assert not T.tc_wgrad_takes(36, 36, 12, 1, 80, torch.float32)  # 36 units
+    assert T.tc_wgrad_takes(5, 7, 10, 2, 3, torch.float32)
+    assert T.route(torch.float32, 36, 36, 12, 1, 80, "wgrad") == "CUDA cores"
+    assert T.route(torch.float32, 48, 48, 12, 1, 80, "conv") == "CUDA cores"
+
+
+# (B, Tout, C, CO, K, stride) -> the fp32 K2 schedule on 132 SMs: (warps along
+# the frames, frames a warp, warps splitting the taps, tiles a block, blocks).
+# The stream's three K2 shapes (PERF.md: the first C2, the first and the last
+# TDS conv at a steady chunk), then the flagship's convs at the serving batch
+# (B = 4, T = 1536 features) and at the training batch (B = 16)
+TF32_PLANS = [
+    ((1, 25, 1, 16, 9, 2), (4, 1, 1, 1, 35)),
+    ((1, 25, 16, 16, 9, 1), (1, 1, 4, 1, 125)),
+    ((1, 6, 28, 28, 11, 1), (1, 1, 8, 1, 30)),
+    ((4, 768, 1, 16, 9, 2), (8, 2, 1, 4, 240)),
+    ((4, 768, 16, 16, 9, 1), (8, 2, 1, 4, 240)),
+    ((4, 384, 16, 20, 11, 2), (8, 2, 1, 4, 120)),
+    ((4, 384, 20, 20, 9, 1), (8, 2, 1, 2, 240)),
+    ((4, 192, 20, 24, 11, 2), (8, 2, 1, 2, 120)),
+    ((4, 192, 24, 24, 11, 1), (8, 2, 1, 2, 120)),
+    ((4, 192, 24, 28, 12, 1), (8, 2, 1, 2, 120)),
+    ((4, 192, 28, 28, 11, 1), (8, 2, 1, 2, 120)),
+    ((16, 768, 1, 16, 9, 2), (8, 2, 1, 16, 240)),
+    ((16, 768, 16, 16, 9, 1), (8, 2, 1, 16, 240)),
+    ((16, 192, 28, 28, 11, 1), (8, 2, 1, 4, 240)),
+]
+
+
+@pytest.mark.parametrize("shape,plan", TF32_PLANS)
+def test_fp32_tensor_core_plans(shape, plan):
+    """At the stream's three shapes a block is one frame whose 4 or 8 warps
+    split the taps (4 frames of one warp each at C = 1), 30-125 blocks where
+    the batch blocks would be 10; at the batch shapes 8 warps walk 16-frame
+    tiles. Every one of these runs forward, dgrad and K2b on the tensor
+    cores, and the counts agree with the blocks a launch covers."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    B, Tout, C, CO, K, s = shape
+    got = T.tf32_plan(B, Tout, 80, C, CO, K, s, 132)
+    assert got == plan
+    mw, mt, ks, ch, blocks = got
+    assert blocks == B * 5 * -(-(-(-Tout // (mw * mt))) // ch)
+    assert mw * ks <= 8 and (ks == 1 or (mw, mt, ch) == (1, 1, 1))
+    assert T.tf32_smem_bytes(C, CO, K, s, mw, mt, ks) <= T.tf32_smem_bytes(
+        C, CO, K, s, *T._tf32_batch(CO), 1)
+    for kind in ("conv", "dgrad", "wgrad"):
+        assert T.route(torch.float32, C, CO, K, s, 80, kind) == "tensor cores"
+    sched = T.schedule(torch.float32, B, Tout, C, CO, K, s, 80, 132)
+    assert (sched["warps"], sched["tap_splits"], sched["blocks"]) == (mw * ks, ks, blocks)
+
+
+def test_fp32_tile_chooser_takes_a_second_wave_where_it_pays():
+    """At one block an SM (C = 28, 209 KB) and B = 16, 80 (batch row, 16
+    positions) pairs: one run each would leave 52 of 132 SMs idle for a
+    48-tile run; three runs of 16 take two waves of 32 tiles' work."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    assert T.tc_blocks_per_sm(T.tf32_smem_bytes(28, 28, 11, 1, 8, 2, 1)) == 1
+    assert T.tc_tiles_per_block(16, 768, 80, 132) == 48
+    assert T.tf32_tiles_per_block(16, 768, 80, 132, 16) == 16
+    assert T.tf32_tiles_per_block(4, 768, 80, 264, 16) == 4  # as the bf16 cut
+    assert T.tf32_wgrad_schedule(16, 768, 80, 28, 28, 11, 1, 132) == (32, 240)
+
+
 def test_k2_trace_finds_its_anchors_in_the_kernel_sources():
     """``kernels/trace_k2.py`` stamps the tensor-core K2 and K2b by editing
     copies of their sources at fixed anchors; it must find each of them once."""
@@ -330,6 +439,22 @@ def test_k2_trace_finds_its_anchors_in_the_kernel_sources():
                                 ("tconv_wgrad.cu", _PROLOGUE_K2B, "g_k2b_stamps")):
         traced = _instrument((_build.CSRC / name).read_text(), prologue, sym)
         assert traced.count("clock64()") == 6 and f"{sym}_read" in traced
+
+
+def test_k2_trace_stamps_the_fp32_kernels():
+    """``kernels/trace_k2.py`` turns the fp32 kernels' ``W2L_STAMP`` points
+    (empty in the port's build) into clock64 stamps; each kernel keeps the
+    points of its set-up and of every tile that the trace reads."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k2 import _stamp_points
+
+    assert "#define W2L_STAMP(i)\n" in (_build.CSRC / "tf32_tile.cuh").read_text()
+    for name in ("tconv.cu", "tconv_wgrad.cu"):
+        src = (_build.CSRC / name).read_text()
+        first = _stamp_points(src, "g_k2_stamps").splitlines()[0]
+        assert first.startswith("#define W2L_STAMP(i) ") and "clock64()" in first
+        for point in ("0", "1", "2 + 4 * it", "3 + 4 * it", "4 + 4 * it", "5 + 4 * it"):
+            assert f"W2L_STAMP({point});" in src, (name, point)
 
 
 # ---------------------------------------------------------------------------

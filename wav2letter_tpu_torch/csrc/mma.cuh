@@ -1,4 +1,5 @@
-// mma.sync fragments shared by K1 (mfsc.cu) and K4/K4b (attention.cu): one
+// mma.sync fragments shared by K1 (mfsc.cu), K4/K4b (attention.cu) and the
+// 3xTF32 route of K2/K2b (tconv.cu, tconv_wgrad.cu): one
 // 16 x 8 tile product of a 16-row A fragment with an 8-column B fragment,
 // fp32 sums, in bf16 (m16n8k16) or in fp32 as three TF32 passes (m16n8k8).
 //
@@ -42,6 +43,7 @@ __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& 
 // fragments can take it.
 struct BFragTF32 {
   uint32_t big[2], small[2];
+  BFragTF32() = default;  // halves filled by the caller (split once, at staging)
   __device__ __forceinline__ BFragTF32(uint32_t b0, uint32_t b1) {
     split_tf32(b0, big[0], small[0]);
     split_tf32(b1, big[1], small[1]);

@@ -13,14 +13,16 @@
 // the window loader read input frame i/dil where dil divides i and zero
 // elsewhere, so no copy is written.
 //
-// Bound on the H100: in float32, operations. At the flagship widths (C, CO
-// 16..28, K 9..12) an output element costs 2*K*C = 288..672 FLOP against 8
-// bytes moved (one input and one output element), above the 20 FLOP/byte at
-// which the CUDA cores' 67 TFLOP/s meets HBM's 3.35 TB/s. In bfloat16, held
-// against the tensor cores' 989 TFLOP/s, the bytes bound it. Two routes:
-// bf16 runs on the tensor cores (tconv_tc_kernel, below), where the shape
-// allows (kernels/tconv.py::tc_takes); float32, and bf16 shapes the tensor
-// cores' route does not take, run on the CUDA cores (tconv_kernel).
+// Bound on the H100: at the flagship widths (C, CO 16..28, K 9..12) an
+// output element costs 2*K*C = 288..672 FLOP against 8 bytes moved (one
+// input and one output element). In float32, counted at the card's fastest
+// fp32-accurate rate (3xTF32 on the tensor cores, 495 / 3 TFLOP/s), that is
+// about where operations and HBM's 3.35 TB/s meet; in bfloat16, held against
+// the tensor cores' 989 TFLOP/s, the bytes bound it. Three routes, by shape
+// (kernels/tconv.py::route): fp32 on the tensor cores in 3xTF32
+// (tconv_tf32_kernel) and bf16 on the tensor cores (tconv_tc_kernel), where
+// their shared memory and widths allow (tc_takes); the CUDA cores
+// (tconv_kernel) for the shapes neither takes.
 //
 // CUDA cores: one block per (batch row, tile of TT output frames, block of Fb
 // frequency positions). The K*C*CO weights (at most 12*28*28 fp32 = 37.6 KB)
@@ -34,7 +36,9 @@
 // an odd number of floats apart, so threads reading different frequencies
 // hit different banks.
 #include "common.cuh"
+#include "mma.cuh"
 #include "tc_tile.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
@@ -147,6 +151,473 @@ int launch(const void* x, const void* w, const void* bias, void* y, int B, int T
       static_cast<const float*>(bias), static_cast<T*>(y), Tin, F, C, CO, K, stride,
       lp, Tout, Fb, relu, dil);
   return static_cast<int>(cudaGetLastError());
+}
+
+
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+// The conv as the bf16 route's implicit GEMM (below): rows are 16 frequency
+// positions of one output frame (an m-tile), columns CO padded to n-tiles of
+// 8, the reduction over (k, c) in k8 steps with C padded to 8; at C = 1 the
+// taps are the reduction, 8 a step. Each product is three m16n8k8 TF32
+// mma.sync (3xTF32, mma.cuh), so every output sums its K*C products with
+// fp32's digits, as the JAX reference's HIGHEST asks.
+//   Fragments come by 32-bit shared loads, each of the 32 lanes on its own
+// bank: ring positions sit Pe = pad8(C) + 4 floats apart (4 mod 8), taps
+// rows 24 floats (8 mod 32), weight rows (k, c) WP floats (CO padded to an
+// odd multiple of 8). The weight is copied k-major as it lies in memory
+// (cp.async) and split into its big and small TF32 halves in place, once,
+// by the thread that copied it (with split taps, where a block has one
+// frame, as its one product needs it); A is split per fragment. Splits round
+// by integer add and mask (tf32_tile.cuh::rna), not by the conversion unit.
+//   Two schedules (kernels/tconv.py::tf32_plan, C twin w2l_time_conv_tf32_plan):
+// - batch: 8 warps walk CH tiles of TT = 8 MT frames of one batch row and
+//   16 positions; warp w takes frames w MT .. w MT + MT - 1 of a tile and
+//   loads each B fragment once for them; the next tile's new frames are
+//   copied into the ring (NR = W + TT * stride slots) while this tile's
+//   products run;
+// - the stream's batch-1 windows, where the batch blocks would leave most
+//   SMs idle: a block is one output frame of 16 positions whose KS = 2, 4
+//   or 8 warps split the taps. Each warp copies its own taps' weight rows and
+//   window rows, zeros their channel pads, waits for its own copies only (no
+//   block barrier before its products) and splits each weight float as its
+//   one product needs it; the block adds the splits in warp order, so equal
+//   inputs give equal bits. Where the reduction is too short to split (C =
+//   1), 4 warps take 4 frames, one each.
+// Stages only the frames its outputs read. Epilogue in registers: bias, ReLU,
+// fp32 pairs.
+namespace tf = w2l::tf32;
+
+struct Tf32Layout {
+  int tap;   // 1: the taps are the reduction (C == 1)
+  int Cp;    // channels padded to 8
+  int Pe;    // floats between positions of a ring row
+  int RP;    // floats a ring row
+  int KR;    // weight rows: K * Cp, or the taps padded to 8
+  int WP;    // floats a weight row
+  int TT;    // frames a tile
+  int W;     // ring rows a tile's window spans
+  int NR;    // ring rows: a window and the next tile's, or (split taps) K
+  int part;  // floats of the split sums
+  int bytes; // dynamic shared memory
+};
+
+__host__ __device__ inline Tf32Layout tf32_layout(int C, int CO, int K, int stride, int MW,
+                                                  int MT, int KS) {
+  using namespace w2l::tc;
+  Tf32Layout L;
+  L.tap = C == 1;
+  L.Cp = pad8(C);
+  L.Pe = L.tap ? 1 : L.Cp + 4;
+  L.RP = L.tap ? 24 : tf::FB * L.Pe;
+  L.KR = L.tap ? pad8(K) : K * L.Cp;
+  L.WP = odd_units(pad8(CO));  // an odd multiple of 8
+  L.TT = MW * MT;
+  L.W = (L.TT - 1) * stride + K;
+  L.NR = KS > 1 ? K : (L.W + L.TT * stride + 1) & ~1;
+  L.part = (KS - 1) * L.TT * tf::FB * pad8(CO);
+  L.bytes = 4 * (2 * L.KR * L.WP + L.NR * L.RP + L.part);
+  return L;
+}
+
+// Visits the weight's copies of rows [r0, r1) taken by threads tid, tid +
+// nthr, ...: fn(row, first column); Gw bytes a copy, CO floats a row.
+template <typename Fn>
+__device__ __forceinline__ void weight_copies(int r0, int r1, int CO, int Gw, int tid, int nthr,
+                                              Fn fn) {
+  const int ge = Gw >> 2, U = CO / ge;
+  const int dr = nthr / U, du = nthr - dr * U;
+  int r = r0 + tid / U, u = tid % U;
+  while (r < r1) {
+    fn(r, u * ge);
+    u += du;
+    r += dr;
+    if (u >= U) {
+      u -= U;
+      ++r;
+    }
+  }
+}
+
+// Copies weight rows [r0, r1) into `big` (row k * Cp + c, or tap k at C = 1):
+// w[k, c, :] where c < C and k < K, zeros elsewhere; columns CO..WP-1 are
+// never written (they meet only the output columns that are dropped).
+__device__ __forceinline__ void stage_weight32(uint32_t big, const float* w,
+                                               const Tf32Layout& L, const tf::FastDiv& byCp,
+                                               int C, int CO, int K, int Gw, int r0, int r1,
+                                               int tid, int nthr) {
+  weight_copies(r0, r1, CO, Gw, tid, nthr, [&](int r, int col) {
+    const int k = L.tap ? r : byCp.div(r), c = L.tap ? 0 : r - k * L.Cp;
+    const bool real = L.tap ? r < K : c < C;
+    const float* s = real ? w + (static_cast<size_t>(k) * C + c) * CO + col : w;
+    w2l::tc::cp_async(Gw, big + 4 * (r * L.WP + col), s, real ? Gw : 0);
+  });
+}
+
+// After the copies of stage_weight32(..., tid, nthr) have landed: each thread
+// splits the floats it copied into big (in place) and small TF32 halves.
+__device__ __forceinline__ void split_weight(float* big, float* small, const Tf32Layout& L,
+                                             int CO, int Gw, int r0, int r1, int tid, int nthr) {
+  weight_copies(r0, r1, CO, Gw, tid, nthr, [&](int r, int col) {
+    for (int j = 0; j < (Gw >> 2); ++j) {
+      const int i = r * L.WP + col + j;
+      uint32_t hi, lo;
+      tf::split(__float_as_uint(big[i]), hi, lo);
+      big[i] = __uint_as_float(hi);
+      small[i] = __uint_as_float(lo);
+    }
+  });
+}
+
+// Zeros channels C..Cp-1 of every position of ring rows [r0, r1): products
+// read them, copies never write them.
+__device__ __forceinline__ void zero_pads(float* ring, const Tf32Layout& L, int C, int r0,
+                                          int r1, int tid, int nthr) {
+  const int pc = L.tap ? 0 : L.Cp - C;
+  if (pc == 0) return;
+  for (int r = r0; r < r1; ++r)
+    for (int i = tid; i < tf::FB * pc; i += nthr) {
+      const int f = i / pc;
+      ring[r * L.RP + f * L.Pe + C + i - f * pc] = 0.f;
+    }
+}
+
+// The products of k8 steps [s0, s1) for the first nm of MT frames, frame m's
+// window row 0 in ring slot base[m]: d += big . big, e += the cross terms.
+// SPLIT: `big` holds the weight as it came and each B fragment is split
+// here (where a fragment meets one frame, that splits each float once too).
+// TAP: the taps are the reduction (C = 1), with taps past K zeros in A.
+template <int NT, int MT, bool SPLIT, bool TAP>
+__device__ __forceinline__ void tf32_loop(float (&d)[MT][NT][4], float (&e)[MT][NT][4],
+                                          const float* ring, const float* big,
+                                          const float* small, const Tf32Layout& L, int K,
+                                          int s0, int s1, const int (&base)[MT], int nm, int g,
+                                          int q) {
+  const int nc8 = L.Cp >> 3;
+  int k = TAP ? 0 : s0 / nc8;
+  int cs = TAP ? 0 : s0 - k * nc8;
+#pragma unroll 2
+  for (int st = s0; st < s1; ++st) {
+    w2l::BFragTF32 bf[NT];
+    const int wr = (st * 8 + q) * L.WP + g;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if constexpr (SPLIT) {
+        bf[n] = tf::bfrag(__float_as_uint(big[wr + n * 8]),
+                          __float_as_uint(big[wr + 4 * L.WP + n * 8]));
+      } else {
+        bf[n].big[0] = __float_as_uint(big[wr + n * 8]);
+        bf[n].big[1] = __float_as_uint(big[wr + 4 * L.WP + n * 8]);
+        bf[n].small[0] = __float_as_uint(small[wr + n * 8]);
+        bf[n].small[1] = __float_as_uint(small[wr + 4 * L.WP + n * 8]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m >= nm) break;
+      uint32_t r[4];
+      if constexpr (TAP) {  // rows of taps st*8 + q and + 4, positions g and g + 8
+        const int k0 = st * 8 + q, k1 = k0 + 4;
+        int s0r = base[m] + k0, s1r = base[m] + k1;
+        if (s0r >= L.NR) s0r -= L.NR;
+        if (s1r >= L.NR) s1r -= L.NR;
+        r[0] = k0 < K ? __float_as_uint(ring[s0r * L.RP + g]) : 0u;
+        r[1] = k0 < K ? __float_as_uint(ring[s0r * L.RP + g + 8]) : 0u;
+        r[2] = k1 < K ? __float_as_uint(ring[s1r * L.RP + g]) : 0u;
+        r[3] = k1 < K ? __float_as_uint(ring[s1r * L.RP + g + 8]) : 0u;
+      } else {  // row of tap k, channels cs*8 + q and + 4, positions g and g + 8
+        int sl = base[m] + k;
+        if (sl >= L.NR) sl -= L.NR;
+        const float* a = ring + sl * L.RP + g * L.Pe + cs * 8 + q;
+        r[0] = __float_as_uint(a[0]);
+        r[1] = __float_as_uint(a[8 * L.Pe]);
+        r[2] = __float_as_uint(a[4]);
+        r[3] = __float_as_uint(a[8 * L.Pe + 4]);
+      }
+      const tf::AFrag32 af(r);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) af.mma(d[m][n], e[m][n], bf[n]);
+    }
+    if constexpr (!TAP) {
+      if (++cs == nc8) {
+        cs = 0;
+        ++k;
+      }
+    }
+  }
+}
+
+template <int NT, int MT, bool SPLIT = false>
+__device__ __forceinline__ void tf32_steps(float (&d)[MT][NT][4], float (&e)[MT][NT][4],
+                                           const float* ring, const float* big,
+                                           const float* small, const Tf32Layout& L, int K,
+                                           int s0, int s1, const int (&base)[MT], int nm, int g,
+                                           int q) {
+  if constexpr (!SPLIT) {  // split taps take C > 1 only
+    if (L.tap) {
+      tf32_loop<NT, MT, SPLIT, true>(d, e, ring, big, small, L, K, s0, s1, base, nm, g, q);
+      return;
+    }
+  }
+  tf32_loop<NT, MT, SPLIT, false>(d, e, ring, big, small, L, K, s0, s1, base, nm, g, q);
+}
+
+// Output frame t of the block's 16 positions from its sums: bias, ReLU, fp32.
+template <int NT>
+__device__ __forceinline__ void tf32_store(const float (&acc)[NT][4], float* y,
+                                           const float* bias, int relu, size_t row, int fleft,
+                                           int CO, int g, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = g + 8 * h;
+    if (f >= fleft) continue;
+    float* yp = y + (row + f) * CO;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int co = n * 8 + 2 * q;
+      if (co >= CO) continue;
+      float v0 = acc[n][2 * h] + (bias != nullptr ? bias[co] : 0.f);
+      if (relu) v0 = fmaxf(v0, 0.f);
+      if (co + 1 < CO) {
+        float v1 = acc[n][2 * h + 1] + (bias != nullptr ? bias[co + 1] : 0.f);
+        if (relu) v1 = fmaxf(v1, 0.f);
+        if ((CO & 1) == 0) {
+          *reinterpret_cast<float2*>(yp + co) = make_float2(v0, v1);
+        } else {
+          yp[co] = v0;
+          yp[co + 1] = v1;
+        }
+      } else {
+        yp[co] = v0;
+      }
+    }
+  }
+}
+
+template <int NT, int MT>
+__global__ void __launch_bounds__(256, 2)
+tconv_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, float* __restrict__ y, int Tin, int F, int C,
+                  int CO, int K, int stride, int lp, int Tout, int relu, int dil, int MW, int KS,
+                  int CH, int G) {
+  extern __shared__ __align__(16) float tf_smem[];
+  W2L_STAMP(0);
+  const Tf32Layout L = tf32_layout(C, CO, K, stride, MW, MT, KS);
+  float* big = tf_smem;
+  float* small = big + L.KR * L.WP;
+  float* ring = small + L.KR * L.WP;
+  float* part = ring + L.NR * L.RP;
+  const int nthr = blockDim.x, tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int b = blockIdx.z, f0 = blockIdx.y * tf::FB, fleft = F - f0;
+  const int nT = (Tout + L.TT - 1) / L.TT;
+  const int tile0 = blockIdx.x * CH;
+  const int ntiles = min(CH, nT - tile0);
+  if (ntiles <= 0) return;
+  const int t_first = tile0 * L.TT;
+  const int xbase = t_first * stride - lp;  // dilated input row of ring slot 0
+  const int Tdil = (Tin - 1) * dil + 1;
+  const int t_end = min(Tout, t_first + ntiles * L.TT);
+  const int xend = xbase + (t_end - 1 - t_first) * stride + K;  // past the last row read
+  const float* xb = x + static_cast<size_t>(b) * Tin * F * C + static_cast<size_t>(f0) * C;
+  const int Gw = CO % 4 == 0 ? 16 : CO % 2 == 0 ? 8 : 4;
+  const uint32_t big_s = w2l::tc::smem_addr(big), ring_s = w2l::tc::smem_addr(ring);
+  const tf::Rows rows(L.Pe, L.RP, L.NR, C, G);
+  const tf::FastDiv byCp(L.Cp), bydil(dil);
+
+  if (KS > 1) {  // one frame; warp j takes taps [j K / KS, (j + 1) K / KS)
+    if constexpr (MT == 1) {
+      const int k0 = warp * K / KS, k1 = (warp + 1) * K / KS;
+      stage_weight32(big_s, w, L, byCp, C, CO, K, Gw, k0 * L.Cp, k1 * L.Cp, lane, 32);
+      tf::stage_rows(ring_s, xb, rows, F, xbase + k0, k1 - k0, xbase, Tdil, bydil, fleft, lane,
+                     32);
+      w2l::tc::cp_async_commit();
+      zero_pads(ring, L, C, k0, k1, lane, 32);  // this warp's rows only
+      W2L_STAMP(1);
+      W2L_STAMP(2);
+      w2l::tc::cp_async_wait<0>();
+      __syncwarp();
+      W2L_STAMP(3);
+      W2L_STAMP(4);
+      float d[1][NT][4], e[1][NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) d[0][n][j] = e[0][n][j] = 0.f;
+      const int base[1] = {0};
+      const int nc8 = L.Cp >> 3;
+      tf32_steps<NT, 1, true>(d, e, ring, big, small, L, K, k0 * nc8, k1 * nc8, base, 1, g, q);
+      if (warp > 0) {
+        float* p = part + (warp - 1) * NT * 128 + lane;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) p[(n * 4 + j) * 32] = d[0][n][j] + e[0][n][j];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        float acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v = d[0][n][j] + e[0][n][j];
+            for (int s = 1; s < KS; ++s) v += part[((s - 1) * NT * 4 + n * 4 + j) * 32 + lane];
+            acc[n][j] = v;
+          }
+        tf32_store<NT>(acc, y, bias, relu, (static_cast<size_t>(b) * Tout + t_first) * F + f0,
+                       fleft, CO, g, q);
+      }
+      W2L_STAMP(5);
+    }
+    return;
+  }
+
+  // batch: the weight and the first window, then tile by tile
+  stage_weight32(big_s, w, L, byCp, C, CO, K, Gw, 0, L.KR, tid, nthr);
+  tf::stage_rows(ring_s, xb, rows, F, xbase, min(L.W, xend - xbase), xbase, Tdil, bydil, fleft,
+                 tid, nthr);
+  w2l::tc::cp_async_commit();
+  zero_pads(ring, L, C, 0, L.NR, tid, nthr);
+  W2L_STAMP(1);
+  for (int it = 0; it < ntiles; ++it) {
+    const int nx = xbase + L.W + it * L.TT * stride;  // the next tile's first new row
+    if (it + 1 < ntiles)
+      tf::stage_rows(ring_s, xb, rows, F, nx, min(L.TT * stride, xend - nx), xbase, Tdil,
+                     bydil, fleft, tid, nthr);
+    w2l::tc::cp_async_commit();
+    W2L_STAMP(2 + 4 * it);
+    w2l::tc::cp_async_wait<1>();
+    if (it == 0) split_weight(big, small, L, CO, Gw, 0, L.KR, tid, nthr);
+    W2L_STAMP(3 + 4 * it);
+    __syncthreads();
+    W2L_STAMP(4 + 4 * it);
+
+    const int tb = it * L.TT;  // the tile's first frame, from t_first
+    int base[MT], nm = 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int tl = warp * MT + m;
+      base[m] = ((tb + tl) * stride) % L.NR;
+      if (t_first + tb + tl < Tout) nm = m + 1;
+    }
+    if (nm > 0) {
+      float d[MT][NT][4], e[MT][NT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d[m][n][j] = e[m][n][j] = 0.f;
+      tf32_steps<NT, MT>(d, e, ring, big, small, L, K, 0, L.KR >> 3, base, nm, g, q);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        if (m >= nm) break;
+        float acc[NT][4];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[n][j] = d[m][n][j] + e[m][n][j];
+        const int t = t_first + tb + warp * MT + m;
+        tf32_store<NT>(acc, y, bias, relu, (static_cast<size_t>(b) * Tout + t) * F + f0, fleft,
+                       CO, g, q);
+      }
+    }
+    __syncthreads();  // the slots this tile read take the next copies
+    W2L_STAMP(5 + 4 * it);
+  }
+}
+
+// The schedule of kernels/tconv.py::tf32_plan: (MW, MT, KS, CH, blocks).
+struct Tf32Plan {
+  int MW, MT, KS, CH, blocks;
+};
+
+// Blocks resident on an SM (kernels/tconv.py::tc_blocks_per_sm): two at most
+// (launch bounds), fewer where their shared memory and 1 KB each do not fit.
+__host__ __device__ inline int blocks_per_sm(int smem_bytes) {
+  const int n = (228 * 1024) / (smem_bytes + 1024);
+  return n < 1 ? 1 : n > 2 ? 2 : n;
+}
+
+// Tiles a batch block walks (kernels/tconv.py::tf32_tiles_per_block): the cut
+// of each (batch row, 16 positions) pair's tiles into runs that gives the
+// busiest of `slots` resident blocks the least work, waves times a block's
+// tiles plus one for its weight and first window; the longer run on a tie.
+__host__ __device__ inline int tiles_per_block32(int B, int Tout, int F, int slots, int tt) {
+  const int pairs = B * ((F + tf::FB - 1) / tf::FB);
+  const int n_t = (Tout + tt - 1) / tt;
+  int best = n_t;
+  long long best_load = -1;
+  for (int ch = n_t; ch >= 1; --ch) {
+    const long long blocks = static_cast<long long>(pairs) * ((n_t + ch - 1) / ch);
+    const long long load = (blocks + slots - 1) / slots * (ch + 1);
+    if (best_load < 0 || load < best_load) {
+      best = ch;
+      best_load = load;
+    }
+  }
+  return best;
+}
+
+constexpr int TF32_WARPS = 8;
+
+__host__ __device__ inline Tf32Plan tf32_plan(int B, int Tout, int F, int C, int CO, int K,
+                                              int stride, int sms) {
+  Tf32Plan p;
+  const int nf = (F + tf::FB - 1) / tf::FB;
+  p.MT = (CO + 7) / 8 <= 4 ? 2 : 1;
+  const int tt = TF32_WARPS * p.MT;
+  const int n_t = (Tout + tt - 1) / tt;
+  if (2 * B * nf * n_t >= sms) {  // the batch blocks fill at least half the card
+    p.MW = TF32_WARPS;
+    p.KS = 1;
+    const int smem = tf32_layout(C, CO, K, stride, p.MW, p.MT, 1).bytes;
+    p.CH = tiles_per_block32(B, Tout, F, sms * blocks_per_sm(smem), tt);
+    p.blocks = B * nf * ((n_t + p.CH - 1) / p.CH);
+    return p;
+  }
+  const int steps = C == 1 ? (K + 7) / 8 : K * ((C + 7) / 8);
+  p.MT = 1;
+  p.CH = 1;
+  p.KS = C == 1 ? 1 : steps >= 32 && K >= 8 ? 8 : steps >= 16 && K >= 4 ? 4
+                                                : steps >= 8 && K >= 2 ? 2 : 1;
+  p.MW = p.KS > 1 ? 1 : 4;
+  p.blocks = B * nf * ((Tout + p.MW - 1) / p.MW);
+  return p;
+}
+
+template <int NT, int MT>
+int launch_tf32(const void* x, const void* w, const void* bias, void* y, int B, int Tin, int F,
+                int C, int CO, int K, int stride, int lp, int Tout, int relu, int dil, int MW,
+                int KS, int CH, int G, cudaStream_t stream) {
+  const Tf32Layout L = tf32_layout(C, CO, K, stride, MW, MT, KS);
+  w2l::allow_smem(tconv_tf32_kernel<NT, MT>, L.bytes);
+  const int nT = (Tout + L.TT - 1) / L.TT;
+  dim3 grid((nT + CH - 1) / CH, (F + tf::FB - 1) / tf::FB, B);
+  tconv_tf32_kernel<NT, MT><<<grid, 32 * MW * KS, L.bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w),
+      static_cast<const float*>(bias), static_cast<float*>(y), Tin, F, C, CO, K, stride, lp,
+      Tout, relu, dil, MW, KS, CH, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tf32<NT, MT> for NT = nt (1..8); two frames a warp only up to 4 n-tiles
+template <int NT = 1, typename... A>
+int launch_tf32_nt(int nt, int mt, A... a) {
+  if constexpr (NT > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (nt == NT) {
+      if (mt == 1) return launch_tf32<NT, 1>(a...);
+      if constexpr (NT <= 4) {
+        if (mt == 2) return launch_tf32<NT, 2>(a...);
+      }
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_tf32_nt<NT + 1>(nt, mt, a...);
+  }
 }
 
 
@@ -440,6 +911,45 @@ extern "C" int w2l_time_conv_tc(const void* x, const void* w, const void* bias, 
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_nt((CO + 7) / 8, x, w, bias, y, B, Tin, F, C, CO, K, stride, lp, Tout, relu,
                    dil, CH, G, s);
+}
+
+// Dynamic shared memory of the fp32 tensor-core kernel for a conv of K taps
+// at `stride` from C to CO channels under a schedule (MW warps along the
+// frames, MT frames a warp, KS warps splitting the taps), and the schedule
+// itself for a card of `sms` SMs: plan = {MW, MT, KS, CH, blocks}.
+// kernels/tconv.py mirrors both.
+extern "C" int w2l_time_conv_tf32_smem_bytes(int C, int CO, int K, int stride, int MW, int MT,
+                                             int KS) {
+  return tf32_layout(C, CO, K, stride, MW, MT, KS).bytes;
+}
+extern "C" int w2l_time_conv_tf32_plan(int B, int Tout, int F, int C, int CO, int K, int stride,
+                                       int sms, int* plan) {
+  const Tf32Plan p = tf32_plan(B, Tout, F, C, CO, K, stride, sms);
+  plan[0] = p.MW;
+  plan[1] = p.MT;
+  plan[2] = p.KS;
+  plan[3] = p.CH;
+  plan[4] = p.blocks;
+  return 0;
+}
+
+// The fp32 conv of w2l_time_conv on the tensor cores (3xTF32), CO <= 64:
+// blocks of MW * KS warps, MT (1, or 2 up to CO = 32) frames a warp, CH
+// tiles a block; KS > 1 (split taps) takes one frame a block (MW = MT = CH
+// = 1) and C > 1. G, the bytes of one cp.async of x (16, 8 or 4), divides 4 C
+// (at C = 1 only a row) and a row of 4 F C; x and w are 16-byte aligned.
+extern "C" int w2l_time_conv_tf32(const void* x, const void* w, const void* bias, void* y,
+                                  int B, int Tin, int F, int C, int CO, int K, int stride,
+                                  int lp, int Tout, int relu, int dil, int MW, int MT, int KS,
+                                  int CH, int G, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool split = KS > 1;
+  if (dil < 1 || CH < 1 || MW < 1 || KS < 1 || MW * KS > 8 || CO > 64 ||
+      (G != 16 && G != 8 && G != 4) ||
+      (split && (MW != 1 || MT != 1 || CH != 1 || C == 1 || K < KS)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tf32_nt((CO + 7) / 8, MT, x, w, bias, y, B, Tin, F, C, CO, K, stride, lp, Tout,
+                        relu, dil, MW, KS, CH, G, s);
 }
 
 // x (B, Tin, F*C) and w (K, C, CO) of one dtype; bias (CO,) float32 or null;

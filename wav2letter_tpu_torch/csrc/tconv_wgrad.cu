@@ -31,7 +31,9 @@
 // same geometry.
 //   Pass 2: one thread per weight sums the blocks' partials in block order.
 #include "common.cuh"
+#include "mma.cuh"
 #include "tc_tile.cuh"
+#include "tf32_tile.cuh"
 
 namespace {
 
@@ -433,6 +435,272 @@ int launch_nt(int nt, A... a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores (3xTF32)
+// ---------------------------------------------------------------------------
+// dw[k] (C x CO) = x_k^T . dy as the bf16 route above, the reduction over the
+// positions (t, f) 8 a k8 step: channels are M in m-tiles of 16 (taps at C =
+// 1), CO is N; each product is three m16n8k8 TF32 mma.sync (3xTF32) summed
+// in fp32. A block walks CH tiles of TT = 8 frames of one batch row and 16
+// positions; x's window is a ring of fp32 rows, dy a ring of two tiles, both
+// copied by cp.async while the previous tile's products run. Fragments come
+// by 32-bit shared loads, each of the 32 lanes on its own bank: x's
+// positions sit Pe floats apart (pad16(C) raised to an odd multiple of 8;
+// taps rows 20 floats), dy's PeD (pad8(CO) raised likewise). Both operands
+// are split into big and small TF32 halves: dy's fragment once for all the
+// units a warp owns at that frame, x's per fragment. The tensor cores add a
+// product's terms without rounding to nearest, which over the long sums of
+// dw drifts (measured: 5e-3 against 2e-3 allowed on 224,000 terms), so each
+// frame's 16 positions go into a fresh tile and the running sum takes it by
+// an fp32 add. Rows of A past C (or
+// past K at C = 1) and columns of B past CO hold whatever the ring holds
+// there; they meet only sums that are dropped. Units and classes of frames
+// are dealt to the 8 warps as in the bf16 route, and the partials are summed
+// in order by wgrad_reduce_kernel: equal inputs, equal bits.
+namespace tf = w2l::tf32;
+
+constexpr int WG32_TT = 8;  // frames a tile
+
+struct Wg32Layout {
+  int tap;   // 1: C == 1, taps are the M dimension
+  int Pe;    // floats between positions of an x row
+  int RP;    // floats an x row
+  int W;     // x rows a tile's window spans
+  int NR;    // x rows: a window and the next tile's
+  int PeD;   // floats between positions of a dy row
+  int RPd;   // floats a dy row
+  int bytes; // dynamic shared memory
+};
+
+__host__ __device__ inline Wg32Layout wg32_layout(int C, int CO, int K, int stride) {
+  using namespace w2l::tc;
+  Wg32Layout L;
+  L.tap = C == 1;
+  L.Pe = L.tap ? 1 : odd_units(pad16(C));
+  L.RP = L.tap ? 20 : tf::FB * L.Pe;
+  L.W = (WG32_TT - 1) * stride + K;
+  L.NR = (L.W + WG32_TT * stride + 1) & ~1;
+  L.PeD = odd_units(pad8(CO));
+  L.RPd = tf::FB * L.PeD;
+  L.bytes = 4 * (L.NR * L.RP + 2 * WG32_TT * L.RPd);
+  return L;
+}
+
+template <int NT>
+__global__ void __launch_bounds__(256, 2)
+wgrad_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                  float* __restrict__ partial, int Tin, int F, int C, int CO, int K, int stride,
+                  int lp, int Tout, int CH, int G, int Gd) {
+  extern __shared__ __align__(16) float wf_smem[];
+  W2L_STAMP(0);
+  const Wg32Layout L = wg32_layout(C, CO, K, stride);
+  const WgLayout U = wg_layout(C, CO, K, stride);  // units and classes, as bf16
+  float* xring = wf_smem;
+  float* dring = xring + L.NR * L.RP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int b = blockIdx.z, f0 = blockIdx.y * tf::FB, fleft = F - f0;
+  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  const int nT = (Tout + WG32_TT - 1) / WG32_TT;
+  const int tile0 = blockIdx.x * CH;
+  const int ntiles = max(0, min(CH, nT - tile0));
+
+  // this warp's items: item i = warp + 8 j is unit i mod units on the frames
+  // of class i / units
+  int unit[UMAX], rep[UMAX], nmine = 0, classes = 0;
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    const int i = warp + tc::WARPS * j;
+    unit[j] = i % U.units;
+    rep[j] = i / U.units;
+    if (i < U.units * U.reps) {
+      nmine = j + 1;
+      classes |= 1 << rep[j];
+    }
+  }
+
+  const int t_first = tile0 * WG32_TT;
+  const int xbase = t_first * stride - lp;
+  const int t_end = min(Tout, t_first + ntiles * WG32_TT);
+  const int xend = xbase + (t_end - 1 - t_first) * stride + K;  // past the last row read
+  const float* xb = x + static_cast<size_t>(b) * Tin * F * C + static_cast<size_t>(f0) * C;
+  const float* dyb = dy + static_cast<size_t>(b) * Tout * F * CO + static_cast<size_t>(f0) * CO;
+  const uint32_t xs = tc::smem_addr(xring), ds = tc::smem_addr(dring);
+  const tf::Rows xrows(L.Pe, L.RP, L.NR, C, G), drows(L.PeD, L.RPd, 2 * WG32_TT, CO, Gd);
+  const tf::FastDiv one(1);
+  if (ntiles > 0) {
+    tf::stage_rows(xs, xb, xrows, F, xbase, min(L.W, xend - xbase), xbase, Tin, one, fleft, tid,
+                   tc::THREADS);
+    tf::stage_rows(ds, dyb, drows, F, t_first, min(WG32_TT, t_end - t_first), t_first, Tout, one,
+                   fleft, tid, tc::THREADS);
+  }
+  tc::cp_async_commit();
+  W2L_STAMP(1);
+
+  // per item: the A rows' offset from a frame's first window row (its tap k,
+  // or at C = 1 its 16 taps from this lane's g) and the floats into a row
+  int row_off[UMAX], col_off[UMAX];
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    if (L.tap) {
+      row_off[j] = unit[j] * 16 + g;
+      col_off[j] = q;
+    } else {
+      row_off[j] = unit[j] / U.CM;
+      col_off[j] = q * L.Pe + (unit[j] - row_off[j] * U.CM) * 16 + g;
+    }
+  }
+
+  float acc[UMAX][NT][4];
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int nx = xbase + L.W + it * WG32_TT * stride;  // the next tile's first new x row
+    const int nt = t_first + (it + 1) * WG32_TT;         // and dy row
+    if (it + 1 < ntiles) {
+      tf::stage_rows(xs, xb, xrows, F, nx, min(WG32_TT * stride, xend - nx), xbase, Tin, one,
+                     fleft, tid, tc::THREADS);
+      tf::stage_rows(ds, dyb, drows, F, nt, min(WG32_TT, t_end - nt), t_first, Tout, one, fleft,
+                     tid, tc::THREADS);
+    }
+    tc::cp_async_commit();
+    W2L_STAMP(2 + 4 * it);
+    tc::cp_async_wait<1>();
+    W2L_STAMP(3 + 4 * it);
+    __syncthreads();
+    W2L_STAMP(4 + 4 * it);
+
+    const int tb = it * WG32_TT;
+    const float* drow = dring + (tb % (2 * WG32_TT)) * L.RPd;  // dy row of the tile's first frame
+    int x0 = (tb * stride) % L.NR;  // ring slot of frame tl's first window row
+    for (int tl = 0; nmine > 0 && tl < WG32_TT && t_first + tb + tl < Tout; ++tl) {
+      const int cls = tl & (U.reps - 1);
+      if ((classes >> cls) & 1) {
+        // dy's fragments of positions 0-7 and 8-15, split once for all units
+        w2l::BFragTF32 bf[2][NT];
+#pragma unroll
+        for (int ps = 0; ps < 2; ++ps) {
+          const float* dp = drow + tl * L.RPd + (8 * ps + q) * L.PeD + g;
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+            bf[ps][n] =
+                tf::bfrag(__float_as_uint(dp[n * 8]), __float_as_uint(dp[4 * L.PeD + n * 8]));
+        }
+#pragma unroll
+        for (int j = 0; j < UMAX; ++j) {
+          if (j >= nmine) break;
+          if (rep[j] != cls) continue;
+          // the frame's 16 positions in a fresh tile: the tensor cores' sums
+          // (which do not round to nearest) stay 6 products deep, and the
+          // running sum takes them by a rounded add
+          float fr[NT][4];
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) fr[n][e] = 0.f;
+#pragma unroll
+          for (int ps = 0; ps < 2; ++ps) {  // positions 8 ps .. 8 ps + 7
+            uint32_t r[4];
+            if (L.tap) {  // rows: taps 16 u + g (+ 8); columns: positions
+              int s0 = x0 + row_off[j], s1 = s0 + 8;
+              if (s0 >= L.NR) s0 -= L.NR;
+              if (s1 >= L.NR) s1 -= L.NR;
+              const float* a0 = xring + s0 * L.RP + 8 * ps + col_off[j];
+              const float* a1 = xring + s1 * L.RP + 8 * ps + col_off[j];
+              r[0] = __float_as_uint(a0[0]);
+              r[1] = __float_as_uint(a1[0]);
+              r[2] = __float_as_uint(a0[4]);
+              r[3] = __float_as_uint(a1[4]);
+            } else {  // rows: channels of the m-tile; columns: positions
+              int sl = x0 + row_off[j];
+              if (sl >= L.NR) sl -= L.NR;
+              const float* a = xring + sl * L.RP + 8 * ps * L.Pe + col_off[j];
+              r[0] = __float_as_uint(a[0]);
+              r[1] = __float_as_uint(a[8]);
+              r[2] = __float_as_uint(a[4 * L.Pe]);
+              r[3] = __float_as_uint(a[4 * L.Pe + 8]);
+            }
+            const tf::AFrag32 af(r);
+#pragma unroll
+            for (int n = 0; n < NT; ++n) af.mma(fr[n], fr[n], bf[ps][n]);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][n][e] += fr[n][e];
+        }
+      }
+      x0 += stride;
+      if (x0 >= L.NR) x0 -= L.NR;
+    }
+    __syncthreads();  // the slots this tile read take the next copies
+    W2L_STAMP(5 + 4 * it);
+  }
+
+  // the block's partial: row blk * reps + class, each (k, c, co) from its owner
+#pragma unroll
+  for (int j = 0; j < UMAX; ++j) {
+    if (j >= nmine) break;
+    float* out = partial + static_cast<size_t>(blk * U.reps + rep[j]) * K * C * CO;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int k, c;
+      if (L.tap) {
+        k = unit[j] * 16 + g + 8 * h;
+        c = 0;
+        if (k >= K) continue;
+      } else {
+        k = unit[j] / U.CM;
+        c = (unit[j] - k * U.CM) * 16 + g + 8 * h;
+        if (c >= C) continue;
+      }
+      float* op = out + (static_cast<size_t>(k) * C + c) * CO;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int co = n * 8 + 2 * q;
+        if (co < CO) op[co] = acc[j][n][2 * h];
+        if (co + 1 < CO) op[co + 1] = acc[j][n][2 * h + 1];
+      }
+    }
+  }
+}
+
+template <int NT>
+int launch_tf32(const void* x, const void* dy, void* partial, void* dw, int B, int Tin, int F,
+                int C, int CO, int K, int stride, int lp, int Tout, int CH, int G, int Gd,
+                cudaStream_t stream) {
+  const Wg32Layout L = wg32_layout(C, CO, K, stride);
+  w2l::allow_smem(wgrad_tf32_kernel<NT>, L.bytes);
+  const int nT = (Tout + WG32_TT - 1) / WG32_TT;
+  dim3 grid((nT + CH - 1) / CH, (F + tf::FB - 1) / tf::FB, B);
+  wgrad_tf32_kernel<NT><<<grid, tc::THREADS, L.bytes, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(partial),
+      Tin, F, C, CO, K, stride, lp, Tout, CH, G, Gd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int wsize = K * C * CO;
+  const int rows = static_cast<int>(grid.x * grid.y * grid.z) * wg_layout(C, CO, K, stride).reps;
+  wgrad_reduce_kernel<<<(wsize + tc::THREADS - 1) / tc::THREADS, tc::THREADS, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dw), rows, wsize);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch_tf32<NT> for NT = nt (1..8)
+template <int NT = 1, typename... A>
+int launch_tf32_nt(int nt, A... a) {
+  if constexpr (NT > 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (nt == NT) return launch_tf32<NT>(a...);
+    return launch_tf32_nt<NT + 1>(nt, a...);
+  }
+}
+
 }  // namespace
 
 extern "C" int w2l_time_conv_wgrad_tile() { return TT; }
@@ -460,6 +728,27 @@ extern "C" int w2l_time_conv_wgrad_tc(const void* x, const void* dy, void* parti
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_nt((CO + 7) / 8, x, dy, partial, dw, B, Tin, F, C, CO, K, stride, lp, Tout,
                    CH, G, Gd, s);
+}
+
+// Dynamic shared memory of the fp32 tensor-core K2b; kernels/tconv.py mirrors it.
+extern "C" int w2l_time_conv_wgrad_tf32_smem_bytes(int C, int CO, int K, int stride) {
+  return wg32_layout(C, CO, K, stride).bytes;
+}
+
+// The fp32 K2b on the tensor cores (3xTF32): CO at most 64, at most 8 * UMAX
+// (tap, 16-channel) units. G and Gd, the bytes of one cp.async of x and of
+// dy, divide 4 C (x at C = 1: only a row) and 4 CO and a row of each; a
+// block walks CH tiles of 8 frames. partial holds (blocks * reps, K*C*CO)
+// float32.
+extern "C" int w2l_time_conv_wgrad_tf32(const void* x, const void* dy, void* partial, void* dw,
+                                        int B, int Tin, int F, int C, int CO, int K, int stride,
+                                        int lp, int Tout, int CH, int G, int Gd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (CH < 1 || CO > 64 || wg_layout(C, CO, K, stride).units > w2l::tc::WARPS * UMAX ||
+      (G != 16 && G != 8 && G != 4) || (Gd != 16 && Gd != 8 && Gd != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_tf32_nt((CO + 7) / 8, x, dy, partial, dw, B, Tin, F, C, CO, K, stride, lp, Tout,
+                        CH, G, Gd, s);
 }
 
 // Floats of shared memory one frequency of a tile takes, beside the K*C*CO

@@ -6,8 +6,8 @@ pointer and the stream go in as ``c_void_p``, and every entry point returns
 own ``nvcc`` process, all started together, and the objects are linked into
 ``build/torch_kernels/libw2l_kernels_<hash>.so`` at the repository root. The
 hash covers the sources, the headers they share (``*.cuh``: ``common.cuh``,
-``mma.cuh``, ``tc_tile.cuh``) and the flags, so an edited source or header is
-rebuilt and an unchanged tree is loaded as built.
+``mma.cuh``, ``tc_tile.cuh``, ``tf32_tile.cuh``) and the flags, so an edited
+source or header is rebuilt and an unchanged tree is loaded as built.
 
 Nothing here runs at import: the first wrapper that launches a kernel calls
 ``library()``, which builds on first use.
@@ -50,6 +50,11 @@ SIGNATURES = {
     "w2l_time_conv_tile": [],
     "w2l_time_conv_tc": [_P, _P, _P, _P] + [_I] * 13 + [_P],
     "w2l_time_conv_tc_smem_bytes": [_I, _I, _I, _I],
+    "w2l_time_conv_tf32": [_P, _P, _P, _P] + [_I] * 16 + [_P],
+    "w2l_time_conv_tf32_smem_bytes": [_I] * 7,
+    "w2l_time_conv_tf32_plan": [_I] * 8 + [_P],
+    "w2l_time_conv_wgrad_tf32": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    "w2l_time_conv_wgrad_tf32_smem_bytes": [_I, _I, _I, _I],
     "w2l_time_conv_wgrad_tc": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     "w2l_time_conv_wgrad_tc_smem_bytes": [_I, _I, _I, _I],
     "w2l_time_conv_wgrad_tc_reps": [_I, _I],

@@ -14,6 +14,7 @@ launches K2 (dgrad) and K2b."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +32,11 @@ WG_KV, WG_COV = 4, 4  # csrc/tconv_wgrad.cu: KV, COV
 # positions per block, elements per ring row at C = 1, warps, units a warp
 TC_TT, TC_FB, TC_TAP_PITCH, TC_WARPS, TC_UMAX = 16, 16, 24, 8, 3
 TC_MAX_CO = 64  # eight n-tiles of 8
+# the fp32 tensor-core kernels (3xTF32; csrc/tconv.cu, csrc/tconv_wgrad.cu):
+# warps of a batch block, frames of a K2b tile, floats of a taps row in K2's
+# and in K2b's ring
+TF32_WARPS, TF32_WG_TT, TF32_TAP_PITCH, TF32_WG_TAP_PITCH = 8, 8, 24, 20
+TF32_BLOCK_TILES = 1  # a block's fixed cost (weight, first window) in tiles' worth
 
 
 def _pad(n: int, m: int) -> int:
@@ -94,20 +100,131 @@ def tc_granule(C: int, F: int) -> int:
                  if (2 * F * C) % g == 0 and (C == 1 or (2 * C) % g == 0)), 0)
 
 
-def tc_takes(C: int, CO: int, K: int, stride: int, F: int) -> bool:
-    """Whether the bf16 tensor-core K2 takes the conv (forward, or dgrad as
-    the conv from CO to C channels at stride 1)."""
-    return (min(C, CO, K, stride, F) >= 1 and CO <= TC_MAX_CO and (C == 1 or C % 2 == 0)
-            and tc_granule(C, F) > 0
+def tf32_granule(C: int, F: int, taps: Optional[bool] = None) -> int:
+    """Bytes of one cp.async of the fp32 tensor-core kernels' loaders: the
+    largest of 16, 8, 4 that divides a position's 4 C bytes and a row's 4 F C;
+    in the taps mode (C = 1 in x's ring, the default there) positions are
+    copied together and only the row counts. Never 0: a float is 4 bytes."""
+    taps = C == 1 if taps is None else taps
+    return next(g for g in (16, 8, 4) if (4 * F * C) % g == 0 and (taps or (4 * C) % g == 0))
+
+
+def tf32_smem_bytes(C: int, CO: int, K: int, stride: int, mw: int, mt: int, ks: int) -> int:
+    """Dynamic shared memory of the fp32 tensor-core K2 (``csrc/tconv.cu::
+    tf32_layout``) under a schedule of ``mw`` warps along the frames, ``mt``
+    frames a warp and ``ks`` warps splitting the taps: the weight twice (its
+    big and small TF32 halves), K*Cp rows (C padded to 8; at C = 1 the taps
+    padded to 8) of CO padded to an odd multiple of 8; the ring of window rows,
+    16 positions pad8(C) + 4 floats apart (24 floats at C = 1), a tile's
+    window and the next tile's rows (K rows where the taps are split); the
+    split sums."""
+    tt = mw * mt
+    kr = _pad(K, 8) if C == 1 else K * _pad(C, 8)
+    rp = TF32_TAP_PITCH if C == 1 else TC_FB * (_pad(C, 8) + 4)
+    nr = K if ks > 1 else _pad((tt - 1) * stride + K + tt * stride, 2)
+    part = (ks - 1) * tt * TC_FB * _pad(CO, 8)
+    return 4 * (2 * kr * _odd_units(_pad(CO, 8)) + nr * rp + part)
+
+
+def tf32_steps(C: int, K: int) -> int:
+    """k8 steps of the fp32 K2's reduction: taps at C = 1, else (k, 8 channels)."""
+    return -(-K // 8) if C == 1 else K * -(-C // 8)
+
+
+def tf32_tiles_per_block(B: int, Tout: int, F: int, slots: int, tt: int) -> int:
+    """Tiles of ``tt`` frames an fp32 tensor-core block walks (C twin in
+    ``csrc/tconv.cu::tiles_per_block32``): of all the cuts of each (batch row,
+    16 positions) pair's tiles into runs, the one that gives the busiest of
+    the ``slots`` (resident blocks of the card) the least work, its waves of
+    blocks times a block's cost, its tiles plus ``TF32_BLOCK_TILES`` for the
+    weight and the first window it stages; the longer run on a tie. Unlike
+    ``tc_tiles_per_block``, a second wave is taken where it shortens the
+    busiest slot's run, as at one block an SM."""
+    pairs = B * -(-F // TC_FB)
+    n_t = -(-Tout // tt)
+    best, best_load = n_t, None
+    for ch in range(n_t, 0, -1):
+        load = -(-pairs * -(-n_t // ch) // slots) * (ch + TF32_BLOCK_TILES)
+        if best_load is None or load < best_load:
+            best, best_load = ch, load
+    return best
+
+
+def _tf32_batch(CO: int) -> Tuple[int, int]:
+    """(warps along the frames, frames a warp) of an fp32 batch block: two
+    frames a warp share each B fragment, up to four n-tiles (registers)."""
+    return TF32_WARPS, 2 if -(-CO // 8) <= 4 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def tf32_plan(B: int, Tout: int, F: int, C: int, CO: int, K: int, stride: int,
+              sms: int) -> Tuple[int, int, int, int, int]:
+    """The fp32 tensor-core K2's schedule (C twin ``w2l_time_conv_tf32_plan``):
+    (warps along the frames MW, frames a warp MT, warps splitting the taps KS,
+    tiles a block CH, blocks). Batch blocks of 8 warps walk tiles of 8 MT
+    frames as ``tf32_tiles_per_block`` deals them, where they fill at least half
+    of the ``sms`` SMs; otherwise (the stream's batch-1 windows) a block is
+    one frame whose 8, 4 or 2 warps split the taps (at least 4 k8 steps and
+    a tap each), or, where the reduction is too short to split (C = 1), 4
+    frames of one warp each."""
+    nf = -(-F // TC_FB)
+    mw, mt = _tf32_batch(CO)
+    tt = mw * mt
+    n_t = -(-Tout // tt)
+    if 2 * B * nf * n_t >= sms:
+        smem = tf32_smem_bytes(C, CO, K, stride, mw, mt, 1)
+        ch = tf32_tiles_per_block(B, Tout, F, sms * tc_blocks_per_sm(smem), tt)
+        return mw, mt, 1, ch, B * nf * -(-n_t // ch)
+    steps = tf32_steps(C, K)
+    ks = next((n for n, need in ((8, 32), (4, 16), (2, 8)) if C > 1 and steps >= need and K >= n),
+              1)
+    mw = 1 if ks > 1 else 4
+    return mw, 1, ks, 1, B * nf * -(-Tout // mw)
+
+
+def tf32_wgrad_schedule(B: int, Tout: int, F: int, C: int, CO: int, K: int, stride: int,
+                        sms: int) -> Tuple[int, int]:
+    """(tiles a block walks, blocks) of the fp32 tensor-core K2b."""
+    smem = tf32_wgrad_smem_bytes(C, CO, K, stride)
+    ch = tf32_tiles_per_block(B, Tout, F, sms * tc_blocks_per_sm(smem), TF32_WG_TT)
+    n_t = -(-Tout // TF32_WG_TT)
+    return ch, B * -(-F // TC_FB) * -(-n_t // ch)
+
+
+def tf32_wgrad_smem_bytes(C: int, CO: int, K: int, stride: int) -> int:
+    """Dynamic shared memory of the fp32 tensor-core K2b (``csrc/
+    tconv_wgrad.cu::wg32_layout``): the ring of x's window (16 positions
+    pad16(C) raised to an odd multiple of 8 floats apart, 20 floats a row at C
+    = 1; a tile's window and the next tile's rows, tiles of 8 frames) and the
+    ring of two tiles of dy (pad8(CO) raised likewise)."""
+    rp = TF32_WG_TAP_PITCH if C == 1 else TC_FB * _odd_units(_pad(C, 16))
+    nr = _pad((TF32_WG_TT - 1) * stride + K + TF32_WG_TT * stride, 2)
+    return 4 * (nr * rp + 2 * TF32_WG_TT * TC_FB * _odd_units(_pad(CO, 8)))
+
+
+def tc_takes(C: int, CO: int, K: int, stride: int, F: int,
+             dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the tensor-core K2 of ``dtype`` takes the conv (forward, or
+    dgrad as the conv from CO to C channels at stride 1). fp32 takes any C
+    and CO up to 64 whose batch schedule fits the shared memory."""
+    if min(C, CO, K, stride, F) < 1 or CO > TC_MAX_CO:
+        return False
+    if dtype == torch.float32:
+        return tf32_smem_bytes(C, CO, K, stride, *_tf32_batch(CO), 1) <= _build.MAX_SMEM_BYTES
+    return ((C == 1 or C % 2 == 0) and tc_granule(C, F) > 0
             and tc_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES)
 
 
-def tc_wgrad_takes(C: int, CO: int, K: int, stride: int, F: int) -> bool:
-    """Whether the bf16 tensor-core K2b takes the shape."""
-    units, reps = tc_wgrad_units(C, K)
-    return (min(C, CO, K, stride, F) >= 1 and CO <= TC_MAX_CO and CO % 2 == 0
-            and (C == 1 or C % 2 == 0) and tc_granule(C, F) > 0 and tc_granule(CO, F) > 0
-            and units <= TC_WARPS * TC_UMAX
+def tc_wgrad_takes(C: int, CO: int, K: int, stride: int, F: int,
+                   dtype: torch.dtype = torch.bfloat16) -> bool:
+    """Whether the tensor-core K2b of ``dtype`` takes the shape."""
+    units, _ = tc_wgrad_units(C, K)
+    if min(C, CO, K, stride, F) < 1 or CO > TC_MAX_CO or units > TC_WARPS * TC_UMAX:
+        return False
+    if dtype == torch.float32:
+        return tf32_wgrad_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES
+    return (CO % 2 == 0 and (C == 1 or C % 2 == 0) and tc_granule(C, F) > 0
+            and tc_granule(CO, F) > 0
             and tc_wgrad_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES)
 
 
@@ -159,8 +276,8 @@ def tc_blocks_per_sm(smem_bytes: int) -> int:
 
 
 def tc_tiles_per_block(B: int, Tout: int, F: int, slots: int) -> int:
-    """Time tiles a tensor-core block walks. A block keeps one (batch row,
-    16 positions) pair and walks consecutive tiles, so that it overlaps
+    """Time tiles a bf16 tensor-core block walks. A block keeps one (batch
+    row, 16 positions) pair and walks consecutive tiles, so that it overlaps
     staging with products and stages each frame once; the pairs' tiles are
     cut into as many runs as fill the ``slots`` (resident blocks of the card)
     in one wave, so no second, mostly idle wave of blocks follows."""
@@ -170,7 +287,7 @@ def tc_tiles_per_block(B: int, Tout: int, F: int, slots: int) -> int:
 
 
 def tc_schedule(B: int, Tout: int, F: int, smem_bytes: int, sms: int) -> Tuple[int, int]:
-    """(tiles a block walks, blocks) of a tensor-core launch on ``sms`` SMs."""
+    """(tiles a block walks, blocks) of a bf16 tensor-core launch on ``sms`` SMs."""
     ch = tc_tiles_per_block(B, Tout, F, sms * tc_blocks_per_sm(smem_bytes))
     n_t = -(-Tout // TC_TT)
     return ch, B * -(-F // TC_FB) * -(-n_t // ch)
@@ -180,12 +297,39 @@ def route(dtype: torch.dtype, C: int, CO: int, K: int, stride: int, F: int,
           kind: str = "conv") -> str:
     """"tensor cores" or "CUDA cores": where a call of K2 (``kind`` "conv",
     or "dgrad" for the gradient of a conv from C to CO channels) or of K2b
-    ("wgrad") in ``dtype`` runs."""
+    ("wgrad") in ``dtype`` runs, inputs aligned to 16 bytes."""
     if kind == "wgrad":
-        takes = tc_wgrad_takes(C, CO, K, stride, F)
+        takes = tc_wgrad_takes(C, CO, K, stride, F, dtype)
+    elif kind == "dgrad":
+        takes = tc_takes(CO, C, K, 1, F, dtype)
     else:
-        takes = tc_takes(CO, C, K, 1, F) if kind == "dgrad" else tc_takes(C, CO, K, stride, F)
-    return "tensor cores" if dtype == torch.bfloat16 and takes else "CUDA cores"
+        takes = tc_takes(C, CO, K, stride, F, dtype)
+    return "tensor cores" if takes else "CUDA cores"
+
+
+def schedule(dtype: torch.dtype, B: int, Tout: int, C: int, CO: int, K: int, stride: int,
+             F: int, sms: int, kind: str = "conv") -> dict:
+    """What a tensor-core launch of K2 (``kind`` "conv" or "dgrad", Tout
+    the frames it writes) or K2b ("wgrad") runs: its tiles, warps and
+    blocks; {} on the CUDA cores."""
+    if route(dtype, C, CO, K, stride, F, kind) != "tensor cores":
+        return {}
+    if kind == "dgrad":
+        C, CO, stride = CO, C, 1
+    if kind == "wgrad":
+        if dtype == torch.float32:
+            tt, (ch, blocks) = TF32_WG_TT, tf32_wgrad_schedule(B, Tout, F, C, CO, K, stride, sms)
+        else:
+            smem = tc_wgrad_smem_bytes(C, CO, K, stride)
+            tt, (ch, blocks) = TC_TT, tc_schedule(B, Tout, F, smem, sms)
+        return dict(frames_a_tile=tt, tiles_a_block=ch, blocks=blocks, warps=TC_WARPS,
+                    classes=tc_wgrad_units(C, K)[1])
+    if dtype == torch.float32:
+        mw, mt, ks, ch, blocks = tf32_plan(B, Tout, F, C, CO, K, stride, sms)
+        return dict(frames_a_tile=mw * mt, tiles_a_block=ch, blocks=blocks, warps=mw * ks,
+                    frames_a_warp=mt, tap_splits=ks)
+    ch, blocks = tc_schedule(B, Tout, F, tc_smem_bytes(C, CO, K, stride), sms)
+    return dict(frames_a_tile=TC_TT, tiles_a_block=ch, blocks=blocks, warps=TC_WARPS)
 
 
 def out_frames(T: int, K: int, stride: int, pads: Tuple[int, int]) -> int:
@@ -270,8 +414,14 @@ def _launch_conv(x, w, bias, F, stride, lp, Tout, relu, dil) -> torch.Tensor:
     if y.numel() == 0:
         return y
     bias_ptr = None if bias is None else bias.data_ptr()
-    if x.dtype == torch.bfloat16 and tc_takes(C, CO, K, stride, F) \
-            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 and y.data_ptr() % 4 == 0:
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    if x.dtype == torch.float32 and aligned and tc_takes(C, CO, K, stride, F, x.dtype):
+        mw, mt, ks, ch, _ = tf32_plan(B, Tout, F, C, CO, K, stride, _build.sm_count(x.device))
+        rc = lib.w2l_time_conv_tf32(
+            x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), B, T, F, C, CO, K, stride, lp,
+            Tout, int(relu), dil, mw, mt, ks, ch, tf32_granule(C, F), _build.stream_ptr(x))
+    elif x.dtype == torch.bfloat16 and aligned and tc_takes(C, CO, K, stride, F) \
+            and y.data_ptr() % 4 == 0:
         ch, _ = tc_schedule(B, Tout, F, tc_smem_bytes(C, CO, K, stride),
                             _build.sm_count(x.device))
         rc = lib.w2l_time_conv_tc(
@@ -333,8 +483,16 @@ def time_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, K: int, F: int, stride: i
         return dw.zero_()
     lib = _build.library()
     sms = _build.sm_count(x.device)
-    if x.dtype == torch.bfloat16 and tc_wgrad_takes(C, CO, K, stride, F) \
-            and x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0:
+    aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
+    if x.dtype == torch.float32 and aligned and tc_wgrad_takes(C, CO, K, stride, F, x.dtype):
+        ch, blocks = tf32_wgrad_schedule(B, Tout, F, C, CO, K, stride, sms)
+        partial = torch.empty((blocks * tc_wgrad_units(C, K)[1], K * C * CO),
+                              dtype=torch.float32, device=x.device)
+        rc = lib.w2l_time_conv_wgrad_tf32(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, F, C, CO,
+            K, stride, pads[0], Tout, ch, tf32_granule(C, F), tf32_granule(CO, F, False),
+            _build.stream_ptr(x))
+    elif x.dtype == torch.bfloat16 and aligned and tc_wgrad_takes(C, CO, K, stride, F):
         ch, blocks = tc_schedule(B, Tout, F, tc_wgrad_smem_bytes(C, CO, K, stride), sms)
         partial = torch.empty((blocks * tc_wgrad_units(C, K)[1], K * C * CO),
                               dtype=torch.float32, device=x.device)

@@ -1,19 +1,25 @@
-"""Where the bf16 tensor-core K2 and K2b spend a block's cycles: a clock64
-trace of their tile loop.
+"""Where the tensor-core K2 and K2b spend a block's cycles: a clock64 trace
+of their tile loop, in bf16 and in fp32 (3xTF32).
 
     python -m wav2letter_tpu_torch.kernels.trace_k2 [--out FILE]
 
 Needs a card and ``nvcc``. Builds copies of ``csrc/tconv.cu`` and
 ``csrc/tconv_wgrad.cu`` with ``clock64()`` stamps added by thread 0 of each
-block (the kernels themselves are unchanged), runs K2 forward, K2 as dgrad
-and K2b at flagship shapes, and prints for the median block the SM cycles of:
+block (the kernels themselves are unchanged: the bf16 kernels' stamps go in
+at fixed anchors, the fp32 kernels' through their ``W2L_STAMP`` points,
+empty in the port's build), runs K2 forward, K2 as dgrad and K2b at
+flagship shapes, fp32 also at the stream's batch-1 windows, and prints for
+the median block the SM cycles of:
 
-- ``setup``: the weight and the zeroed ring, the copy table, and issuing the
-  first window's cp.async;
-- ``issue``: issuing the next tile's cp.async (summed over the tiles);
-- ``wait``: cp.async.wait_group for the tile in use;
+- ``setup``: the weight (and, bf16, the zeroed ring and the copy table), and
+  issuing the first window's cp.async;
+- ``issue``: issuing the next tile's cp.async (summed over the tiles); fp32
+  with split taps: the block barrier after the zeroed channel pads;
+- ``wait``: cp.async.wait_group for the tile in use (fp32, first tile: and
+  splitting the weight into its TF32 halves);
 - ``barrier``: the barrier after it;
-- ``compute``: the products and the epilogue, with the closing barrier.
+- ``compute``: the products and the epilogue, with the closing barrier
+  (fp32 with split taps: and the ordered sum of the splits).
 
 Nothing of the port imports this module.
 """
@@ -30,8 +36,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .tconv import (TC_TT, out_frames, tc_granule, tc_schedule, tc_smem_bytes,
-                    tc_wgrad_smem_bytes, tc_wgrad_units)
+from .tconv import (TC_TT, TF32_WG_TT, out_frames, tc_granule, tc_schedule, tc_smem_bytes,
+                    tc_wgrad_smem_bytes, tc_wgrad_units, tf32_granule, tf32_plan,
+                    tf32_wgrad_schedule)
 
 _STAMPS = 256  # per block: 2 + 4 per tile
 _LOOP = ("    cp_async_commit();\n    cp_async_wait<1>();\n    __syncthreads();\n")
@@ -69,6 +76,13 @@ def _instrument(src: str, prologue: str, sym: str) -> str:
             " n * sizeof(long long)));\n}\n")
 
 
+def _stamp_points(src: str, sym: str) -> str:
+    """The fp32 kernels' ``W2L_STAMP(i)`` points as stamps of thread 0 into
+    ``sym`` (which ``_instrument`` declares), ``_STAMPS`` a block."""
+    return (f"#define W2L_STAMP(i) if (threadIdx.x == 0) {sym}[(blockIdx.x + gridDim.x * "
+            f"(blockIdx.y + gridDim.y * blockIdx.z)) * {_STAMPS} + (i)] = clock64();\n" + src)
+
+
 def _build_traced() -> ctypes.CDLL:
     work = _build.BUILD_DIR / "trace_k2"
     work.mkdir(parents=True, exist_ok=True)
@@ -77,7 +91,8 @@ def _build_traced() -> ctypes.CDLL:
             ("tconv.cu", _PROLOGUE_K2, "g_k2_stamps"),
             ("tconv_wgrad.cu", _PROLOGUE_K2B, "g_k2b_stamps")):
         src = work / name.replace(".cu", "_traced.cu")
-        src.write_text(_instrument((_build.CSRC / name).read_text(), prologue, sym))
+        src.write_text(_stamp_points(
+            _instrument((_build.CSRC / name).read_text(), prologue, sym), sym))
         srcs.append(str(src))
     lib = work / "libk2trace.so"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -86,7 +101,8 @@ def _build_traced() -> ctypes.CDLL:
     if res.returncode:
         raise RuntimeError(f"trace_k2: nvcc failed:\n{res.stdout}\n{res.stderr}")
     cdll = ctypes.CDLL(str(lib))
-    for name in ("w2l_time_conv_tc", "w2l_time_conv_wgrad_tc"):
+    for name in ("w2l_time_conv_tc", "w2l_time_conv_wgrad_tc", "w2l_time_conv_tf32",
+                 "w2l_time_conv_wgrad_tf32"):
         getattr(cdll, name).argtypes = _build.SIGNATURES[name]
         getattr(cdll, name).restype = ctypes.c_int
     for name in ("g_k2_stamps_read", "g_k2b_stamps_read"):
@@ -111,26 +127,36 @@ def _median_block(st: np.ndarray, ntiles: np.ndarray) -> dict:
                                   max=int(total.max())), median_block=out)
 
 
-def trace(lib, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
+def trace(lib, dtype: str, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
     """One call of K2 (``kind`` "conv" or "dgrad") or K2b ("wgrad") at the
-    conv's shape, bf16; the tiles a block walks as the wrapper picks them."""
+    conv's shape in ``dtype`` on the tensor cores; the schedule as the
+    wrapper picks it."""
     g = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    fp32 = dt == torch.float32
     Tout = out_frames(T, K, stride, pads)
-    x = torch.randn((B, T, F * C), device="cuda", generator=g).bfloat16()
-    w = (0.1 * torch.randn((K, C, CO), device="cuda", generator=g)).bfloat16()
-    dy = torch.randn((B, Tout, F * CO), device="cuda", generator=g).bfloat16()
+    x = torch.randn((B, T, F * C), device="cuda", generator=g).to(dt)
+    w = (0.1 * torch.randn((K, C, CO), device="cuda", generator=g)).to(dt)
+    dy = torch.randn((B, Tout, F * CO), device="cuda", generator=g).to(dt)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     stream = torch.cuda.current_stream().cuda_stream
+    plan = {}
     if kind == "wgrad":
         To = Tout
-        ch, nb = tc_schedule(B, To, F, tc_wgrad_smem_bytes(C, CO, K, stride), sms)
+        if fp32:
+            tt, (ch, nb) = TF32_WG_TT, tf32_wgrad_schedule(B, To, F, C, CO, K, stride, sms)
+        else:
+            tt, (ch, nb) = TC_TT, tc_schedule(B, To, F, tc_wgrad_smem_bytes(C, CO, K, stride),
+                                              sms)
         partial = torch.empty((nb * tc_wgrad_units(C, K)[1], K * C * CO), device="cuda")
         dw = torch.empty((K, C, CO), device="cuda")
+        entry = lib.w2l_time_conv_wgrad_tf32 if fp32 else lib.w2l_time_conv_wgrad_tc
+        gran = (tf32_granule(C, F), tf32_granule(CO, F, False)) if fp32 else (
+            tc_granule(C, F), tc_granule(CO, F))
 
         def run():
-            return lib.w2l_time_conv_wgrad_tc(
-                x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, F, C, CO,
-                K, stride, pads[0], Tout, ch, tc_granule(C, F), tc_granule(CO, F), stream)
+            return entry(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(), B, T, F,
+                         C, CO, K, stride, pads[0], Tout, ch, *gran, stream)
         read = lib.g_k2b_stamps_read
     else:
         if kind == "dgrad":  # the conv from CO to C at stride 1 over dy dilated by stride
@@ -139,13 +165,23 @@ def trace(lib, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
             Ci, Co = CO, C
         else:
             src, wt, Ti, To, s, lp, dil, Ci, Co = x, w, T, Tout, stride, pads[0], 1, C, CO
-        ch, nb = tc_schedule(B, To, F, tc_smem_bytes(Ci, Co, K, s), sms)
-        y = torch.empty((B, To, F * Co), device="cuda", dtype=torch.bfloat16)
+        y = torch.empty((B, To, F * Co), device="cuda", dtype=dt)
+        if fp32:
+            mw, mt, ks, ch, nb = tf32_plan(B, To, F, Ci, Co, K, s, sms)
+            tt = mw * mt
+            plan = dict(warps=mw * ks, frames_a_warp=mt, tap_splits=ks)
 
-        def run():
-            return lib.w2l_time_conv_tc(src.data_ptr(), wt.data_ptr(), None, y.data_ptr(), B,
-                                        Ti, F, Ci, Co, K, s, lp, To, 0, dil, ch,
-                                        tc_granule(Ci, F), stream)
+            def run():
+                return lib.w2l_time_conv_tf32(src.data_ptr(), wt.data_ptr(), None, y.data_ptr(),
+                                              B, Ti, F, Ci, Co, K, s, lp, To, 0, dil, mw, mt, ks,
+                                              ch, tf32_granule(Ci, F), stream)
+        else:
+            tt, (ch, nb) = TC_TT, tc_schedule(B, To, F, tc_smem_bytes(Ci, Co, K, s), sms)
+
+            def run():
+                return lib.w2l_time_conv_tc(src.data_ptr(), wt.data_ptr(), None, y.data_ptr(),
+                                            B, Ti, F, Ci, Co, K, s, lp, To, 0, dil, ch,
+                                            tc_granule(Ci, F), stream)
         read = lib.g_k2_stamps_read
     for _ in range(3):  # the last run's stamps are read
         _build.check(run(), "trace_k2")
@@ -153,21 +189,32 @@ def trace(lib, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
     st = np.zeros(nb * _STAMPS, np.int64)
     _build.check(read(st.ctypes.data, st.size), "trace_k2")
     st = st.reshape(nb, _STAMPS)
-    n_t = -(-To // TC_TT)
+    n_t = -(-To // tt)
     runs = -(-n_t // ch)
     ntiles = np.array([min(ch, n_t - (i % runs) * ch) for i in range(nb)])
-    return dict(kind=kind, shape=[B, T, F, C, CO, K, stride, list(pads)], tiles_per_block=ch,
-                blocks=nb, **_median_block(st, ntiles))
+    return dict(dtype=dtype, kind=kind, shape=[B, T, F, C, CO, K, stride, list(pads)],
+                frames_a_tile=tt, tiles_per_block=ch, blocks=nb, **plan,
+                **_median_block(st, ntiles))
 
 
-# (kind, B, T, F, C, CO, K, stride, pads): a serving TDS conv of the flagship,
-# its strided C2, the dgrad and K2b of training's largest shapes
-SHAPES = [("conv", 4, 768, 80, 16, 16, 9, 1, (7, 1)), ("conv", 4, 768, 80, 16, 20, 11, 2, (8, 2)),
-          ("conv", 4, 192, 80, 28, 28, 11, 1, (10, 0)),
-          ("dgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
-          ("dgrad", 16, 768, 80, 16, 20, 11, 2, (8, 2)),
-          ("wgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
-          ("wgrad", 16, 192, 80, 28, 28, 11, 1, (10, 0))]
+# (dtype, kind, B, T, F, C, CO, K, stride, pads): a serving TDS conv of the
+# flagship, its strided C2, the last TDS conv, the dgrad and K2b of
+# training's largest shapes; fp32 also at the stream's first and last TDS
+# conv (B = 1 windows of a steady chunk, split taps)
+SHAPES = [("bfloat16", "conv", 4, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("bfloat16", "conv", 4, 768, 80, 16, 20, 11, 2, (8, 2)),
+          ("bfloat16", "conv", 4, 192, 80, 28, 28, 11, 1, (10, 0)),
+          ("bfloat16", "dgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("bfloat16", "dgrad", 16, 768, 80, 16, 20, 11, 2, (8, 2)),
+          ("bfloat16", "wgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("bfloat16", "wgrad", 16, 192, 80, 28, 28, 11, 1, (10, 0)),
+          ("float32", "conv", 4, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("float32", "conv", 4, 192, 80, 28, 28, 11, 1, (10, 0)),
+          ("float32", "dgrad", 16, 768, 80, 16, 20, 11, 2, (8, 2)),
+          ("float32", "wgrad", 16, 768, 80, 16, 16, 9, 1, (7, 1)),
+          ("float32", "wgrad", 16, 192, 80, 28, 28, 11, 1, (10, 0)),
+          ("float32", "conv", 1, 33, 80, 16, 16, 9, 1, (0, 0)),
+          ("float32", "conv", 1, 16, 80, 28, 28, 11, 1, (0, 0))]
 
 
 def main() -> None:
