@@ -106,6 +106,22 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    launches replayed from one CUDA graph; the real-time factor, each
    chunk's latency (featurizer, network, beam; p50 and p95) and one
    utterance's device busy time and idle share.
+12. data and tensor parallelism: two ranks on the one card, spawned and
+   joined through gloo (NCCL takes one rank a device), first probe gloo's
+   all-reduce, broadcast and all-gather of CUDA tensors; then the flagship at
+   full width with dropout 0 and no SpecAugment (a copy of its arch) trains
+   ``DP_UPDATES`` updates at 4 rows a rank against one process at 8, in fp32
+   (with a validation pass and rank 0's checkpoint) and bf16, and 2 updates
+   with ``--batching_strategy=dynamic``; the transformer's first 2 layers
+   train at dp1 x mp2 (tensor parallelism: K4 and K4b on 2 of its 4 heads)
+   where gloo gathers CUDA tensors; each run's launches are checked on both
+   ranks, its losses and parameters held to one process (``DP_TOL``), the
+   DP replicas to equal bits, the summed validation counts to one process's
+   on the same weights; then one NCCL rank through ``cli.train`` with
+   torchrun's variables (``--enable_distributed --world_size=1``) against
+   the same one-process run. Updates/s, the gradient reduction's wall ms an
+   update and its share, and the peak memory a rank are printed; gloo's are
+   gloo's, not NCCL's.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -2423,6 +2439,460 @@ def stream_path(paths, lst, secs, tmp, smi_line):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# 12. data and tensor parallelism: ranks through torch.distributed
+# ---------------------------------------------------------------------------
+DP_RANKS, DP_BATCH, DP_UPDATES = 2, 4, 4  # ranks on the one card, rows a rank, updates
+DP_DYN_SECS = 30.0  # --batching_max_duration a rank (the global budget is twice it)
+DP_TIMEOUT = 420  # seconds for all the ranks' jobs
+TP_LAYERS = 2  # of the transformer's 12, at dp1 x mp2
+# Two ranks (or one NCCL rank, or a dp1 x mp2 mesh) against one process on the
+# same global batch after the run's updates: the largest relative difference
+# of a loss, and of the distance the parameters moved (|P - Q| / |Q - P0| over
+# the whole model, P0 the seeded start). Both sides compute the same sums with
+# the rows in other batches, so cuBLAS and cuDNN take other algorithms, and
+# CTC's backward adds with atomics. The seeded flagship amplifies rounding
+# ~1e4-fold on the way back (GRAD_TOL: 1e-2 of a gradient in fp32, 0.25 in
+# bf16); over a few updates that is 2e-2 of the distance moved in fp32.
+DP_TOL = {"float32": (1e-3, 2e-2), "bfloat16": (2e-2, 0.25)}
+
+
+def _probe_collectives(rank, world):
+    """gloo's all-reduce, broadcast and all-gather of CUDA tensors: "ok", or
+    what went wrong."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name in ("all_reduce", "broadcast", "all_gather"):
+        x = torch.full((4,), float(rank + 1), device=dev)
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x)
+                got, want = x, world * (world + 1) / 2
+            elif name == "broadcast":
+                dist.broadcast(x, 0)
+                got, want = x, 1.0
+            else:
+                parts = [torch.empty_like(x) for _ in range(world)]
+                dist.all_gather(parts, x)
+                got, want = torch.stack(parts)[:, 0], torch.arange(1.0, world + 1, device=dev)
+            torch.cuda.synchronize()
+            out[name] = "ok" if torch.equal(got, torch.as_tensor(want, device=dev).expand_as(
+                got)) else f"wrong: {got.tolist()}"
+        except (RuntimeError, ValueError) as e:
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def _drive(tr, spy_heads=None):
+    """``tr.run()`` with the launch counts set to 0 just before and read just
+    after, each update timed (drained), the gradient reduction timed (drained
+    at both ends), and the peak device memory."""
+    import torch
+
+    import wav2letter_tpu_torch.runtime.train as train_module
+    from wav2letter_tpu_torch import kernels
+
+    steps, reduce_ms, step = [], [], tr.train_step
+    reduce = train_module.all_reduce_grads
+
+    def timed_reduce(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce(*a)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def timed_step(*a):
+        res = step(*a)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), res[0], res[1]))
+        return res
+
+    tr.train_step = timed_step
+    train_module.all_reduce_grads = timed_reduce
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        tr.run()
+        torch.cuda.synchronize()
+    finally:
+        train_module.all_reduce_grads = reduce
+        tr.train_step = step
+    launches = dict(kernels.LAUNCHES)
+    ends = [t0] + [e for e, _, _ in steps]
+    update_ms = [(b - a) * 1e3 for a, b in zip(ends, ends[1:])]
+    steady = update_ms[1:] or update_ms
+    res = dict(
+        updates=tr.updates, losses=[l for _, l, _ in steps], finite=all(f for _, _, f in steps),
+        launches=launches, update_ms=update_ms, updates_per_s=1e3 * len(steady) / sum(steady),
+        reduce_ms=reduce_ms, reduce_share=(sum(reduce_ms[1:]) / sum(steady)
+                                           if len(reduce_ms) > 1 else None),
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+        valid={t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
+               for t, m in tr.meters.valid.items()},
+        sharded=sorted(tr.sharded))
+    if spy_heads is not None:
+        res["heads"] = sorted(set(spy_heads))
+    return res
+
+
+def _dp_job(job, rank):
+    """One trainer of the ranks' job list; rank 0 keeps the full parameters
+    (gathered over the model group where they are split) for the comparison."""
+    import hashlib
+
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    cfg = Config()
+    cfg.update(job["flags"])
+    heads = []
+    mhsa = kernels.KERNELS.mhsa
+    if job.get("spy_heads"):
+        kernels.KERNELS.mhsa = lambda *a: (heads.append(a[5]), mhsa(*a))[1]
+    try:
+        tr = Trainer(cfg, device="cuda:0")
+        res = _drive(tr, heads if job.get("spy_heads") else None)
+    finally:
+        kernels.KERNELS.mhsa = mhsa
+    full = {n: tr._full(n, t).cpu() for n, t in tr.model.state_dict().items()}
+    h = hashlib.sha256()
+    for n, t in full.items():
+        h.update(n.encode())
+        h.update(t.numpy().tobytes())
+    res["digest"] = h.hexdigest()
+    if rank == 0 and job.get("dump"):
+        torch.save(full, job["dump"])
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def _dp_rank(rank, world, init, jobs, out_dir):
+    """One rank of phase 12 (a spawned process): gloo on the card, the probe,
+    then the jobs; what it saw goes to ``out_dir/rank<R>.json``."""
+    import traceback
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    result = dict(rank=rank, runs={})
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init, rank=rank, world_size=world,
+                                timeout=timedelta(seconds=120))
+        result["probe"] = _probe_collectives(rank, world)
+        for job in jobs:
+            if job.get("needs") and result["probe"][job["needs"]] != "ok":
+                continue
+            result["runs"][job["name"]] = _dp_job(job, rank)
+        dist.barrier()
+    except Exception:  # reported to the parent, which fails the phase
+        result["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_ranks(world, jobs, out_dir):
+    """Spawn the ranks, wait for all (a rank that fails ends the others),
+    and return their results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    init = "file://" + os.path.join(out_dir, "rendezvous")
+    procs = [ctx.Process(target=_dp_rank, args=(r, world, init, jobs, out_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(30)
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(out_dir, f"rank{r}.json")
+        if not os.path.exists(path):
+            fail(f"data parallel: rank {r} ended with {p.exitcode} and no result")
+        with open(path) as f:
+            results.append(json.load(f))
+        if "error" in results[-1]:
+            fail(f"data parallel: rank {r} failed:\n{results[-1]['error']}")
+    return results
+
+
+def _one_process(flags, spy_heads=False):
+    """The reference: one process, no group, on the same global batch."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    cfg = Config()
+    cfg.update(flags)
+    tr = Trainer(cfg, device="cuda")
+    heads, mhsa = [], kernels.KERNELS.mhsa
+    if spy_heads:
+        kernels.KERNELS.mhsa = lambda *a: (heads.append(a[5]), mhsa(*a))[1]
+    try:
+        res = _drive(tr, heads if spy_heads else None)
+    finally:
+        kernels.KERNELS.mhsa = mhsa
+    params = {k: v.detach().cpu().clone() for k, v in tr.model.state_dict().items()}
+    return tr, res, params
+
+
+def _held(name, dt, got, want, got_p, want_p, p0):
+    """``got`` (losses, parameters) against the reference at DP_TOL."""
+    import torch
+
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    moved = torch.sqrt(sum((want_p[k] - p0[k]).double().pow(2).sum() for k in p0)).item()
+    diff = {k: (got_p[k] - want_p[k]).double().norm().item() for k in p0}
+    rel = math.sqrt(sum(v * v for v in diff.values())) / moved
+    tol = DP_TOL[dt]
+    res = dict(loss_rel_err=loss_err, param_rel_err=rel, moved=moved, tol=list(tol),
+               worst=sorted(diff, key=diff.get)[-3:][::-1])
+    res["ok"] = bool(len(got["losses"]) == len(want["losses"]) and loss_err <= tol[0]
+                     and rel <= tol[1])
+    log(f"[dp {name} {dt}] held to one process: {json.dumps(res)}")
+    if not res["ok"]:
+        fail(f"data parallel {name} {dt}: differs from one process: {res}")
+    return res
+
+
+def _cut_arch(src, dst, keep_tr=None):
+    """A copy of ``src`` with dropout and layerdrop 0 and no SAUG line;
+    ``keep_tr`` TR layers of the transformer."""
+    with open(src) as f:
+        lines = [l for l in f.read().splitlines()
+                 if l.strip() and not l.startswith("#") and not l.startswith("SAUG")]
+    out, n_tr = [], 0
+    for l in lines:
+        t = l.split()
+        if t[0] == "DO":
+            t[1] = "0.0"
+        elif t[0] == "TDS":
+            t[4] = "0.0"
+        elif t[0] == "TR":
+            n_tr += 1
+            if keep_tr is not None and n_tr > keep_tr:
+                continue
+            t[5:7] = ["0.0", "0.0"]
+        out.append(" ".join(t))
+    with open(dst, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return dst
+
+
+def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
+    """Phase 12: the flagship at full width on two gloo ranks on the card (4
+    rows each, fp32 and bf16, dropout 0 and no SpecAugment) against one
+    process at 8; dynamic batching likewise (fp32); the transformer's first
+    ``TP_LAYERS`` layers at dp1 x mp2 (K4 and K4b on 2 of 4 heads) against
+    one process, where gloo gathers CUDA tensors; one NCCL rank through
+    ``cli.train`` with torchrun's variables against one process."""
+    import socket
+
+    import torch
+
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    root = os.path.join(tmp, "dp")
+    os.makedirs(root, exist_ok=True)
+    fl_arch = _cut_arch(ARCH, os.path.join(root, "flagship_do0.arch"))
+    tr_arch = _cut_arch(TR_ARCH, os.path.join(root, "transformer_do0.arch"), TP_LAYERS)
+    fl_spec = dict(FLAGSHIP, arch=fl_arch, name="dp_flagship")
+    tr_spec = dict(TRANSFORMER, arch=tr_arch, name="dp_transformer",
+                   per_forward={"mfsc": 1, "mhsa": TP_LAYERS, "residual_ln": 2 * TP_LAYERS},
+                   per_backward={"mhsa_bwd": TP_LAYERS, "residual_ln_bwd": 2 * TP_LAYERS})
+    n = DP_RANKS * DP_BATCH
+
+    def flags(spec, dt, batch, **kw):
+        f = train_flags(spec, train_lst, serve_lst, tokens, lexicon, "", dt, DP_UPDATES)
+        f.update(batchsize=batch, validbatchsize=batch, reportiters=DP_UPDATES, **kw)
+        return f
+
+    dyn = dict(batching_strategy="dynamic", valid="", iter=2)
+    jobs = [
+        dict(name="float32", flags=flags(fl_spec, "float32", DP_BATCH,
+                                         rundir=os.path.join(root, "runs"))),
+        dict(name="bfloat16", flags=flags(fl_spec, "bfloat16", DP_BATCH),
+             dump=os.path.join(root, "bfloat16.pt")),
+        dict(name="dynamic", flags=flags(fl_spec, "float32", DP_BATCH, **dyn,
+                                         batching_max_duration=DP_DYN_SECS),
+             dump=os.path.join(root, "dynamic.pt")),
+        dict(name="tp", flags=flags(tr_spec, "float32", n, valid="", iter=2, mp_axis=2),
+             dump=os.path.join(root, "tp.pt"), needs="all_gather", spy_heads=True),
+    ]
+    t0 = time.perf_counter()
+    ranks = _run_ranks(DP_RANKS, jobs, root)
+    ranks_s = time.perf_counter() - t0
+    probe = ranks[0]["probe"]
+    log(f"[dp] gloo on CUDA tensors, {DP_RANKS} ranks on one card: {json.dumps(probe)}")
+    if probe["all_reduce"] != "ok" or probe["broadcast"] != "ok":
+        fail(f"data parallel: gloo refused the collectives DP needs: {probe}")
+    if "tp" not in ranks[0]["runs"]:
+        log(f"[dp] tensor parallelism left out: gloo's all-gather {probe['all_gather']}")
+
+    torch.cuda.empty_cache()
+    p0 = {}
+    for arch in (fl_arch, tr_arch):
+        torch.manual_seed(0)  # the trainers' seed: their starting weights
+        p0[arch] = {k: v.detach().clone()
+                    for k, v in build_arch_module(arch, N_FEAT, N_TOKENS + 1).state_dict().items()}
+    out = dict(probe=probe, ranks_s=ranks_s, backend="gloo (2 ranks on one card)")
+    for name, r in ranks[0]["runs"].items():
+        other = ranks[1]["runs"][name]
+        spec = tr_spec if name == "tp" else fl_spec
+        dt = "float32" if name in ("float32", "dynamic", "tp") else "bfloat16"
+        valid_batches = 0 if name in ("dynamic", "tp") else 1
+        want = expected_launches(spec, r["updates"], valid_batches)
+        for rr in (r, other):
+            if rr["launches"] != want or not rr["finite"]:
+                fail(f"data parallel {name}: launches {rr['launches']}, expected {want}; "
+                     f"finite {rr['finite']}")
+        if name != "tp" and r["digest"] != other["digest"]:
+            fail(f"data parallel {name}: the replicas differ")
+        job = jobs[[j["name"] for j in jobs].index(name)]
+        ref_flags = dict(job["flags"], rundir="", mp_axis=1, batchsize=n, validbatchsize=n)
+        if name == "dynamic":
+            ref_flags["batching_max_duration"] = DP_DYN_SECS * DP_RANKS
+        ref_tr, ref, ref_p = _one_process(ref_flags, spy_heads=name == "tp")
+        if name == "float32":
+            ref_fp32 = (ref_flags, ref, ref_p)
+        if name == "tp" and (r["heads"] != [2] or ref["heads"] != [4] or r["sharded"] != sorted(
+                [f"seq.{i:02d}_TR.{w}.weight" for i in (14, 15) for w in ("w1", "w2")]
+                + ["seq.16_L.weight"])):
+            fail(f"tensor parallel: K4 on {r['heads']} heads (one process {ref['heads']}), "
+                 f"split {r['sharded']}")
+        if name == "float32":
+            ckpt = load_checkpoint(os.path.join(root, "runs", "dp_flagship_float32",
+                                                "model_last.bin"))
+            got_p = ckpt.state_dict
+            model = build_arch_module(fl_arch, N_FEAT, N_TOKENS + 1)
+            model.load_state_dict(got_p, strict=True)  # rank 0's checkpoint loads alone
+            if ckpt.updates != DP_UPDATES:
+                fail(f"data parallel: rank 0's checkpoint holds update {ckpt.updates}")
+            # the ranks' summed validation counts against one process's on
+            # the same weights: totals equal, errors equal but for argmax
+            # ties that rounding may flip (<= 0.2% of the total)
+            ref_tr.model.load_state_dict(got_p)
+            ref_tr.validate()
+            one = ref_tr.meters.valid["dev"]
+            mine = r["valid"]["dev"]
+            if r["valid"] != other["valid"] or mine[1] != one.tkn_edit.total \
+                    or mine[3] != one.wrd_edit.total or mine[5] != one.loss.n \
+                    or abs(mine[0] - one.tkn_edit.errors) > 2e-3 * mine[1] \
+                    or abs(mine[2] - one.wrd_edit.errors) > 2e-3 * mine[3] \
+                    or abs(mine[4] / mine[5] - one.loss.value()) > 1e-4 * one.loss.value():
+                fail(f"data parallel: validation {r['valid']} / {other['valid']} against "
+                     f"one process {one.tkn_edit.state() + one.wrd_edit.state()} "
+                     f"{one.loss.state()}")
+            r["valid_one_process"] = one.tkn_edit.state() + one.wrd_edit.state() + \
+                one.loss.state()
+        else:
+            got_p = torch.load(job["dump"])
+        r["held"] = _held(name, dt, r, ref, got_p, ref_p, p0[spec["arch"]])
+        r["one_process"] = {k: ref[k] for k in ("losses", "updates_per_s", "update_ms",
+                                                "peak_mem_gib", "heads") if k in ref}
+        r["peak_mem_gib_ranks"] = [r["peak_mem_gib"], other["peak_mem_gib"]]
+        out[name] = r
+        log(f"[dp {name}] gloo x{DP_RANKS}: {r['updates_per_s']:.3f} updates/s, reduction "
+            f"{json.dumps(r['reduce_ms'])} ms an update (share {r['reduce_share']}); peak "
+            f"{r['peak_mem_gib_ranks']} GiB a rank; one process {ref['updates_per_s']:.3f} "
+            f"updates/s")
+        del ref_tr
+        torch.cuda.empty_cache()
+
+    # one NCCL rank through the command line, as torchrun would start it,
+    # against the fp32 run's one-process reference
+    import wav2letter_tpu_torch.runtime.train as train_module
+    from wav2letter_tpu_torch import kernels
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(port))
+    saved = {k: os.environ.get(k) for k in env}
+    reduce, step = train_module.all_reduce_grads, train_module.Trainer.train_step
+    backends, steps, reduce_ms = [], [], []
+
+    def recording_reduce(mesh, *a):
+        backends.append(torch.distributed.get_backend(mesh.data_group))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce(mesh, *a)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+
+    def recording_step(self, *a):
+        res = step(self, *a)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter(), res[0]))
+        return res
+
+    os.environ.update(env)
+    train_module.all_reduce_grads = recording_reduce
+    train_module.Trainer.train_step = recording_step
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        tr = train_main(["train", "--enable_distributed", "--world_size=1"]
+                        + [f"--{k}={v}" for k, v in ref_fp32[0].items()])
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        train_module.all_reduce_grads = reduce
+        train_module.Trainer.train_step = step
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want = expected_launches(fl_spec, DP_UPDATES, 1)
+    if backends != ["nccl"] * DP_UPDATES or launches != want \
+            or torch.distributed.is_initialized():
+        fail(f"NCCL rank: reductions {backends}, launches {launches} (expected {want}), "
+             f"group left open: {torch.distributed.is_initialized()}")
+    ends = [t for t, _ in steps]
+    nccl = dict(updates=tr.updates, launches=launches, backend="nccl (one rank)",
+                losses=[l for _, l in steps], wall_s=time.perf_counter() - t0,
+                updates_per_s=(len(ends) - 1) / (ends[-1] - ends[0]), reduce_ms=reduce_ms,
+                reduce_share=sum(reduce_ms[1:]) / (ends[-1] - ends[0]) / 1e3)
+    got_p = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    nccl["held"] = _held("nccl", "float32", nccl, ref_fp32[1], got_p, ref_fp32[2], p0[fl_arch])
+    out["nccl_one_rank"] = nccl
+    log(f"[dp nccl] {json.dumps(nccl)}")
+    del tr
+    torch.cuda.empty_cache()
+    log(f"[dp] {smi_line}: gloo numbers are gloo's (two processes on one card), not NCCL's")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
@@ -2574,6 +3044,10 @@ def main() -> None:
         # 11. chunked streaming inference of the flagship
         streamed = stream_path(paths, lst, secs, tmp, smi_line)
 
+        # 12. data and tensor parallelism through torch.distributed
+        torch.cuda.empty_cache()
+        parallel = data_parallel_path(tmp, train_lst, lst, tokens, lexicon, smi_line)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -2645,7 +3119,7 @@ def main() -> None:
                            transformer=dict(n_params=tr_params, main=tr_served,
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
-                           decode=decoded, streaming=streamed,
+                           decode=decoded, streaming=streamed, data_parallel=parallel,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

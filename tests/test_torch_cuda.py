@@ -1092,3 +1092,94 @@ def test_time_conv_fp32_twins_match_the_kernels(cuda):
                 plan = (ctypes.c_int * 5)()
                 assert lib.w2l_time_conv_tf32_plan(B, Tout, F, C, CO, K, s, sms, plan) == 0
                 assert tuple(plan) == tconv.tf32_plan(B, Tout, F, C, CO, K, s, sms)
+
+
+# ---------------------------------------------------------------------------
+# data and tensor parallelism across cards: NCCL, one rank a card
+# ---------------------------------------------------------------------------
+CARDS_BATCH, CARDS_UPDATES = 16, 4  # global batch and updates of every run
+
+
+def _cli_train(args, nproc, timeout=900):
+    """``cli.train`` in one process, or under torchrun on ``nproc`` ranks;
+    returns its standard output (rank 0's log lines)."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cmd = [sys.executable]
+    if nproc > 1:
+        cmd += ["-m", "torch.distributed.run", "--standalone", f"--nproc_per_node={nproc}"]
+    cmd += ["-m", "wav2letter_tpu_torch.cli.train", "train"] + args
+    if nproc > 1:
+        cmd += ["--enable_distributed", f"--world_size={nproc}"]
+    env = dict(os.environ, PYTHONPATH=repo)
+    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=timeout)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    return r.stdout
+
+
+def ranks_against_one_process(root, arch_src, nproc, device_flags=()):
+    """The flagship (or ``arch_src``) with dropout 0 and no SAUG trained
+    ``CARDS_UPDATES`` updates at global batch ``CARDS_BATCH``: in one
+    process, on ``nproc`` ranks (data parallel) and, for an even ``nproc``,
+    on (nproc/2) x 2 ranks (tensor parallel). Returns each run's distance to
+    the one process relative to the distance it moved, and rank 0's last
+    status line."""
+    import os
+    import re
+
+    import chip_smoke as cs
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    lst, tokens, lexicon, _ = cs.synth_dataset(os.path.join(root, "data"), 7, CARDS_BATCH,
+                                               "train", dur=(4.0, 8.0))
+    arch = cs._cut_arch(arch_src, os.path.join(root, "do0.arch"))
+    base = [f"--train={lst}", f"--tokens={tokens}", f"--lexicon={lexicon}",
+            f"--rundir={root}", f"--arch={arch}", "--criterion=ctc", "--mfsc=true",
+            f"--filterbanks={cs.N_FEAT}", "--localnrmlleftctx=300", "--onorm=target",
+            "--sqnorm=true", "--netoptim=sgd", "--lr=0.05", "--momentum=0.9",
+            "--maxgradnorm=0.5", f"--iter={CARDS_UPDATES}", f"--reportiters={CARDS_UPDATES}",
+            "--compute_dtype=float32", "--nthread=2", "--seed=0", *device_flags]
+    runs = {"one": (1, CARDS_BATCH, [])}
+    runs[f"dp{nproc}"] = (nproc, CARDS_BATCH // nproc, [])
+    if nproc % 2 == 0:
+        runs[f"dp{nproc // 2}xmp2"] = (nproc, 2 * CARDS_BATCH // nproc, ["--mp_axis=2"])
+    out, params = {}, {}
+    for name, (n, batch, extra) in runs.items():
+        log = _cli_train(base + [f"--runname={name}", f"--batchsize={batch}"] + extra, n)
+        status = [l for l in log.splitlines() if l.startswith("epoch:")][-1]
+        phases = re.findall(r"(?<!-)\b(bch|fwd|bwd|optim)\(ms\): ([\d.]+)", status)
+        out[name] = dict(ranks=n, batch=batch, status=status,
+                         **{k: float(v) for k, v in phases})
+        ckpt = load_checkpoint(os.path.join(root, name, "model_last.bin"))
+        assert ckpt.updates == CARDS_UPDATES
+        params[name] = ckpt.state_dict
+    torch.manual_seed(0)  # the trainers' seed: their starting weights
+    p0 = build_arch_module(arch, cs.N_FEAT, cs.N_TOKENS + 1).state_dict()
+    moved = torch.sqrt(sum((params["one"][k] - p0[k]).double().pow(2).sum() for k in p0))
+    for name in runs:
+        diff = torch.sqrt(sum((params[name][k] - params["one"][k]).double().pow(2).sum()
+                              for k in p0))
+        out[name]["rel_to_one_process"] = (diff / moved).item()
+    return out
+
+
+def test_ranks_across_cards(cuda, tmp_path):
+    """N cards (NCCL, torchrun) equal one card on the same global batch:
+    data parallel, and tensor parallel over pairs of cards (TDS linears and
+    the output layer split), each within ``chip_smoke.DP_TOL`` of the
+    distance the one process moved. Needs two cards or more."""
+    import json
+
+    import chip_smoke as cs
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    out = ranks_against_one_process(str(tmp_path), cs.ARCH, n)
+    print(json.dumps({"cards": n, "device": torch.cuda.get_device_name(0), "runs": out}))
+    for name, r in out.items():
+        assert r["rel_to_one_process"] <= cs.DP_TOL["float32"][1], (name, r)

@@ -6,7 +6,8 @@ checkpoint and the port's ``fork``), dropout 0 and no SpecAugment: first-batch
 loss and the parameters after 3 updates. Then the port alone: its checkpoint
 serves ``cli.test``; 4 updates equal 2 + ``continue`` 2 bit for bit with dropout
 and SpecAugment on; a bare ``continue`` keeps the stored flags; the
-non-finite guard; the AMP loss scale's retry; what the slice leaves out."""
+non-finite guard; the AMP loss scale's retry; what the slice leaves out (and a
+model axis wider than the world)."""
 
 import os
 import shutil
@@ -268,14 +269,16 @@ def test_amp_scale_retries_the_same_batch(data, tmp_path):
 
 
 def test_what_the_slice_leaves_out_names_its_slice(data, tmp_path):
-    for kw, match in ((dict(criterion="seq2seq"), "seq2seq slice"),
-                      (dict(features_device="host"), "host-featurizer slice"),
-                      (dict(remat=True), "memory slice"),
-                      (dict(mp_axis=2), "data-parallel slice"),
-                      (dict(arch="plugin.py"), "plugin slice")):
+    for kw, err, match in (
+            (dict(criterion="seq2seq"), NotImplementedError, "seq2seq slice"),
+            (dict(features_device="host"), NotImplementedError, "host-featurizer slice"),
+            (dict(remat=True), NotImplementedError, "memory slice"),
+            # a model axis wider than the world, in one process: make_mesh's error
+            (dict(mp_axis=2), ValueError, "needs 2 devices, have 1"),
+            (dict(arch="plugin.py"), NotImplementedError, "plugin slice")):
         cfg = Config()
         cfg.update({**_flags(data, str(tmp_path)), **kw})
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(err, match=match):
             Trainer(cfg, device="cpu")
     if not torch.cuda.is_available():
         from wav2letter_tpu_torch.cli.train import main

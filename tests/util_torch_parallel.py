@@ -1,0 +1,112 @@
+"""One rank of the port's trainer for ``tests/test_torch_parallel.py``.
+
+    python -m tests.util_torch_parallel RANK WORLD RENDEZVOUS JOBS.json
+
+Joins a gloo group through a ``file://`` rendezvous (no port to race for),
+then runs each job of the JSON list in turn: a ``Trainer`` on the CPU on the
+job's flags, in its mode, with the spies the job asks for. What the test
+compares goes to ``<job out>/rank<R>.pt``. Imports neither JAX nor the JAX
+package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+import torch.nn.functional as F
+
+from wav2letter_tpu_torch.config import Config
+from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
+from wav2letter_tpu_torch.runtime.train import Trainer
+
+
+def _spy_attention(tr, calls):
+    """Record (heads, seed) of every fused-attention call."""
+    for mod in tr.model.modules():
+        if isinstance(mod, MultiHeadSelfAttention):
+            ops = mod.ops
+
+            class _Ops:
+                def __getattr__(self, name):
+                    return getattr(ops, name)
+
+                def mhsa(self, q, k, v, win, mask, heads, rate, seed):
+                    calls.append((heads, seed))
+                    return ops.mhsa(q, k, v, win, mask, heads, rate, seed)
+
+            mod.ops = _Ops()
+
+
+def _spy_dropout(masks):
+    """Record the keep mask of every dropout in training: the mask of ones
+    under the same generator state, which is then restored."""
+    orig = F.dropout
+
+    def dropout(x, p=0.5, training=True, inplace=False):
+        if training and p > 0:
+            state = torch.get_rng_state()
+            masks.append(orig(torch.ones_like(x), p, True) != 0)
+            torch.set_rng_state(state)
+        return orig(x, p, training, inplace)
+
+    F.dropout = dropout
+    return orig
+
+
+def run_job(job, rank):
+    if job.get("resume_from"):  # continue from an earlier checkpoint of another run
+        run = os.path.join(job["flags"]["rundir"], job["flags"]["runname"])
+        if rank == 0:
+            os.makedirs(run, exist_ok=True)
+            shutil.copy(job["resume_from"], os.path.join(run, "model_last.bin"))
+        dist.barrier()
+    if job.get("mode") == "continue":
+        cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in job["flags"].items()])
+    else:
+        cfg = Config()
+        cfg.update(job["flags"])
+    tr = Trainer(cfg, mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
+                 device="cpu")
+    losses, attn, masks = [], [], []
+    add = tr.meters.train.loss.add
+    tr.meters.train.loss.add = lambda v, n=1: (losses.append(float(v)), add(v, n))
+    _spy_attention(tr, attn)
+    orig = _spy_dropout(masks) if job.get("spy_dropout") else None
+    try:
+        tr.run()
+    finally:
+        if orig is not None:
+            F.dropout = orig
+    torch.save({
+        "losses": losses,
+        "params": {k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+        "sharded": sorted(tr.sharded),
+        "valid": {t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
+                  for t, m in tr.meters.valid.items()},
+        "attention": attn,
+        "first_mask": masks[0] if masks else None,
+        "updates": tr.updates,
+    }, os.path.join(job["out"], f"rank{rank}.pt"))
+
+
+def main(argv):
+    rank, world, rdv, jobs = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
+                            world_size=world, timeout=timedelta(seconds=120))
+    try:
+        with open(jobs) as f:
+            for job in json.load(f):
+                os.makedirs(job["out"], exist_ok=True)
+                run_job(job, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -4,8 +4,8 @@ Same flag table (``_f`` entries), ``.cfg`` format, precedence
 (CLI > ``--flagsfile`` > checkpoint-serialized flags > defaults) and
 serialization as the JAX package, so checkpoints and recipe files written for
 either package parse in both. The only difference: ``--enable_distributed``
-does not join a JAX coordinator here; multi-process runs belong to a later
-slice of the port.
+joins a ``torch.distributed`` group (``parallel/distributed.py``, when the
+trainer starts on its device) instead of a JAX coordinator.
 """
 
 from __future__ import annotations
@@ -180,7 +180,7 @@ _DEFS: List[FlagDef] = [
     _f("world_rank", int, 0),
     _f("world_size", int, 1),
     _f("max_devices_per_node", int, 8),
-    _f("rndv_filepath", str, "", "unused on TPU (jax.distributed coordinator)"),
+    _f("rndv_filepath", str, "", "unused: ranks meet through torchrun's env:// variables"),
     _f("dp_axis", int, -1, "-1: all devices data-parallel"),
     _f("mp_axis", int, 1, "model-parallel mesh dim"),
     # --- decoding ---

@@ -8,6 +8,8 @@ own ``nvcc`` process, all started together, and the objects are linked into
 hash covers the sources, the headers they share (``*.cuh``: ``common.cuh``,
 ``mma.cuh``, ``tc_tile.cuh``, ``tf32_tile.cuh``) and the flags, so an edited
 source or header is rebuilt and an unchanged tree is loaded as built.
+Processes that build at once (the ranks of a node) serialize on a file lock,
+so one compiles and the others load its library.
 
 Nothing here runs at import: the first wrapper that launches a kernel calls
 ``library()``, which builds on first use.
@@ -16,6 +18,7 @@ Nothing here runs at import: the first wrapper that launches a kernel calls
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -103,11 +106,19 @@ def _digest() -> str:
 def build() -> Path:
     """Compile csrc/*.cu (one nvcc each, in parallel) and link the library.
     Returns its path; the compiler's output is kept in ``build.log``."""
-    sources = sorted(CSRC.glob("*.cu"))
     lib = BUILD_DIR / f"libw2l_kernels_{_digest()}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # another process may be building it
+        if not lib.exists():
+            _compile(lib)
+    return lib
+
+
+def _compile(lib: Path) -> None:
+    sources = sorted(CSRC.glob("*.cu"))
     work = Path(tempfile.mkdtemp(prefix="build_", dir=BUILD_DIR))
     cc = nvcc()
     procs = []
@@ -137,7 +148,6 @@ def build() -> Path:
             + "\n".join(log))
     os.replace(work / lib.name, lib)
     shutil.rmtree(work, ignore_errors=True)
-    return lib
 
 
 def library() -> ctypes.CDLL:

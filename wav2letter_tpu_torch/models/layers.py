@@ -36,6 +36,7 @@ from torch import nn
 from ..features.specaug import SpecAugment
 from ..kernels import KERNELS
 from ..kernels.tconv import time_conv_takes
+from ..parallel.sharding import column_parallel
 
 Pads = Union[int, Tuple[int, int]]
 
@@ -118,7 +119,14 @@ class Padding(nn.Module):
 # parametric layers
 # ---------------------------------------------------------------------------
 class Linear(nn.Module):
-    """AF Linear: dense on the last stored axis, weight (in, out) as in JAX."""
+    """AF Linear: dense on the last stored axis, weight (in, out) as in JAX.
+
+    Under tensor parallelism (``tp``, set by ``parallel.shard_params``) the
+    weight holds this rank's output columns; the product is gathered over the
+    model group, and the bias, which stays whole, is added after."""
+
+    TP_PARAMS = ("weight",)
+    tp = None
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True):
         super().__init__()
@@ -130,7 +138,7 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = _derived(self, x.dtype, lambda: (
             self.weight.to(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
-        y = x @ w
+        y = column_parallel(x, w, self.tp)
         if b is not None:
             y = y + b
         return y
@@ -409,7 +417,10 @@ class TDSBlock(nn.Module):
 
     The block works in the (B, T, F*C) f-major layout; ``lin1``/``lin2`` keep
     their C-major (c*F+f) params, re-indexed here to f-major rows/columns as
-    the JAX ``in_swap``/``out_swap`` do (``layers.py:128-166``).
+    the JAX ``in_swap``/``out_swap`` do (``layers.py:128-166``). Under tensor
+    parallelism each linear holds its rank's columns (``Linear.tp``): w1's
+    rows are still re-indexed; w2's C-major columns are multiplied as they
+    are and the gathered product is re-indexed instead.
     """
 
     def __init__(self, channels: int, kernel_width: int, freq_dim: int,
@@ -437,9 +448,10 @@ class TDSBlock(nn.Module):
         and biases in dtype ``dt``, re-indexed from their C-major params to
         f-major: row f*C+c of w1 is C-major row c*F+f."""
         c, f, D = self.c, self.f, self.c * self.f
-        inner = self.lin1.weight.shape[1]
-        w1 = self.lin1.weight.view(c, f, inner).transpose(0, 1).reshape(D, inner)
-        w2 = self.lin2.weight.view(inner, c, f).transpose(1, 2).reshape(inner, D)
+        w1 = self.lin1.weight.view(c, f, -1).transpose(0, 1).reshape(D, -1)
+        w2 = self.lin2.weight
+        if self.lin2.tp is None:
+            w2 = w2.view(-1, c, f).transpose(1, 2).reshape(-1, D)
         b2 = self.lin2.bias.view(c, f).t().reshape(D)
         return (_kco(self.conv.weight, dt), self.conv.bias.float(), w1.to(dt),
                 self.lin1.bias.to(dt), w2.to(dt), b2.to(dt))
@@ -463,9 +475,12 @@ class TDSBlock(nn.Module):
         B, T, D = y.shape
         z = self.ops.residual_ln(res.reshape(-1, D), y.view(-1, D), self.ln1.weight,
                                  self.ln1.bias)[0]
-        h = torch.relu(z @ w1 + b1)
+        h = torch.relu(column_parallel(z, w1, self.lin1.tp) + b1)
         h = F.dropout(h, self.rate, self.training)
-        h = h @ w2 + b2
+        h = column_parallel(h, w2, self.lin2.tp)
+        if self.lin2.tp is not None:  # gathered C-major columns -> f-major
+            h = h.view(-1, self.c, self.f).transpose(1, 2).reshape(-1, D)
+        h = h + b2
         h = F.dropout(h, self.rate, self.training)
         z = self.ops.residual_ln(z, h, self.ln2.weight, self.ln2.bias)[0]
         return z.view(B, T, D)

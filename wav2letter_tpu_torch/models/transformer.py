@@ -22,6 +22,13 @@ K4, and K4b under autograd, on the card; its plain version on the CPU.
 Outside the gate it is the unfused PyTorch path below. The post-LN residuals
 ``LN(f*a + x)`` go through ``ops.residual_ln`` (K3, K3b) where the LayerNorm's
 AF dims (0, 3) reduce to the row.
+
+On a mesh of ranks (``parallel.current_mesh``) the fused function runs as the
+JAX ``fused_mhsa_shardable``: with a model axis that divides the heads, each
+rank takes its block of heads (q/k/v columns) and the output heads are
+gathered before ``wf``; a model axis that does not divide them takes the
+unfused path. Dropout seeds add ``data_index * 7919`` and ``model_index *
+104729``, JAX's constants, so shards draw different masks.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ from torch import nn
 
 from ..kernels import KERNELS
 from ..kernels.attention import mhsa_takes
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import enter_model_region, gather_columns
 from .layers import LayerNorm, Linear
 
 NEG = -1e30
@@ -101,14 +110,18 @@ class MultiHeadSelfAttention(nn.Module):
             self.pos_emb = None
 
     def fused(self, x: torch.Tensor) -> bool:
-        """The gate of the fused function, as in the JAX package; on the card
-        also whether the kernels take the shape (:func:`_use_kernel`)."""
+        """The gate of the fused function, as in the JAX package (a model
+        axis must divide the heads); on the card also whether the kernels
+        take the shape of this rank's heads (:func:`_use_kernel`)."""
         if self.causal or self.pos_emb is None or x.shape[-2] > self.bptt or x.dim() < 3:
+            return False
+        mp = _model_axis()
+        if self.n_heads % mp:
             return False
         backward = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        return _use_kernel(math.prod(x.shape[:-2]), x.shape[-2], self.n_heads, self.head_dim,
-                           x.dtype, x.device.type, backward)
+        return _use_kernel(math.prod(x.shape[:-2]), x.shape[-2], self.n_heads // mp,
+                           self.head_dim, x.dtype, x.device.type, backward)
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., T, C); pad_mask (..., T) bool, True = valid."""
@@ -118,18 +131,33 @@ class MultiHeadSelfAttention(nn.Module):
         rate = self.dropout if self.training else 0.0
 
         if self.fused(x):
+            mesh = current_mesh()
+            tp = mesh if mesh is not None and mesh.spec.n_model > 1 else None
             # the seed comes from the host's generator: no device round trip
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,))) if rate > 0.0 else 0
+            seed = 0
+            if rate > 0.0:
+                seed = int(torch.randint(0, 2 ** 31 - 1, (1,)))
+                if mesh is not None:
+                    seed = (seed + mesh.data_index * 7919
+                            + (mesh.model_index * 104729 if tp else 0)) % (2 ** 31 - 1)
             win = self.pos_emb[self.bptt - T + 1: self.bptt + T]
             if pad_mask is not None:
                 mask_bias = ((~pad_mask).float() * NEG).expand(x.shape[:-1])
             else:
                 mask_bias = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
             nb = math.prod(x.shape[:-2])  # leading dims flattened: archs reach TR 4-d
-            out = self.ops.mhsa(
-                (q / math.sqrt(Dh)).reshape(nb, T, H * Dh), k.reshape(nb, T, H * Dh),
-                v.reshape(nb, T, H * Dh), win, mask_bias.reshape(nb, T).contiguous(), H,
-                rate, seed)
+            q, k, v = ((q / math.sqrt(Dh)).reshape(nb, T, H * Dh), k.reshape(nb, T, H * Dh),
+                       v.reshape(nb, T, H * Dh))
+            heads = H
+            if tp is not None:  # this rank's block of heads
+                heads = H // tp.spec.n_model
+                cols = slice(tp.model_index * heads * Dh, (tp.model_index + 1) * heads * Dh)
+                q, k, v, win = (enter_model_region(a, tp) for a in (q, k, v, win))
+                q, k, v = (a[..., cols].contiguous() for a in (q, k, v))
+            out = self.ops.mhsa(q, k, v, win, mask_bias.reshape(nb, T).contiguous(), heads,
+                                rate, seed)
+            if tp is not None:
+                out = gather_columns(out, tp)
             return self.wf(out.reshape(x.shape[:-1] + (H * Dh,)))
 
         def split(a):  # (..., T, H*Dh) -> (..., H, T, Dh)
@@ -148,6 +176,11 @@ class MultiHeadSelfAttention(nn.Module):
         attn = F.dropout(attn, self.dropout, self.training)
         out = (attn @ v).transpose(-2, -3).reshape(x.shape[:-1] + (H * Dh,))
         return self.wf(out)
+
+
+def _model_axis() -> int:
+    mesh = current_mesh()
+    return 1 if mesh is None else mesh.spec.n_model
 
 
 def _layerdrop_scale(x: torch.Tensor, rate: float, training: bool):

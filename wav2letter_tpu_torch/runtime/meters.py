@@ -2,13 +2,16 @@
 ``wav2letter_tpu/runtime/meters.py`` (reference ``TrainMeters``: runtime, timer,
 sampletimer, fwdtimer, critfwdtimer, bwdtimer, optimtimer and per-dataset
 {tknEdit, wrdEdit, loss}) and of its status line. ``sync_meters`` is the
-cross-process reduction; the port runs one process so far, for which it is
-the identity."""
+cross-rank reduction (reference ``syncMeter``): the error and loss counts
+summed over the data axis."""
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
 
 from ..ops.editdistance import edit_distance
 
@@ -28,6 +31,12 @@ class EditDistanceMeter:
     def error_rate(self) -> float:
         return 100.0 * self.errors / max(1, self.total)
 
+    def state(self):
+        return [self.errors, self.total]
+
+    def load_state(self, s):
+        self.errors, self.total = int(s[0]), int(s[1])
+
 
 class AverageMeter:
     def __init__(self):
@@ -43,6 +52,12 @@ class AverageMeter:
 
     def value(self) -> float:
         return self.sum / max(1, self.n)
+
+    def state(self):
+        return [self.sum, self.n]
+
+    def load_state(self, s):
+        self.sum, self.n = float(s[0]), int(s[1])
 
 
 class TimerMeter:
@@ -134,9 +149,25 @@ class TrainMeters:
             t.reset()
 
 
-def sync_meters(meters: TrainMeters) -> TrainMeters:
-    """Cross-process meter reduction. With one process, which is all the port
-    runs so far, there is nothing to reduce."""
+def sync_meters(meters: TrainMeters, mesh=None,
+                datasets: Optional[List[DatasetMeters]] = None) -> TrainMeters:
+    """Sum the edit and loss states of ``datasets`` (default: train, then
+    every validation set) over the data axis of ``mesh``, in the JAX order:
+    the edit states of all, then the loss states of all. The ranks of a model
+    group meter the same rows, so the model axis is not summed. Without a
+    mesh of several ranks there is nothing to reduce."""
+    if mesh is None or not mesh.distributed:
+        return meters
+    if datasets is None:
+        datasets = [meters.train] + list(meters.valid.values())
+    objs = [o for ds in datasets for o in (ds.tkn_edit, ds.wrd_edit)]
+    objs += [ds.loss for ds in datasets]
+    vals = torch.tensor([v for o in objs for v in o.state()], dtype=torch.float64,
+                        device=mesh.device)
+    dist.all_reduce(vals, group=mesh.data_group)
+    summed = vals.cpu().tolist()
+    for i, o in enumerate(objs):
+        o.load_state(summed[2 * i: 2 * i + 2])
     return meters
 
 

@@ -1,5 +1,6 @@
 """Training executor (the ``fl_asr_train`` binary) — the port of
-``wav2letter_tpu/runtime/train.py`` for one device and the CTC criterion.
+``wav2letter_tpu/runtime/train.py`` for the CTC criterion, on one device or
+on several ranks through ``torch.distributed``.
 
 Structure as there: mode dispatch (train|continue|fork) with "stored flags <
 explicitly passed flags", dictionaries, arch build, one optimizer each for the
@@ -13,15 +14,25 @@ fp32 emissions -> backward (K2 as dgrad, K2b, K3b) -> clip -> optimizer ->
 viterbi of the train batch for the meters.
 
 Everything random in an update (dropout, SpecAugment) is a function of
-``(seed + 7, update index)``, not of a running stream, and the data order is a
-function of ``(seed, epoch)``; so ``continue`` replays exactly what the
-uninterrupted run would have drawn. On the CPU that makes a resumed run equal
-the uninterrupted one bit for bit. On a CUDA device PyTorch's CTC backward
-adds with atomics, so two runs agree only to rounding.
+``(seed + 7, update index, data index)``, not of a running stream, and the data
+order is a function of ``(seed, epoch)``; so ``continue`` replays exactly what
+the uninterrupted run would have drawn. On the CPU that makes a resumed run
+equal the uninterrupted one bit for bit. On a CUDA device PyTorch's CTC
+backward adds with atomics, so two runs agree only to rounding.
+
+Several ranks (``--enable_distributed``, or a process group the caller has
+initialized) form a (data, model) mesh (``parallel/``). Each rank reads the
+rows ``data_index::n_data`` of every global batch (``--batchsize`` is per
+rank), the loss is the masked mean over the global batch (each rank's sum over
+the all-reduced row count), and gradients are summed over the data axis
+before the clip norm and the non-finite guard, so every rank takes the same
+branch and the replicas stay bit-identical. With ``--mp_axis`` > 1 the big
+weights are column-split over the model axis (tensor parallelism). Rank 0
+alone writes logs, configs and checkpoints (gathered to full shape).
 
 Not in this slice (each raises, naming the slice it waits for): the ASG and
-seq2seq criterions and the attention window, data and tensor parallelism,
-``--features_device=host``, plugin archs, ``--remat``.
+seq2seq criterions and the attention window, ``--features_device=host``,
+plugin archs, ``--remat``.
 """
 
 from __future__ import annotations
@@ -31,6 +42,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import Config
@@ -44,27 +56,25 @@ from ..kernels import disable_tf32
 from ..models.arch import build_arch_module
 from ..ops.ctc import ctc_collapse, ctc_viterbi
 from ..optim import LRSchedule, make_optimizer
+from ..parallel import MeshSpec, make_mesh, replicate, shard_batch, shard_params, to_host_local
+from ..parallel.distributed import backend_for, init_distributed, local_rank
+from ..parallel.mesh import set_current_mesh
+from ..parallel.sharding import all_reduce_grads, dataset_shard, gather_full, global_norm
 from .checkpoint import (Checkpoint, find_last_checkpoint, load_checkpoint,
                          run_index_paths, save_checkpoint)
 from .meters import TrainMeters, get_log_string, sync_meters
 from .test import resolve_device
 
 
-def _log(msg: str) -> None:
-    print(msg, flush=True)
-
-
 def _not_yet(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (one device, CTC); "
+        f"{what} is not in the slices of the PyTorch port so far (CTC); "
         f"it comes with {slice_name}")
 
 
 class Trainer:
     def __init__(self, cfg: Config, mode: str = "train", init_model_path: str = "",
                  device: str = "cuda"):
-        self.device = resolve_device(device)
-        disable_tf32()
         self.mode = mode
         self.epoch = 0
         self.updates = 0
@@ -105,10 +115,24 @@ class Trainer:
                            "the host-featurizer slice")
         if cfg.remat:
             raise _not_yet("--remat", "the memory slice")
-        if cfg.enable_distributed or cfg.world_size > 1 or cfg.mp_axis > 1 or cfg.dp_axis > 1:
-            raise _not_yet("data or tensor parallelism (--enable_distributed, --world_size, "
-                           "--dp_axis, --mp_axis)", "the data-parallel slice")
-        if self.rundir:
+
+        # --- ranks: join the group, then one device a rank ---
+        dev = torch.device(device)
+        if cfg.enable_distributed:
+            init_distributed(backend_for(dev), cfg.world_rank, cfg.world_size)
+        if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+            dev = torch.device("cuda", local_rank())
+        self.device = resolve_device(str(dev))
+        if self.device.index is not None:  # the rank's card for its collectives
+            torch.cuda.set_device(self.device)
+        disable_tf32()
+        self.mesh = make_mesh(MeshSpec.from_config(cfg), self.device)
+        set_current_mesh(self.mesh)  # mesh-aware layers (the attention's head split)
+        self.tensor_parallel = self.mesh.spec.n_model > 1
+        if self.tensor_parallel and cfg.netoptim == "novograd":
+            raise _not_yet("novograd under tensor parallelism (its per-tensor norms of "
+                           "column shards)", "a later slice")
+        if self.rundir and self.mesh.rank == 0:
             os.makedirs(self.rundir, exist_ok=True)
 
         # --- dictionaries ---
@@ -135,12 +159,19 @@ class Trainer:
             raise _not_yet("a plugin arch", "the plugin slice")
         torch.manual_seed(cfg.seed)
         self.model = build_arch_module(arch_path, self.n_feat, self.n_classes)
+        if self.mesh.spec.n_data > 1 and any(True for _ in self.model.buffers()):
+            raise _not_yet("running statistics (a BatchNorm) on several data ranks",
+                           "a later slice")
         if resume is not None:
             self.model.load_state_dict(resume.state_dict, strict=True)
             if resume.crit_state_dict:
                 self.criterion.load_state_dict(resume.crit_state_dict, strict=True)
         self.model.to(self.device)
         self.criterion.to(self.device)
+        # rank 0's weights everywhere; under tensor parallelism each rank then
+        # keeps its columns of the big weights (the optimizer slots follow)
+        self.sharded = shard_params(self.mesh, self.model, self.tensor_parallel)
+        replicate(self.mesh, self.criterion)
 
         # --- optimizers (net + criterion) ---
         self.net_sched = LRSchedule.from_config(cfg, cfg.lr)
@@ -155,7 +186,10 @@ class Trainer:
         # parameters; kept for --fl_amp_use_mixed_precision)
         self.amp_scale = cfg.fl_amp_scale_factor if cfg.fl_amp_use_mixed_precision else 1.0
         self._amp_good = 0
-        if mode == "continue":
+        if mode == "continue" and self.tensor_parallel:
+            # as in JAX: the stored slots are not resharded
+            self._log("continue under tensor parallelism: the optimizer slots start afresh")
+        elif mode == "continue":
             if resume.opt_state:
                 self.net_opt.load_state_dict(resume.opt_state)
             if resume.crit_opt_state:
@@ -165,12 +199,16 @@ class Trainer:
                 self._amp_good = int(resume.extra.get("amp_good", 0))
 
         # --- datasets ---
-        self.train_ds = AsrDataset(cfg.train, self.token_dict, self.lexicon, cfg)
+        # (the ranks of a model group read the rows of their data index)
+        w_rank, w_size = dataset_shard(self.mesh)
+        self.train_ds = AsrDataset(cfg.train, self.token_dict, self.lexicon, cfg,
+                                   world_rank=w_rank, world_size=w_size)
         self.valid_ds: Dict[str, AsrDataset] = {}
         vbs = cfg.validbatchsize if cfg.validbatchsize > 0 else cfg.batchsize
         for tag, path in cfg.valid_sets():
             self.valid_ds[tag] = AsrDataset(
-                path, self.token_dict, self.lexicon, cfg, batch_size=vbs)
+                path, self.token_dict, self.lexicon, cfg, batch_size=vbs,
+                world_rank=w_rank, world_size=w_size)
 
         self.meters = TrainMeters(list(self.valid_ds.keys()))
         self.best_val: Dict[str, float] = {}
@@ -184,17 +222,22 @@ class Trainer:
     # ------------------------------------------------------------------
     # one update
     # ------------------------------------------------------------------
+    def _log(self, msg: str) -> None:
+        if self.mesh.rank == 0:
+            print(msg, flush=True)
+
     def _to_device(self, batch):
-        return {k: torch.from_numpy(np.asarray(batch[k])).to(self.device)
-                for k in ("audio", "audio_len", "target", "target_len", "row_mask")}
+        return shard_batch(self.mesh, batch, self.device)
 
     def _timed(self, timer, name):
         return _Phase(timer, name, self.device if self.sync_timers else None)
 
     def _loss(self, b, train: bool, saug_on: bool = False,
-              generator: Optional[torch.Generator] = None):
+              generator: Optional[torch.Generator] = None,
+              rows: Optional[torch.Tensor] = None):
         """Masked mean of the per-sample losses, the fp32 emissions and their
-        lengths. No dither: the JAX trainer passes no dither key either."""
+        lengths; ``rows`` (default: the batch's) divides the masked sum. No
+        dither: the JAX trainer passes no dither key either."""
         with self._timed(self.meters.fwd_timer, "w2l/forward"):
             with torch.no_grad():
                 feats, flen = self.featurizer(b["audio"], b["audio_len"])
@@ -206,35 +249,45 @@ class Trainer:
         with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
             losses = self.criterion(em, b["target"], elen, b["target_len"])
             rm = b["row_mask"]
-            loss = (losses * rm).sum() / rm.sum().clamp(min=1.0)
+            loss = (losses * rm).sum() / (rm.sum() if rows is None else rows).clamp(min=1.0)
         return loss, em, elen
 
     def train_step(self, batch, lr: float, lr_crit: float, saug_on: bool, seed: int):
         """One attempt at an update on a padded batch. Returns (loss, finite,
-        viterbi path, path lengths). A non-finite loss or gradient zeroes the
-        gradients, and the optimizers still step (momentum moves the params),
-        as in the JAX step."""
+        viterbi path, path lengths), the loss that of the global batch. A
+        non-finite loss or gradient zeroes the gradients, and the optimizers
+        still step (momentum moves the params), as in the JAX step."""
         cfg = self.cfg
         self.model.train()
         self.criterion.train()
         b = self._to_device(batch)
         torch.manual_seed(seed)  # dropout draws from the device's global generator
         gen = torch.Generator().manual_seed(seed)  # SpecAugment: flags, then SAUG layers
-        params = list(self.model.parameters()) + list(self.criterion.parameters())
-        for p in params:
+        named = list(self.model.named_parameters()) + [
+            ("criterion." + n, p) for n, p in self.criterion.named_parameters()]
+        for _, p in named:
             p.grad = None
-        loss, em, elen = self._loss(b, True, saug_on, gen)
+        rows = None
+        if self.mesh.distributed:  # the global batch's real rows
+            rows = b["row_mask"].sum()
+            dist.all_reduce(rows, group=self.mesh.data_group)
+        loss, em, elen = self._loss(b, True, saug_on, gen, rows)
         with self._timed(self.meters.bwd_timer, "w2l/backward"):
             (loss * self.amp_scale).backward()
         with self._timed(self.meters.optim_timer, "w2l/optimizer"):
-            grads = [p.grad for p in params if p.grad is not None]
+            rep = [p.grad for n, p in named if p.grad is not None and n not in self.sharded]
+            shard = [p.grad for n, p in named if p.grad is not None and n in self.sharded]
             if self.amp_scale != 1.0:
-                torch._foreach_mul_(grads, 1.0 / self.amp_scale)
-            # global norm over network and criterion; a NaN or Inf anywhere in
-            # the gradients shows in it, so it also serves the non-finite guard
-            gn = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm([g.float() for g in grads])))
-            loss_v, gn_v = torch.stack([loss.detach(), gn]).tolist()
+                torch._foreach_mul_(rep + shard, 1.0 / self.amp_scale)
+            loss = loss.detach().reshape(1).clone()
+            with record_function("w2l/all_reduce"):
+                all_reduce_grads(self.mesh, rep + [loss], shard)
+            # global norm over network and criterion, after the reduction; a
+            # NaN or Inf anywhere in the gradients shows in it, so it also
+            # serves the non-finite guard, and every rank takes one branch
+            gn = global_norm(self.mesh, rep, shard)
+            grads = rep + shard
+            loss_v, gn_v = torch.stack([loss[0], gn]).tolist()
             finite = bool(np.isfinite(loss_v) and np.isfinite(gn_v))
             if not finite:
                 torch._foreach_zero_(grads)
@@ -258,7 +311,7 @@ class Trainer:
     # meters helpers
     # ------------------------------------------------------------------
     def _update_edit_meters(self, ds_meters, vit, elen, batch):
-        vit, elen = vit.cpu().numpy(), elen.cpu().numpy()
+        vit, elen = to_host_local(self.mesh, vit), to_host_local(self.mesh, elen)
         tgts, tlens = np.asarray(batch["target"]), np.asarray(batch["target_len"])
         sidx = np.asarray(batch["sample_idx"])
         wsep = self.cfg.wordseparator
@@ -278,7 +331,8 @@ class Trainer:
     # validation + checkpoint
     # ------------------------------------------------------------------
     def validate(self) -> Dict[str, float]:
-        wers = {}
+        """Each rank meters its rows of every validation set; the counts are
+        then summed over the data axis, so the WERs are those of the sets."""
         for tag, ds in self.valid_ds.items():
             m = self.meters.valid[tag]
             m.reset()
@@ -288,29 +342,42 @@ class Trainer:
                 loss, vit, elen = self.eval_step(batch)
                 m.loss.add(loss, int(batch["row_mask"].sum()))
                 self._update_edit_meters(m, vit, elen, batch)
-            wers[tag] = m.wrd_edit.error_rate()
-        return wers
+        sync_meters(self.meters, self.mesh, list(self.meters.valid.values()))
+        return {tag: m.wrd_edit.error_rate() for tag, m in self.meters.valid.items()}
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (a param or an optimizer slot of ``name``) at full shape:
+        gathered over the model group where ``name`` is a column shard."""
+        return gather_full(self.mesh, t) if name in self.sharded else t
 
     def save(self, tag: Optional[str] = None):
+        """Collective under tensor parallelism (every rank gathers the
+        shards); rank 0 writes, the others wait at a barrier."""
         if not self.rundir:
             return
-        ckpt = Checkpoint(
-            config=self.cfg.serialize(), epoch=self.epoch, updates=self.updates,
-            state_dict=self.model.state_dict(),
-            crit_state_dict=self.criterion.state_dict(),
-            opt_state=self.net_opt.state_dict(),
-            crit_opt_state=self.crit_opt.state_dict(),
-            extra={"amp_scale": self.amp_scale, "amp_good": self._amp_good})
-        save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
-        if tag:
-            save_checkpoint(os.path.join(self.rundir, f"model_{tag}.bin"), ckpt)
+        state = {n: self._full(n, t) for n, t in self.model.state_dict().items()}
+        opt = self.net_opt.state_dict()
+        if self.sharded:
+            opt["state"] = {slot: {n: self._full(n, t).cpu() for n, t in d.items()}
+                            for slot, d in self.net_opt.state.items()}
+        if self.mesh.rank == 0:
+            ckpt = Checkpoint(
+                config=self.cfg.serialize(), epoch=self.epoch, updates=self.updates,
+                state_dict=state, crit_state_dict=self.criterion.state_dict(),
+                opt_state=opt, crit_opt_state=self.crit_opt.state_dict(),
+                extra={"amp_scale": self.amp_scale, "amp_good": self._amp_good})
+            save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
+            if tag:
+                save_checkpoint(os.path.join(self.rundir, f"model_{tag}.bin"), ckpt)
+        if self.mesh.distributed:
+            dist.barrier()
 
     # ------------------------------------------------------------------
     # main loop
     # ------------------------------------------------------------------
     def run(self):
         cfg = self.cfg
-        if self.rundir:
+        if self.rundir and self.mesh.rank == 0:
             with open(os.path.join(self.rundir, f"{self.run_idx:03d}_config"), "w") as f:
                 f.write(cfg.serialize())
         report = cfg.reportiters
@@ -340,8 +407,14 @@ class Trainer:
                 self.meters.timer.start()
                 lr = self.net_sched(self.updates, self.epoch)
                 lr_crit = self.crit_sched(self.updates, self.epoch)
-                # a function of the global update index, not a running stream
-                seed = (cfg.seed + 7) * 1_000_003 + self.updates
+                # a function of the global update index, not a running stream,
+                # and of the data index: each rank draws for its own rows (the
+                # ranks of a model group compute one replicated activation and
+                # must draw alike). Index 0 draws as one process does. The step
+                # is golden-ratio sized because the CPU generator keeps only a
+                # seed's low 32 bits.
+                seed = ((cfg.seed + 7) * 1_000_003 + self.updates
+                        + self.mesh.data_index * 0x9E3779B9)
                 saug_on = 0 <= cfg.saug_start_update <= self.updates
                 batch = pad_batch_rows(batch, 1)
                 n_rows = batch["audio_len"].shape[0]
@@ -379,17 +452,17 @@ class Trainer:
             if report <= 0:
                 self._report_and_save()
         self.save()
-        _log(f"training done: {self.updates} updates, {self.skipped} skipped batches")
+        self._log(f"training done: {self.updates} updates, {self.skipped} skipped batches")
 
     def _report_and_save(self):
         wers = self.validate()
-        sync_meters(self.meters)
+        sync_meters(self.meters, self.mesh, [self.meters.train])
         line = get_log_string(
             self.meters, self.epoch, self.updates,
             self.net_sched(self.updates, self.epoch),
             self.crit_sched(self.updates, self.epoch))
-        _log(line)
-        if self.rundir:
+        self._log(line)
+        if self.rundir and self.mesh.rank == 0:
             with open(os.path.join(self.rundir, f"{self.run_idx:03d}_log"), "a") as f:
                 f.write(line + "\n")
         self.save(tag=f"iter_{self.epoch:03d}")
