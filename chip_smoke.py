@@ -122,6 +122,23 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the same one-process run. Updates/s, the gradient reduction's wall ms an
    update and its share, and the peak memory a rank are printed; gloo's are
    gloo's, not NCCL's.
+13. the soak in small (``wav2letter_tpu_torch/tools/soak.py``, ``soak_path``):
+   a 3-minute synthetic corpus from the port's ``synth_corpus``, its 3-gram
+   LM, the flagship minus SAUG trained in bf16 at B = 16 for 40 updates in a
+   child ``cli.train``, SIGKILLed once the checkpoint of update 20 is whole
+   and resumed by a bare ``continue``; the soak's ``profile`` step on the
+   trained run in this process (a steady update's wall, device busy, idle
+   share and peak memory at the largest and median batches, one update's
+   launches held to phase 6's counts, the kernels' features, loss and
+   gradients against the plain versions at the largest batch in bf16 and
+   fp32); then the product chain with the CLIs
+   in this process (viterbi ``test``, the beam without and with the LM, the
+   ``--lmweight`` sweep, the homophone slice, the beam dump and rescoring,
+   ``convert_streaming``, 4 utterances streamed and split against offline,
+   the top-k against the full-row decode), each step's wall time printed,
+   the results' keys held to the JAX soak's (``SOAK_RESULTS.json``), the
+   streamed emissions to the batch network on the same features (1e-4), and
+   the chain's K1, K2 and K3 launches counted.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -248,15 +265,12 @@ FN_TOL = {"float32": (1e-3, 2e-2, 1e-3), "bfloat16": (5e-2, 2e-2, 2e-3)}
 # First training batch on the card, dropout and SpecAugment off: the kernel
 # path's loss (relative) and each parameter's gradient (L2 error relative to
 # the larger of that gradient's L2 norm and 1% of the whole gradient's).
-# GRAD_TOL: against the plain-version model on the same features. This
-# seeded, untrained model amplifies fp32 rounding ~1e4-fold on the way back
-# (two plain-version runs that differ only in the conv's summation order differ
-# by 2e-3 in the first blocks' weights), hence 1e-2 in fp32.
+# GRAD_TOL (wav2letter_tpu_torch/tools/soak.py, which checks the soak's
+# batches with it): against the plain-version model on the same features.
 # GRAD_TOL_FEATS: against the whole plain path, features included. K1 and its
 # plain version agree to 1e-4, but local CMVN divides the first frames by the
 # std of windows of 1-8 frames, which carries that rounding into the first
 # layers' gradients at a few percent.
-GRAD_TOL = {"float32": (1e-5, 1e-2), "bfloat16": (2e-2, 0.25)}
 GRAD_TOL_FEATS = {"float32": (1e-4, 0.1), "bfloat16": (2e-2, 0.25)}
 # emissions of the kernel path vs the plain path, full model: (max, mean) abs
 EM_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (0.25, 0.02)}
@@ -1327,6 +1341,7 @@ def first_batch_gradients(spec, cfg_flags, dtype_name):
     from wav2letter_tpu_torch.features import FeatureParams, Featurizer
     from wav2letter_tpu_torch.models import build_arch_module
     from wav2letter_tpu_torch.runtime.train import Trainer
+    from wav2letter_tpu_torch.tools.soak import GRAD_TOL
 
     cfg = Config()
     cfg.update(dict(cfg_flags, rundir="", runname=""))
@@ -2893,6 +2908,107 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the soak in small
+# ---------------------------------------------------------------------------
+# the corpus: train 3 min, dev and test 1 min each, in the JAX soak's --fast
+# language; the flagship minus SAUG, bf16, B = 16 for 40 updates, reports at
+# 20; the product chain's grids cut to 3 points, 4 homophone-slice and 4
+# streamed utterances
+SOAK_CORPUS = dict(train_hours=0.05, dev_minutes=1.0, test_minutes=1.0, n_words=150,
+                   n_homophone_pairs=15, lm_sentences=2000)
+SOAK_BATCH, SOAK_UPDATES, SOAK_REPORT = 16, 40, 20
+SOAK_SIZES = dict(sweep=(0.0, 1.0, 0.5), wordscores=(0.5,), homo_utts=4,
+                  homo_sweep=(0.0, 1.0, 0.5), stream_utts=4)
+SOAK_WALL_S = 120  # the phase's budget; printed beside its wall time
+
+
+def soak_path(tmp, smi_line):
+    """Phase 13: ``wav2letter_tpu_torch/tools/soak.py`` in small at the
+    flagship's full width. The port's ``synth_corpus.generate`` writes the
+    corpus, its ``train_ngram_lm`` the 3-gram LM; the driver's own
+    ``_train_regime`` trains in a child process (``cli.train``), SIGKILLs
+    its process group once ``model_last.bin`` of update 20 is whole and
+    resumes with a bare ``continue``; ``phase_profile`` takes the trained
+    run's updates in this process at its largest and median batches (wall,
+    device busy, idle share, peak memory), counts one update's launches and
+    holds the kernels' features, loss and gradients against the plain
+    versions at the largest batch (``GRAD_TOL``, bf16 and fp32); then
+    ``phase_product`` runs the chain with the CLIs in this process (as the
+    soak runs them): viterbi ``test`` with ``--sclite``, the
+    beam without and with the LM, the ``--lmweight`` sweep over an
+    ``--emission_dir``, the homophone slice, the beam dump and rescoring,
+    ``convert_streaming``, 4 test utterances streamed with the split against
+    offline, the top-k against the full-row decode. Checks: every step ran,
+    the kill came after the checkpoint of update 20 and ``continue`` resumed
+    from it and logged above it, the results hold every key of the JAX
+    soak's (``SOAK_RESULTS.json``, but ``train_b32``), the streamed emissions
+    are within ``STREAM_EM_TOL`` of the batch network on the same features,
+    one update launched what phase 6 counts (1 K1, 15 K2 + 14 dgrad, 15 K2b,
+    22 K3, 22 K3b), and the chain's forwards launched K1, K2 and K3 and no
+    backward kernel."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.tools.soak import Soak, missing_keys
+
+    t_phase = time.perf_counter()
+    s = Soak(os.path.join(tmp, "soak"), corpus=os.path.join(tmp, "soak_corpus"),
+             corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
+    s.phase_corpus()
+    s.phase_lm()
+    # the B = 128 regime's code and name, at B = 16
+    ep = max(1, SOAK_UPDATES * SOAK_BATCH // s.n_train_utts)
+    s._train_regime("b128", SOAK_BATCH, 0.2, SOAK_UPDATES, SOAK_REPORT,
+                    kill_at=SOAK_REPORT, lr_decay=max(1, int(ep * 0.58)),
+                    lr_decay_step=max(1, int(ep * 0.16)))
+    tr = s.results["train_b128"]
+    s.phase_profile("b128")
+    update_launches = tr["profile"]["launches_per_update"]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    s.phase_product()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    s.phase_report()
+    wall = time.perf_counter() - t_phase
+    r = s.results
+    if not (tr["killed_and_resumed"] and tr["resumed_from_update"] >= SOAK_REPORT
+            and (tr["first_resumed_update"] or 0) > tr["resumed_from_update"]):
+        fail(f"soak: kill and continue: {json.dumps({k: v for k, v in tr.items() if k != 'trajectory'})}")
+    if tr["trajectory"][-1]["updates"] != SOAK_UPDATES or not all(
+            math.isfinite(row["loss"]) for row in tr["trajectory"]):
+        fail(f"soak: trajectory {tr['trajectory']}")
+    with open(os.path.join(REPO, "SOAK_RESULTS.json")) as f:
+        want = json.load(f)
+    want.pop("train_b32", None)
+    missing = missing_keys(want, r)
+    if missing:
+        fail(f"soak: RESULTS.json lacks the JAX soak's keys {missing}")
+    prod, st = r["product"], r["product"]["streaming"]
+    wers = [prod["viterbi_test_wer"], prod["beam_nolm_test_wer"], prod["beam_lm_test_wer"],
+            st["streaming_wer"], st["offline_wer"], prod["topk_vs_full"]["topk_wer"],
+            prod["topk_vs_full"]["full_wer"]]
+    if not all(isinstance(w, float) and math.isfinite(w) for w in wers):
+        fail(f"soak: WERs {wers}")
+    if st["max_abs_stream_vs_batch_on_stream_features"] > STREAM_EM_TOL:
+        fail(f"soak: streamed emissions {st['max_abs_stream_vs_batch_on_stream_features']} "
+             f"from the batch network on the same features (tolerance {STREAM_EM_TOL})")
+    if update_launches != expected_launches(FLAGSHIP, 1, 0):
+        fail(f"soak: one update launched {update_launches}, expected "
+             f"{expected_launches(FLAGSHIP, 1, 0)}")
+    if not all(launches[k] for k in ("mfsc", "time_conv", "residual_ln")) or any(
+            launches[k] for k in ("time_conv_wgrad", "residual_ln_bwd", "mhsa", "mhsa_bwd")):
+        fail(f"soak: the chain's launches {launches} (forwards only: K1, K2, K3)")
+    out = dict(results=r, launches=launches, update_launches=update_launches, wall_s=wall,
+               budget_s=SOAK_WALL_S)
+    for step, sec in r["timing"].items():
+        log(f"[soak step] {step}: {sec:.2f} s")
+    log(f"[soak] {json.dumps(dict(train=dict((k, v) for k, v in tr.items() if k != 'trajectory'), product=prod, launches=launches))}")
+    log(f"[soak] phase 13 in {wall:.1f} s (budget {SOAK_WALL_S} s) | {smi_line}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
@@ -3048,6 +3164,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         parallel = data_parallel_path(tmp, train_lst, lst, tokens, lexicon, smi_line)
 
+        # 13. the soak in small: corpus, LM, training killed and continued, the chain
+        torch.cuda.empty_cache()
+        soaked = soak_path(tmp, smi_line)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -3120,6 +3240,7 @@ def main() -> None:
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
+                           soak=soaked,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

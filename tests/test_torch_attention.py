@@ -85,6 +85,27 @@ def test_keep_mask_is_the_same_bits(B, H, T, rate, seed):
     assert abs(got.mean() - (1 - rate)) < 0.02
 
 
+@pytest.mark.parametrize("block", [1, 50, 2 * 3 * 40 + 1])
+def test_keep_mask_in_row_blocks(monkeypatch, block):
+    """The mask hashed a block of rows at a time (one row, a part of a row
+    over all programs, several rows with a ragged last block) has JAX's bits,
+    also when written into a view of a larger mask."""
+    from wav2letter_tpu_torch.kernels import attention as A
+
+    B, H, T, rate, seed = 2, 3, 40, 0.2, 987654321
+    monkeypatch.setattr(A, "KEEP_BLOCK", block)
+    got = dropout_keep(seed, B, H, T, rate, torch.device("cpu")).numpy()
+    Tp = hash_rows(T)
+    for prog in range(B * H):
+        want = _dropout_keep(jnp.asarray(seed, jnp.int32), jnp.asarray(prog, jnp.int32),
+                             (Tp, Tp), rate)
+        np.testing.assert_array_equal(got[prog // H, prog % H], np.asarray(want)[:T, :T])
+    wide = torch.zeros((B, H + 2, T, T), dtype=torch.bool)
+    dropout_keep(seed, B, H, T, rate, torch.device("cpu"), out=wide[:, 1:H + 1])
+    assert np.array_equal(wide[:, 1:H + 1].numpy(), got)
+    assert not wide[:, 0].any() and not wide[:, H + 1].any()
+
+
 def test_bf16_inputs_round_like_the_kernel():
     """bf16 in: fp32 sums, p rounded to bf16 before p.v, output bf16; ds
     rounded to bf16 before its products, dPwin left in fp32."""

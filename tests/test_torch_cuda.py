@@ -842,6 +842,60 @@ def test_attention_past_k4b_limit_trains_unfused(cuda, dtype):
             torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_past_the_limit_drops_as_the_fused_function(cuda, dtype, monkeypatch):
+    """Just past K4's limit (Dh = 8: T = 3076), an update at attention
+    dropout 0.2: the unfused path draws the fused function's hash keep mask
+    from the same seed, so its output and gradients agree with the fused
+    plain path (``mhsa_plain``). Its peak memory over the update is printed
+    beside that of the path it replaced there, ``F.dropout`` on the same
+    probabilities (the gate switched off), and exceeds it by no more than the
+    keep mask's int64 block temporaries."""
+    from wav2letter_tpu_torch.models import transformer as TM
+
+    torch.manual_seed(0)
+    m = TM.MultiHeadSelfAttention(16, 8, 2, 3080, 0.2).to(cuda).train()
+    plain = TM.MultiHeadSelfAttention(16, 8, 2, 3080, 0.2, ops=kernels.PLAIN).to(cuda).train()
+    plain.load_state_dict(m.state_dict())
+    x = _randn((1, 2, 3076, 16), 4, cuda, dtype)
+    g = _randn((1, 2, 3076, 16), 5, cuda)
+
+    def update(mod):
+        mod.zero_grad()
+        xx = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(7)
+        out = mod(xx)
+        (out.float() * g).sum().backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return [out.detach(), xx.grad] + [p.grad.clone() for p in mod.parameters()], peak
+
+    assert m.in_gate(x) and not m.fused(x)
+    kernels.reset_launches()
+    got, peak = update(m)
+    assert kernels.LAUNCHES["mhsa"] == 0 and kernels.LAUNCHES["mhsa_bwd"] == 0
+    with monkeypatch.context() as mp:
+        mp.setattr(TM.MultiHeadSelfAttention, "in_gate", lambda self, x: False)
+        _, parent_peak = update(m)
+    print(f"\n[peak] {dtype}: hash dropout {peak / 2**20:.1f} MiB, "
+          f"F.dropout {parent_peak / 2**20:.1f} MiB")
+    # at most a few blocks of 2^22 int64 counters (32 MiB each); the mask
+    # hashed whole adds int64 copies of all 37.8M counters (357 MiB in fp32
+    # on an H100 80GB HBM3)
+    assert peak <= parent_peak + 4 * 32 * 2**20
+    monkeypatch.setattr(TM, "_use_kernel", lambda *a: True)  # the fused plain path
+    want, _ = update(plain)
+    # 3076-term sums; in bf16 also the rounding of p (before the scale here,
+    # after it in the plain version) and bf16 products in the unfused backward
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        top = b.float().abs().max().item()
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol * max(1.0, top))
+
+
 def test_emissions_topk_on_the_card(cuda, tmp_path):
     """``Evaluator.emissions_topk`` on the card: exactly ``torch.topk`` of its
     own emissions, and the top-k of the CPU's emissions (plain versions) where

@@ -99,6 +99,44 @@ def test_attention_module_matches_jax(case, bptt, causal, T_):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+def test_unfused_path_in_the_gate_draws_the_fused_dropout(monkeypatch):
+    """Inside the JAX gate, where the kernels refuse a shape (here: every
+    shape), the unfused path computes the fused function: its keep mask is
+    the kernels' hash from the same seed, drawn as the fused branch draws it,
+    and kept values scale by 1/(1 - rate). Training at rate 0.2 on one torch
+    seed, the output and the gradients to x and to every parameter match the
+    fused plain path."""
+    rng = np.random.RandomState(3)
+    B, T_, C, H, bptt, rate = 2, 12, 32, 4, 30, 0.2
+    x = rng.randn(1, B, T_, C).astype(np.float32)
+    g = rng.randn(1, B, T_, C).astype(np.float32)
+    mask = torch.from_numpy(_mask(rng, B, T_)[None])
+    torch.manual_seed(0)
+    m = T.MultiHeadSelfAttention(C, C // H, H, bptt, rate, False).train()
+
+    def run():
+        m.zero_grad()
+        tx = torch.from_numpy(x).requires_grad_()
+        torch.manual_seed(7)
+        out = m(tx, mask)
+        (out * torch.from_numpy(g)).sum().backward()
+        return [out.detach(), tx.grad] + [p.grad.clone() for p in m.parameters()]
+
+    tx = torch.from_numpy(x)
+    assert m.fused(tx)
+    fused = run()
+    monkeypatch.setattr(T, "_use_kernel", lambda *a: False)
+    assert m.in_gate(tx) and not m.fused(tx)
+    unfused = run()
+    with torch.no_grad():
+        m.eval()
+        no_dropout = m(tx, mask)
+    assert not torch.allclose(fused[0], no_dropout, atol=1e-3)  # the mask dropped values
+    # fp32, sums of 12 and 32 terms in another order
+    for got, want in zip(unfused, fused):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # the layers with converted weights
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ _M32 = 0xFFFFFFFF
 FWD_CHUNK_BYTES, FWD_VPITCH = 128, 136  # csrc/attention.cu: CHB, VP
 FWD_ROWS = (16, 32, 64)  # query rows a K4 block can take, in slabs of 16
 BWD_ROWS = (16, 32, 48, 64)  # and a block of K4b's first launch
+KEEP_BLOCK = 1 << 22  # counters of the keep mask hashed at once (int64 temporaries)
 
 
 def hash_rows(T: int) -> int:
@@ -46,22 +47,30 @@ def keep_threshold(rate: float) -> int:
     return min(int((1.0 - rate) * 2.0 ** 32), 2 ** 32 - 1)
 
 
-def dropout_keep(seed: int, B: int, H: int, T: int, rate: float,
-                 device: torch.device) -> torch.Tensor:
+def dropout_keep(seed: int, B: int, H: int, T: int, rate: float, device: torch.device,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The keep mask (B, H, T, T) bool: a murmur3-style finalizer over the
     counter ``i * hash_rows(T) + j`` mixed with the seed and ``b*H + h``, in
-    uint32 arithmetic (int64 here, masked to 32 bits after every step)."""
-    i = torch.arange(T, dtype=torch.int64, device=device)[:, None]
+    uint32 arithmetic (int64 here, masked to 32 bits after every step).
+    Computed a block of rows at a time, so that the int64 temporaries stay
+    near ``KEEP_BLOCK`` elements whatever T, and written into ``out`` (a bool
+    (B, H, T, T) tensor or view) where one is given."""
+    keep = torch.empty((B, H, T, T), dtype=torch.bool, device=device) if out is None else out
     j = torch.arange(T, dtype=torch.int64, device=device)[None, :]
     prog = torch.arange(B * H, dtype=torch.int64, device=device).view(B, H, 1, 1)
     mix = ((int(seed) & _M32) * 0x9E3779B9 & _M32) + (prog * 0x85EBCA6B & _M32)
-    x = (i * hash_rows(T) + j + mix) & _M32
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x846CA68B) & _M32
-    x = x ^ (x >> 16)
-    return x < keep_threshold(rate)
+    threshold = keep_threshold(rate)
+    rows = max(1, KEEP_BLOCK // max(B * H * T, 1))
+    for r0 in range(0, T, rows):
+        i = torch.arange(r0, min(r0 + rows, T), dtype=torch.int64, device=device)[:, None]
+        x = (i * hash_rows(T) + j + mix).bitwise_and_(_M32)
+        x ^= x >> 16
+        x.mul_(0x7FEB352D).bitwise_and_(_M32)
+        x ^= x >> 15
+        x.mul_(0x846CA68B).bitwise_and_(_M32)
+        x ^= x >> 16
+        torch.lt(x, threshold, out=keep[:, :, r0:r0 + rows])
+    return keep
 
 
 def _shear_index(T: int, device: torch.device) -> torch.Tensor:

@@ -19,7 +19,10 @@ converts by renaming paths.
 Attention inside the gate of the JAX package (not causal, a relative-position
 table, T <= bptt, batched input) is the fused function ``ops.mhsa``: kernel
 K4, and K4b under autograd, on the card; its plain version on the CPU.
-Outside the gate it is the unfused PyTorch path below. The post-LN residuals
+Where the kernels do not take a shape inside the gate, the unfused PyTorch
+path below computes the same function, its dropout the kernels' hash from the
+same seed. Outside the gate the unfused path draws ``F.dropout``, as JAX's
+XLA path draws its own. The post-LN residuals
 ``LN(f*a + x)`` go through ``ops.residual_ln`` (K3, K3b) where the LayerNorm's
 AF dims (0, 3) reduce to the row.
 
@@ -42,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import KERNELS
-from ..kernels.attention import mhsa_takes
+from ..kernels.attention import dropout_keep, mhsa_takes
 from ..parallel.mesh import current_mesh
 from ..parallel.sharding import enter_model_region, gather_columns
 from .layers import LayerNorm, Linear
@@ -87,8 +90,8 @@ def _use_kernel(B: int, T: int, H: int, Dh: int, dtype: torch.dtype, device_type
     """Inside the JAX gate, whether attention takes the fused function. On
     the CPU it always does (its plain version takes any shape). On the card
     only where K4, and K4b when a gradient is wanted, take the shape; past
-    their limits the unfused path computes the same function (in training
-    with another dropout draw). A dispatch on the shape, so the wrappers
+    their limits the unfused path computes the same function, with the same
+    hash dropout from the same seed. A dispatch on the shape, so the wrappers
     keep raising on what their kernels do not take."""
     return device_type != "cuda" or mhsa_takes(B, T, H, Dh, dtype, backward)
 
@@ -109,19 +112,36 @@ class MultiHeadSelfAttention(nn.Module):
         else:
             self.pos_emb = None
 
-    def fused(self, x: torch.Tensor) -> bool:
-        """The gate of the fused function, as in the JAX package (a model
-        axis must divide the heads); on the card also whether the kernels
-        take the shape of this rank's heads (:func:`_use_kernel`)."""
+    def in_gate(self, x: torch.Tensor) -> bool:
+        """The gate of the fused function in the JAX package: not causal, a
+        relative-position table, T <= bptt, batched input, and a model axis
+        that divides the heads."""
         if self.causal or self.pos_emb is None or x.shape[-2] > self.bptt or x.dim() < 3:
             return False
-        mp = _model_axis()
-        if self.n_heads % mp:
+        return self.n_heads % _model_axis() == 0
+
+    def fused(self, x: torch.Tensor) -> bool:
+        """Inside the gate, whether the kernels take the shape of this rank's
+        heads (:func:`_use_kernel`; on the CPU always)."""
+        if not self.in_gate(x):
             return False
         backward = torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in self.parameters()))
-        return _use_kernel(math.prod(x.shape[:-2]), x.shape[-2], self.n_heads // mp,
+        return _use_kernel(math.prod(x.shape[:-2]), x.shape[-2], self.n_heads // _model_axis(),
                            self.head_dim, x.dtype, x.device.type, backward)
+
+    def _keep(self, seed: int, nb: int, T: int, rate: float,
+              device: torch.device) -> torch.Tensor:
+        """The fused function's keep mask (nb, H, T, T) for all heads: each
+        model block of heads from its own seed, as each rank's kernel draws
+        it under tensor parallelism."""
+        mp = _model_axis()
+        hb = self.n_heads // mp
+        keep = torch.empty((nb, self.n_heads, T, T), dtype=torch.bool, device=device)
+        for m in range(mp):
+            dropout_keep(_dropout_seed(seed, m), nb, hb, T, rate, device,
+                         out=keep[:, m * hb:(m + 1) * hb])
+        return keep
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (..., T, C); pad_mask (..., T) bool, True = valid."""
@@ -130,16 +150,15 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = self.wq(x), self.wk(x), self.wv(x)
         rate = self.dropout if self.training else 0.0
 
+        gate = self.in_gate(x)
+        # the fused function's seed comes from the host's generator: no
+        # device round trip
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,))) if gate and rate > 0.0 else 0
         if self.fused(x):
             mesh = current_mesh()
             tp = mesh if mesh is not None and mesh.spec.n_model > 1 else None
-            # the seed comes from the host's generator: no device round trip
-            seed = 0
             if rate > 0.0:
-                seed = int(torch.randint(0, 2 ** 31 - 1, (1,)))
-                if mesh is not None:
-                    seed = (seed + mesh.data_index * 7919
-                            + (mesh.model_index * 104729 if tp else 0)) % (2 ** 31 - 1)
+                seed = _dropout_seed(seed, tp.model_index if tp else 0)
             win = self.pos_emb[self.bptt - T + 1: self.bptt + T]
             if pad_mask is not None:
                 mask_bias = ((~pad_mask).float() * NEG).expand(x.shape[:-1])
@@ -173,7 +192,15 @@ class MultiHeadSelfAttention(nn.Module):
         if pad_mask is not None:
             scores = scores.masked_fill(~pad_mask[..., None, None, :], NEG)
         attn = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        attn = F.dropout(attn, self.dropout, self.training)
+        if gate and rate > 0.0:
+            # inside the gate past the kernels' limits: the fused function's
+            # hash dropout, so one function whatever the shape; it holds a
+            # bool mask, as F.dropout does, and scales in place
+            keep = self._keep(seed, math.prod(x.shape[:-2]), T, rate, x.device)
+            attn = torch.where(keep.view(attn.shape), attn, torch.zeros(
+                (), dtype=attn.dtype, device=attn.device)).mul_(1.0 / (1.0 - rate))
+        else:  # outside the gate JAX's XLA path draws its own dropout too
+            attn = F.dropout(attn, self.dropout, self.training)
         out = (attn @ v).transpose(-2, -3).reshape(x.shape[:-1] + (H * Dh,))
         return self.wf(out)
 
@@ -181,6 +208,18 @@ class MultiHeadSelfAttention(nn.Module):
 def _model_axis() -> int:
     mesh = current_mesh()
     return 1 if mesh is None else mesh.spec.n_model
+
+
+def _dropout_seed(seed: int, model_index: int) -> int:
+    """The fused function's dropout seed for the heads of ``model_index``:
+    the call's draw offset by the mesh's data and model indices, as JAX's
+    ``fused_mhsa_shardable`` does."""
+    mesh = current_mesh()
+    if mesh is None:
+        return seed
+    tp = mesh.spec.n_model > 1
+    return (seed + mesh.data_index * 7919
+            + (model_index * 104729 if tp else 0)) % (2 ** 31 - 1)
 
 
 def _layerdrop_scale(x: torch.Tensor, rate: float, training: bool):

@@ -1,2 +1,3 @@
 """Host-side tools of the port: n-gram LM training and binary conversion
-(``ngram_lm``) and beam dumps (``rescore``)."""
+(``ngram_lm``), beam dumps (``rescore``), the synthetic corpus
+(``synth_corpus``) and the convergence soak (``soak``)."""
