@@ -139,6 +139,29 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the results' keys held to the JAX soak's (``SOAK_RESULTS.json``), the
    streamed emissions to the batch network on the same features (1e-4), and
    the chain's K1, K2 and K3 launches counted.
+14. ASG at full width: ``recipes/conv_glu`` (its arch and ``train.cfg``: 40
+   banks, ``--replabel=2``, ``--transdiag=4``, ``--surround=|``, sgd with
+   ``--lrcrit``) on the 16 shortest utterances of phase 13's corpus: the first
+   batch's ASG loss and the gradients of every leaf and of ``transitions`` on
+   the card against the same model and batch on the CPU (fp32 gated:
+   ``CARD_CPU_TOL``; bf16 reported), ``ASG_UPDATES`` updates in fp32 and in
+   bf16 through ``cli.train`` (per update wall, device busy, idle share,
+   launches and peak memory; in fp32 also the criterion's forward,
+   backward and Viterbi alone: wall, device ms, launches, T), ``continue`` for 2 more
+   (the transitions moved from ``transdiag·I`` and stored in equal bits);
+   on the trained model's emissions the card's ``asg_loss`` and its
+   gradients, ``asg_viterbi`` and ``asg_forced_align`` against the CPU's
+   (``ASG_FN_TOL``); then ``cli.test``, ``cli.decode`` (native lexicon beam
+   with the trained transitions and phase 13's 3-gram LM) and ``cli.align``
+   on 8 test utterances, every utterance's aligned words (replabels
+   unpacked) equal to its transcript; each run launches K1 and no other
+   kernel (the recipe's convs are weight-normed: ``F.conv2d``);
+15. the ResNet recipe at full width: ``recipes/resnet_ctc`` (80 banks, its
+   ``RES``/``SKIP`` blocks) with CTC and ``--batching_strategy=dynamic`` on
+   phase 13's corpus (letters, not the recipe's word pieces): the first batch
+   card against CPU as in 14, ``RES_UPDATES`` updates in fp32 and bf16
+   through ``cli.train``, then ``cli.test`` and ``cli.align`` (CTC forced
+   alignment) under the same word-order gate; K1 alone on the card.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3001,11 +3024,552 @@ def soak_path(tmp, smi_line):
             launches[k] for k in ("time_conv_wgrad", "residual_ln_bwd", "mhsa", "mhsa_bwd")):
         fail(f"soak: the chain's launches {launches} (forwards only: K1, K2, K3)")
     out = dict(results=r, launches=launches, update_launches=update_launches, wall_s=wall,
-               budget_s=SOAK_WALL_S)
+               budget_s=SOAK_WALL_S, corpus=dict(s.paths, lm=os.path.join(s.root, "lm3.arpa")))
     for step, sec in r["timing"].items():
         log(f"[soak step] {step}: {sec:.2f} s")
     log(f"[soak] {json.dumps(dict(train=dict((k, v) for k, v in tr.items() if k != 'trajectory'), product=prod, launches=launches))}")
     log(f"[soak] phase 13 in {wall:.1f} s (budget {SOAK_WALL_S} s) | {smi_line}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: ASG (conv_glu) and the residual recipe (resnet_ctc)
+# ---------------------------------------------------------------------------
+GLU_ARCH = os.path.join(REPO, "recipes", "conv_glu", "network.arch")
+RES_ARCH = os.path.join(REPO, "recipes", "resnet_ctc", "network.arch")
+# phase 13's corpus, cut to its shortest utterances: conv_glu's frames are
+# the input's plus 222, and every frame is a step of ASG's loops
+ASG_TRAIN_UTTS, ASG_TEST_UTTS = 16, 8
+ASG_UPDATES = {"float32": 3, "bfloat16": 3}
+RES_TRAIN_UTTS, RES_MAX_DURATION_S = 24, 60.0
+RES_UPDATES = {"float32": 3, "bfloat16": 3}
+# first batch, card against CPU, fp32: loss relative, each leaf's L2 error
+# relative (``_leaf_errors``); and the relative nudge of the CPU's features
+# that measures a gradient's fp32 conditioning (``card_vs_cpu_first_batch``)
+CARD_CPU_TOL = (1e-4, 2e-3)
+CONDITIONING = 1e-7
+ASG_FN_TOL = 1e-4  # ASG loss, its gradients, path scores: card against CPU
+
+
+def shortest(src, dst, n):
+    """The ``n`` shortest utterances of list ``src`` written to ``dst``;
+    returns (dst, their audio seconds)."""
+    with open(src) as f:
+        rows = sorted((float(line.split()[2]), line) for line in f if line.strip())[:n]
+    with open(dst, "w") as f:
+        f.writelines(line for _, line in rows)
+    return dst, sum(d for d, _ in rows) / 1000.0
+
+
+def card_launches(what):
+    """Fails unless the last run launched K1 and no other kernel: the ASG
+    and ResNet recipes' convs are weight-normed or wider than K2 takes
+    (``F.conv2d``), their LayerNorms plain and they hold no attention."""
+    from wav2letter_tpu_torch import kernels
+
+    launches = dict(kernels.LAUNCHES)
+    if not launches["mfsc"] or any(v for k, v in launches.items() if k != "mfsc"):
+        fail(f"{what}: launches {launches}, expected K1 alone")
+    return launches
+
+
+def _scalar_masses(model):
+    """Hooks that record, for each scalar parameter (a LayerNorm's affine, a
+    one-weight PReLU), the L1 mass of the terms its gradient sums: over every
+    element of the activation, so that sum cancels far below its terms."""
+    from wav2letter_tpu_torch.models.layers import LayerNorm, PReLU
+
+    masses, handles = {}, []
+    for name, mod in model.named_modules():
+        if isinstance(mod, LayerNorm):
+            def bwd(m, gin, gout, name=name):
+                g = gout[0].detach().float()
+                y = (m.saved.float() - m.bias.detach()) / m.weight.detach()
+                masses[name + ".bias"] = g.abs().sum().item()
+                masses[name + ".weight"] = (g * y).abs().sum().item()
+        elif isinstance(mod, PReLU) and mod.weight.numel() == 1:
+            def bwd(m, gin, gout, name=name):
+                x = m.saved.float()
+                masses[name + ".weight"] = (gout[0].detach().float() * x * (x < 0)).abs() \
+                    .sum().item()
+        else:
+            continue
+
+        def keep(m, inp, out):
+            m.saved = (out if isinstance(m, LayerNorm) else inp[0]).detach()
+
+        handles += [mod.register_forward_hook(keep), mod.register_full_backward_hook(bwd)]
+    return masses, handles
+
+
+def _loss_and_grads(tr, b, masses=None):
+    """Loss and the gradient of every leaf (model and criterion) of one batch,
+    the modules in eval mode (dropout off), autograd on; and the emission T.
+    With ``masses`` (a dict), the scalar leaves' masses go into it."""
+    named = list(tr.model.named_parameters()) + [
+        ("criterion." + n, p) for n, p in tr.criterion.named_parameters()]
+    tr.model.eval()
+    tr.criterion.eval()
+    for _, p in named:
+        p.grad = None
+    handles = []
+    if masses is not None:
+        found, handles = _scalar_masses(tr.model)
+    loss, em, _ = tr._loss(b, train=False)
+    loss.backward()
+    for h in handles:
+        h.remove()
+    if masses is not None:
+        masses.update(found)
+    return loss.item(), {n: p.grad.detach().float().cpu() for n, p in named}, em.shape[1]
+
+
+def _leaf_errors(got, ref, masses):
+    """Each leaf's L2 error relative to its norm, but not to less than 1% of
+    the whole gradient's (a leaf whose true gradient is ~0 holds rounding) nor,
+    for a scalar leaf, to less than the mass of the terms it sums."""
+    import torch
+
+    total = torch.sqrt(sum(g.pow(2).sum() for g in ref.values())).item()
+    return {k: (got[k] - g).norm().item() / max(g.norm().item(), 0.01 * total,
+                                                masses.get(k, 0.0))
+            for k, g in ref.items()}
+
+
+def card_vs_cpu_first_batch(name, flags):
+    """The first training batch's loss and gradients (every leaf, the ASG
+    transitions included) on the card (K1, ``F.conv2d``, cuBLAS) in fp32 and
+    bf16 against the same model and batch on the CPU in fp32 (the plain
+    versions). fp32 is gated, bf16 reported: the loss within
+    ``CARD_CPU_TOL[0]``, each leaf within ``CARD_CPU_TOL[1]`` (``_leaf_errors``)
+    or, where a leaf is over that, within twice what the CPU's own gradient
+    of that leaf moves when the features change by 1e-7 relative
+    (``CONDITIONING``, measured on every fp32 run and reported): an fp32
+    gradient cannot be held closer than its conditioning, whatever computes
+    it."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.features import FeatureParams, Featurizer
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    res, ref, masses = {}, None, {}
+    for dt in ("float32", "bfloat16"):
+        cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in flags.items()])
+        cfg.update(dict(rundir="", runname="", compute_dtype=dt))
+        tr = Trainer(cfg, device="cuda")
+        first = tr.train_ds.batch_specs(shuffle_seed=cfg.seed + 1)[0]
+        host = pad_batch_rows(tr.train_ds.materialize(first), 1)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = _loss_and_grads(tr, tr._to_device(host))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        card_launches(f"{name} {dt} first batch")
+        cpu_batch = {k: v.cpu() for k, v in tr._to_device(host).items()}
+        if ref is None:  # same weights and batch on the CPU, fp32
+            tr.model.cpu()
+            tr.criterion.cpu()
+            tr.featurizer = Featurizer(FeatureParams.from_config(cfg))
+            tr.compute_dtype = torch.float32
+            t0 = time.perf_counter()
+            ref = _loss_and_grads(tr, cpu_batch, masses)
+            res["cpu_s"] = time.perf_counter() - t0
+        (kl, kg, T), (pl, pg, _) = got, ref
+        errs = _leaf_errors(kg, pg, masses)
+        worst = sorted(errs, key=errs.get, reverse=True)
+        cmp = dict(loss_card=kl, loss_cpu=pl, loss_rel_err=abs(kl - pl) / abs(pl),
+                   batch=list(host["audio"].shape), T=T, n_leaves=len(pg),
+                   worst_leaves=[dict(name=k, rel_l2=errs[k]) for k in worst[:3]],
+                   criterion_rel_l2={k: errs[k] for k in pg if k.startswith("criterion.")},
+                   gated=dt == "float32", card_s=card_s)
+        over = [k for k in worst if errs[k] > CARD_CPU_TOL[1]]
+        if dt == "float32":  # the gradient's fp32 conditioning, on the CPU
+            feats = tr.featurizer
+            gen = torch.Generator().manual_seed(0)
+
+            def nudged(audio, audio_len):
+                f, flen = feats(audio, audio_len)
+                return f * (1 + CONDITIONING * torch.randn(f.shape, generator=gen)), flen
+
+            tr.featurizer = nudged
+            sens = _leaf_errors(_loss_and_grads(tr, cpu_batch)[1], pg, masses)
+            tr.featurizer = feats
+            most = max(sens, key=sens.get)
+            cmp["conditioning"] = dict(
+                worst_nudged=dict(name=most, rel_l2=sens[most]), over_tol=len(over),
+                over={k: dict(card=errs[k], cpu_nudged=sens[k]) for k in over[:5]})
+            over = [k for k in over if errs[k] > 2 * sens[k]]
+            cmp["conditioning"]["over_twice_conditioning"] = over
+        cmp["ok"] = bool(math.isfinite(kl) and cmp["loss_rel_err"] <= CARD_CPU_TOL[0]
+                         and not over)
+        res[dt] = cmp
+        log(f"[{name} first batch {dt}] {json.dumps(cmp)}")
+        del tr
+        torch.cuda.empty_cache()
+    if not res["float32"]["ok"]:
+        fail(f"{name}: the first batch's fp32 loss or gradients on the card differ from the "
+             f"CPU: {json.dumps(res['float32'])}")
+    return res
+
+
+class _StepRecorder:
+    """Patches ``Trainer.train_step`` for the trainers ``cli.train`` builds:
+    each update's wall end, loss, finiteness, launches and frames."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __enter__(self):
+        import torch
+
+        from wav2letter_tpu_torch import kernels
+        from wav2letter_tpu_torch.runtime.train import Trainer
+
+        self.orig = orig = Trainer.train_step
+        steps = self.steps
+
+        def step(tr, batch, *a):
+            before = dict(kernels.LAUNCHES)
+            out = orig(tr, batch, *a)
+            torch.cuda.synchronize()
+            steps.append(dict(end=time.perf_counter(), loss=out[0], finite=out[1],
+                              frames=int(batch["audio"].shape[1]),
+                              launches={k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
+            return out
+
+        Trainer.train_step = step
+        return self
+
+    def __exit__(self, *exc):
+        from wav2letter_tpu_torch.runtime.train import Trainer
+
+        Trainer.train_step = self.orig
+
+
+def update_numbers(tr, batch):
+    """One more update of a trained ``Trainer`` at learning rate 0: its wall
+    time (drained), then one under the profiler: device busy time, idle share,
+    launches on the card; peak memory of the two."""
+    import torch
+
+    args = (batch, 0.0, 0.0, False, 12345)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train_step(*args)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_device(lambda: tr.train_step(*args))
+    events = list(device_events(prof))
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    return dict(batch=list(batch["audio"].shape), wall_ms=wall_ms, device_busy_ms=busy,
+                idle_share=1 - busy / wall_ms, device_launches=sum(e.count for e in events),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def criterion_share(tr, batch):
+    """The criterion's part of an update on ``batch``: its forward and its
+    backward alone on the update's emissions, and the train-time Viterbi:
+    host wall ms (drained), device ms and launches on the card each, and T."""
+    import torch
+
+    b = tr._to_device(batch)
+    with torch.no_grad():
+        feats, flen = tr.featurizer(b["audio"], b["audio_len"])
+        em, elen = tr.model(feats.to(tr.compute_dtype), flen)
+    em = em.float().detach().requires_grad_(True)
+    out, loss = {}, []
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        prof = profile_device(fn)
+        events = list(device_events(prof))
+        out[name] = dict(wall_ms=wall, device_ms=sum(e.self_device_time_total
+                                                     for e in events) / 1e3,
+                         launches=sum(e.count for e in events))
+
+    def fwd():
+        loss[:] = [(tr.criterion(em, b["target"], elen, b["target_len"])
+                    * b["row_mask"]).sum()]
+
+    part("forward", fwd)
+    part("backward", lambda: loss[0].backward(retain_graph=True))
+    with torch.no_grad():
+        part("viterbi", lambda: tr.criterion.viterbi_path(em, elen))
+    out["T"] = int(em.shape[1])
+    out["B"] = int(em.shape[0])
+    return out
+
+
+def trained_runs(name, flags, updates, smi_line, share=False):
+    """``cli.train`` at each type for ``updates[type]`` updates (K1 alone on
+    the card, every loss finite), a checkpoint each; numbers of one more
+    update and, with ``share``, of the criterion's part of it in the first
+    type (the criterion runs in fp32 whatever the type)."""
+    import torch
+
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch import kernels
+
+    results = {}
+    for dt, n in updates.items():
+        argv = ["train"] + [f"--{k}={v}" for k, v in flags.items()] + [
+            f"--compute_dtype={dt}", f"--runname={name}_{dt}", f"--iter={n}",
+            f"--reportiters={n}"]
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _StepRecorder() as rec:
+            tr = train_main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = card_launches(f"{name} {dt} training")
+        steps = rec.steps
+        if len(steps) != n or not all(s["finite"] and math.isfinite(s["loss"]) for s in steps):
+            fail(f"{name} {dt}: {len(steps)} updates, {[(s['loss'], s['finite']) for s in steps]}")
+        if any(s["launches"]["mfsc"] != 1 for s in steps):
+            fail(f"{name} {dt}: an update launched K1 other than once: {steps}")
+        span = steps[-1]["end"] - steps[0]["end"]
+        largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+        batch = pad_batch_rows(tr.train_ds.materialize(largest), 1)
+        res = dict(updates=n, losses=[s["loss"] for s in steps],
+                   frames=[s["frames"] for s in steps], wall_s=wall,
+                   s_per_update=span / max(1, n - 1), launches=launches,
+                   peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30,
+                   update=update_numbers(tr, batch), nvidia_smi=smi_line)
+        if share and not results:
+            res["criterion"] = criterion_share(tr, batch)
+        results[dt] = res
+        log(f"[{name} train {dt}] {json.dumps(res)}")
+        del tr
+        torch.cuda.empty_cache()
+    return results
+
+
+def align_words_in_order(align_path, lst, what):
+    """Every utterance of ``lst`` has a line in the align file, and the words
+    of its segments (``$`` left out; an ASG replabel ``<r>`` repeats the letter
+    before it r more times) are the transcript's, in order."""
+    with open(lst) as f:
+        want = {line.split()[1]: line.split()[3:] for line in f if line.strip()}
+    got = {}
+    with open(align_path) as f:
+        for line in f:
+            audio, entries = line.rstrip("\n").split("\t", 1)
+            words = [e.split(" ", 4)[4] for e in entries.split("\\n")]
+            got[audio] = [re.sub(r"(.)<(\d+)>", lambda m: m.group(1) * (1 + int(m.group(2))), w)
+                          for w in words if w != "$"]
+    if got != want:
+        bad = [a for a in want if got.get(a) != want[a]][:2]
+        fail(f"{what}: align file words differ from the transcripts: "
+             f"{[(a, got.get(a), want[a]) for a in bad]}")
+
+
+def asg_functions_card_vs_cpu(am, lst):
+    """On the trained model's emissions of the first batch of ``lst``: the
+    card's ``asg_loss`` and its two gradients, ``asg_viterbi`` and
+    ``asg_forced_align`` against the same functions on the CPU. A path may
+    differ only where its max-product score is within ``ASG_FN_TOL``."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset
+    from wav2letter_tpu_torch.ops.align import asg_forced_align
+    from wav2letter_tpu_torch.ops.asg import asg_loss, asg_viterbi
+    from wav2letter_tpu_torch.runtime.test import Evaluator
+
+    ev = Evaluator(Config(am=am, test=lst, batchsize=ASG_TEST_UTTS), device="cuda")
+    ds = AsrDataset(lst, ev.token_dict, ev.lexicon, ev.cfg, batch_size=ASG_TEST_UTTS)
+    batch = ds.materialize(ds.batch_specs()[0])
+    em, elen = ev.emissions(batch)
+    tgt = torch.from_numpy(np.asarray(batch["target"])).cuda()
+    tl = torch.from_numpy(np.asarray(batch["target_len"])).cuda()
+    sides = {}
+    for dev in ("cuda", "cpu"):
+        e = em.detach().to(dev).requires_grad_(True)
+        tr_ = ev.transitions.detach().to(dev).requires_grad_(True)
+        args = [a.to(dev) for a in (tgt, elen, tl)]
+        loss = asg_loss(e, tr_, *args)
+        loss.sum().backward()
+        path = asg_viterbi(e.detach(), tr_.detach(), args[1])
+        fpath, fscore = asg_forced_align(e.detach(), tr_.detach(), *args)
+        sides[dev] = [t.detach().cpu() for t in (loss, e.grad, tr_.grad, path, fpath, fscore)]
+    (lg, eg, tg, pg, fg, sg), (lc, ec, tc, pc, fc, sc) = sides["cuda"], sides["cpu"]
+    emc, trc, elc = em.detach().cpu(), ev.transitions.cpu(), elen.cpu()
+
+    def score(path):
+        p = path.long()
+        e = emc.gather(2, p[..., None])[..., 0]
+        t = torch.arange(emc.shape[1])[None, :] < elc[:, None]
+        return (e * t).sum(1) + (trc[p[:, 1:], p[:, :-1]] * t[:, 1:]).sum(1)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+    vdiff = (pg != pc).any(dim=1)
+    fdiff = (fg != fc).any(dim=1)
+    out = dict(B=int(em.shape[0]), T=int(em.shape[1]),
+               loss_rel_err=((lg - lc).abs() / lc.abs()).max().item(),
+               em_grad_rel_l2=rel(eg, ec), trans_grad_rel_l2=rel(tg, tc),
+               viterbi_rows_differ=int(vdiff.sum()), forced_rows_differ=int(fdiff.sum()),
+               viterbi_score_rel_err=(((score(pg) - score(pc)).abs() / score(pc).abs())[vdiff]
+                                      .max().item() if vdiff.any() else 0.0),
+               forced_score_rel_err=((sg - sc).abs() / sc.abs()).max().item())
+    out["ok"] = all(out[k] <= ASG_FN_TOL for k in (
+        "loss_rel_err", "em_grad_rel_l2", "trans_grad_rel_l2", "viterbi_score_rel_err",
+        "forced_score_rel_err"))
+    log(f"[asg functions card vs cpu] {json.dumps(out)}")
+    if not out["ok"]:
+        fail(f"ASG functions on the card differ from the CPU: {out}")
+    return out
+
+
+def serve_align(name, am, lst, secs, tmp, extra=(), decode_flags=None):
+    """``cli.test``, ``cli.decode`` (when ``decode_flags``) and ``cli.align``
+    on checkpoint ``am`` over ``lst``: each launches K1 alone; rates in audio
+    s per wall s, align utterances per s; the align file's words in order."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.align import main as align_main
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+    from wav2letter_tpu_torch.cli.test import main as test_main
+
+    out = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = test_main([f"--am={am}", f"--test={lst}", "--batchsize=4", *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not math.isfinite(res["loss"]):
+        fail(f"{name} cli.test: {res}")
+    out["test"] = dict(res, wall_s=wall, audio_s_per_s=secs / wall,
+                       launches=card_launches(f"{name} cli.test"))
+    if decode_flags is not None:
+        kernels.reset_launches()
+        dres = decode_main([f"--am={am}", f"--test={lst}", "--batchsize=4",
+                            f"--sclite={os.path.join(tmp, name + '_decode')}",
+                            *[f"--{k}={v}" for k, v in decode_flags.items()]])
+        torch.cuda.synchronize()
+        if not (math.isfinite(dres["WER"]) and dres["decoder"] == "NativeBeamDecoder"):
+            fail(f"{name} cli.decode: {dres}")
+        out["decode"] = dict(dres, audio_s_per_s=secs / (dres["wall_s"] - dres["setup_s"]),
+                             launches=card_launches(f"{name} cli.decode"))
+    align_path = os.path.join(tmp, f"{name}.align")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    n = align_main([align_path, f"--am={am}", f"--test={lst}", "--batchsize=4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    align_words_in_order(align_path, lst, f"{name} cli.align")
+    out["align"] = dict(utterances=n, wall_s=wall, utts_per_s=n / wall,
+                        launches=card_launches(f"{name} cli.align"))
+    log(f"[{name} serve] {json.dumps(out)}")
+    return out
+
+
+def asg_path(tmp, corpus, smi_line):
+    """Phase 14: ``recipes/conv_glu`` at full width with ASG, through the
+    port's binaries, on phase 13's corpus (its shortest utterances) and LM."""
+    import torch
+
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "asg")
+    os.makedirs(root, exist_ok=True)
+    train_lst, _ = shortest(corpus["train"], os.path.join(root, "train.lst"), ASG_TRAIN_UTTS)
+    test_lst, test_secs = shortest(corpus["test"], os.path.join(root, "test.lst"),
+                                   ASG_TEST_UTTS)
+    flags = dict(flagsfile=os.path.join(REPO, "recipes", "conv_glu", "train.cfg"),
+                 arch=GLU_ARCH, train=train_lst, tokens=corpus["tokens"],
+                 lexicon=corpus["lexicon"], rundir=os.path.join(root, "runs"), nthread=2,
+                 seed=0)
+    n_classes = 21 + 2  # "|" + 20 letters, then the replabels <1>, <2>
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in build_arch_module(GLU_ARCH, 40, n_classes).parameters())
+    log(f"[conv_glu] {n_params} parameters (+ {n_classes}^2 transitions) | {smi_line}")
+    laps = {}
+    first = card_vs_cpu_first_batch("conv_glu", flags)
+    laps["first_batch"] = time.perf_counter() - t_phase
+    runs = trained_runs("conv_glu", flags, ASG_UPDATES, smi_line, share=True)
+    laps["train"] = time.perf_counter() - t_phase
+    # continue the bf16 run by 2 updates through the binary
+    rundir, run = flags["rundir"], "conv_glu_bfloat16"
+    n0 = ASG_UPDATES["bfloat16"]
+    tr = train_main(["continue", f"--rundir={rundir}", f"--runname={run}",
+                     f"--iter={n0 + 2}", f"--reportiters={n0 + 2}"])
+    last = os.path.join(rundir, run, "model_last.bin")
+    ckpt = load_checkpoint(last)
+    trans = tr.criterion.transitions.detach().cpu()
+    eye = 4.0 * torch.eye(n_classes)
+    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) \
+            or not torch.equal(ckpt.crit_state_dict["transitions"], trans) \
+            or torch.equal(trans, eye):
+        fail(f"conv_glu continue: updates {tr.updates}/{ckpt.updates}, skipped {tr.skipped}, "
+             f"transitions moved {(trans - eye).abs().max().item()} from transdiag*I, "
+             "stored equal: " + str(torch.equal(ckpt.crit_state_dict["transitions"], trans)))
+    del tr
+    torch.cuda.empty_cache()
+    laps["continue"] = time.perf_counter() - t_phase
+    fns = asg_functions_card_vs_cpu(last, test_lst)
+    laps["functions"] = time.perf_counter() - t_phase
+    decode = dict(lm=corpus["lm"], lmweight=1.0, wordscore=1.0, silscore=-0.5,
+                  beamsize=100, beamthreshold=25, smearing="max", nthread_decoder=4,
+                  uselexicon=True, decodertype="wrd")
+    served = serve_align("conv_glu", last, test_lst, test_secs, root, decode_flags=decode)
+    out = dict(n_params=n_params, first_batch=first, training=runs, functions=fns,
+               transitions_moved=(trans - eye).abs().max().item(), served=served,
+               phase_s=time.perf_counter() - t_phase, laps_s=laps, nvidia_smi=smi_line)
+    log(f"[conv_glu] phase 14 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | {smi_line}")
+    return out
+
+
+def resnet_path(tmp, corpus, smi_line):
+    """Phase 15: ``recipes/resnet_ctc`` at full width with CTC and dynamic
+    batching, on phase 13's corpus (letters, not the recipe's word pieces)."""
+    import torch
+
+    from wav2letter_tpu_torch.models import build_arch_module
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "resnet")
+    os.makedirs(root, exist_ok=True)
+    train_lst, _ = shortest(corpus["train"], os.path.join(root, "train.lst"), RES_TRAIN_UTTS)
+    test_lst, test_secs = shortest(corpus["test"], os.path.join(root, "test.lst"),
+                                   ASG_TEST_UTTS)
+    flags = dict(arch=RES_ARCH, train=train_lst, tokens=corpus["tokens"],
+                 lexicon=corpus["lexicon"], rundir=os.path.join(root, "runs"),
+                 criterion="ctc", mfsc=True, filterbanks=80, batchsize=16,
+                 batching_strategy="dynamic", batching_max_duration=RES_MAX_DURATION_S,
+                 lr=0.4, netoptim="sgd", momentum=0.6, maxgradnorm=1.0, onorm="target",
+                 sqnorm=True, saug_start_update=16000, nthread=2, seed=0)
+    n_classes = 21 + 1  # "|" + 20 letters, then the blank
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in build_arch_module(RES_ARCH, 80, n_classes).parameters())
+    log(f"[resnet_ctc] {n_params} parameters | {smi_line}")
+    laps = {}
+    first = card_vs_cpu_first_batch("resnet_ctc", flags)
+    laps["first_batch"] = time.perf_counter() - t_phase
+    runs = trained_runs("resnet_ctc", flags, RES_UPDATES, smi_line)
+    laps["train"] = time.perf_counter() - t_phase
+    last = os.path.join(flags["rundir"], "resnet_ctc_float32", "model_last.bin")
+    served = serve_align("resnet_ctc", last, test_lst, test_secs, root)
+    out = dict(n_params=n_params, first_batch=first, training=runs, served=served,
+               phase_s=time.perf_counter() - t_phase, laps_s=laps, nvidia_smi=smi_line)
+    log(f"[resnet_ctc] phase 15 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | "
+        f"{smi_line}")
     return out
 
 
@@ -3022,7 +3586,7 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     if not os.path.isdir(os.path.join(REPO, "wav2letter_tpu_torch")) \
-            or not all(os.path.exists(a) for a in (ARCH, TR_ARCH, CFR_ARCH)):
+            or not all(os.path.exists(a) for a in (ARCH, TR_ARCH, CFR_ARCH, GLU_ARCH, RES_ARCH)):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, REPO)
@@ -3168,6 +3732,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         soaked = soak_path(tmp, smi_line)
 
+        # 14. conv_glu with ASG: train, continue, test, decode, align
+        torch.cuda.empty_cache()
+        asg = asg_path(tmp, soaked["corpus"], smi_line)
+
+        # 15. resnet_ctc with CTC: train, test, align
+        torch.cuda.empty_cache()
+        resnet = resnet_path(tmp, soaked["corpus"], smi_line)
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -3240,7 +3812,7 @@ def main() -> None:
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
-                           soak=soaked,
+                           soak=soaked, conv_glu=asg, resnet_ctc=resnet,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

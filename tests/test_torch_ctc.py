@@ -96,5 +96,5 @@ def test_make_criterion_names_the_slice_of_what_is_left():
     assert isinstance(make_criterion(Config(criterion="ctc"), 5), CTCCriterion)
     with pytest.raises(NotImplementedError, match="seq2seq slice"):
         make_criterion(Config(criterion="transformer"), 5)
-    with pytest.raises(NotImplementedError, match="ASG slice"):
-        make_criterion(Config(criterion="asg"), 5)
+    with pytest.raises(NotImplementedError, match=r"seq2seq slice \(M11\)"):
+        make_criterion(Config(criterion="seq2seq"), 5)

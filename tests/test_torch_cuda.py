@@ -1237,3 +1237,128 @@ def test_ranks_across_cards(cuda, tmp_path):
     print(json.dumps({"cards": n, "device": torch.cuda.get_device_name(0), "runs": out}))
     for name, r in out.items():
         assert r["rel_to_one_process"] <= cs.DP_TOL["float32"][1], (name, r)
+
+
+# ---------------------------------------------------------------------------
+# ASG, forced alignment and the ASG and ResNet recipes (plain PyTorch on the
+# card: no kernel of their own; the recipes' features go through K1)
+# ---------------------------------------------------------------------------
+def _asg_inputs(device, B=4, T=300, N=31, U=60, seed=0):
+    rng = np.random.RandomState(seed)
+    em = torch.from_numpy((3.0 * rng.randn(B, T, N)).astype(np.float32))
+    trans = torch.from_numpy((0.5 * rng.randn(N, N) + 4.0 * np.eye(N)).astype(np.float32))
+    emis_len = torch.tensor([T, T - 37, T // 2, 11], dtype=torch.int32)
+    target_len = torch.tensor([U, U // 2, 17, 20], dtype=torch.int32)  # row 3 cannot fit
+    targets = torch.full((B, U), -1, dtype=torch.int32)
+    for i in range(B):
+        targets[i, : target_len[i]] = torch.from_numpy(rng.randint(0, N, int(target_len[i])))
+    return [a.to(device) for a in (em, trans, targets, emis_len, target_len)]
+
+
+def _path_score(em, trans, path, emis_len):
+    """(B,) the max-product score of each row's frame path on its frames."""
+    path = path.long()
+    e = em.gather(2, path[..., None])[..., 0]
+    tr = trans[path[:, 1:], path[:, :-1]]
+    t = torch.arange(em.shape[1], device=em.device)[None, :]
+    valid = t < emis_len[:, None].long()
+    return (e * valid).sum(1) + (tr * valid[:, 1:]).sum(1)
+
+
+def test_asg_loss_on_the_card_matches_the_cpu(cuda):
+    from wav2letter_tpu_torch.ops.asg import asg_loss
+
+    out = []
+    for dev in ("cpu", cuda):
+        em, trans, targets, emis_len, target_len = _asg_inputs(dev)
+        em.requires_grad_(True)
+        trans.requires_grad_(True)
+        loss = asg_loss(em, trans, targets, emis_len, target_len)
+        w = torch.arange(1, 5, device=em.device, dtype=torch.float32)
+        (loss.clamp(max=1e6) * w).sum().backward()
+        out.append([t.detach().cpu() for t in (loss, em.grad, trans.grad)])
+    (lc, gec, gtc), (lg, geg, gtg) = out
+    assert lc[3] == lg[3] == 1e30  # the row that cannot fit: JAX's finite loss
+    # T-step fp32 log-space recursions in another order: 1e-4 relative
+    torch.testing.assert_close(lg[:3], lc[:3], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(geg, gec, rtol=1e-4, atol=1e-4 * gec.abs().max().item())
+    torch.testing.assert_close(gtg, gtc, rtol=1e-4, atol=1e-4 * gtc.abs().max().item())
+
+
+def test_asg_viterbi_on_the_card_matches_the_cpu(cuda):
+    from wav2letter_tpu_torch.ops.asg import asg_viterbi
+
+    em, trans, _, emis_len, _ = _asg_inputs("cpu", seed=1)
+    want = asg_viterbi(em, trans, emis_len)
+    got = asg_viterbi(em.to(cuda), trans.to(cuda), emis_len.to(cuda)).cpu()
+    differ = (got != want).any(dim=1)
+    # paths equal, or as good a max-product score where one differs
+    torch.testing.assert_close(_path_score(em, trans, got, emis_len)[differ],
+                               _path_score(em, trans, want, emis_len)[differ],
+                               rtol=1e-4, atol=1e-4)
+    assert int(differ.sum()) <= 1
+
+
+@pytest.mark.parametrize("kind", ["ctc", "asg"])
+def test_forced_align_on_the_card_matches_the_cpu(cuda, kind):
+    from wav2letter_tpu_torch.ops.align import asg_forced_align, ctc_forced_align
+
+    em, trans, targets, emis_len, target_len = _asg_inputs("cpu", seed=2)
+    target_len[3] = 5  # every row fits
+    targets[3, 5:] = -1
+    targets = torch.where(targets == em.shape[-1] - 1, torch.zeros_like(targets), targets)
+
+    def run(dev):
+        args = [a.to(dev) for a in (em, trans, targets, emis_len, target_len)]
+        if kind == "ctc":
+            return ctc_forced_align(args[0], *args[2:])
+        return asg_forced_align(*args)
+
+    (pc, sc), (pg, sg) = run("cpu"), [t.cpu() for t in run(cuda)]
+    torch.testing.assert_close(sg, sc, rtol=1e-4, atol=1e-4)
+    assert int((pg != pc).any(dim=1).sum()) <= 1
+
+
+RECIPE_FEATS = {"timit": 40, "conv_glu": 40, "learnable_frontend": 40, "resnet_ctc": 80}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPE_FEATS))
+def test_recipe_forward_on_the_card_matches_the_cpu(cuda, name):
+    """Each of the four recipes at full width, seeded weights, eval mode:
+    fp32 emissions on the card against the same model on the CPU."""
+    import os
+
+    from wav2letter_tpu_torch.models import build_arch_module
+
+    n_feat = RECIPE_FEATS[name]
+    path = os.path.join(os.path.dirname(__file__), "..", "recipes", name, "network.arch")
+    torch.manual_seed(0)
+    model = build_arch_module(path, n_feat, 31).eval()
+    feats = _randn((2, 160, n_feat), 3, "cpu")
+    flen = torch.tensor([160, 121], dtype=torch.int32)
+    with torch.no_grad():
+        want, wlen = model(feats, flen)
+        got, glen = model.to(cuda)(feats.to(cuda), flen.to(cuda))
+    assert torch.equal(glen.cpu(), wlen)
+    scale = want.abs().max().item()
+    # fp32 convs and GEMMs (no TF32) in another summation order
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * max(1.0, scale))
+
+
+def test_output_lengths_on_the_card_equal_the_cpu(cuda):
+    """``ceil(feat_len / T * T_out)`` on the card as on the CPU for every
+    feat_len <= T, at T = 4 T_out whose reciprocal is inexact: where
+    feat_len / 4 is whole, a divisor on the host would make the card multiply
+    by 1/T and land a frame higher."""
+    from wav2letter_tpu_torch.models import build_arch_from_lines
+
+    model = build_arch_from_lines(["V -1 1 4 0", "M 4 1 4 1", "RO 2 0 3 1", "L 4 6"],
+                                  6).eval()
+    for T in (640, 980, 1000, 1280):
+        flen = torch.arange(1, T + 1, dtype=torch.int32)
+        feats = torch.zeros(T, T, 4)
+        with torch.no_grad():
+            _, want = model(feats, flen)
+            _, got = model.to(cuda)(feats.to(cuda), flen.to(cuda))
+        model.cpu()
+        assert torch.equal(got.cpu(), want), T

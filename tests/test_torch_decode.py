@@ -6,7 +6,10 @@ with the same list, lexicon and a 2-gram LM trained by the port's
 the sclite files, the beam dump and WER/TER are identical; on each package's
 own forward the hypotheses may differ only on utterances with a frame whose
 top-2 margin lies within the emission tolerance. The decode binary runs
-without JAX and needs a card unless it is given ``--device=cpu``."""
+without JAX and needs a card unless it is given ``--device=cpu``. An ASG
+checkpoint (``tests/test_torch_asg.py``, random transitions, ``--replabel=2``)
+decodes from a shared ``--emission_dir`` to the same files in both packages,
+with the native and with the Python beam."""
 
 import glob
 import os
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_asg import asg_jax_checkpoint
 from tests.test_torch_slice import HEAD, _hyps, jax_checkpoint  # noqa: F401 (fixture)
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.runtime.decode import run_decode as jax_run_decode
@@ -219,3 +223,39 @@ def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
     jax_save(s2s, ckpt)
     with pytest.raises(NotImplementedError, match="M11"):
         run_decode(_cfg("torch", am=s2s, test=lst), device="cpu")
+
+
+@pytest.mark.parametrize("native", ["1", "0"])
+def test_asg_decode_from_shared_emissions_matches_jax(tmp_path, monkeypatch, native):
+    """The checkpoint's transitions reach the beam, ``sil`` is ``|``, no
+    blank, the trie holds replabel-packed spellings and the hypotheses are
+    unpacked: from the emissions the JAX forward left in ``--emission_dir``,
+    both packages write the same ``.hyp``, ``.ref`` and ``.log``."""
+    import wav2letter_tpu.runtime.decode as jax_decode
+    import wav2letter_tpu_torch.runtime.decode as port_decode
+
+    root = str(tmp_path)
+    lst, am, _ = asg_jax_checkpoint(root)
+    corpus = os.path.join(root, "corpus.txt")
+    with open(lst) as f, open(corpus, "w") as out:
+        out.writelines(" ".join(line.split()[3:]) + "\n" for line in f)
+    lm = os.path.join(root, "lm.arpa")
+    train_ngram_lm(corpus, lm, order=2)
+    shared = os.path.join(root, "em")
+    if native == "0":  # the Python beams, in both packages
+        for mod in (jax_decode, port_decode):
+            real = mod.build_decoder
+            monkeypatch.setattr(mod, "build_decoder",
+                                lambda *a, real=real, **k: real(*a, use_native=False, **k))
+    _run("jax", _cfg("jax", am=am, test=lst, emission_dir=shared))
+    out = {}
+    for side in ("jax", "torch"):
+        sclite = os.path.join(root, side)
+        out[side] = _run(side, _cfg(side, am=am, test=lst, lm=lm, sclite=sclite,
+                                    emission_dir=shared))
+    assert out["torch"]["decoder"].startswith("Native" if native == "1" else "Lexicon")
+    assert (out["torch"]["WER"], out["torch"]["TER"]) == (out["jax"]["WER"], out["jax"]["TER"])
+    base = os.path.basename(lst)
+    for ext in (".hyp", ".ref", ".log"):
+        want = _lines(os.path.join(root, "jax", base + ext))
+        assert _lines(os.path.join(root, "torch", base + ext)) == want and len(want) >= 3

@@ -17,7 +17,8 @@ import torch
 import __graft_entry__
 from wav2letter_tpu.models.arch import build_arch_from_lines as jax_build
 from wav2letter_tpu_torch.models import build_arch_from_lines, parse_arch_file
-from wav2letter_tpu_torch.runtime.checkpoint import convert_jax_params, params_to_jax_tree
+from wav2letter_tpu_torch.runtime.checkpoint import (convert_jax_params, jax_param_name,
+                                                     params_to_jax_tree)
 
 NFEAT, NLABEL = 16, 11
 
@@ -184,5 +185,238 @@ def test_recipe_arch_builds_at_full_width():
 def test_unported_mnemonic_names_its_slice():
     with pytest.raises(NotImplementedError, match="slice of the remaining layers"):
         build_arch_from_lines(["POSEMB 64 100 0.1"], NLABEL)
-    with pytest.raises(NotImplementedError, match="WN L"):
-        build_arch_from_lines(["WN 0 L 64 32"], NLABEL)
+    with pytest.raises(NotImplementedError, match="'BN'"):
+        build_arch_from_lines(["BN 0 64"], NLABEL)
+
+
+# Narrow copies of the ASG and residual recipes (channels / 8, the layers,
+# kernels, pads, strides, dropouts and skips of each recipe file); the ResNet
+# copy repeats its second block (``RES 9 1 2``) so that repeats are covered.
+RECIPES_NARROW = {
+    "timit": """
+V -1 1 NFEAT 0
+C NFEAT 32 8 1 4
+R
+DO 0.2
+C 32 32 8 1 4
+R
+DO 0.2
+C 32 32 8 1 4
+R
+RO 2 0 3 1
+L 32 64
+R
+L 64 NLABEL
+""",
+    "conv_glu": """
+V -1 1 NFEAT 0
+WN 3 C NFEAT 48 12 1 160
+GLU 2
+DO 0.2
+WN 3 C 24 52 13 1 0
+GLU 2
+DO 0.22
+WN 3 C 26 58 14 1 0
+GLU 2
+DO 0.24
+WN 3 C 29 64 15 1 0
+GLU 2
+DO 0.26
+WN 3 C 32 70 16 1 0
+GLU 2
+DO 0.28
+WN 3 C 35 78 17 1 0
+GLU 2
+DO 0.3
+WN 3 C 39 88 18 1 0
+GLU 2
+DO 0.32
+RO 2 0 3 1
+WN 0 L 44 88
+GLU 0
+DO 0.32
+WN 0 L 44 NLABEL
+""",
+    "learnable_frontend": """
+V -1 1 NFEAT 0
+C2 NFEAT 100 5 1 1 1 -1 0
+PR
+DO 0.7
+C2 100 100 5 1 1 1 -1 0
+PR
+DO 0.7
+C2 100 100 5 1 1 1 -1 0
+PR
+DO 0.7
+RO 2 0 3 1
+L 100 NLABEL
+""",
+    "resnet_ctc": """
+SAUG NFEAT 4 2 20 1.0 2
+V -1 1 NFEAT 0
+C NFEAT 64 3 2 -1 1
+R
+DO 0.15
+LN 0 1 2
+RES 9 1 1
+C 64 64 3 1 -1 1
+R
+DO 0.15
+LN 0 1 2
+C 64 64 3 1 -1 1
+R
+DO 0.15
+LN 0 1 2
+C 64 64 3 1 -1 1
+SKIP 0 10 0.70711
+R
+DO 0.15
+LN 0 1 2
+C 64 128 3 2 -1 1
+R
+DO 0.15
+LN 0 1 2
+RES 9 1 2
+C 128 128 5 1 -1 1
+R
+DO 0.2
+LN 0 1 2
+C 128 128 5 1 -1 1
+R
+DO 0.2
+LN 0 1 2
+C 128 128 5 1 -1 1
+SKIP 0 10 0.70711
+R
+DO 0.2
+LN 0 1 2
+C 128 NLABEL 1 1 -1 1
+RO 2 0 3 1
+""",
+}
+
+# The new layers alone: a residual block with an identity SKIP into a layer,
+# a SKIPL projection into the output, scales at both, repeated twice; WN 0 and
+# WN 1 linears; PReLU with one and with n parameters (dropout-free, so the
+# ReLU-like kinks see exact zeros from the pads only)
+LAYERS_ARCH = """
+V -1 1 NFEAT 0
+C NFEAT 12 3 1 -1 1
+RES 3 2 2
+C 12 12 3 1 -1 1
+PR 1 0.1
+C 12 12 3 1 -1 1
+SKIP 0 2 0.5
+SKIPL 1 4 2 0.7
+C 12 8 1 1 0 1
+C 8 12 1 1 0 1
+RO 2 0 3 1
+WN 0 L 12 10
+PR 10 0.2
+WN 1 L 10 NLABEL
+"""
+
+
+def _narrow(text):
+    return [l.replace("NFEAT", str(NFEAT)).replace("NLABEL", str(NLABEL))
+            for l in text.strip().splitlines()]
+
+
+def _jax_and_port(lines, seed, feats, flen):
+    jmodel = jax_build(lines, NLABEL)
+    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(seed)},
+                                     jnp.asarray(feats[:1]), jnp.asarray(flen[:1]))
+    model = build_arch_from_lines(lines, NLABEL)
+    model.load_state_dict(convert_jax_params(jax.device_get(variables["params"])),
+                          strict=True)
+    return jmodel, variables, model.eval()
+
+
+@pytest.mark.parametrize("name", sorted(RECIPES_NARROW))
+def test_recipe_narrow_emissions_match_jax(name):
+    lines = _narrow(RECIPES_NARROW[name])
+    rng = np.random.RandomState(5)
+    B, T = 3, 48
+    feats = rng.randn(B, T, NFEAT).astype(np.float32)
+    flen = np.asarray([48, 40, 29], np.int32)
+    jmodel, variables, model = _jax_and_port(lines, 6, feats, flen)
+    want, want_len = jax.jit(jmodel.apply)(variables, jnp.asarray(feats), jnp.asarray(flen))
+    with torch.no_grad():
+        got, got_len = model(torch.from_numpy(feats), torch.from_numpy(flen))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["layers", "resnet_ctc"])
+def test_new_layers_forward_and_gradients_match_jax(name):
+    """``ResidualBlock`` (SKIP, SKIPL, scales, repeats), ``WNLinear`` (WN 0,
+    WN 1) and ``PReLU`` (1 and n parameters): forward and every parameter's
+    gradient of sum(emissions * r), leaf by leaf under the JAX names."""
+    lines = _narrow(LAYERS_ARCH if name == "layers" else RECIPES_NARROW[name])
+    rng = np.random.RandomState(9)
+    B, T = 2, 40
+    feats = rng.randn(B, T, NFEAT).astype(np.float32)
+    flen = np.asarray([40, 31], np.int32)
+    jmodel, variables, model = _jax_and_port(lines, 8, feats, flen)
+    params = variables["params"]
+    em, _ = jax.jit(jmodel.apply)(variables, jnp.asarray(feats), jnp.asarray(flen))
+    r = rng.randn(*em.shape).astype(np.float32)
+
+    def loss(p):
+        out, _ = jmodel.apply({"params": p}, jnp.asarray(feats), jnp.asarray(flen))
+        return jnp.sum(out * jnp.asarray(r))
+
+    want = jax.device_get(jax.jit(jax.grad(loss))(params))
+    out, _ = model(torch.from_numpy(feats), torch.from_numpy(flen))
+    tol = 1e-5 if name == "layers" else 1e-4  # 20 more layers of sums in another order
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(em), rtol=tol, atol=tol)
+    (out * torch.from_numpy(r)).sum().backward()
+    got = dict(jax.tree_util.tree_leaves_with_path(
+        params_to_jax_tree({k: p.grad for k, p in model.named_parameters()})))
+    want_leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert len(want_leaves) == len(got) == len(list(model.parameters()))
+    for path, w in want_leaves:
+        g = got[path]
+        assert g.shape == w.shape, path
+        # relative to the leaf's largest entry, and absolute below 1: the
+        # PReLU and LayerNorm scalars are sums over every frame and channel
+        # whose O(1) terms cancel to ~1e-2
+        np.testing.assert_allclose(g, w, rtol=tol, atol=tol * max(1.0, np.abs(w).max()),
+                                   err_msg=str(path))
+
+
+def test_prelu_gradient_at_zero_takes_the_identity_side():
+    """At x == 0 the gradient to x is g (JAX's ``where(x >= 0, x, a x)``), not
+    ``F.prelu``'s a g, and nothing reaches ``a``."""
+    from wav2letter_tpu_torch.models.layers import PReLU
+
+    pr = PReLU(3, 0.25)
+    x = torch.tensor([[-2.0, 0.0, 3.0]], requires_grad=True)
+    pr(x).sum().backward()
+    np.testing.assert_array_equal(x.grad.numpy(), [[0.25, 1.0, 1.0]])
+    np.testing.assert_array_equal(pr.weight.grad.numpy(), [-2.0, 0.0, 0.0])
+
+
+RECIPE_DIMS = {"timit": (40, 62), "conv_glu": (40, 30), "learnable_frontend": (40, 62),
+               "resnet_ctc": (80, 9998)}
+
+
+@pytest.mark.parametrize("name", sorted(RECIPE_DIMS))
+def test_recipe_full_width_names_and_shapes_match_jax(name):
+    """Each recipe's own ``network.arch`` at full width: every parameter's
+    name and shape equal to ``jax.eval_shape`` of the JAX model's init (no
+    forward pass on either side; the port builds on the meta device)."""
+    n_feat, n_label = RECIPE_DIMS[name]
+    path = os.path.join(os.path.dirname(__file__), "..", "recipes", name, "network.arch")
+    lines = parse_arch_file(path, n_feat, n_label)
+    jmodel = jax_build(lines, n_label)
+    shapes = jax.eval_shape(
+        lambda: jmodel.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 64, n_feat)),
+                            jnp.asarray([64], jnp.int32)))["params"]
+    want = {"/".join(k.key for k in path): tuple(v.shape)
+            for path, v in jax.tree_util.tree_leaves_with_path(shapes)}
+    with torch.device("meta"):
+        model = build_arch_from_lines(lines, n_label)
+    got = {jax_param_name(k): tuple(p.shape) for k, p in model.named_parameters()}
+    assert got == want

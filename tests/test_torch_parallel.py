@@ -17,6 +17,8 @@ takes rows ``d::2`` of each global batch.
   the JAX dp8 ``Trainer`` from its initial weights; bit-identical replicas,
   validation counts summed to the one-process counts, rank 0's checkpoint
   loads alone, ``continue`` 2 + 2 equals 4 straight updates;
+* ASG (``tests/test_torch_asg.py``'s data, arch and flags): 2 ranks against
+  one process, the transitions equal in bits on both ranks;
 * random streams: with dropout and SpecAugment the replicas stay identical
   while the ranks' dropout masks and K4 seeds differ;
 * TP: a 1024x2048 linear, TDS blocks and a transformer (K4's plain version on
@@ -39,6 +41,7 @@ import pytest
 import torch
 
 from tests.test_parallel_equivalence import BIG_ARCH, SMALL_ARCH
+from tests.test_torch_asg import asg_dataset, asg_flags
 from tests.util_synth import make_dataset
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
@@ -122,7 +125,8 @@ def _one_process(flags, mode="train", init=""):
     losses, add = [], tr.meters.train.loss.add
     tr.meters.train.loss.add = lambda v, n=1: (losses.append(float(v)), add(v, n))
     tr.run()
-    return dict(losses=losses, params=tr.model.state_dict(), updates=tr.updates,
+    return dict(losses=losses, params=tr.model.state_dict(),
+                crit_params=tr.criterion.state_dict(), updates=tr.updates,
                 valid={t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
                        for t, m in tr.meters.valid.items()})
 
@@ -156,6 +160,8 @@ def world(tmp_path_factory):
                valid=f"dev:{data[0]}")
     dyn = _base(data, archs, "small", rd("dyn"), batchsize=4, iter=4,
                 batching_strategy="dynamic", batching_max_duration=1.2)
+    asg = asg_flags(*asg_dataset(rd("asg_data"), 16, 13), batchsize=4, iter=4,
+                    rundir=rd("asg"), runname="run")
     two = [
         dict(flags=dp, mode="fork", init=init, out=rd("out/dp")),
         # update 2's checkpoint, continued to 4 (compared with update 4's)
@@ -163,6 +169,7 @@ def world(tmp_path_factory):
              resume_from=os.path.join(rd("dp"), "run", "model_iter_001.bin"),
              out=rd("out/cont")),
         dict(flags=dyn, out=rd("out/dyn")),
+        dict(flags=asg, out=rd("out/asg")),
         dict(flags=_base(data, archs, "noisy", rd("noisy"), batchsize=4, iter=2,
                          saug_start_update=0, saug_tmaskt=8, saug_fmaskf=4),
              spy_dropout=True, out=rd("out/noisy")),
@@ -181,6 +188,7 @@ def world(tmp_path_factory):
             "dp": _one_process(dict(dp, batchsize=8, rundir=rd("one_dp")), "fork", init),
             "dyn": _one_process(dict(dyn, batchsize=8, batching_max_duration=2.4,
                                      rundir=rd("one_dyn"))),
+            "asg": _one_process(dict(asg, batchsize=8, rundir=rd("one_asg"))),
         }
         for arch, kw in {("big", "iter"): dict(iter=6), ("tds", "iter"): dict(
                 iter=4, filterbanks=80), ("tr4", "iter"): dict(iter=4),
@@ -243,6 +251,23 @@ def test_two_ranks_equal_one_process(world, case):
     assert r0["losses"] == r1["losses"]  # the global batch's loss on both
     np.testing.assert_allclose(r0["losses"], one["losses"], rtol=1e-4, atol=1e-5)
     _close(r0["params"], one["params"], rtol=1e-3, atol=1e-5)
+
+
+def test_two_ranks_with_asg_equal_one_process(world):
+    """The transitions' gradient joins the data axis's flat all-reduce and
+    the clip norm: the replicas, transitions included, stay equal in bits,
+    and they equal one process at twice the rows."""
+    r0, r1 = world["ranks"]("asg", 2)
+    one = world["one"]["asg"]
+    assert r0["updates"] == r1["updates"] == one["updates"] == 4
+    assert r0["losses"] == r1["losses"]
+    np.testing.assert_allclose(r0["losses"], one["losses"], rtol=1e-4, atol=1e-5)
+    for key in ("params", "crit_params"):
+        for k, v in r0[key].items():
+            assert torch.equal(v, r1[key][k]), k
+        _close(r0[key], one[key], rtol=1e-3, atol=1e-5)
+    assert set(r0["crit_params"]) == {"transitions"}
+    assert not torch.equal(r0["crit_params"]["transitions"], 4.0 * torch.eye(7))
 
 
 def test_two_ranks_equal_the_jax_dp8_trainer(world):

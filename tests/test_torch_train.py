@@ -7,9 +7,13 @@ loss and the parameters after 3 updates. Then the port alone: its checkpoint
 serves ``cli.test``; 4 updates equal 2 + ``continue`` 2 bit for bit with dropout
 and SpecAugment on; a bare ``continue`` keeps the stored flags; the
 non-finite guard; the AMP loss scale's retry; what the slice leaves out (and a
-model axis wider than the world)."""
+model axis wider than the world). With ASG (``tests/test_torch_asg.py``'s
+narrow timit arch, conv_glu's flags) the port's ``Trainer`` against the JAX
+one as for CTC, the transitions included, and its checkpoint through
+``continue`` and the test binary."""
 
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -19,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_asg import asg_dataset, asg_flags
 from tests.test_torch_slice import _dataset
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.runtime.train import Trainer as JaxTrainer
@@ -285,3 +290,73 @@ def test_what_the_slice_leaves_out_names_its_slice(data, tmp_path):
 
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["train"] + [f"--{k}={v}" for k, v in _flags(data, str(tmp_path)).items()])
+
+
+@pytest.fixture(scope="module")
+def asg_data(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("asg_train"))
+    return asg_dataset(os.path.join(root, "data"), 12, 7)
+
+
+def test_asg_trainer_matches_jax(asg_data, tmp_path, capsys):
+    """First loss 1e-4 relative; the parameters and ``transitions`` after 3
+    updates (sgd, ``--lrcrit``, clipping over both) within 5e-4; the train
+    meters read the ASG Viterbi path, collapsed with its replabels, against
+    the unpacked references."""
+    flags = asg_flags(*asg_data)
+    jcfg = JaxConfig()
+    jcfg.update(dict(flags, rundir=str(tmp_path / "jax"), runname="run",
+                     features_device="tpu"))
+    jtr = JaxTrainer(jcfg)
+    jtr.save()
+    init = str(tmp_path / "init.bin")
+    shutil.copy(str(tmp_path / "jax" / "run" / "model_last.bin"), init)
+    jlosses = _record_losses(jtr)
+    jtr.run()
+    want = jax.device_get(jtr.model_params)
+    want_trans = np.asarray(jax.device_get(jtr.crit_params["transitions"]))
+
+    cfg = Config()
+    cfg.update(dict(flags, rundir=str(tmp_path / "torch"), runname="run"))
+    tr = Trainer(cfg, mode="fork", init_model_path=init, device="cpu")
+    np.testing.assert_array_equal(tr.criterion.transitions.detach().numpy(), 4.0 * np.eye(7))
+    tlosses = _record_losses(tr)
+    tr.run()
+    assert tr.updates == jtr.updates == 3 and len(tlosses) == len(jlosses) == 3
+    assert tlosses[0] == pytest.approx(jlosses[0], rel=1e-4)
+    assert tlosses == pytest.approx(jlosses, rel=1e-3)
+    got = dict(jax.tree_util.tree_leaves_with_path(params_to_jax_tree(tr.model.state_dict())))
+    leaves = jax.tree_util.tree_leaves_with_path(want)
+    assert len(leaves) == len(got)
+    for path, w in leaves:
+        np.testing.assert_allclose(got[path], np.asarray(w), atol=5e-4, err_msg=str(path))
+    trans = tr.criterion.transitions.detach().numpy()
+    assert np.abs(trans - 4.0 * np.eye(7)).max() > 1e-3  # the transitions learnt
+    np.testing.assert_allclose(trans, want_trans, atol=5e-4)
+    # each run's report line: the same train TER and WER
+    meters = re.findall(r"train-TER: *([\d.]+) \| train-WER: *([\d.]+)",
+                        capsys.readouterr().out)
+    assert len(meters) == 2 and meters[0] == meters[1] and float(meters[0][0]) < 100.0
+
+
+def test_asg_checkpoint_continues_and_serves_cli_test(asg_data, tmp_path):
+    flags = asg_flags(*asg_data, iter=2, rundir=str(tmp_path), runname="run")
+    cfg = Config()
+    cfg.update(flags)
+    Trainer(cfg, device="cpu").run()
+    ckpt = load_checkpoint(str(tmp_path / "run" / "model_last.bin"))
+    assert set(ckpt.crit_state_dict) == {"transitions"}
+    assert set(ckpt.crit_opt_state["state"]["trace"]) == {"transitions"}
+    tr = Trainer(Config.from_sources(argv=[f"--rundir={tmp_path}", "--runname=run",
+                                           "--iter=3"]), mode="continue", device="cpu")
+    assert tr.cfg.criterion == "asg" and tr.updates == 2
+    torch.testing.assert_close(tr.criterion.transitions.detach(),
+                               ckpt.crit_state_dict["transitions"], rtol=0, atol=0)
+    tr.run()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run(
+        [sys.executable, "-m", "wav2letter_tpu_torch.cli.test",
+         f"--am={tmp_path / 'run' / 'model_last.bin'}", f"--test={asg_data[0]}",
+         "--device=cpu"], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "TER:" in r.stdout and "WER:" in r.stdout

@@ -86,6 +86,7 @@ def run_job(job, rank):
     torch.save({
         "losses": losses,
         "params": {k: v.detach().clone() for k, v in tr.model.state_dict().items()},
+        "crit_params": {k: v.detach().clone() for k, v in tr.criterion.state_dict().items()},
         "sharded": sorted(tr.sharded),
         "valid": {t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
                   for t, m in tr.meters.valid.items()},

@@ -1,8 +1,8 @@
 """`.arch` DSL parser -> nn.Module graph — the port of
 ``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets,
-transformer and conformer recipes and of streaming: V RO PD C C1 C2 AC WN (of a
-conv) TDS L LN DO M A SAUG TR CFR and the activations R R6 ELU LG HT T SH GLU
-LSM.
+transformer, conformer, ResNet, conv-GLU, TIMIT and learnable-frontend recipes
+and of streaming: V RO PD C C1 C2 AC WN (of a conv or an L) TDS L LN DO M A SAUG
+TR CFR RES (with SKIP, SKIPL) and the activations R R6 ELU LG HT T SH GLU LSM PR.
 
 Grammar: one layer per line, ``#`` comments, NFEAT/NLABEL substitution
 (reference ``buildSequentialModule``). The model takes features (B, T, C)
@@ -11,8 +11,12 @@ the layers, and returns emissions (B, T_out, NLABEL) with lengths scaled by
 the valid fraction of the input.
 
 Layer i is named ``f"{i:02d}_{kind}"``, as in the JAX package (kind ``C`` also
-for a weight-normed conv, ``POOL`` for ``M``/``A``), so the flax param tree
-``seq/03_C2/weight`` is the state-dict key ``seq.03_C2.weight``. ``TR`` and
+for a weight-normed conv, ``WNL`` for a weight-normed linear, ``POOL`` for
+``M``/``A``), so the flax param tree ``seq/03_C2/weight`` is the state-dict key
+``seq.03_C2.weight``. A residual block ``05_RES`` nests its layers (``l{k}``)
+and projections (``s{i}.p{k}``), where flax keeps them beside it
+(``seq/05_RES_l0``, ``seq/05_RES_s0p1``); ``runtime/checkpoint.py`` maps the
+two. ``TR`` and
 ``CFR`` layers get the (B, T) mask of valid frames, built from the valid
 fraction of the input at whatever length the stack has reached.
 A ``PD`` that only pads time with zeros right before a time-only ``C2`` is
@@ -35,20 +39,17 @@ from ..kernels import KERNELS
 from . import layers as L
 from .transformer import ConformerLayer, TransformerLayer
 
-PORTED = ("V RO PD C C1 C2 AC WN(C C1 C2 AC) TDS L LN DO M A SAUG TR CFR R R6 ELU LG HT T "
-          "SH GLU LSM")
+PORTED = ("V RO PD C C1 C2 AC WN(C C1 C2 AC L) TDS L LN DO M A SAUG TR CFR "
+          "RES(SKIP SKIPL) R R6 ELU LG HT T SH GLU LSM PR")
 _LATER = {
     "POSEMB": "the slice of the remaining layers",
     "SINPOSEMB": "the slice of the remaining layers",
-    "RES": "the slice of the remaining layers",
-    "WN L": "the slice of the remaining layers",
     "BN": "the slice of the remaining layers",
     "RNN": "the recurrent slice",
     "GRU": "the recurrent slice",
     "LSTM": "the recurrent slice",
     "E": "the language-model slice",
     "ADAPTIVEE": "the language-model slice",
-    "PR": "the slice of the remaining layers",
     "PC": "the slice of the remaining layers",
 }
 
@@ -97,9 +98,11 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         return LayerSpec("PD", lambda ops: L.Padding(val, pads), line)
     if op == "WN":
         wdim, child = int(p[1]), p[2:]
+        if child[0] == "L":
+            li, lo = int(child[1]), int(child[2])
+            bias = not (len(child) == 4 and child[3] == "0")
+            return LayerSpec("WNL", lambda ops: L.WNLinear(li, lo, bias, wdim), line)
         if child[0] not in ("C", "C1", "C2", "AC"):
-            if child[0] == "L":
-                raise _later("WN L", line)
             raise ValueError(f"WN wrapping unsupported child: {line}")
         return _parse_conv(child, line, wdim)
     if op in ("C", "C1", "C2", "AC"):
@@ -132,6 +135,10 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         return LayerSpec("POOL", lambda ops: L.Pool2D(wx, wy, sx, sy, px, py, mode), line)
     if op in ("ELU", "R", "R6", "LG", "HT", "T"):
         return LayerSpec(op, lambda ops: L.Activation(op), line)
+    if op == "PR":
+        npar = int(p[1]) if len(p) > 1 else 1
+        iv = _num(p[2]) if len(p) > 2 else 0.25
+        return LayerSpec("PR", lambda ops: L.PReLU(npar, iv), line)
     if op in ("GLU", "LSM"):
         dim = int(p[1])
         return LayerSpec(op, lambda ops: L.Activation(op, dim), line)
@@ -224,8 +231,62 @@ def _fold_pads(specs: List[LayerSpec]) -> List[LayerSpec]:
     return out
 
 
+def _parse_res_block(lines: List[str], idx: int, n_res: int, n_skip: int
+                     ) -> Tuple[LayerSpec, int]:
+    """The block of a ``RES n_res n_skip`` line at ``idx`` (reference
+    ``SequentialBuilder.cpp:525-599``): ``n_res`` layer lines and ``n_skip``
+    ``SKIP from to [scale]`` / ``SKIPL from to n_proj [scale]`` lines, each
+    ``SKIPL`` followed by its ``n_proj`` projection lines. Returns the spec
+    and the number of lines it took after ``idx``."""
+    layer_specs: List[LayerSpec] = []
+    shortcuts = []  # (from, to, projection specs or None)
+    scales = {}
+    n_proj = 0
+    for i in range(1, n_res + n_skip + 1):
+        line = lines[idx + i + n_proj]
+        toks = line.split()
+        if toks[0] == "SKIP":
+            f, t = int(toks[1]), int(toks[2])
+            shortcuts.append((f, t, None))
+            if len(toks) == 4:
+                scales[t] = float(toks[3])
+        elif toks[0] == "SKIPL":
+            f, t, npl = int(toks[1]), int(toks[2]), int(toks[3])
+            proj = [_parse_one(lines[idx + i + n_proj + j].split(),
+                               lines[idx + i + n_proj + j]) for j in range(1, npl + 1)]
+            shortcuts.append((f, t, proj))
+            if len(toks) == 5:
+                scales[t] = float(toks[4])
+            n_proj += npl
+        else:
+            layer_specs.append(_parse_one(toks, line))
+
+    def make(ops):  # new modules at each call: a repeated block has its own params
+        return L.ResidualBlock(
+            [s.module_fn(ops) for s in layer_specs],
+            [(f, t, None if proj is None else [s.module_fn(ops) for s in proj])
+             for f, t, proj in shortcuts],
+            scales)
+
+    return LayerSpec("RES", make, lines[idx]), n_res + n_skip + n_proj
+
+
 def parse_arch_lines(lines: List[str]) -> List[LayerSpec]:
-    return _fold_pads([_parse_one(l.split(), l) for l in lines])
+    """All lines, a ``RES n_res n_skip [n_blocks]`` block repeated
+    ``n_blocks`` times (each repeat a layer of its own)."""
+    specs: List[LayerSpec] = []
+    i = 0
+    while i < len(lines):
+        tokens = lines[i].split()
+        if tokens[0] == "RES":
+            n_blocks = int(tokens[3]) if len(tokens) == 4 else 1
+            spec, consumed = _parse_res_block(lines, i, int(tokens[1]), int(tokens[2]))
+            specs.extend([spec] * max(1, n_blocks))
+            i += consumed + 1
+        else:
+            specs.append(_parse_one(tokens, lines[i]))
+            i += 1
+    return _fold_pads(specs)
 
 
 class ArchSequential(nn.Module):
@@ -277,7 +338,10 @@ class ArchModel(nn.Module):
                 mod.generator = generator
         if feat_len is None:
             feat_len = torch.full((B,), T, dtype=torch.int32, device=feats.device)
-        pad_frac = feat_len.float() / T
+        # a true division on the card as on the CPU: CUDA divides by a host
+        # scalar as a product with its reciprocal, up to an ulp off, which
+        # can move ceil(pad_frac * T_out) by a frame
+        pad_frac = feat_len.float() / torch.full_like(feat_len, T, dtype=torch.float32)
         # (B, T, C) -> AF (T, C, 1, B) == stored (B, 1, C, T)
         y = self.seq(feats.transpose(1, 2)[:, None], pad_frac)
         # canonicalize to (B, T_out, N), anchored on B (see the JAX ArchModel)

@@ -1,6 +1,8 @@
 """Layers of the `.arch` DSL that the ported recipes use (streaming convnets,
-transformer and conformer CTC) — the port of ``wav2letter_tpu/models/layers.py``;
-the transformer and conformer layers are in ``transformer.py``.
+transformer and conformer CTC, the ResNet, conv-GLU, TIMIT and learnable-frontend
+recipes) — the port of ``wav2letter_tpu/models/layers.py`` (and of its
+``arch.py::WNLinear``); the transformer and conformer layers are in
+``transformer.py``.
 
 Coordinate convention, as in the JAX package: the reference's column-major
 ArrayFire tensor with dims (d0, d1, d2, d3) is stored row-major with its axes
@@ -10,8 +12,9 @@ reversed permutation, an op on AF dim k an op on stored axis 3-k, and speech
 enters as stored (B, 1, C, T).
 
 Parameters keep the JAX names and shapes (Conv2D ``weight`` OIHW, Linear
-``weight`` (in, out), LayerNorm scalar ``weight``/``bias``), so a flax param
-tree converts by renaming paths (``runtime/checkpoint.py``). Any re-indexing a
+``weight`` (in, out), WNLinear ``v`` (in, out) and ``g``, LayerNorm scalar
+``weight``/``bias``, PReLU ``weight``), so a flax param tree converts by
+renaming paths (``runtime/checkpoint.py``). Any re-indexing a
 kernel layout needs happens in ``forward``; without autograd its result, cast
 to the activations' dtype, is kept until the params change (``_derived``).
 
@@ -26,6 +29,7 @@ and the gradients flow through the re-indexing back to the stored params.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from types import SimpleNamespace
 from typing import Tuple, Union
 
@@ -142,6 +146,35 @@ class Linear(nn.Module):
         if b is not None:
             y = y + b
         return y
+
+
+class WNLinear(nn.Module):
+    """Weight-normalized Linear (arch ``WN wn_dim L in out``), as the JAX
+    ``arch.py::WNLinear``: stored ``v`` (in, out) and ``g``, the weight
+    ``v / sqrt(sum(v^2) + 1e-12) * g`` with the norm over inputs (``WN 0``,
+    ``g`` (out,)) or over outputs (``WN 1``, ``g`` (in,))."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, wn_dim: int = 0):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_dim)
+        self.norm_axis = 0 if wn_dim == 0 else 1
+        v = torch.empty(in_dim, out_dim).uniform_(-bound, bound)
+        self.v = nn.Parameter(v)
+        self.g = nn.Parameter(v.norm(dim=self.norm_axis))
+        self.bias = (nn.Parameter(torch.empty(out_dim).uniform_(-bound, bound))
+                     if use_bias else None)
+
+    def _weight(self, dtype: torch.dtype) -> torch.Tensor:
+        v = self.v
+        nrm = torch.sqrt((v * v).sum(dim=self.norm_axis, keepdim=True) + 1e-12)
+        g = self.g[None, :] if self.norm_axis == 0 else self.g[:, None]
+        return (v / nrm * g).to(dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = _derived(self, x.dtype, lambda: (
+            self._weight(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
+        y = x @ w
+        return y if b is None else y + b
 
 
 def _same_pads(n: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
@@ -336,6 +369,21 @@ class Activation(nn.Module):
         return F.log_softmax(x, dim=ax)
 
 
+class PReLU(nn.Module):
+    """Arch ``PR [n_params] [init]``: ``where(x >= 0, x, a * x)`` with ``a``
+    the learnt ``weight`` (one value, or ``n_params`` along the last stored
+    axis), as JAX writes it. ``F.prelu`` takes the ``a * g`` side of the
+    gradient at ``x == 0``, where dropout leaves exact zeros; this the ``g``."""
+
+    def __init__(self, n_params: int = 1, init_val: float = 0.25):
+        super().__init__()
+        self.weight = nn.Parameter(torch.full((n_params,), float(init_val)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.weight[0] if self.weight.numel() == 1 else self.weight
+        return torch.where(x >= 0, x, a.to(x.dtype) * x)
+
+
 class Pool2D(nn.Module):
     """AF Pool2D over (d0 = time, d1) of the stored NCHW layout: max, or the
     average that counts the padding."""
@@ -382,6 +430,54 @@ class SpecAugmentLayer(nn.Module):
         shp = x.shape
         feats = x.reshape(shp[0], shp[-2], shp[-1]).transpose(1, 2)  # (B, T, C)
         return sa(feats, self.generator).transpose(1, 2).reshape(shp)
+
+
+# ---------------------------------------------------------------------------
+# residual scaffold (RES/SKIP/SKIPL)
+# ---------------------------------------------------------------------------
+class ResidualBlock(nn.Module):
+    """Reference Residual container (``SequentialBuilder.cpp:525-599``; JAX
+    ``layers.py::ResidualBlock``): layers ``l{k}`` plus shortcuts (from,
+    to), each with an optional projection sequence ``s{i}`` (children
+    ``p{k}``), and scales by target index. Indices are 1-based: 0 is the
+    block's input, ``n + 1`` adds to its output. The input of layer i is the
+    previous output plus the shortcuts into i, that sum times ``scales[i]``."""
+
+    def __init__(self, layers, shortcuts, scales=None):
+        super().__init__()
+        for k, layer in enumerate(layers):
+            self.add_module(f"l{k}", layer)
+        self.n_layers = len(layers)
+        self.shortcuts = []  # (from, to, projection name or None)
+        for si, (f, t, proj) in enumerate(shortcuts):
+            name = None
+            if proj is not None:
+                name = f"s{si}"
+                self.add_module(name, nn.Sequential(
+                    OrderedDict((f"p{k}", m) for k, m in enumerate(proj))))
+            self.shortcuts.append((f, t, name))
+        self.scales = dict(scales or {})
+
+    def _into(self, outputs, i):
+        add = None
+        for f, t, proj in self.shortcuts:
+            if t == i:
+                src = outputs[f] if proj is None else getattr(self, proj)(outputs[f])
+                add = src if add is None else add + src
+        return add
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        outputs = [x]
+        n = self.n_layers
+        for i in range(1, n + 2):
+            inp = outputs[i - 1]
+            add = self._into(outputs, i)
+            if add is not None:
+                inp = inp + add
+                if i in self.scales:
+                    inp = inp * self.scales[i]
+            outputs.append(getattr(self, f"l{i - 1}")(inp) if i <= n else inp)
+        return outputs[n + 1]
 
 
 # ---------------------------------------------------------------------------

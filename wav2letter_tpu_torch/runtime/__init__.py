@@ -1,5 +1,5 @@
 from .checkpoint import (Checkpoint, convert_jax_params, find_last_checkpoint,
-                         load_checkpoint, params_to_jax_tree, run_index_paths,
+                         jax_param_name, load_checkpoint, params_to_jax_tree, run_index_paths,
                          save_checkpoint)
 from .meters import (AverageMeter, DatasetMeters, EditDistanceMeter, SpeedMeter,
                      TimerMeter, TrainMeters, get_log_string, sync_meters)
@@ -14,6 +14,7 @@ __all__ = [
     "TrainMeters",
     "convert_jax_params",
     "find_last_checkpoint",
+    "jax_param_name",
     "load_checkpoint",
     "params_to_jax_tree",
     "run_index_paths",

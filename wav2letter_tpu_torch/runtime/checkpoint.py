@@ -73,6 +73,8 @@ def load_checkpoint(path: str) -> Checkpoint:
             version=int(payload["version"]),
             crit_state_dict=convert_jax_params(payload.get("crit_params") or {}),
             opt_state=_jax_sgd_state(payload.get("opt_state"), int(payload["updates"])),
+            crit_opt_state=_jax_sgd_state(payload.get("crit_opt_state"),
+                                          int(payload["updates"])),
         )
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return Checkpoint(
@@ -169,6 +171,26 @@ def _jax_sgd_state(opt_state: Any, updates: int) -> Optional[Dict[str, Any]]:
         return None
 
 
+# A residual block ``NN_RES`` nests its layers and projections in the port
+# (``NN_RES.l{k}``, ``NN_RES.s{i}.p{k}``); flax names them beside the block,
+# in the arch's scope (``NN_RES_l{k}``, ``NN_RES_s{i}p{k}``).
+_RES_TO_PORT = ((re.compile(r"(^|\.)(\d+_RES)_l(\d+)(?=\.)"), r"\1\2.l\3"),
+                (re.compile(r"(^|\.)(\d+_RES)_s(\d+)p(\d+)(?=\.)"), r"\1\2.s\3.p\4"))
+_RES_TO_JAX = ((re.compile(r"(^|\.)(\d+_RES)\.l(\d+)(?=\.)"), r"\1\2_l\3"),
+               (re.compile(r"(^|\.)(\d+_RES)\.s(\d+)\.p(\d+)(?=\.)"), r"\1\2_s\3p\4"))
+
+
+def _rename(key: str, rules) -> str:
+    for pat, repl in rules:
+        key = pat.sub(repl, key)
+    return key
+
+
+def jax_param_name(key: str) -> str:
+    """The JAX param path (``/``-joined) of the port's dotted ``key``."""
+    return _rename(key, _RES_TO_JAX).replace(".", "/")
+
+
 def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`convert_jax_params`: a state dict, or any dict of
     tensors under the port's dotted names (gradients, optimizer slots), as the
@@ -176,7 +198,7 @@ def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, t in state.items():
         node = tree
-        *path, leaf = key.split(".")
+        *path, leaf = jax_param_name(key).split("/")
         for k in path:
             node = node.setdefault(k, {})
         node[leaf] = t.detach().float().cpu().numpy()
@@ -187,8 +209,10 @@ def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of arrays, e.g. ``{"seq": {"03_C2":
     {"weight", "bias"}}}``) -> state dict ``{"seq.03_C2.weight": ...}``.
 
-    Names and shapes are kept (Conv2D OIHW, Linear (in, out), LayerNorm
-    scalars), so the conversion is a path rename and a copy."""
+    Names and shapes are kept (Conv2D OIHW, Linear (in, out), WNLinear ``v``
+    (in, out) and ``g``, LayerNorm scalars, the ASG ``transitions``), so the
+    conversion is a path rename and a copy; a residual block's layers move
+    under the block (``_RES_TO_PORT``)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Any, prefix: str) -> None:
@@ -196,7 +220,8 @@ def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(v, f"{prefix}.{k}" if prefix else str(k))
         else:
-            out[prefix] = torch.from_numpy(np.array(node, dtype=np.float32))
+            out[_rename(prefix, _RES_TO_PORT)] = torch.from_numpy(
+                np.array(node, dtype=np.float32))
 
     walk(tree, "")
     return out

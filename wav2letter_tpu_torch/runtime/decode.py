@@ -1,6 +1,8 @@
 """Decode executor (the ``fl_asr_decode`` binary), the port of
-``wav2letter_tpu/runtime/decode.py``: offline lexicon beam decoding of CTC
-emissions with an n-gram LM.
+``wav2letter_tpu/runtime/decode.py``: offline lexicon beam decoding of CTC or
+ASG emissions with an n-gram LM (ASG's with the checkpoint's transitions, no
+blank, and the replabels packed into the trie's spellings and unpacked from
+the hypotheses, as in JAX).
 
 The AM forward (or the ``--emission_dir`` cache) feeds an emission queue that
 ``--nthread_decoder`` beam threads drain: ``--nthread_decoder_am_forward``
@@ -37,7 +39,7 @@ from ..decoder import (
     ZeroLM,
 )
 from .meters import DatasetMeters
-from .test import Evaluator
+from .test import Evaluator, target_tokens
 
 # decode flags come from the caller's config, not the checkpoint's
 DECODE_FLAGS = (
@@ -321,8 +323,10 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
             for _ in range(max(1, ecfg.nthread_decoder)):
                 emq.put(None)
 
+    transitions = None if ev.transitions is None else ev.transitions.cpu().numpy()
+
     def consumer():
-        dec, word_dict = build_decoder(ecfg, ev.token_dict, ev.lexicon, ev.transitions)
+        dec, word_dict = build_decoder(ecfg, ev.token_dict, ev.lexicon, transitions)
         with lock:
             decoders.add(type(dec).__name__)
         while True:
@@ -351,10 +355,7 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
                 ]
                 with lock:
                     beam_dump[sid] = dumped
-            if ecfg.criterion == "asg" and ecfg.replabel > 0:
-                ref_toks = unpack_replabels(
-                    ref_toks, ecfg.replabel, ev.n_classes - ecfg.replabel
-                )
+            ref_toks = target_tokens(ref_toks, ecfg, ev.n_classes)
             ref_w = tokens_to_words(
                 ev.token_dict.map_indices(ref_toks), ecfg.wordseparator, ecfg.usewordpiece
             )

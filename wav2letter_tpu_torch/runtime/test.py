@@ -2,9 +2,10 @@
 port of ``wav2letter_tpu/runtime/test.py``:
 
 load AM checkpoint -> re-inject stored flags (CLI wins) -> dataset over
-``--test`` -> featurize (K1) -> forward (K2, K3) -> viterbi -> collapse ->
-token/word edit meters and the loss meter -> optional ``--show``,
-``--sclite`` and ``--emission_dir`` output.
+``--test`` -> featurize (K1) -> forward (K2, K3) -> viterbi (CTC's argmax,
+or ASG's max-product path with the checkpoint's transitions) -> collapse
+(and ASG's replabel unpack) -> token/word edit meters and the loss meter ->
+optional ``--show``, ``--sclite`` and ``--emission_dir`` output.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU;
 without a card a CUDA device is an error, never a quiet move to the CPU.
@@ -20,10 +21,12 @@ import torch
 
 from ..config import Config
 from ..data import AsrDataset, Lexicon, PrefetchIterator, make_token_dict
+from ..data.dictionary import unpack_replabels
 from ..data.targets import tokens_to_words
 from ..features import FeatureParams, Featurizer
 from ..kernels import disable_tf32
 from ..models.arch import build_arch_module
+from ..ops.asg import asg_collapse, asg_loss, asg_viterbi
 from ..ops.ctc import ctc_collapse, ctc_loss, ctc_viterbi
 from .checkpoint import load_checkpoint
 from .meters import DatasetMeters
@@ -34,6 +37,23 @@ EVAL_FLAGS = (
     "batchsize", "validbatchsize", "maxisz", "minisz", "maxtsz", "mintsz",
     "nthread", "lexicon", "tokens", "tokensdir", "pad_multiple",
 )
+
+
+def path_tokens(path_row, cfg: Config, n_classes: int) -> list:
+    """A Viterbi path's tokens: CTC's collapse (blank last), or ASG's with
+    the replabels unpacked."""
+    toks = [int(t) for t in path_row]
+    if cfg.criterion == "asg":
+        return asg_collapse([toks], cfg.replabel, n_classes - cfg.replabel)[0]
+    return ctc_collapse([toks], n_classes - 1)[0]
+
+
+def target_tokens(target_row, cfg: Config, n_classes: int) -> list:
+    """A target's tokens, ASG's replabels unpacked."""
+    toks = [int(t) for t in target_row]
+    if cfg.criterion == "asg" and cfg.replabel > 0:
+        return unpack_replabels(toks, cfg.replabel, n_classes - cfg.replabel)
+    return toks
 
 
 def resolve_device(device: str) -> torch.device:
@@ -48,7 +68,7 @@ def resolve_device(device: str) -> torch.device:
 
 
 class Evaluator:
-    """AM forward + viterbi + meters, as the JAX Evaluator (CTC only)."""
+    """AM forward + viterbi + meters, as the JAX Evaluator (CTC and ASG)."""
 
     def __init__(self, cfg: Config, am_path: Optional[str] = None,
                  device: str = "cuda"):
@@ -63,12 +83,12 @@ class Evaluator:
         self.cfg = Config()
         self.cfg.update(merged)
         cfg = self.cfg
-        if cfg.criterion != "ctc":
+        if cfg.criterion not in ("ctc", "asg"):
             from ..criterions import _LATER
 
             raise NotImplementedError(
                 f"criterion {cfg.criterion!r}: the PyTorch port evaluates and decodes "
-                f"ctc only; {cfg.criterion} comes with "
+                f"ctc and asg only; {cfg.criterion} comes with "
                 f"{_LATER.get(cfg.criterion, 'a later slice')}")
 
         tokens_path = (
@@ -89,7 +109,9 @@ class Evaluator:
         self.model.load_state_dict(ckpt.state_dict, strict=True)
         self.model.to(self.device).eval()
         self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
-        self.transitions = None  # CTC has none; ASG's come with M10
+        self.transitions = None  # (N, N) on the device for ASG; CTC has none
+        if cfg.criterion == "asg":
+            self.transitions = ckpt.crit_state_dict["transitions"].float().to(self.device)
 
     @torch.no_grad()
     def emissions(self, batch):
@@ -111,6 +133,8 @@ class Evaluator:
 
     def viterbi(self, em, elen):
         """Returns (path, path_len)."""
+        if self.transitions is not None:
+            return asg_viterbi(em, self.transitions, elen), elen
         return ctc_viterbi(em, elen), elen
 
     @torch.no_grad()
@@ -118,10 +142,12 @@ class Evaluator:
         """Per-batch mean criterion loss (reference Test.cpp loss meter)."""
         tgt = torch.from_numpy(np.asarray(targets)).to(em.device)
         tl = torch.from_numpy(np.asarray(target_len)).to(em.device)
+        if self.transitions is not None:
+            return float(asg_loss(em, self.transitions, tgt, elen, tl).mean())
         return float(ctc_loss(em, tgt, elen, tl).mean())
 
     def collapse(self, path_row, length):
-        return ctc_collapse([[int(t) for t in path_row[:length]]], self.n_classes - 1)[0]
+        return path_tokens(path_row[:length], self.cfg, self.n_classes)
 
 
 def run_test(cfg: Config, device: str = "cuda") -> Dict[str, float]:
@@ -151,7 +177,8 @@ def evaluate(ev: Evaluator) -> Dict[str, float]:
         for i in range(vit.shape[0]):
             sid = ds.samples[int(batch["sample_idx"][i])].sample_id
             hyp_toks = ev.collapse(vit[i], int(vlen[i]))
-            ref_toks = [int(t) for t in batch["target"][i, : int(batch["target_len"][i])]]
+            ref_toks = target_tokens(batch["target"][i, : int(batch["target_len"][i])],
+                                     ecfg, ev.n_classes)
             meters.tkn_edit.add(ref_toks, hyp_toks)
             ref_w = tokens_to_words(
                 ev.token_dict.map_indices(ref_toks), ecfg.wordseparator, ecfg.usewordpiece)

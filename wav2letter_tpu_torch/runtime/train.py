@@ -1,6 +1,6 @@
 """Training executor (the ``fl_asr_train`` binary) — the port of
-``wav2letter_tpu/runtime/train.py`` for the CTC criterion, on one device or
-on several ranks through ``torch.distributed``.
+``wav2letter_tpu/runtime/train.py`` for the CTC and ASG criterions, on one
+device or on several ranks through ``torch.distributed``.
 
 Structure as there: mode dispatch (train|continue|fork) with "stored flags <
 explicitly passed flags", dictionaries, arch build, one optimizer each for the
@@ -9,9 +9,12 @@ the non-finite guard and the AMP loss scale, periodic validation (viterbi
 TER/WER meters) and self-describing checkpoints.
 
 One update, eagerly on ``device``: featurize (K1) -> SpecAugment -> model
-forward (K2, K3) in ``--compute_dtype`` with fp32 master parameters -> CTC on
-fp32 emissions -> backward (K2 as dgrad, K2b, K3b) -> clip -> optimizer ->
-viterbi of the train batch for the meters.
+forward (K2, K3) in ``--compute_dtype`` with fp32 master parameters -> CTC or
+ASG on fp32 emissions -> backward (K2 as dgrad, K2b, K3b) -> viterbi of the
+train batch for the meters (ASG's with the transitions of before the update,
+as in JAX) -> clip -> optimizer. ASG's transitions are the criterion's
+parameter: they take ``--critoptim``/``--lrcrit`` and count in the clip norm.
+``--linseg`` is read by neither trainer (JAX's defines the flag only).
 
 Everything random in an update (dropout, SpecAugment) is a function of
 ``(seed + 7, update index, data index)``, not of a running stream, and the data
@@ -30,8 +33,8 @@ branch and the replicas stay bit-identical. With ``--mp_axis`` > 1 the big
 weights are column-split over the model axis (tensor parallelism). Rank 0
 alone writes logs, configs and checkpoints (gathered to full shape).
 
-Not in this slice (each raises, naming the slice it waits for): the ASG and
-seq2seq criterions and the attention window, ``--features_device=host``,
+Not in this slice (each raises, naming the slice it waits for): the seq2seq
+criterions and the attention window, ``--features_device=host``,
 plugin archs, ``--remat``.
 """
 
@@ -54,7 +57,6 @@ from ..features import FeatureParams, Featurizer
 from ..features.specaug import SpecAugment
 from ..kernels import disable_tf32
 from ..models.arch import build_arch_module
-from ..ops.ctc import ctc_collapse, ctc_viterbi
 from ..optim import LRSchedule, make_optimizer
 from ..parallel import MeshSpec, make_mesh, replicate, shard_batch, shard_params, to_host_local
 from ..parallel.distributed import backend_for, init_distributed, local_rank
@@ -63,12 +65,12 @@ from ..parallel.sharding import all_reduce_grads, dataset_shard, gather_full, gl
 from .checkpoint import (Checkpoint, find_last_checkpoint, load_checkpoint,
                          run_index_paths, save_checkpoint)
 from .meters import TrainMeters, get_log_string, sync_meters
-from .test import resolve_device
+from .test import path_tokens, resolve_device, target_tokens
 
 
 def _not_yet(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (CTC); "
+        f"{what} is not in the slices of the PyTorch port so far (CTC, ASG); "
         f"it comes with {slice_name}")
 
 
@@ -274,6 +276,8 @@ class Trainer:
         loss, em, elen = self._loss(b, True, saug_on, gen, rows)
         with self._timed(self.meters.bwd_timer, "w2l/backward"):
             (loss * self.amp_scale).backward()
+        with torch.no_grad():  # before the update moves ASG's transitions
+            vit = self.criterion.viterbi_path(em, elen)
         with self._timed(self.meters.optim_timer, "w2l/optimizer"):
             rep = [p.grad for n, p in named if p.grad is not None and n not in self.sharded]
             shard = [p.grad for n, p in named if p.grad is not None and n in self.sharded]
@@ -296,8 +300,6 @@ class Trainer:
                 torch._foreach_mul_(grads, scale)
             self.net_opt.step(lr)
             self.crit_opt.step(lr_crit)
-        with torch.no_grad():
-            vit = ctc_viterbi(em, elen)
         return loss_v, finite, vit, elen
 
     @torch.no_grad()
@@ -305,7 +307,7 @@ class Trainer:
         self.model.eval()
         self.criterion.eval()
         loss, em, elen = self._loss(self._to_device(batch), False)
-        return float(loss), ctc_viterbi(em, elen), elen
+        return float(loss), self.criterion.viterbi_path(em, elen), elen
 
     # ------------------------------------------------------------------
     # meters helpers
@@ -318,8 +320,8 @@ class Trainer:
         for i in range(vit.shape[0]):
             if sidx[i] < 0:  # row padding
                 continue
-            hyp_toks = ctc_collapse([vit[i, : int(elen[i])]], self.n_classes - 1)[0]
-            ref_toks = [int(t) for t in tgts[i, : int(tlens[i])]]
+            hyp_toks = path_tokens(vit[i, : int(elen[i])], self.cfg, self.n_classes)
+            ref_toks = target_tokens(tgts[i, : int(tlens[i])], self.cfg, self.n_classes)
             ds_meters.tkn_edit.add(ref_toks, hyp_toks)
             ref_w = tokens_to_words(
                 self.token_dict.map_indices(ref_toks), wsep, self.cfg.usewordpiece)
