@@ -162,6 +162,24 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    card against CPU as in 14, ``RES_UPDATES`` updates in fp32 and bf16
    through ``cli.train``, then ``cli.test`` and ``cli.align`` (CTC forced
    alignment) under the same word-order gate; K1 alone on the card.
+16, 17. the attention seq2seq recipes at full width, on phase 13's corpus
+   (letters, not the recipes' word pieces; its 16 shortest training and 8
+   shortest test utterances): 16 is ``recipes/seq2seq_tds`` (its ``train.cfg`` with
+   ``--encoderdim=512``: a TDS encoder whose blocks normalize over time, a
+   GRU decoder with keyvalue attention), 17 ``recipes/transformer_s2s`` (its
+   ``train.cfg``: 12 TR layers, a 6-layer transformer decoder). Each: the
+   first batch card against CPU as in 14; the path's kernels at its shapes
+   against their plain versions (K2, dgrad, K2b at C = 10, 14, 18; K4, K4b,
+   K3, K3b at the transformer's); ``S2S_UPDATES`` updates in fp32 and bf16
+   through ``cli.train`` with every update's launches held to the arch (no
+   K3 in seq2seq_tds), then ``continue`` for 2, the attention window's gate
+   as the recipe sets it; on the trained model's encoder states the
+   decoder's teacher-forced logits and greedy tokens card against CPU (ties
+   counted), the KV-cached step against the full decoder, the native beam
+   against the Python beam, one decoder step at K = 80; then ``cli.test``
+   and ``cli.decode`` (native beam, the README's flags; the transformer also
+   with ``--s2s_batch_decode=4``, equal to the sequential beam). ``--only
+   s2s`` runs phases 1, 2, 16 and 17 alone.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -3061,14 +3079,19 @@ def shortest(src, dst, n):
     return dst, sum(d for d, _ in rows) / 1000.0
 
 
-def card_launches(what):
-    """Fails unless the last run launched K1 and no other kernel: the ASG
-    and ResNet recipes' convs are weight-normed or wider than K2 takes
-    (``F.conv2d``), their LayerNorms plain and they hold no attention."""
+def card_launches(what, expect=None):
+    """Fails unless the last run launched ``expect`` ({kernel: launches}, the
+    rest 0) or, by default, K1 and no other kernel: the ASG and ResNet
+    recipes' convs are weight-normed or wider than K2 takes (``F.conv2d``),
+    their LayerNorms plain and they hold no attention."""
     from wav2letter_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
-    if not launches["mfsc"] or any(v for k, v in launches.items() if k != "mfsc"):
+    if expect is not None:
+        want = {k: expect.get(k, 0) for k in launches}
+        if launches != want:
+            fail(f"{what}: launches {launches}, expected {want}")
+    elif not launches["mfsc"] or any(v for k, v in launches.items() if k != "mfsc"):
         fail(f"{what}: launches {launches}, expected K1 alone")
     return launches
 
@@ -3136,7 +3159,7 @@ def _leaf_errors(got, ref, masses):
             for k, g in ref.items()}
 
 
-def card_vs_cpu_first_batch(name, flags):
+def card_vs_cpu_first_batch(name, flags, expect=None):
     """The first training batch's loss and gradients (every leaf, the ASG
     transitions included) on the card (K1, ``F.conv2d``, cuBLAS) in fp32 and
     bf16 against the same model and batch on the CPU in fp32 (the plain
@@ -3167,7 +3190,7 @@ def card_vs_cpu_first_batch(name, flags):
         got = _loss_and_grads(tr, tr._to_device(host))
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
-        card_launches(f"{name} {dt} first batch")
+        card_launches(f"{name} {dt} first batch", expect)
         cpu_batch = {k: v.cpu() for k, v in tr._to_device(host).items()}
         if ref is None:  # same weights and batch on the CPU, fp32
             tr.model.cpu()
@@ -3233,10 +3256,11 @@ class _StepRecorder:
 
         def step(tr, batch, *a):
             before = dict(kernels.LAUNCHES)
+            window = tr._window_active()  # the seq2seq attention window's gate
             out = orig(tr, batch, *a)
             torch.cuda.synchronize()
             steps.append(dict(end=time.perf_counter(), loss=out[0], finite=out[1],
-                              frames=int(batch["audio"].shape[1]),
+                              frames=int(batch["audio"].shape[1]), window=window,
                               launches={k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
             return out
 
@@ -3272,8 +3296,9 @@ def update_numbers(tr, batch):
 
 def criterion_share(tr, batch):
     """The criterion's part of an update on ``batch``: its forward and its
-    backward alone on the update's emissions, and the train-time Viterbi:
-    host wall ms (drained), device ms and launches on the card each, and T."""
+    backward alone on the update's emissions, and the train-time Viterbi (a
+    seq2seq criterion's greedy decode): host wall ms (drained), device ms and
+    launches on the card each, T and U."""
     import torch
 
     b = tr._to_device(batch)
@@ -3302,17 +3327,18 @@ def criterion_share(tr, batch):
     part("forward", fwd)
     part("backward", lambda: loss[0].backward(retain_graph=True))
     with torch.no_grad():
-        part("viterbi", lambda: tr.criterion.viterbi_path(em, elen))
+        part("viterbi", lambda: tr._viterbi(em, elen))
     out["T"] = int(em.shape[1])
     out["B"] = int(em.shape[0])
+    out["U"] = int(b["target"].shape[1])
     return out
 
 
-def trained_runs(name, flags, updates, smi_line, share=False):
+def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
     """``cli.train`` at each type for ``updates[type]`` updates (K1 alone on
-    the card, every loss finite), a checkpoint each; numbers of one more
-    update and, with ``share``, of the criterion's part of it in the first
-    type (the criterion runs in fp32 whatever the type)."""
+    the card, or ``expect`` an update, every loss finite), a checkpoint each;
+    numbers of one more update and, with ``share``, of the criterion's part of
+    it in the first type (the criterion runs in fp32 whatever the type)."""
     import torch
 
     from wav2letter_tpu_torch.cli.train import main as train_main
@@ -3331,7 +3357,8 @@ def trained_runs(name, flags, updates, smi_line, share=False):
             tr = train_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = card_launches(f"{name} {dt} training")
+        launches = card_launches(f"{name} {dt} training",
+                                 None if expect is None else {k: v * n for k, v in expect.items()})
         steps = rec.steps
         if len(steps) != n or not all(s["finite"] and math.isfinite(s["loss"]) for s in steps):
             fail(f"{name} {dt}: {len(steps)} updates, {[(s['loss'], s['finite']) for s in steps]}")
@@ -3341,7 +3368,8 @@ def trained_runs(name, flags, updates, smi_line, share=False):
         largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
         batch = pad_batch_rows(tr.train_ds.materialize(largest), 1)
         res = dict(updates=n, losses=[s["loss"] for s in steps],
-                   frames=[s["frames"] for s in steps], wall_s=wall,
+                   frames=[s["frames"] for s in steps], windows=[s["window"] for s in steps],
+                   wall_s=wall,
                    s_per_update=span / max(1, n - 1), launches=launches,
                    peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30,
                    update=update_numbers(tr, batch), nvidia_smi=smi_line)
@@ -3572,11 +3600,346 @@ def resnet_path(tmp, corpus, smi_line):
         f"{smi_line}")
     return out
 
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the attention seq2seq recipes
+# ---------------------------------------------------------------------------
+S2S_TRAIN_UTTS, S2S_TEST_UTTS = 16, 8
+S2S_UPDATES = {"float32": 3, "bfloat16": 3}
+# phase 13's corpus is letters (no word pieces): the recipes' word-piece
+# flags give way to the corpus' separator
+S2S_LETTERS = dict(usewordpiece=False, wordseparator="|")
+# recipes/seq2seq_tds/README.md's beam (80 wide, eos score, attention
+# threshold, hard and soft selection) with the lexicon and phase 13's 3-gram
+S2S_DECODE = dict(uselexicon=True, decodertype="wrd", beamsize=80, eosscore=-1.0,
+                  attentionthreshold=30, hardselection=1.5, softselection=10.0,
+                  lmweight=1.0, wordscore=1.0, nthread_decoder=1)
+# per forward and what an update adds: seq2seq_tds has 3 C2 and 11 TDS convs
+# (the first takes the features: no dgrad); its TDS blocks normalize over time
+# (the arch's default), which K3's per-frame fusion does not compute, so no K3;
+# transformer_s2s's convs are weight-normed (F.conv2d), its 12 TR layers take
+# K4 and two K3 each
+S2S_RECIPES = {
+    "seq2seq_tds": dict(
+        phase=16, flags=dict(encoderdim=512),
+        per_forward={"mfsc": 1, "time_conv": 14},
+        per_backward={"time_conv": 13, "time_conv_wgrad": 14}),
+    "transformer_s2s": dict(
+        phase=17, flags={},
+        per_forward={"mfsc": 1, "mhsa": 12, "residual_ln": 24},
+        per_backward={"mhsa_bwd": 12, "residual_ln_bwd": 24}),
+}
+S2S_LOGIT_TOL = 1e-4  # teacher-forced logits, card against CPU, relative to the largest
+S2S_TIE = 1e-3  # top-2 margin of the CPU's logits within which greedy tokens may part
+S2S_BEAM_TOL = 1e-4  # native against Python beam scores, and the KV cache's logits
+
+
+def s2s_kernel_rows(name, spec, train_lst, corpus, details):
+    """The path's kernels at the largest training batch's shapes against
+    their plain versions, fp32 and bf16: seq2seq_tds's K2, dgrad, K2b at C =
+    10, 14, 18; transformer_s2s's K4, K4b (12 calls, T after the three pools)
+    and K3, K3b at 768."""
+    import torch
+
+    from wav2letter_tpu_torch.models import build_arch_module
+
+    B = 16 if name == "seq2seq_tds" else 8
+    _, T, _ = batch_shapes(train_lst, corpus["tokens"], corpus["lexicon"], B)
+    rows = []
+    for dt in ("float32", "bfloat16"):
+        if name == "seq2seq_tds":
+            with torch.device("meta"):
+                model = build_arch_module(spec["arch"], N_FEAT, 512, force_label_dim=False)
+            convs, _ = path_calls(model, B, T)
+            rows += check_time_conv(convs, dt, details)
+            back = check_time_conv_backward(convs, dt, details)
+            rows += back["time_conv_dgrad"] + back["time_conv_wgrad"]
+        else:
+            Ta = pooled_frames(T)
+            att = check_attention([("s2s_train", B, Ta, 4, 192, True, 12)], dt, details)
+            lns = [(B * Ta, 768)] * 24
+            rows += att["mhsa"] + att["mhsa_bwd"] + check_residual_ln(lns, dt, details)
+            rows += check_residual_ln_bwd(lns, dt, details)
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"{name}: {len(bad)} kernel checks disagree with the plain versions: "
+             f"{json.dumps(bad[0])}")
+    return [dict(name=r["name"], dtype=r["dtype"], shape=r["shape"], calls=r["calls"],
+                 ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                 bound_ms=r["bound_ms"], max_abs_err=r["max_abs_err"]) for r in rows]
+
+
+def s2s_decoder_card_vs_cpu(name, am, lst):
+    """On the trained model's encoder states of ``lst``'s first batch: the
+    decoder's teacher-forced logits on the card against a CPU copy, and the
+    card's greedy tokens against the CPU's step by step: a row may part only at
+    a step whose top-2 margin on the CPU is within ``S2S_TIE`` (counted); for
+    the transformer, the KV-cached step against the full decoder on the card.
+    Returns the result and the Evaluator, for the beams."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset
+    from wav2letter_tpu_torch.runtime.test import Evaluator
+
+    ev = Evaluator(Config(am=am, test=lst, batchsize=S2S_TEST_UTTS), device="cuda")
+    ds = AsrDataset(lst, ev.token_dict, ev.lexicon, ev.cfg, batch_size=S2S_TEST_UTTS)
+    batch = ds.materialize(ds.batch_specs()[0])
+    em, elen = ev.emissions(batch)
+    crit, cpu = ev.s2s_criterion, copy.deepcopy(ev.s2s_criterion).cpu()
+    tgt = torch.from_numpy(np.asarray(batch["target"]))
+    with torch.no_grad():
+        got = crit.teacher_forced(em, tgt.cuda(), elen, train=False)[0].cpu()
+        want = cpu.teacher_forced(em.cpu(), tgt, elen.cpu(), train=False)[0]
+        scale = want.abs().max().item()
+        logit_err = (got - want).abs().max().item() / scale
+        toks, lens = (t.cpu() for t in crit.greedy_path(em, elen))
+        # the CPU's greedy steps on the card's tokens, with their margins
+        c = cpu.cfg
+        B, T = em.shape[:2]
+        mask = torch.arange(T)[None, :] < elen.cpu()[:, None]
+        state, prev = cpu.init_state(B), torch.full((B,), c.eos_idx)
+        parted, ties, compared = [None] * B, 0, 0
+        for u in range(int(lens.max()) + 1 if lens.numel() else 0):
+            state, lg = cpu.decode_step(state, prev, em.cpu(), mask, u)
+            top2 = lg.topk(2, dim=-1)
+            for i in range(B):
+                if parted[i] is None and u <= int(lens[i]) and u < toks.shape[1]:
+                    compared += 1
+                    if int(top2.indices[i, 0]) != int(toks[i, u]):
+                        margin = (top2.values[i, 0] - lg[i, int(toks[i, u])]).item()
+                        parted[i] = margin
+                        if margin > S2S_TIE:
+                            fail(f"{name}: greedy token {u} of row {i}: card "
+                                 f"{int(toks[i, u])}, CPU {int(top2.indices[i, 0])}, "
+                                 f"margin {margin}")
+                        ties += 1
+            prev = toks[:, u].long() if u < toks.shape[1] else prev
+        out = dict(B=B, T=T, U=int(tgt.shape[1]), logit_rel_err=logit_err,
+                   greedy_steps_compared=compared, greedy_ties=ties,
+                   greedy_lengths=lens.tolist())
+        if hasattr(crit, "_decode_all"):  # the KV cache against the full decoder
+            dec_in = torch.cat([torch.full((B, 1), c.eos_idx), tgt.clamp(min=0).long()], 1).cuda()
+            emask = mask.cuda()
+            full = crit._decode_all(dec_in, em, emask)
+            st, steps = crit.init_state(B), []
+            for u in range(dec_in.shape[1]):
+                st, lg = crit.decode_step(st, dec_in[:, u], em, emask, u)
+                steps.append(lg)
+            out["kv_cache_rel_err"] = ((torch.stack(steps, 1) - full).abs().max()
+                                       / full.abs().max()).item()
+    out["ok"] = logit_err <= S2S_LOGIT_TOL and out.get("kv_cache_rel_err", 0) <= S2S_BEAM_TOL
+    log(f"[{name} decoder card vs cpu] {json.dumps(out)}")
+    if not out["ok"]:
+        fail(f"{name}: the decoder on the card differs from the CPU: {out}")
+    return out, ev, em, elen
+
+
+def s2s_beams(name, ev, em, elen, lm, smi_line):
+    """For seq2seq_tds, the native beam against the Python beam (both on the
+    card's decoder step) on the two shortest utterances of the batch: the
+    same 4-best (tokens, words), scores within ``S2S_BEAM_TOL``, some
+    hypothesis with tokens (the transformer's beams are held to each other,
+    batched against sequential, in ``s2s_serve``). The attention threshold is left out here: a decoder of a few
+    updates attends nowhere in particular, and a threshold of 30 frames
+    prunes every hypothesis at the first step. And one decoder step at K =
+    80: wall and device ms."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch.decoder.seq2seq_beam import _gather_state, make_s2s_update_fn
+    from wav2letter_tpu_torch.runtime.decode import S2SBeamParts
+
+    cfg = ev.cfg
+    cfg.update(dict(S2S_DECODE, lm=lm, attentionthreshold=math.inf))
+    eos, L = ev.n_classes - 2, cfg.maxdecoderoutputlen
+    order = torch.argsort(elen.cpu())[:2].tolist()
+    ems = [em[i, : int(elen[i])].cpu().numpy() for i in order]
+    out = {}
+    for native in (True, False) if name == "seq2seq_tds" else (True,):
+        parts = S2SBeamParts(cfg, ev.token_dict, ev.lexicon, use_native=native)
+        t0 = time.perf_counter()
+        res = [parts.decoder(ev.s2s_criterion, e, eos, L).decode(n_best=4) for e in ems]
+        out["native" if native else "python"] = (res, time.perf_counter() - t0)
+    nres, n_s = out["native"]
+    pres, p_s = out.get("python", (nres, None))
+    for a, b in zip(nres, pres):
+        if [(r.tokens, r.words) for r in a] != [(r.tokens, r.words) for r in b] or any(
+                abs(x.score - y.score) > S2S_BEAM_TOL * max(1.0, abs(y.score))
+                for x, y in zip(a, b)):
+            fail(f"{name}: native and Python beams differ: "
+                 f"{[(r.tokens, r.score) for r in a]} against {[(r.tokens, r.score) for r in b]}")
+    if not any(r.tokens for rs in nres for r in rs):
+        fail(f"{name}: the beams kept no hypothesis with tokens: {nres}")
+    # one step of the decoder at K = 80 hypotheses, state gathered as a beam does
+    e = ems[-1]
+    step, init = make_s2s_update_fn(ev.s2s_criterion, e, e.shape[0])
+    K = S2S_DECODE["beamsize"]
+    toks = np.arange(K, dtype=np.int32) % (ev.n_classes - 2)
+    state, _, _ = step(init(K), toks)
+    rows = np.arange(K)[::-1].copy()
+
+    def one():
+        step(_gather_state(state, rows), toks)
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        one()
+    wall = (time.perf_counter() - t0) / 10 * 1e3
+    events = list(device_events(profile_device(one)))
+    res = dict(utterances=len(ems), frames=[x.shape[0] for x in ems],
+               nbest_tokens=[[len(r.tokens) for r in rs] for rs in nres], native_s=n_s,
+               python_s=p_s,
+               step_k80=dict(wall_ms=wall,
+                             device_ms=sum(ev_.self_device_time_total for ev_ in events) / 1e3,
+                             launches=sum(ev_.count for ev_ in events), T=int(e.shape[0])),
+               nvidia_smi=smi_line)
+    log(f"[{name} beams] {json.dumps(res)}")
+    return res
+
+
+def s2s_serve(name, spec, am, lst, secs, tmp, lm):
+    """``cli.test`` (greedy), then ``cli.decode`` (native lexicon beam, the LM,
+    ``W2L_REQUIRE_NATIVE=1``) sequentially with the README's flags and: for
+    seq2seq_tds without the attention threshold (which prunes a barely
+    trained decoder's every hypothesis at once, so that decode times nothing),
+    for the transformer (no attention peaks) with ``--s2s_batch_decode=4``,
+    whose hypotheses must equal the sequential ones. Launches: the forwards'
+    alone; rates in audio s per wall s."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+    from wav2letter_tpu_torch.cli.test import main as test_main
+
+    n_batches = -(-S2S_TEST_UTTS // 4)
+    fwd = expected_launches(spec, 0, n_batches)
+    out = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = test_main([f"--am={am}", f"--test={lst}", "--batchsize=4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not math.isfinite(res["loss"]):
+        fail(f"{name} cli.test: {res}")
+    out["test"] = dict(res, wall_s=wall, audio_s_per_s=secs / wall,
+                       launches=card_launches(f"{name} cli.test", fwd))
+    os.environ["W2L_REQUIRE_NATIVE"] = "1"
+    hyps = {}
+    second = (("decode_batched", {"s2s_batch_decode": 4}) if name == "transformer_s2s"
+              else ("decode_no_threshold", {"attentionthreshold": "inf"}))
+    for how, extra in (("decode", {}), second):
+        kernels.reset_launches()
+        sclite = os.path.join(tmp, f"{name}_{how}")
+        dres = decode_main([f"--am={am}", f"--test={lst}", "--batchsize=4",
+                            f"--sclite={sclite}", f"--lm={lm}",
+                            *[f"--{k}={v}" for k, v in dict(S2S_DECODE, **extra).items()]])
+        torch.cuda.synchronize()
+        want = "NativeSeq2SeqBatchDecoder" if how == "decode_batched" else "NativeSeq2SeqDecoder"
+        if not (math.isfinite(dres["WER"]) and dres["decoder"] == want):
+            fail(f"{name} cli.{how}: {dres}")
+        hyps[how] = read_hyps(sclite, lst)
+        out[how] = dict(dres, audio_s_per_s=secs / (dres["wall_s"] - dres["setup_s"]),
+                        launches=card_launches(f"{name} cli.{how}", fwd))
+    if "decode_batched" in hyps and hyps["decode_batched"] != hyps["decode"]:
+        fail(f"{name}: batched and sequential beams differ: {hyps}")
+    log(f"[{name} serve] {json.dumps(out)}")
+    return out
+
+
+def s2s_path(name, tmp, corpus, smi_line):
+    """Phase 16 (``recipes/seq2seq_tds``, GRU decoder, its ``train.cfg`` with
+    ``--encoderdim=512``) or 17 (``recipes/transformer_s2s``, its
+    ``train.cfg``) at full width through the port's binaries on phase 13's
+    corpus (its shortest utterances; letters, not the recipes' word pieces):
+    the first batch card against CPU, the path's kernels at its shapes, 3 fp32
+    and 3 bf16 updates and ``continue`` for 2 (the window's gate as the recipe
+    sets it), the decoder card against CPU, the beams, then ``cli.test`` and
+    ``cli.decode``."""
+    import torch
+
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.criterions import make_criterion
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    spec = dict(S2S_RECIPES[name], arch=os.path.join(REPO, "recipes", name, "network.arch"))
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, name)
+    os.makedirs(root, exist_ok=True)
+    train_lst, _ = shortest(corpus["train"], os.path.join(root, "train.lst"), S2S_TRAIN_UTTS)
+    test_lst, test_secs = shortest(corpus["test"], os.path.join(root, "test.lst"),
+                                   S2S_TEST_UTTS)
+    flags = dict(flagsfile=os.path.join(REPO, "recipes", name, "train.cfg"), arch=spec["arch"],
+                 train=train_lst, tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 rundir=os.path.join(root, "runs"), nthread=2, seed=0, **S2S_LETTERS,
+                 **spec["flags"])
+    cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in flags.items()])
+    n_classes = 21 + 2  # "|" + 20 letters, then eos and pad
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in build_arch_module(
+            spec["arch"], N_FEAT, cfg.encoderdim, force_label_dim=False).parameters())
+    n_crit = sum(p.numel() for p in make_criterion(cfg, n_classes).parameters())
+    log(f"[{name}] phase {spec['phase']}: {n_params} encoder parameters, {n_crit} decoder "
+        f"parameters | {smi_line}")
+    laps = {}
+    per_update = expected_launches(spec, 1, 0)
+    first = card_vs_cpu_first_batch(name, flags, per_update)
+    laps["first_batch"] = time.perf_counter() - t_phase
+    kernel_rows = s2s_kernel_rows(name, spec, train_lst, corpus, [])
+    laps["kernels"] = time.perf_counter() - t_phase
+    runs = trained_runs(name, flags, S2S_UPDATES, smi_line, share=True, expect=per_update)
+    laps["train"] = time.perf_counter() - t_phase
+    windows = {dt: r["windows"] for dt, r in runs.items()}
+    # continue the bf16 run by 2 updates through the binary
+    rundir, run = flags["rundir"], f"{name}_bfloat16"
+    n0 = S2S_UPDATES["bfloat16"]
+    with _StepRecorder() as rec:
+        tr = train_main(["continue", f"--rundir={rundir}", f"--runname={run}",
+                         f"--iter={n0 + 2}", f"--reportiters={n0 + 2}"])
+    last = os.path.join(rundir, run, "model_last.bin")
+    ckpt = load_checkpoint(last)
+    windows["continue"] = [st["window"] for st in rec.steps]
+    # seq2seq_tds: --pretrainWindow=3, on for updates 0-2; transformer_s2s:
+    # --trainWithWindow, always on
+    want_on = name == "transformer_s2s"
+    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) or any(
+            w != [True] * len(w) for w in (windows["float32"], windows["bfloat16"])) \
+            or windows["continue"] != [want_on] * 2 \
+            or not all(math.isfinite(st["loss"]) for st in rec.steps):
+        fail(f"{name} continue: updates {tr.updates}/{ckpt.updates}, skipped {tr.skipped}, "
+             f"windows {windows}, losses {[st['loss'] for st in rec.steps]}")
+    del tr
+    torch.cuda.empty_cache()
+    laps["continue"] = time.perf_counter() - t_phase
+    decoder, ev, em, elen = s2s_decoder_card_vs_cpu(name, last, test_lst)
+    beams = s2s_beams(name, ev, em, elen, corpus["lm"], smi_line)
+    del ev, em
+    torch.cuda.empty_cache()
+    laps["decoder"] = time.perf_counter() - t_phase
+    served = s2s_serve(name, spec, last, test_lst, test_secs, root, corpus["lm"])
+    out = dict(n_params=n_params, n_decoder_params=n_crit, first_batch=first,
+               kernels=kernel_rows, training=runs, windows=windows, decoder=decoder,
+               beams=beams, served=served, phase_s=time.perf_counter() - t_phase, laps_s=laps,
+               nvidia_smi=smi_line)
+    log(f"[{name}] phase {spec['phase']} in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | "
+        f"{smi_line}")
+    return out
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="", choices=["", "s2s"],
+                    help="s2s: phases 1, 2, 16 and 17 alone, on phase 13's corpus and LM "
+                         "made without its training; prints no result line")
     args = ap.parse_args()
 
     import torch
@@ -3586,7 +3949,10 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(2)
     if not os.path.isdir(os.path.join(REPO, "wav2letter_tpu_torch")) \
-            or not all(os.path.exists(a) for a in (ARCH, TR_ARCH, CFR_ARCH, GLU_ARCH, RES_ARCH)):
+            or not all(os.path.exists(a) for a in (ARCH, TR_ARCH, CFR_ARCH, GLU_ARCH, RES_ARCH,
+                                                   *(os.path.join(REPO, "recipes", n,
+                                                                  "network.arch")
+                                                     for n in S2S_RECIPES))):
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, REPO)
@@ -3616,6 +3982,24 @@ def main() -> None:
                  if re.search(r"Compiling entry|Used \d+ registers|spill", line)]
         for line in ptxas:
             log(f"[ptxas] {line}")
+
+    if args.only == "s2s":
+        with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
+            from wav2letter_tpu_torch.tools.soak import Soak
+
+            s = Soak(os.path.join(tmp, "soak"), corpus=os.path.join(tmp, "soak_corpus"),
+                     corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
+            s.phase_corpus()
+            s.phase_lm()
+            corpus = dict(s.paths, lm=os.path.join(s.root, "lm3.arpa"))
+            s2s = {name: s2s_path(name, tmp, corpus, smi_line) for name in S2S_RECIPES}
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke_s2s.json"), "w") as f:
+                json.dump(dict(device=kind, nvidia_smi=smi_line, **s2s,
+                               seconds=time.perf_counter() - t_start), f, indent=1)
+        log(f"[done] phases 16, 17 alone in {time.perf_counter() - t_start:.1f} s")
+        return
 
     with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
         # data and flagship checkpoints for the main path
@@ -3650,6 +4034,7 @@ def main() -> None:
         log(f"[shapes] transformer: attention over T={Ta} (serving, B={BATCH}) and "
             f"T={Ta_train} (training, B={tr_batch}); 12 K4 and 24 K3 calls per forward")
 
+        log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
         # 3. kernels against their plain versions
         details = []
         rows = {"mfsc": check_mfsc(BATCH, S, details)}
@@ -3687,19 +4072,23 @@ def main() -> None:
             fail(f"{len(bad)} kernel checks disagree with the plain versions: "
                  f"{json.dumps(bad[0])}")
 
+        log(f"[time] phase 4 starts at {time.perf_counter() - t_start:.1f} s")
         # 4. the main path: serving
         served, ev, ds_main = main_path(FLAGSHIP, paths, lst, secs, os.path.join(tmp, "em"),
                                         n_batches)
 
+        log(f"[time] phase 5 starts at {time.perf_counter() - t_start:.1f} s")
         # 5. where one bf16 forward's device time goes
         prof = profile_forward(ev, ds_main)
         log(f"[profile] {json.dumps(prof)}")
         del ev, ds_main
         torch.cuda.empty_cache()
 
+        log(f"[time] phase 6 starts at {time.perf_counter() - t_start:.1f} s")
         # 6. the main path: training
         trained = training_path(FLAGSHIP, tmp, train_lst, lst, tokens, lexicon, n_batches)
 
+        log(f"[time] phase 7 starts at {time.perf_counter() - t_start:.1f} s")
         # 7. the transformer: serving, one profiled forward, training
         tr_paths, tr_params = save_model(TRANSFORMER, tmp, args.seed, tokens, lexicon)
         log(f"[transformer] {tr_params} parameters")
@@ -3712,33 +4101,57 @@ def main() -> None:
         tr_trained = training_path(TRANSFORMER, tmp, train_lst, lst, tokens, lexicon,
                                    n_batches)
 
+        log(f"[time] phase 8 starts at {time.perf_counter() - t_start:.1f} s")
         # 8. the conformer
         conformer = conformer_path(tmp, tokens, lexicon, args.seed)
 
+        log(f"[time] phase 9 starts at {time.perf_counter() - t_start:.1f} s")
         # 9. the long-context transformer
         long_context = long_context_path(tmp, tokens, lexicon, args.seed)
 
+        log(f"[time] phase 10 starts at {time.perf_counter() - t_start:.1f} s")
         # 10. the lexicon beam decode of the flagship
         decoded = decode_path(paths, lst, secs, tmp, n_batches, smi_line)
 
+        log(f"[time] phase 11 starts at {time.perf_counter() - t_start:.1f} s")
         # 11. chunked streaming inference of the flagship
         streamed = stream_path(paths, lst, secs, tmp, smi_line)
 
+        log(f"[time] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
         # 12. data and tensor parallelism through torch.distributed
         torch.cuda.empty_cache()
         parallel = data_parallel_path(tmp, train_lst, lst, tokens, lexicon, smi_line)
 
+        log(f"[time] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
         # 13. the soak in small: corpus, LM, training killed and continued, the chain
         torch.cuda.empty_cache()
         soaked = soak_path(tmp, smi_line)
 
+        log(f"[time] phase 14 starts at {time.perf_counter() - t_start:.1f} s")
         # 14. conv_glu with ASG: train, continue, test, decode, align
         torch.cuda.empty_cache()
         asg = asg_path(tmp, soaked["corpus"], smi_line)
 
+        log(f"[time] phase 15 starts at {time.perf_counter() - t_start:.1f} s")
         # 15. resnet_ctc with CTC: train, test, align
         torch.cuda.empty_cache()
         resnet = resnet_path(tmp, soaked["corpus"], smi_line)
+
+        log(f"[time] phases 16, 17 start at {time.perf_counter() - t_start:.1f} s")
+        # 16, 17. the attention seq2seq recipes: train, continue, test, decode.
+        # In a process of their own: after phases 3-15 this process's profiler
+        # came back without a device event at phase 16's second K2 row, ten
+        # readings in a row (seen on the H100), where a fresh one reads them.
+        # The child makes phase 13's corpus and LM again from the same seed.
+        torch.cuda.empty_cache()
+        s2s_dir = os.path.join(tmp, "s2s")
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--only", "s2s",
+                                "--out", s2s_dir, "--seed", str(args.seed)], timeout=600)
+        if child.returncode != 0:
+            fail(f"phases 16 and 17 (a child process) exited {child.returncode}")
+        with open(os.path.join(s2s_dir, "chip_smoke_s2s.json")) as f:
+            s2s = {k: v for k, v in json.load(f).items() if k in S2S_RECIPES}
+        log(f"[time] phases 16, 17 end at {time.perf_counter() - t_start:.1f} s")
 
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
@@ -3812,7 +4225,7 @@ def main() -> None:
                                             profile=tr_prof, training=tr_trained),
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
-                           soak=soaked, conv_glu=asg, resnet_ctc=resnet,
+                           soak=soaked, conv_glu=asg, resnet_ctc=resnet, **s2s,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

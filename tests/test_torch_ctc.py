@@ -93,8 +93,14 @@ def test_criterion_scale_modes_match_jax(onorm, sqnorm):
 
 
 def test_make_criterion_names_the_slice_of_what_is_left():
+    """Every --criterion of the JAX ``make_criterion`` builds; what it does not
+    know is an error in both."""
+    from wav2letter_tpu_torch.criterions import Seq2SeqCriterion, TransformerS2SCriterion
+
     assert isinstance(make_criterion(Config(criterion="ctc"), 5), CTCCriterion)
-    with pytest.raises(NotImplementedError, match="seq2seq slice"):
-        make_criterion(Config(criterion="transformer"), 5)
-    with pytest.raises(NotImplementedError, match=r"seq2seq slice \(M11\)"):
-        make_criterion(Config(criterion="seq2seq"), 5)
+    s2s = make_criterion(Config(criterion="seq2seq", encoderdim=8), 5)
+    tr = make_criterion(Config(criterion="transformer", encoderdim=8), 5)
+    assert isinstance(s2s, Seq2SeqCriterion) and isinstance(tr, TransformerS2SCriterion)
+    assert (s2s.cfg.eos_idx, s2s.cfg.pad_idx, s2s.cfg.hidden) == (3, 4, 8)
+    with pytest.raises(ValueError, match="unknown criterion"):
+        make_criterion(Config(criterion="cpc"), 5)

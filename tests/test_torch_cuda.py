@@ -1362,3 +1362,111 @@ def test_output_lengths_on_the_card_equal_the_cpu(cuda):
             _, got = model.to(cuda)(feats.to(cuda), flen.to(cuda))
         model.cpu()
         assert torch.equal(got.cpu(), want), T
+
+
+# ---------------------------------------------------------------------------
+# the seq2seq criterions and their beam step
+# ---------------------------------------------------------------------------
+# recipes/seq2seq_tds's time convs at T = 100: its three C2 (C 1 -> 10 -> 14
+# -> 18, 11 taps, stride 2, the PD's pads folded) and its TDS convs at C =
+# 10, 14, 18 (9 taps), W = 80
+S2S_TDS_CONVS = [(2, 100, 80, 1, 10, 11, 2, 4, 5), (2, 50, 80, 10, 14, 11, 2, 4, 5),
+                 (2, 25, 80, 14, 18, 11, 2, 4, 5), (2, 46, 80, 10, 10, 9, 1, 4, 4),
+                 (2, 23, 80, 14, 14, 9, 1, 4, 4), (2, 12, 80, 18, 18, 9, 1, 4, 4)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", S2S_TDS_CONVS)
+def test_time_conv_kernels_at_seq2seq_tds_channels(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    """K2, its dgrad and K2b at channel counts no other recipe runs."""
+    x, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    bias = _randn((CO,), CO, cuda)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    got = kernels.time_conv(x, w, F, s, (lp, rp), bias, relu=True)
+    want = kernels.time_conv_plain(x, w, F, s, (lp, rp), bias, relu=True)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = kernels.time_conv_dgrad(dy, w, F, T, s, (lp, rp))
+    want = kernels.time_conv_dgrad_plain(dy, w, F, T, s, (lp, rp))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    want = kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=2e-3)
+
+
+def _s2s_criterion(kind, seed=0, N=30, H=64):
+    from wav2letter_tpu_torch.criterions import (S2SConfig, Seq2SeqCriterion,
+                                                 TransformerS2SCriterion)
+
+    cfg = S2SConfig(n_classes=N, eos_idx=N - 2, pad_idx=N - 1, hidden=H, attention="keyvalue",
+                    label_smooth=0.05, attn_window="softPretrain", softw_std=4.0,
+                    max_decoder_output_len=20)
+    torch.manual_seed(seed)
+    crit = (Seq2SeqCriterion(cfg) if kind == "seq2seq"
+            else TransformerS2SCriterion(cfg, n_tr_layers=2))
+    with torch.no_grad():  # the zero-initialized branches carry signal
+        for p in crit.parameters():
+            p.add_(0.05 * torch.randn(p.shape))
+    return crit
+
+
+def _s2s_batch(kind, B=4, T=60, U=12, N=30, H=64):
+    E = 2 * H if kind == "seq2seq" else H
+    em = _randn((B, T, E), 1, "cpu")
+    rng = np.random.RandomState(2)
+    tlen = torch.from_numpy(rng.randint(3, U + 1, size=B).astype(np.int32))
+    tg = torch.full((B, U), -1, dtype=torch.int32)
+    for i in range(B):
+        tg[i, : tlen[i]] = torch.from_numpy(rng.randint(0, N - 2, size=int(tlen[i])))
+    elen = torch.tensor([T, T - 7, T - 20, T - 3], dtype=torch.int32)[:B]
+    return em, tg, elen, tlen
+
+
+@pytest.mark.parametrize("kind", ["seq2seq", "transformer"])
+def test_s2s_criterion_on_the_card_matches_the_cpu(cuda, kind):
+    """Losses (the window on) and every gradient, fp32 on the card (no TF32)
+    against the CPU; the greedy tokens equal."""
+    crit = _s2s_criterion(kind)
+    em, tg, elen, tlen = _s2s_batch(kind)
+    out = []
+    for dev in ("cpu", cuda):
+        crit.zero_grad()  # before the move, which would carry the CPU's grads along
+        crit.to(dev)
+        e = em.detach().to(dev).requires_grad_(True)  # a leaf on either device
+        loss = crit(e, tg.to(dev), elen.to(dev), tlen.to(dev), train=True, window=True)
+        loss.sum().backward()
+        with torch.no_grad():
+            toks, lens = crit.greedy_path(em.to(dev), elen.to(dev))
+        out.append((loss.detach().cpu(), e.grad.cpu(),
+                    {n: p.grad.cpu().clone() for n, p in crit.named_parameters()},
+                    toks.cpu(), lens.cpu()))
+    (lc, ec, gc, tc, nc), (lg, eg, gg, tg_, ng) = out
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(eg, ec, rtol=1e-4, atol=1e-6)
+    scale = max(g.abs().max().item() for g in gc.values())
+    for n, g in gc.items():
+        torch.testing.assert_close(gg[n], g, rtol=1e-4, atol=1e-5 * scale, msg=n)
+    assert torch.equal(tg_, tc) and torch.equal(ng, nc)
+
+
+@pytest.mark.parametrize("kind", ["seq2seq", "transformer"])
+def test_s2s_beam_step_on_the_card_matches_the_cpu(cuda, kind):
+    """One step of the beam's decoder call at K = 8 hypotheses, state
+    gathered from the step before: log-probs, peaks and state."""
+    from wav2letter_tpu_torch.decoder.seq2seq_beam import _gather_state, make_s2s_update_fn
+
+    crit = _s2s_criterion(kind)
+    em = _randn((37, 128 if kind == "seq2seq" else 64), 4, "cpu").numpy()
+    toks = np.arange(8, dtype=np.int32) % 28
+    rows = np.asarray([0, 0, 1, 2, 3, 3, 5, 7])
+    out = []
+    for dev in ("cpu", cuda):
+        step, init = make_s2s_update_fn(crit.to(dev), em, 30)
+        state, _, _ = step(init(8), np.full(8, 28, np.int32))
+        state, logp, peaks = step(_gather_state(state, rows), toks)
+        out.append((logp, peaks))
+    (want, want_peaks), (got, got_peaks) = out
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if kind == "seq2seq":
+        np.testing.assert_array_equal(got_peaks, want_peaks)
+    else:
+        assert got_peaks is None and want_peaks is None

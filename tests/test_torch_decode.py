@@ -206,8 +206,13 @@ def test_decode_cli_without_device_flag_needs_a_card(decode_setup):
 
 
 def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
-    """ConvLM and the seq2seq decode are later slices (M12, M11): asking for
-    them raises and says so."""
+    """ConvLM is a later slice (M12): asking for it raises and says so, with
+    a CTC checkpoint and with a seq2seq one, whose decode is ported (the same
+    checkpoint's encoder under a GRU decoder decodes without it)."""
+    import jax
+    import jax.numpy as jnp
+
+    from wav2letter_tpu.criterions import make_criterion as jax_make
     from wav2letter_tpu.runtime.checkpoint import load_checkpoint as jax_load
     from wav2letter_tpu.runtime.checkpoint import save_checkpoint as jax_save
 
@@ -217,12 +222,20 @@ def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
                    device="cpu")
     ckpt = jax_load(am)
     cfg = JaxConfig.deserialize(ckpt.config)
-    cfg.update({"criterion": "seq2seq"})
+    # the arch's 6 outputs as the encoder states of a content-attention decoder
+    cfg.update({"criterion": "seq2seq", "encoderdim": 6, "maxdecoderoutputlen": 4})
+    crit = jax_make(cfg, 7)
+    ckpt.crit_params = crit.init(jax.random.PRNGKey(0), jnp.zeros((1, 5, 6)),
+                                 jnp.zeros((1, 2), jnp.int32), jnp.asarray([5]),
+                                 jnp.asarray([2]))["params"]
     ckpt.config = cfg.serialize()
     s2s = str(tmp_path / "s2s.bin")
     jax_save(s2s, ckpt)
-    with pytest.raises(NotImplementedError, match="M11"):
-        run_decode(_cfg("torch", am=s2s, test=lst), device="cpu")
+    with pytest.raises(NotImplementedError, match="M12"):
+        run_decode(_cfg("torch", am=s2s, test=lst, lm=lms["arpa"], lmtype="convlm"),
+                   device="cpu")
+    res = run_decode(_cfg("torch", am=s2s, test=lst, lm=lms["arpa"]), device="cpu")
+    assert res["decoder"] == "NativeSeq2SeqDecoder" and np.isfinite(res["WER"])
 
 
 @pytest.mark.parametrize("native", ["1", "0"])

@@ -275,7 +275,7 @@ def test_amp_scale_retries_the_same_batch(data, tmp_path):
 
 def test_what_the_slice_leaves_out_names_its_slice(data, tmp_path):
     for kw, err, match in (
-            (dict(criterion="seq2seq"), NotImplementedError, "seq2seq slice"),
+            (dict(sfx_config="sfx.json"), NotImplementedError, "augmentation slice"),
             (dict(features_device="host"), NotImplementedError, "host-featurizer slice"),
             (dict(remat=True), NotImplementedError, "memory slice"),
             # a model axis wider than the world, in one process: make_mesh's error

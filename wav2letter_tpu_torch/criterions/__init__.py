@@ -1,14 +1,11 @@
 from .base import CriterionScaleMode, get_scale_mode, scale_losses
 from .asg import ASGCriterion
 from .ctc import CTCCriterion
+from .seq2seq import S2SConfig, Seq2SeqCriterion, TransformerS2SCriterion
 
 __all__ = ["CriterionScaleMode", "get_scale_mode", "scale_losses", "ASGCriterion",
-           "CTCCriterion", "make_criterion"]
-
-_LATER = {
-    "seq2seq": "the seq2seq slice (M11)",
-    "transformer": "the seq2seq slice (M11)",
-}
+           "CTCCriterion", "S2SConfig", "Seq2SeqCriterion", "TransformerS2SCriterion",
+           "make_criterion"]
 
 
 def make_criterion(cfg, n_classes: int):
@@ -18,8 +15,8 @@ def make_criterion(cfg, n_classes: int):
         return CTCCriterion(n_classes, mode)
     if cfg.criterion == "asg":
         return ASGCriterion(n_classes, mode, cfg.transdiag, cfg.replabel)
-    if cfg.criterion in _LATER:
-        raise NotImplementedError(
-            f"criterion {cfg.criterion!r} is not in the slices of the PyTorch port so "
-            f"far (ctc and asg); it comes with {_LATER[cfg.criterion]}")
+    if cfg.criterion == "seq2seq":
+        return Seq2SeqCriterion.from_config(cfg, n_classes)
+    if cfg.criterion == "transformer":
+        return TransformerS2SCriterion.from_config(cfg, n_classes)
     raise ValueError(f"unknown criterion: {cfg.criterion}")

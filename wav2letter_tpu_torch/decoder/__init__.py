@@ -1,6 +1,8 @@
 """Beam-search decoding of CTC emissions: n-gram LMs, the lexicon trie, the
 Python beam (the reference the native decoder is held against) and, in
-``decoder.native``, the native C++ beam decoder."""
+``decoder.native``, the native C++ beam decoder; the seq2seq beams, with the
+decoder in the loop, in ``decoder.seq2seq_beam`` (Python) and
+``decoder.s2s_native`` (native)."""
 
 from .lm import LM, ZeroLM, KenLM, ArpaLM
 from .trie import Trie, TrieNode, SmearingMode

@@ -45,13 +45,6 @@ from ..parallel.sharding import column_parallel
 Pads = Union[int, Tuple[int, int]]
 
 
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (training and serving "
-        "the streaming-convnets, transformer and conformer CTC recipes); it comes in a "
-        "later slice")
-
-
 def _derived(module: nn.Module, dtype: torch.dtype, build):
     """``build()``: the module's params re-indexed and cast to ``dtype``.
 
@@ -509,7 +502,13 @@ class TDSBlock(nn.Module):
       x = LN1(x + DO(ReLU(Conv_time(x))))        conv kernel (w x 1): K2
       x = LN2(x + DO(W2 DO(ReLU(W1 x))))         per-frame LNs: K3
     ``right_pad >= 0`` makes the time conv asymmetric: pads (w-1-rp, rp).
-    Only the per-frame LN form (``lnorm_include_time=0``) is in this slice.
+    With ``lnorm_include_time`` (the arch's default, as in
+    ``recipes/seq2seq_tds``) each LN takes its statistics over a sample's
+    frames, padding included, and channels (flashlight's LayerNorm over AF
+    dims 0-2, the JAX non-fused path): K3's per-frame fusion does not apply,
+    so the residual add and that LN are plain; the conv is still K2.
+    ``chain``, the stream's step, always normalizes per frame, as the JAX
+    stream does for either form.
 
     The block works in the (B, T, F*C) f-major layout; ``lin1``/``lin2`` keep
     their C-major (c*F+f) params, re-indexed here to f-major rows/columns as
@@ -523,10 +522,9 @@ class TDSBlock(nn.Module):
                  dropout: float = 0.0, inner_linear_dim: int = 0, right_pad: int = -1,
                  lnorm_include_time: bool = True, ops: SimpleNamespace = KERNELS):
         super().__init__()
-        if lnorm_include_time:
-            raise _later("TDS with a LayerNorm over time (lnorm_include_time=1)")
         c, f, w = channels, freq_dim, kernel_width
         self.c, self.f, self.w, self.rate = c, f, w, dropout
+        self.ln_over_time = lnorm_include_time
         self.ops = ops
         if right_pad >= 0:
             self.time_pads = (w - 1 - right_pad, right_pad)
@@ -558,19 +556,33 @@ class TDSBlock(nn.Module):
         if (C, Fq) != (c, f):
             raise ValueError(f"TDS({c}, {f}) got input {tuple(x.shape)}")
         z = to_chain(x)
-        return from_chain(self.chain(z, self.time_pads, z), c)
+        return from_chain(self.chain(z, self.time_pads, z, self.ln_over_time), c)
 
-    def chain(self, z: torch.Tensor, pads: Tuple[int, int], res: torch.Tensor
-              ) -> torch.Tensor:
+    def _ln(self, x: torch.Tensor, y: torch.Tensor, ln: nn.Module,
+            over_time: bool) -> torch.Tensor:
+        """LN(x + y) on (B, T, D): per frame (K3), or over each sample's T*D
+        values (statistics in fp32, population variance, eps 1e-5)."""
+        B, T, D = y.shape
+        if not over_time:
+            return self.ops.residual_ln(x.reshape(-1, D), y.reshape(-1, D), ln.weight,
+                                        ln.bias)[0].view(B, T, D)
+        s = (x.reshape(B, T, D) + y).float()
+        mean = s.mean(dim=(1, 2), keepdim=True)
+        var = s.var(dim=(1, 2), keepdim=True, unbiased=False)
+        return (ln.weight * ((s - mean) * torch.rsqrt(var + 1e-5)) + ln.bias).to(y.dtype)
+
+    def chain(self, z: torch.Tensor, pads: Tuple[int, int], res: torch.Tensor,
+              over_time: bool = False) -> torch.Tensor:
         """The block on the f-major (B, T, F*C): K2 with time pads ``pads``,
         then the residual ``res`` (B, Tout, F*C), the frames of z that the
-        conv's outputs align with; returns (B, Tout, F*C)."""
+        conv's outputs align with; returns (B, Tout, F*C). ``over_time``: the
+        LNs over each sample's frames (the batch forward of a block built
+        with ``lnorm_include_time``)."""
         kco, cb, w1, b1, w2, b2 = _derived(self, z.dtype, lambda: self._weights(z.dtype))
         y = self.ops.time_conv(z, kco, self.f, 1, pads, cb, relu=True)
         y = F.dropout(y, self.rate, self.training)
         B, T, D = y.shape
-        z = self.ops.residual_ln(res.reshape(-1, D), y.view(-1, D), self.ln1.weight,
-                                 self.ln1.bias)[0]
+        z = self._ln(res, y, self.ln1, over_time).view(-1, D)
         h = torch.relu(column_parallel(z, w1, self.lin1.tp) + b1)
         h = F.dropout(h, self.rate, self.training)
         h = column_parallel(h, w2, self.lin2.tp)
@@ -578,5 +590,4 @@ class TDSBlock(nn.Module):
             h = h.view(-1, self.c, self.f).transpose(1, 2).reshape(-1, D)
         h = h + b2
         h = F.dropout(h, self.rate, self.training)
-        z = self.ops.residual_ln(z, h, self.ln2.weight, self.ln2.bias)[0]
-        return z.view(B, T, D)
+        return self._ln(z, h.view(B, T, D), self.ln2, over_time)

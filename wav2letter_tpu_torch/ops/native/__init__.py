@@ -1,7 +1,8 @@
 """The native host core, built with ``g++`` at first use and bound with ctypes:
 
   * ``decoder.cpp``: ARPA, KenLM-probing and ``qt`` binary n-gram LMs, the
-    lexicon trie and the CTC/ASG beam decoder with its online API;
+    lexicon trie, the CTC/ASG beam decoder with its online API and the
+    seq2seq beam (``w2l_s2s_*``);
   * ``flac.cpp``: the FLAC audio decoder.
 
 Both are copies of the JAX package's sources. Each builds into
@@ -167,6 +168,46 @@ def decoder_lib() -> ctypes.CDLL:
     lib.w2l_decoder_end_collect.restype = c.c_int
     lib.w2l_decoder_end_collect.argtypes = [c.c_void_p]
     lib.w2l_decoder_end_apply.argtypes = [c.c_void_p, c.POINTER(c.c_float)]
+    # the seq2seq beam (S2SDecoder): one step a call on the (K, V) log-probs
+    # the decoder step computed, as the JAX loader binds it
+    lib.w2l_s2s_step_collect.restype = c.c_int
+    lib.w2l_s2s_step_collect.argtypes = [
+        c.c_void_p, c.POINTER(c.c_float), c.POINTER(c.c_int32), c.c_int, c.c_int,
+    ]
+    lib.w2l_s2s_reqs_export.restype = c.c_int
+    lib.w2l_s2s_reqs_export.argtypes = [
+        c.c_void_p, c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+        c.POINTER(c.c_int32), c.c_int,
+    ]
+    lib.w2l_s2s_step_apply.restype = c.c_int
+    lib.w2l_s2s_step_apply.argtypes = [
+        c.c_void_p, c.POINTER(c.c_float), c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+    ]
+    lib.w2l_s2s_end_collect.restype = c.c_int
+    lib.w2l_s2s_end_collect.argtypes = [c.c_void_p]
+    lib.w2l_s2s_end_apply.argtypes = [c.c_void_p, c.POINTER(c.c_float)]
+    lib.w2l_s2s_new.restype = c.c_void_p
+    lib.w2l_s2s_new.argtypes = [
+        c.c_int, c.c_int, c.c_double, c.c_double, c.c_double, c.c_double,
+        c.c_double, c.c_double, c.c_double, c.c_void_p, c.c_void_p,
+        c.c_int, c.c_int, c.POINTER(c.c_int32), c.c_int,
+    ]
+    lib.w2l_s2s_free.argtypes = [c.c_void_p]
+    lib.w2l_s2s_begin.argtypes = [c.c_void_p]
+    lib.w2l_s2s_step.restype = c.c_int
+    lib.w2l_s2s_step.argtypes = [
+        c.c_void_p, c.POINTER(c.c_float), c.POINTER(c.c_int32), c.c_int,
+        c.c_int, c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+    ]
+    lib.w2l_s2s_end.argtypes = [c.c_void_p]
+    lib.w2l_s2s_nhyps.restype = c.c_int
+    lib.w2l_s2s_nhyps.argtypes = [c.c_void_p]
+    lib.w2l_s2s_result.restype = c.c_int
+    lib.w2l_s2s_result.argtypes = [
+        c.c_void_p, c.c_int, c.POINTER(c.c_int32), c.POINTER(c.c_int32),
+        c.c_int, c.POINTER(c.c_double), c.POINTER(c.c_int32),
+        c.POINTER(c.c_int32),
+    ]
     return lib
 
 

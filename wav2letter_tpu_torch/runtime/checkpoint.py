@@ -210,7 +210,10 @@ def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     {"weight", "bias"}}}``) -> state dict ``{"seq.03_C2.weight": ...}``.
 
     Names and shapes are kept (Conv2D OIHW, Linear (in, out), WNLinear ``v``
-    (in, out) and ``g``, LayerNorm scalars, the ASG ``transitions``), so the
+    (in, out) and ``g``, LayerNorm scalars, the ASG ``transitions``, and the
+    seq2seq criterions' flax modules as they are: ``Dense`` ``kernel`` (in,
+    out) and ``bias``, ``embedding/embedding``, ``LayerNorm`` ``scale`` and
+    ``bias``, a GRU cell's six parts ``gru{i}/{ir,iz,in,hr,hz,hn}``), so the
     conversion is a path rename and a copy; a residual block's layers move
     under the block (``_RES_TO_PORT``)."""
     out: Dict[str, torch.Tensor] = {}

@@ -2,7 +2,11 @@
 ``wav2letter_tpu/runtime/decode.py``: offline lexicon beam decoding of CTC or
 ASG emissions with an n-gram LM (ASG's with the checkpoint's transitions, no
 blank, and the replabels packed into the trie's spellings and unpacked from
-the hypotheses, as in JAX).
+the hypotheses, as in JAX), and the seq2seq criterions' beam with the
+decoder in the loop (``decoder/seq2seq_beam.py``, ``decoder/s2s_native.py``:
+the encoder states of an utterance on the device, one decoder step a call
+for all hypotheses, the beam on the host; ``--s2s_batch_decode=N`` steps N
+utterances' beams at once).
 
 The AM forward (or the ``--emission_dir`` cache) feeds an emission queue that
 ``--nthread_decoder`` beam threads drain: ``--nthread_decoder_am_forward``
@@ -11,8 +15,7 @@ serving forward, K1-K4) and ``--nthread_decoder`` consumers run the native C++
 beam decoder on the host. Outputs: WER/TER meters, sclite ``.hyp``/``.ref``/
 ``.log`` files and the ``--isbeamdump`` n-best dump.
 
-Not in the port yet: ConvLM (``--lmtype=convlm``, the LM slice M12) and the
-seq2seq decode (M11; ``Evaluator`` refuses the criterion).
+Not in the port yet: ConvLM (``--lmtype=convlm``, the LM slice M12).
 """
 
 from __future__ import annotations
@@ -48,6 +51,8 @@ DECODE_FLAGS = (
     "decodertype", "uselexicon", "logadd", "nthread_decoder", "sclite",
     "show", "showletters", "isbeamdump", "smoothingtemperature",
     "lmtype", "lmdict", "emission_queue_size",
+    "attentionthreshold", "hardselection", "softselection", "s2s_batch_decode",
+    "use_completed_hyp",
 )
 
 
@@ -104,14 +109,18 @@ def _spellings(cfg, token_dict, spellings, n_tokens):
             yield toks
 
 
-def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
-    """Construct the decoder per flags (reference Decode.cpp:242-624).
-    Prefers the native C++ core; falls back to Python only as
-    ``_native_failed`` allows."""
+def _no_convlm(cfg):
     if cfg.lm and cfg.lmtype == "convlm":
         raise NotImplementedError(
             "--lmtype=convlm is not in the slices of the PyTorch port so far "
             "(n-gram LMs only); ConvLM comes with the LM slice (M12)")
+
+
+def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
+    """Construct the decoder per flags (reference Decode.cpp:242-624).
+    Prefers the native C++ core; falls back to Python only as
+    ``_native_failed`` allows."""
+    _no_convlm(cfg)
     opts = DecoderOptions.from_config(cfg)
     n_tokens = len(token_dict)
     sil = token_dict.get_index(cfg.wordseparator) if cfg.wordseparator in token_dict else 0
@@ -205,6 +214,92 @@ def _build_native_decoder(cfg, opts, token_dict, lexicon, word_dict,
     return dec, word_dict
 
 
+class S2SBeamParts:
+    """What a seq2seq beam needs besides the decoder step, built once per
+    consumer from the flags (reference Decode.cpp:529-624): the options, the
+    word dict, the LM over the ``--decodertype`` vocabulary (``--lmdict``
+    mapping words it lacks to <unk>), the lexicon trie (no smearing) and
+    whether the native core serves them; the Python beam only as
+    ``_native_failed`` allows."""
+
+    def __init__(self, cfg, token_dict, lexicon, use_native=True):
+        _no_convlm(cfg)
+        self.opts = DecoderOptions.from_config(cfg)
+        self.word_dict = make_word_dict(lexicon) if lexicon else None
+        vocab = (self.word_dict.entries() if (cfg.decodertype == "wrd" and self.word_dict)
+                 else token_dict.entries())
+        self.native = False
+        if use_native:
+            try:
+                from ..ops.native import decoder_lib
+
+                decoder_lib()
+                self.native = True
+            except Exception as e:
+                _native_failed(e, what="s2s beam decoder")  # raises if required
+        if self.native:
+            from ..decoder.native import NativeLM, NativeTrie
+
+            self.lm = None
+            if cfg.lm:
+                if cfg.lmdict:
+                    from ..data.dictionary import Dictionary
+
+                    lmd = Dictionary.from_file(cfg.lmdict)
+                    vocab = [w if lmd.contains(w) else "<unk>" for w in vocab]
+                self.lm = NativeLM(cfg.lm, usr_vocab=list(vocab))
+        else:
+            self.lm = make_decode_lm(cfg, vocab)
+        self.trie = None
+        n = len(token_dict)
+        if cfg.uselexicon and lexicon:
+            self.trie = NativeTrie(n) if self.native else Trie(n)
+            for w, spellings in lexicon.entries.items():
+                widx = self.word_dict.get_index(w)
+                for sp in spellings:
+                    ids = [token_dict.get_index(t) for t in sp if token_dict.contains(t)]
+                    if ids:
+                        self.trie.insert(ids, widx, 0.0)
+            self.trie.smear("none" if self.native else SmearingMode.NONE)
+        self.prune = dict(attention_threshold=cfg.attentionthreshold,
+                          hard_selection=cfg.hardselection,
+                          soft_selection=cfg.softselection)
+
+    def decoder(self, criterion, em, eos, max_len):
+        """The beam of one utterance's encoder states ``em`` (T, H)."""
+        from ..decoder.seq2seq_beam import (LexiconFreeSeq2SeqDecoder,
+                                            LexiconSeq2SeqDecoder, make_s2s_update_fn)
+
+        fn, init = make_s2s_update_fn(criterion, em, em.shape[0])
+        if self.native:
+            from ..decoder.s2s_native import NativeSeq2SeqDecoder
+
+            return NativeSeq2SeqDecoder(self.opts, eos, fn, init, lm=self.lm, trie=self.trie,
+                                        max_output_len=max_len, **self.prune)
+        if self.trie is not None:
+            return LexiconSeq2SeqDecoder(self.opts, self.trie, self.lm, eos, fn, init,
+                                         max_output_len=max_len, **self.prune)
+        return LexiconFreeSeq2SeqDecoder(self.opts, eos, fn, init, self.lm,
+                                         max_output_len=max_len, **self.prune)
+
+    def batch_decoder(self, criterion, eos, max_len):
+        from ..decoder.s2s_native import NativeSeq2SeqBatchDecoder
+
+        return NativeSeq2SeqBatchDecoder(self.opts, eos, criterion, lm=self.lm,
+                                         trie=self.trie, max_output_len=max_len, **self.prune)
+
+
+def s2s_words(res, word_dict, token_dict, cfg, n_classes):
+    """A seq2seq hypothesis' words: the trie's words where it emitted any,
+    else its tokens (eos and pad left out; no collapse) split into words."""
+    emitted = [w for w in res.words if w >= 0]
+    if word_dict and emitted:
+        return [word_dict.get_entry(w) for w in emitted]
+    return tokens_to_words(
+        token_dict.map_indices([t for t in res.tokens if 0 <= t < n_classes - 2]),
+        cfg.wordseparator, cfg.usewordpiece)
+
+
 def result_to_words(res, word_dict, token_dict, cfg, n_classes):
     """DecodeResult -> word strings (reference Decoder.cpp:113-164)."""
     words = [word_dict.get_entry(w) for w in res.words if w >= 0] if word_dict else None
@@ -273,7 +368,8 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
     # separator at the trie root and a repeated token bypass the top-k and
     # read -1e30 outside it, and at a tie at the k-th value torch.topk and
     # the beam's std::partial_sort may keep different tokens.
-    use_topk = 0 < ecfg.beamsizetoken < ev.n_classes and not emission_dir
+    use_topk = (not ev.is_s2s and 0 < ecfg.beamsizetoken < ev.n_classes
+                and not emission_dir)
 
     def producer(stripe=0):
         specs = ds.batch_specs()[stripe::n_producers]
@@ -325,7 +421,77 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
 
     transitions = None if ev.transitions is None else ev.transitions.cpu().numpy()
 
+    def s2s_consumer():
+        """The seq2seq beams: one utterance at a time, or with
+        ``--s2s_batch_decode=N`` (native core only) up to N queued ones at once."""
+        parts = S2SBeamParts(ecfg, ev.token_dict, ev.lexicon)
+        eos, max_len = ev.n_classes - 2, ecfg.maxdecoderoutputlen
+        n_best = 50 if ecfg.isbeamdump else 1
+        batched = parts.native and (ecfg.s2s_batch_decode or 1) > 1
+        bdec = parts.batch_decoder(ev.s2s_criterion, eos, max_len) if batched else None
+
+        def handle(sidx, sid, ref_toks, results, beam_s):
+            if ecfg.isbeamdump:
+                from ..tools.rescore import BeamHyp
+
+                pool = results
+                if ecfg.use_completed_hyp:  # only hypotheses that reached eos
+                    pool = [r for r in results if r.completed] or results
+                # with a lexicon the dump holds the words a hypothesis
+                # completed, none of its tokens (unlike its .hyp line)
+                dumped = [BeamHyp(sid, [parts.word_dict.get_entry(w) for w in r.words if w >= 0]
+                                  if parts.word_dict else
+                                  s2s_words(r, None, ev.token_dict, ecfg, ev.n_classes),
+                                  r.am_score, r.lm_score)
+                          for r in pool]
+                with lock:
+                    beam_dump[sid] = dumped
+            res = results[0]
+            hyp_w = s2s_words(res, parts.word_dict, ev.token_dict, ecfg, ev.n_classes)
+            ref_w = tokens_to_words(
+                ev.token_dict.map_indices(ref_toks), ecfg.wordseparator, ecfg.usewordpiece)
+            with lock:
+                times["beam_s"] += beam_s
+                meters.wrd_edit.add(ref_w, hyp_w)
+                meters.tkn_edit.add(ref_toks, [t for t in res.tokens if t >= 0])
+                sclite_rows.append((sidx, sid, ref_w, hyp_w))
+                if ecfg.show:
+                    print(f"|T|: {' '.join(ref_w)}")
+                    print(f"|P|: {' '.join(hyp_w)}")
+
+        while True:
+            item = emq.get()
+            if item is None:
+                return
+            items, last = [item], False
+            while bdec is not None and len(items) < ecfg.s2s_batch_decode:
+                try:
+                    nxt = emq.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    last = True
+                    break
+                items.append(nxt)
+            t0 = time.perf_counter()
+            if bdec is not None:
+                res_lists = bdec.decode([it[2] for it in items], n_best=n_best)
+                name = type(bdec).__name__
+            else:
+                dec = parts.decoder(ev.s2s_criterion, item[2], eos, max_len)
+                res_lists = [dec.decode(n_best=n_best)]
+                name = type(dec).__name__
+            beam_s = time.perf_counter() - t0
+            with lock:
+                decoders.add(name)
+            for (sidx, sid, _, ref_toks), results in zip(items, res_lists):
+                handle(sidx, sid, ref_toks, results, beam_s / len(items))
+            if last:
+                return
+
     def consumer():
+        if ev.is_s2s:
+            return s2s_consumer()
         dec, word_dict = build_decoder(ecfg, ev.token_dict, ev.lexicon, transitions)
         with lock:
             decoders.add(type(dec).__name__)

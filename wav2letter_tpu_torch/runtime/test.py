@@ -2,10 +2,12 @@
 port of ``wav2letter_tpu/runtime/test.py``:
 
 load AM checkpoint -> re-inject stored flags (CLI wins) -> dataset over
-``--test`` -> featurize (K1) -> forward (K2, K3) -> viterbi (CTC's argmax,
-or ASG's max-product path with the checkpoint's transitions) -> collapse
-(and ASG's replabel unpack) -> token/word edit meters and the loss meter ->
-optional ``--show``, ``--sclite`` and ``--emission_dir`` output.
+``--test`` -> featurize (K1) -> forward (K2, K3, K4) -> viterbi (CTC's
+argmax, ASG's max-product path with the checkpoint's transitions, or the
+seq2seq criterions' greedy decode with the checkpoint's decoder) -> collapse
+(ASG's replabel unpack; seq2seq tokens as they are) -> token/word edit
+meters and the loss meter -> optional ``--show``, ``--sclite`` and
+``--emission_dir`` output.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU;
 without a card a CUDA device is an error, never a quiet move to the CPU.
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..criterions import make_criterion
 from ..data import AsrDataset, Lexicon, PrefetchIterator, make_token_dict
 from ..data.dictionary import unpack_replabels
 from ..data.targets import tokens_to_words
@@ -39,10 +42,23 @@ EVAL_FLAGS = (
 )
 
 
+S2S_CRITERIONS = ("seq2seq", "transformer")
+
+
+def encoder_dim(cfg: Config, n_classes: int) -> int:
+    """The arch's output width: the class count, or for the seq2seq
+    criterions ``--encoderdim`` (when set; their archs emit encoder states)."""
+    if cfg.criterion in S2S_CRITERIONS and cfg.encoderdim > 0:
+        return cfg.encoderdim
+    return n_classes
+
+
 def path_tokens(path_row, cfg: Config, n_classes: int) -> list:
-    """A Viterbi path's tokens: CTC's collapse (blank last), or ASG's with
-    the replabels unpacked."""
+    """A Viterbi path's tokens: CTC's collapse (blank last), ASG's with the
+    replabels unpacked, or a seq2seq greedy decode's tokens as they are."""
     toks = [int(t) for t in path_row]
+    if cfg.criterion in S2S_CRITERIONS:
+        return toks
     if cfg.criterion == "asg":
         return asg_collapse([toks], cfg.replabel, n_classes - cfg.replabel)[0]
     return ctc_collapse([toks], n_classes - 1)[0]
@@ -68,7 +84,8 @@ def resolve_device(device: str) -> torch.device:
 
 
 class Evaluator:
-    """AM forward + viterbi + meters, as the JAX Evaluator (CTC and ASG)."""
+    """AM forward + viterbi + meters, as the JAX Evaluator (CTC, ASG and the
+    seq2seq criterions)."""
 
     def __init__(self, cfg: Config, am_path: Optional[str] = None,
                  device: str = "cuda"):
@@ -83,14 +100,6 @@ class Evaluator:
         self.cfg = Config()
         self.cfg.update(merged)
         cfg = self.cfg
-        if cfg.criterion not in ("ctc", "asg"):
-            from ..criterions import _LATER
-
-            raise NotImplementedError(
-                f"criterion {cfg.criterion!r}: the PyTorch port evaluates and decodes "
-                f"ctc and asg only; {cfg.criterion} comes with "
-                f"{_LATER.get(cfg.criterion, 'a later slice')}")
-
         tokens_path = (
             os.path.join(cfg.tokensdir, cfg.tokens) if cfg.tokensdir else cfg.tokens
         )
@@ -105,13 +114,21 @@ class Evaluator:
         if arch_path.endswith(".py") or ":" in arch_path:
             raise NotImplementedError(
                 "plugin archs are not in the first slice of the PyTorch port")
-        self.model = build_arch_module(arch_path, self.n_feat, self.n_classes)
+        self.is_s2s = cfg.criterion in S2S_CRITERIONS
+        self.model = build_arch_module(arch_path, self.n_feat,
+                                       encoder_dim(cfg, self.n_classes),
+                                       force_label_dim=not self.is_s2s)
         self.model.load_state_dict(ckpt.state_dict, strict=True)
         self.model.to(self.device).eval()
         self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.transitions = None  # (N, N) on the device for ASG; CTC has none
         if cfg.criterion == "asg":
             self.transitions = ckpt.crit_state_dict["transitions"].float().to(self.device)
+        self.s2s_criterion = None  # the seq2seq decoder, on the device
+        if self.is_s2s:
+            crit = make_criterion(cfg, self.n_classes)
+            crit.load_state_dict(ckpt.crit_state_dict, strict=True)
+            self.s2s_criterion = crit.to(self.device).eval()
 
     @torch.no_grad()
     def emissions(self, batch):
@@ -131,8 +148,11 @@ class Evaluator:
         vals, idx = torch.topk(em, k, dim=-1)
         return vals, idx.to(torch.int32), elen
 
+    @torch.no_grad()
     def viterbi(self, em, elen):
         """Returns (path, path_len)."""
+        if self.is_s2s:
+            return self.s2s_criterion.greedy_path(em, elen)
         if self.transitions is not None:
             return asg_viterbi(em, self.transitions, elen), elen
         return ctc_viterbi(em, elen), elen
@@ -142,6 +162,8 @@ class Evaluator:
         """Per-batch mean criterion loss (reference Test.cpp loss meter)."""
         tgt = torch.from_numpy(np.asarray(targets)).to(em.device)
         tl = torch.from_numpy(np.asarray(target_len)).to(em.device)
+        if self.is_s2s:  # the scaled losses, as JAX's Evaluator
+            return float(self.s2s_criterion(em, tgt, elen, tl, train=False).mean())
         if self.transitions is not None:
             return float(asg_loss(em, self.transitions, tgt, elen, tl).mean())
         return float(ctc_loss(em, tgt, elen, tl).mean())
@@ -173,7 +195,7 @@ def evaluate(ev: Evaluator) -> Dict[str, float]:
             batch["audio"].shape[0],
         )
         vit, vlen = ev.viterbi(em, elen)
-        vit, vlen = vit.cpu().numpy(), vlen.cpu().numpy()
+        vit, vlen, elen_np = vit.cpu().numpy(), vlen.cpu().numpy(), elen.cpu().numpy()
         for i in range(vit.shape[0]):
             sid = ds.samples[int(batch["sample_idx"][i])].sample_id
             hyp_toks = ev.collapse(vit[i], int(vlen[i]))
@@ -193,7 +215,7 @@ def evaluate(ev: Evaluator) -> Dict[str, float]:
             if emission_dir:
                 np.savez(
                     os.path.join(emission_dir, f"{sid}.npz"),
-                    emission=em[i, : int(vlen[i])].cpu().numpy(),
+                    emission=em[i, : int(elen_np[i])].cpu().numpy(),
                     sample_id=sid,
                 )
     if ecfg.sclite:

@@ -1,6 +1,7 @@
 """Training executor (the ``fl_asr_train`` binary) — the port of
-``wav2letter_tpu/runtime/train.py`` for the CTC and ASG criterions, on one
-device or on several ranks through ``torch.distributed``.
+``wav2letter_tpu/runtime/train.py`` for the CTC, ASG and seq2seq (GRU and
+transformer decoder) criterions, on one device or on several ranks through
+``torch.distributed``.
 
 Structure as there: mode dispatch (train|continue|fork) with "stored flags <
 explicitly passed flags", dictionaries, arch build, one optimizer each for the
@@ -9,12 +10,18 @@ the non-finite guard and the AMP loss scale, periodic validation (viterbi
 TER/WER meters) and self-describing checkpoints.
 
 One update, eagerly on ``device``: featurize (K1) -> SpecAugment -> model
-forward (K2, K3) in ``--compute_dtype`` with fp32 master parameters -> CTC or
-ASG on fp32 emissions -> backward (K2 as dgrad, K2b, K3b) -> viterbi of the
-train batch for the meters (ASG's with the transitions of before the update,
-as in JAX) -> clip -> optimizer. ASG's transitions are the criterion's
-parameter: they take ``--critoptim``/``--lrcrit`` and count in the clip norm.
+forward (K2, K3, K4) in ``--compute_dtype`` with fp32 master parameters ->
+the criterion on fp32 emissions -> backward (K2 as dgrad, K2b, K3b, K4b) ->
+viterbi of the train batch for the meters (ASG's with the transitions of
+before the update, as in JAX; the seq2seq criterions' greedy decode) -> clip
+-> optimizer. The criterion's parameters (ASG's transitions, a seq2seq
+decoder) take ``--critoptim``/``--lrcrit`` and count in the clip norm.
 ``--linseg`` is read by neither trainer (JAX's defines the flag only).
+
+The seq2seq criterions read encoder states of the arch's own width (the arch
+is not forced to the class count), and their attention window is on while
+``updates < --pretrainWindow``, or always with ``--trainWithWindow``
+(``_window_active``).
 
 Everything random in an update (dropout, SpecAugment) is a function of
 ``(seed + 7, update index, data index)``, not of a running stream, and the data
@@ -33,9 +40,8 @@ branch and the replicas stay bit-identical. With ``--mp_axis`` > 1 the big
 weights are column-split over the model axis (tensor parallelism). Rank 0
 alone writes logs, configs and checkpoints (gathered to full shape).
 
-Not in this slice (each raises, naming the slice it waits for): the seq2seq
-criterions and the attention window, ``--features_device=host``,
-plugin archs, ``--remat``.
+Not in this slice (each raises, naming the slice it waits for):
+``--features_device=host``, plugin archs, ``--remat``.
 """
 
 from __future__ import annotations
@@ -65,12 +71,12 @@ from ..parallel.sharding import all_reduce_grads, dataset_shard, gather_full, gl
 from .checkpoint import (Checkpoint, find_last_checkpoint, load_checkpoint,
                          run_index_paths, save_checkpoint)
 from .meters import TrainMeters, get_log_string, sync_meters
-from .test import path_tokens, resolve_device, target_tokens
+from .test import S2S_CRITERIONS, encoder_dim, path_tokens, resolve_device, target_tokens
 
 
 def _not_yet(what: str, slice_name: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (CTC, ASG); "
+        f"{what} is not in the slices of the PyTorch port so far (CTC, ASG, seq2seq); "
         f"it comes with {slice_name}")
 
 
@@ -155,12 +161,14 @@ class Trainer:
                 time_mask_p=cfg.saug_tmaskp)
 
         # --- model + criterion ---
-        self.criterion = make_criterion(cfg, self.n_classes)
+        self.is_s2s = cfg.criterion in S2S_CRITERIONS
         arch_path = os.path.join(cfg.archdir, cfg.arch) if cfg.archdir else cfg.arch
         if arch_path.endswith(".py") or ":" in arch_path:
             raise _not_yet("a plugin arch", "the plugin slice")
-        torch.manual_seed(cfg.seed)
-        self.model = build_arch_module(arch_path, self.n_feat, self.n_classes)
+        torch.manual_seed(cfg.seed)  # the model's, then the criterion's initial weights
+        self.model = build_arch_module(arch_path, self.n_feat, encoder_dim(cfg, self.n_classes),
+                                       force_label_dim=not self.is_s2s)
+        self.criterion = make_criterion(cfg, self.n_classes)
         if self.mesh.spec.n_data > 1 and any(True for _ in self.model.buffers()):
             raise _not_yet("running statistics (a BatchNorm) on several data ranks",
                            "a later slice")
@@ -234,6 +242,22 @@ class Trainer:
     def _timed(self, timer, name):
         return _Phase(timer, name, self.device if self.sync_timers else None)
 
+    def _window_active(self) -> bool:
+        """The seq2seq attention window's gate, per update: on while
+        ``updates < --pretrainWindow``, or always with ``--trainWithWindow``
+        (reference slimIPL/src/Train.cpp:1887-1903)."""
+        cfg = self.cfg
+        if not self.is_s2s or cfg.attnWindow in ("", "no"):
+            return False
+        return bool(cfg.trainWithWindow) or self.updates < cfg.pretrainWindow
+
+    def _viterbi(self, em, elen):
+        """(path, path lengths): the seq2seq criterions' greedy tokens, else
+        the frame-level path (CTC's argmax, ASG's max-product)."""
+        if self.is_s2s:
+            return self.criterion.greedy_path(em, elen)
+        return self.criterion.viterbi_path(em, elen), elen
+
     def _loss(self, b, train: bool, saug_on: bool = False,
               generator: Optional[torch.Generator] = None,
               rows: Optional[torch.Tensor] = None):
@@ -249,7 +273,8 @@ class Trainer:
             em, elen = self.model(feats, flen, generator=generator)
             em = em.float()
         with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
-            losses = self.criterion(em, b["target"], elen, b["target_len"])
+            kw = dict(train=train, window=self._window_active()) if self.is_s2s else {}
+            losses = self.criterion(em, b["target"], elen, b["target_len"], **kw)
             rm = b["row_mask"]
             loss = (losses * rm).sum() / (rm.sum() if rows is None else rows).clamp(min=1.0)
         return loss, em, elen
@@ -276,8 +301,8 @@ class Trainer:
         loss, em, elen = self._loss(b, True, saug_on, gen, rows)
         with self._timed(self.meters.bwd_timer, "w2l/backward"):
             (loss * self.amp_scale).backward()
-        with torch.no_grad():  # before the update moves ASG's transitions
-            vit = self.criterion.viterbi_path(em, elen)
+        with torch.no_grad():  # before the update moves the criterion's params
+            vit, vlen = self._viterbi(em, elen)
         with self._timed(self.meters.optim_timer, "w2l/optimizer"):
             rep = [p.grad for n, p in named if p.grad is not None and n not in self.sharded]
             shard = [p.grad for n, p in named if p.grad is not None and n in self.sharded]
@@ -300,14 +325,14 @@ class Trainer:
                 torch._foreach_mul_(grads, scale)
             self.net_opt.step(lr)
             self.crit_opt.step(lr_crit)
-        return loss_v, finite, vit, elen
+        return loss_v, finite, vit, vlen
 
     @torch.no_grad()
     def eval_step(self, batch):
         self.model.eval()
         self.criterion.eval()
         loss, em, elen = self._loss(self._to_device(batch), False)
-        return float(loss), self.criterion.viterbi_path(em, elen), elen
+        return (float(loss),) + tuple(self._viterbi(em, elen))
 
     # ------------------------------------------------------------------
     # meters helpers
