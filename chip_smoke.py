@@ -26,10 +26,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    and at rate 0.2 with the same keep mask on both sides; K4b alone also at
    the long-context update (B=2, T=1712), at T=17, 65, 188 and the last T it
    takes at Dh = 192, and at Dh = 8, 64, 128, 256 (``check_attention_bwd``),
-   and at the training row its time by launch and by tile height; K2b and K4b twice for equal bits; time kernel, plain version, one PyTorch call of the same
-   function where there is one, and the bound; K4 also at each tile height
-   (query rows a block) that fits, with the one it picks, its blocks and its
-   TFLOP/s; K2, its dgrad and K2b also at ``CONV_EDGES`` (C = 1 with 20
+   and at the training row its time by launch; K2b and K4b twice for equal
+   bits; time kernel, plain version, one PyTorch call of the same function
+   where there is one, and the bound; K4 with the tile height (query rows a
+   block) it picks, its blocks and its TFLOP/s; K2, its dgrad and K2b also at ``CONV_EDGES`` (C = 1 with 20
    taps, a ragged strided tile, F = 40, the largest weight the route
    admits), each row with its route (tensor cores, in bf16 or in fp32 as
    3xTF32, or CUDA cores), the schedule it launches (frames a tile, tiles a
@@ -97,8 +97,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    features (max 1e-4), the streamed features against the batch featurizer's
    K1 with its local CMVN in float64 (2e-3; the distance to its fp32 CMVN is
    reported), the streamed words against the same beam fed the batch emissions
-   cut at the stream's chunk boundaries, ``cli.streaming_asr`` (a
-   subprocess, the shortest utterance) and ``cli.streaming_asr_multi`` (the
+   cut at the stream's chunk boundaries, ``cli.streaming_asr`` (its main,
+   the shortest utterance) and ``cli.streaming_asr_multi`` (the
    4 shortest, 4 threads) against the single-stream words, and K1, K2 and
    K3 at a steady chunk's shapes against their plain versions (K2's dgrad
    and K2b there too, checked and timed though a chunk runs no backward,
@@ -124,8 +124,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    gloo's, not NCCL's.
 13. the soak in small (``wav2letter_tpu_torch/tools/soak.py``, ``soak_path``):
    a 3-minute synthetic corpus from the port's ``synth_corpus``, its 3-gram
-   LM, the flagship minus SAUG trained in bf16 at B = 16 for 40 updates in a
-   child ``cli.train``, SIGKILLed once the checkpoint of update 20 is whole
+   LM, the flagship minus SAUG trained in bf16 at B = 16 for 30 updates in a
+   child ``cli.train``, SIGKILLed once the checkpoint of update 15 is whole
    and resumed by a bare ``continue``; the soak's ``profile`` step on the
    trained run in this process (a steady update's wall, device busy, idle
    share and peak memory at the largest and median batches, one update's
@@ -145,9 +145,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    batch's ASG loss and the gradients of every leaf and of ``transitions`` on
    the card against the same model and batch on the CPU (fp32 gated:
    ``CARD_CPU_TOL``; bf16 reported), ``ASG_UPDATES`` updates in fp32 and in
-   bf16 through ``cli.train`` (per update wall, device busy, idle share,
-   launches and peak memory; in fp32 also the criterion's forward,
-   backward and Viterbi alone: wall, device ms, launches, T), ``continue`` for 2 more
+   bf16 through ``cli.train`` (in fp32 one more update's wall, device busy,
+   idle share, launches and peak memory), ``continue`` for 2 more
    (the transitions moved from ``transdiag·I`` and stored in equal bits);
    on the trained model's emissions the card's ``asg_loss`` and its
    gradients, ``asg_viterbi`` and ``asg_forced_align`` against the CPU's
@@ -163,12 +162,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    through ``cli.train``, then ``cli.test`` and ``cli.align`` (CTC forced
    alignment) under the same word-order gate; K1 alone on the card.
 16, 17. the attention seq2seq recipes at full width, on phase 13's corpus
-   (letters, not the recipes' word pieces; its 16 shortest training and 8
+   (letters, not the recipes' word pieces; its 16 shortest training and 4
    shortest test utterances): 16 is ``recipes/seq2seq_tds`` (its ``train.cfg`` with
    ``--encoderdim=512``: a TDS encoder whose blocks normalize over time, a
    GRU decoder with keyvalue attention), 17 ``recipes/transformer_s2s`` (its
    ``train.cfg``: 12 TR layers, a 6-layer transformer decoder). Each: the
-   first batch card against CPU as in 14; the path's kernels at its shapes
+   first batch card against CPU as in 14, in fp32 only; the path's kernels at its shapes
    against their plain versions (K2, dgrad, K2b at C = 10, 14, 18; K4, K4b,
    K3, K3b at the transformer's); ``S2S_UPDATES`` updates in fp32 and bf16
    through ``cli.train`` with every update's launches held to the arch (no
@@ -180,6 +179,30 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    and ``cli.decode`` (native beam, the README's flags; the transformer also
    with ``--s2s_batch_decode=4``, equal to the sequential beam). ``--only
    s2s`` runs phases 1, 2, 16 and 17 alone.
+18. the LM slice: the GCNN-14B ConvLM (``gcnn_lines``: Dauphin et al.'s
+   ``fconv_lm_dauphin_gbw``, 161,607,984 parameters over phase 13's 150 words
+   + ``</s>`` and ``<unk>``) trained by ``cli.train_lm`` in fp32 at B = 16,
+   bptt 64 for ``LM_UPDATES`` updates on ~1 M tokens of phase 13's Markov
+   chain (the first batch's loss and every leaf's gradient card against CPU,
+   ``CARD_CPU_TOL``; the loss falls; no kernel of ours launched); the
+   ConvLM's deferred scores card against CPU (``LM_ROW_TOL``); ``cli.decode
+   --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of 8 test utterances through
+   phase 13's trained flagship (CTC, the native lexicon beam), phase 14's
+   conv_glu (ASG) and phase 16's seq2seq_tds (the native seq2seq beam), each
+   AM's launches counted as its phase counts them, audio s per wall s and the
+   ConvLM's device calls, cache hit rate and device ms printed, and the
+   native beam's words against the Python beam's on the two shortest; the
+   new layers (BN over 1024 channels, an LSTM, a GRU and a ReLU RNN of 512,
+   2 layers, POSEMB, SINPOSEMB, PC) forward and backward card against CPU;
+   ``cli.train`` 2 updates then ``continue`` 2 on ``LAYERS_ARCH`` (BN, GRU,
+   POSEMB, PC) with the BN buffers reloaded in equal bits. In the full run it
+   follows 16 and 17 in their child process; ``--only lm`` runs phases 1, 2
+   and 18 alone, on phase 13's corpus, with the three AMs at their seeded
+   weights.
+
+Phase 3 times the paths' rows by the profiler (cold, plain, library; K1 also
+warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, the
+attention's edge shapes) once by CUDA events.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -190,6 +213,8 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import os
@@ -205,8 +230,8 @@ TR_ARCH = os.path.join(REPO, "recipes", "transformer_ctc", "network.arch")
 CFR_ARCH = os.path.join(REPO, "recipes", "conformer_ctc", "network.arch")
 N_FEAT, N_TOKENS, BATCH = 80, 9997, 4
 TRAIN_UTTS = 32
-TRAIN_UPDATES = {"bfloat16": 6, "float32": 4}
-CONTINUE_UPDATES = 2
+TRAIN_UPDATES = {"bfloat16": 3, "float32": 2}
+CONTINUE_UPDATES = 1
 CFR_LAYERS = 4  # of the conformer recipe's 16
 # K2 and K2b at the edges of the bf16 tensor-core route, (B, T, F, C, CO, K,
 # stride, pads), beside the path's shapes: C = 1 with 20 taps (two 16-tap
@@ -241,7 +266,7 @@ TRANSFORMER = dict(
     opt_slot="mu", loss_falls=True)
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
-PASSES = 5  # steady-state passes over the served list per type
+PASSES = 1  # steady-state passes over the served list per type
 TF32_PEAK = 495e12  # H100 SXM, dense
 # The least time for a function's operations, H100 SXM, dense. fp32 counts at
 # the fastest fp32-accurate rate the card has: 3xTF32 on the tensor cores
@@ -315,6 +340,42 @@ FN_TOL = {"float32": (1e-3, 2e-2, 1e-3), "bfloat16": (5e-2, 2e-2, 2e-3)}
 GRAD_TOL_FEATS = {"float32": (1e-4, 0.1), "bfloat16": (2e-2, 0.25)}
 # emissions of the kernel path vs the plain path, full model: (max, mean) abs
 EM_TOL = {"float32": (2e-3, 1e-4), "bfloat16": (0.25, 0.02)}
+
+
+# GCNN-14B (Dauphin et al. 2017; fairseq's ``fconv_lm_dauphin_gbw``, which the
+# reference's ``lm_librispeech_*_gcnn_14B.arch`` follow): an embedding of 128,
+# a causal conv to 512, then blocks of three (width, kernel) convs, each a
+# weight-normed causal ``AC`` to twice its width and ``GLU``, after a dropout,
+# with a residual over the block (a projection where the width changes)
+GCNN_EMB, GCNN_FIRST = 128, (512, 5)
+GCNN_BLOCKS = ([((128, 1), (128, 5), (512, 1))] * 3 + [((512, 1), (512, 5), (1024, 1))] * 3
+               + [((1024, 1), (1024, 5), (2048, 1))] * 6 + [((1024, 1), (1024, 5), (4096, 1))])
+
+
+def gcnn_lines(vocab: int, div: int = 1, dropout: float = 0.1) -> list:
+    """The GCNN-14B LM's arch lines over ``vocab`` tokens, every width
+    divided by ``div`` (the CPU tests build it narrow): ids in the AF (L, B,
+    1, 1) layout, ``E``, the causal convs (``WN 3 AC in 2*out k 1 -1 0``:
+    all pads on the left), each block a ``RES 9 1`` of three ``DO``, conv,
+    ``GLU 2`` triples with a ``SKIP`` (or a ``SKIPL`` through a 1-wide conv)
+    from its input to its output scaled by sqrt(1/2), and a weight-normed
+    linear head to the vocabulary."""
+    w = lambda c: max(1, c // div)  # noqa: E731
+    width = w(GCNN_FIRST[0])
+    lines = ["V -1 0 1 1", f"E {w(GCNN_EMB)} {vocab}", "RO 1 3 0 2",
+             f"WN 3 AC {w(GCNN_EMB)} {2 * width} {GCNN_FIRST[1]} 1 -1 0", "GLU 2"]
+    for block in GCNN_BLOCKS:
+        body, cin = [], width
+        for c, k in block:
+            body += [f"DO {dropout}", f"WN 3 AC {cin} {2 * w(c)} {k} 1 -1 0", "GLU 2"]
+            cin = w(c)
+        if cin == width:
+            lines += ["RES 9 1"] + body + ["SKIP 0 10 0.7071"]
+        else:
+            lines += (["RES 9 1"] + body
+                      + ["SKIPL 0 10 1 0.7071", f"WN 3 AC {width} {cin} 1 1 -1 0"])
+        width = cin
+    return lines + ["RO 2 0 3 1", f"WN 0 L {width} {vocab}"]
 
 
 def fail(msg: str) -> None:
@@ -635,7 +696,7 @@ def _conv_log(row, tag):
     share."""
     log(f"[{tag}] {row['name']} {row['dtype']} {row['shape']} calls={row['calls']}: "
         f"{row['route']} {json.dumps(row['schedule'])}, {row['ms']:.4f} ms (library "
-        f"{row['library_ms']:.4f}), {row['tflops']:.1f} TFLOP/s, "
+        f"{row['library_ms']}), {row['tflops']:.1f} TFLOP/s, "
         f"{row['bound_ms'] / row['ms']:.3f} of the bound")
 
 
@@ -653,9 +714,10 @@ def _conv_layout(dtype, key, kind, Tout):
                 schedule=schedule(dtype, B, frames, C, CO, K, s, Fq, sms, kind))
 
 
-def check_time_conv(convs, dtype_name, details, edges=()):
+def check_time_conv(convs, dtype_name, details, edges=(), time_plain=True):
     """K2 at every conv shape of one forward, and at ``edges`` (not on the
-    path: timed, counted 0 times)."""
+    path: timed, counted 0 times); the plain version timed too where
+    ``time_plain``."""
     import torch
     import torch.nn.functional as F
 
@@ -675,23 +737,27 @@ def check_time_conv(convs, dtype_name, details, edges=()):
         err, rel, ok = compare("time_conv", dtype_name, got, kernels.time_conv_plain(*args))
         # one PyTorch call of the same conv: conv2d on the NCHW layout, with
         # the time pads and the layout change done before the timing
+        edge = key in edges
         xn = F.pad(x.view(B, T, Fq, C).permute(0, 3, 2, 1), pads).contiguous()
         wn = w.permute(2, 1, 0).unsqueeze(2).contiguous()
         bn = bias.to(dtype)
-        lib_ms = device_ms(lambda a, b_, c: F.conv2d(a, b_, c, stride=(1, s)), (xn, wn, bn))
         Tout = got.shape[1]
         item = x.element_size()
         nbytes = item * (x.numel() + w.numel() + got.numel()) + 4 * CO
         flops = 2 * B * Tout * Fq * CO * K * C
         b_ms, b_by = bound(nbytes, flops, dtype_name)
-        ms = device_ms(kernels.time_conv, args)
+        if edge:  # off the path: timed once, warm, by events
+            ms = warm = cuda_ms(lambda: kernels.time_conv(*args))
+            lib_ms = plain = None
+        else:
+            lib_ms = device_ms(lambda a, b_, c: F.conv2d(a, b_, c, stride=(1, s)), (xn, wn, bn))
+            ms, warm = device_ms(kernels.time_conv, args), None
+            plain = device_ms(kernels.time_conv_plain, args) if time_plain else None
         row = dict(name="time_conv", dtype=dtype_name, shape=list(key[:7]) + [list(pads)],
                    max_abs_err=err, max_rel_err=rel, tol=TOL[("time_conv", dtype_name)],
-                   ok=ok, ms=ms,
-                   warm_ms=device_ms(kernels.time_conv, args, cold=False),
-                   plain_ms=None if key in edges else device_ms(kernels.time_conv_plain, args),
+                   ok=ok, ms=ms, warm_ms=warm, plain_ms=plain,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   calls=convs.count(key), tflops=flops / ms / 1e9, edge=key in edges,
+                   calls=convs.count(key), tflops=flops / ms / 1e9, edge=edge,
                    **_conv_layout(dtype, key, "conv", Tout))
         _conv_log(row, "K2")
         rows.append(row)
@@ -702,7 +768,7 @@ def check_time_conv(convs, dtype_name, details, edges=()):
 def _ln_log(row):
     log(f"[K3] {row['dtype']} {row['shape']} calls={row['calls']}: {row['route']}"
         + (f", {row['warps_per_row']} warps a row" if row["route"] == "registers" else "")
-        + f", {row['ms']:.4f} ms cold, {row['warm_ms']:.4f} warm; x + y and F.layer_norm "
+        + f", {row['ms']:.4f} ms cold; x + y and F.layer_norm "
         f"{row['library_ms']}, F.layer_norm of the sum {row.get('layer_norm_ms')}; bound "
         f"{row['bound_ms']:.4f} ({row['bound_by']})")
 
@@ -765,7 +831,7 @@ def check_residual_ln(lns, dtype_name, details):
         row = dict(name="residual_ln", dtype=dtype_name, shape=[R, D], max_abs_err=err,
                    max_rel_err=rel, tol=TOL[("residual_ln", dtype_name)], ok=ok,
                    ms=device_ms(kernels.residual_ln, args),
-                   warm_ms=device_ms(kernels.residual_ln, args, cold=False),
+                   warm_ms=None,
                    plain_ms=device_ms(kernels.residual_ln_plain, args),
                    library_ms=lib_ms, layer_norm_ms=ln_ms, bound_ms=b_ms, bound_by=b_by,
                    calls=lns.count(key), **_ln_layout(x))
@@ -840,10 +906,11 @@ def _function_errors(got, want, dtype_name):
     return out
 
 
-def check_time_conv_backward(convs, dtype_name, details, edges=()):
+def check_time_conv_backward(convs, dtype_name, details, edges=(), time_plain=True):
     """K2 as dgrad, K2b, and the autograd function (with bias and ReLU) at
     every conv shape of one training forward, and at ``edges`` (counted 0
-    times); K2b twice for equal bits."""
+    times); K2b twice for equal bits; the plain versions timed too where
+    ``time_plain``."""
     import torch
     import torch.nn.functional as F
 
@@ -853,6 +920,7 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
     rows = {"time_conv_dgrad": [], "time_conv_wgrad": []}
     for n, key in enumerate(sorted(set(convs), key=convs.index) + list(edges)):
         B, T, Fq, C, CO, K, s, pads = key
+        edge = key in edges
         x, w, bias, dy = _conv_inputs(key, dtype)
         Tout, item = dy.shape[1], x.element_size()
         flops = 2 * B * Tout * Fq * CO * K * C  # the products the data needs
@@ -870,19 +938,22 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
             torch.cuda.synchronize()
             err, rel, ok = compare("time_conv_dgrad", dtype_name, got,
                                    kernels.time_conv_dgrad_plain(*args))
-            lib_ms = device_ms(
-                lambda a, b_: torch.nn.grad.conv2d_input(xn.shape, b_, a, stride=(1, s)),
-                (dyn, wn))
             b_ms, b_by = bound(item * (dy.numel() + w.numel() + x.numel()), flops, dtype_name)
-            ms = device_ms(kernels.time_conv_dgrad, args)
+            if edge:  # off the path: timed once, warm, by events
+                ms = warm = cuda_ms(lambda: kernels.time_conv_dgrad(*args))
+                lib_ms = plain = None
+            else:
+                lib_ms = device_ms(
+                    lambda a, b_: torch.nn.grad.conv2d_input(xn.shape, b_, a, stride=(1, s)),
+                    (dyn, wn))
+                ms, warm = device_ms(kernels.time_conv_dgrad, args), None
+                plain = device_ms(kernels.time_conv_dgrad_plain, args) if time_plain else None
             rows["time_conv_dgrad"].append(dict(
                 name="time_conv_dgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
                 max_rel_err=rel, tol=TOL[("time_conv_dgrad", dtype_name)], ok=ok,
-                ms=ms, warm_ms=device_ms(kernels.time_conv_dgrad, args, cold=False),
-                plain_ms=(None if key in edges
-                          else device_ms(kernels.time_conv_dgrad_plain, args)),
+                ms=ms, warm_ms=warm, plain_ms=plain,
                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
-                tflops=flops / ms / 1e9, edge=key in edges,
+                tflops=flops / ms / 1e9, edge=edge,
                 **_conv_layout(dtype, key, "dgrad", Tout)))
             _conv_log(rows["time_conv_dgrad"][-1], "K2 dgrad")
 
@@ -892,18 +963,22 @@ def check_time_conv_backward(convs, dtype_name, details, edges=()):
         err, rel, ok = compare("time_conv_wgrad", dtype_name, got,
                                kernels.time_conv_wgrad_plain(*args))
         ok = ok and torch.equal(got, kernels.time_conv_wgrad(*args))  # ordered sums
-        lib_ms = device_ms(
-            lambda a, b_: torch.nn.grad.conv2d_weight(a, wn.shape, b_, stride=(1, s)),
-            (xn, dyn))
         b_ms, b_by = bound(item * (x.numel() + dy.numel()) + 4 * K * C * CO, flops, dtype_name)
-        ms = device_ms(kernels.time_conv_wgrad, args)
+        if edge:  # off the path: timed once, warm, by events
+            ms = warm = cuda_ms(lambda: kernels.time_conv_wgrad(*args))
+            lib_ms = plain = None
+        else:
+            lib_ms = device_ms(
+                lambda a, b_: torch.nn.grad.conv2d_weight(a, wn.shape, b_, stride=(1, s)),
+                (xn, dyn))
+            ms, warm = device_ms(kernels.time_conv_wgrad, args), None
+            plain = device_ms(kernels.time_conv_wgrad_plain, args) if time_plain else None
         row = dict(
             name="time_conv_wgrad", dtype=dtype_name, shape=shape, max_abs_err=err,
             max_rel_err=rel, tol=TOL[("time_conv_wgrad", dtype_name)], ok=bool(ok),
-            ms=ms, warm_ms=device_ms(kernels.time_conv_wgrad, args, cold=False),
-            plain_ms=None if key in edges else device_ms(kernels.time_conv_wgrad_plain, args),
+            ms=ms, warm_ms=warm, plain_ms=plain,
             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=convs.count(key),
-            tflops=flops / ms / 1e9, edge=key in edges, **_conv_layout(dtype, key, "wgrad", Tout))
+            tflops=flops / ms / 1e9, edge=edge, **_conv_layout(dtype, key, "wgrad", Tout))
         _conv_log(row, "K2b")
 
         # the whole function against autograd of the plain forward
@@ -958,7 +1033,7 @@ def check_residual_ln_bwd(lns, dtype_name, details):
         row = dict(name="residual_ln_bwd", dtype=dtype_name, shape=[R, D], max_abs_err=err,
                    max_rel_err=rel, tol=TOL[("residual_ln_bwd", dtype_name)],
                    ms=device_ms(kernels.residual_ln_bwd, args),
-                   warm_ms=device_ms(kernels.residual_ln_bwd, args, cold=False),
+                   warm_ms=None,
                    plain_ms=device_ms(kernels.residual_ln_bwd_plain, args),
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=lns.count(key))
         # the whole function against autograd of the plain forward
@@ -1069,6 +1144,9 @@ def check_attention(shapes, dtype_name, details):
             del got, back, want, again, grads
 
         rate_f = 0.0 if tag == "serve" else 0.2
+        # the paths' rows are timed by the profiler (cold, plain, library): K4
+        # at the serving row, K4b at the training row; the others once by events
+        timed_fwd, timed = tag == "serve", tag == "train"
         item = q.element_size()
         qh, kh, vh = (t.view(B, T, H, Dh).transpose(1, 2).contiguous() for t in (q, k, v))
         ar = torch.arange(T, device="cuda")
@@ -1086,22 +1164,22 @@ def check_attention(shapes, dtype_name, details):
         e = errs["mhsa"]
         # K4's tile: the query rows a block it picks, and each height that fits, timed
         tile = attention.fwd_tile_rows(B, H, T, Dh, item, sms)
-        rows_ms = {r: device_ms(lambda *a, r=r: attention._launch_fwd(*a, rows=r), f_args)
-                   for r in attention.FWD_ROWS
-                   if attention.fwd_smem_bytes(r, T, Dh, item) <= kernels._build.MAX_SMEM_BYTES}
-        ms = device_ms(kernels.mhsa, f_args)
+        if timed_fwd:
+            ms = device_ms(kernels.mhsa, f_args)
+            warm = None
+            plain = device_ms(kernels.mhsa_plain, f_args)
+            lib = device_ms(sdpa, (qh, kh, vh, bias))
+        else:
+            ms, warm, plain, lib = cuda_ms(lambda: kernels.mhsa(*f_args)), None, None, None
         rows["mhsa"].append(dict(
             name="mhsa", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=rate_f,
             max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa", dtype_name)], ok=e[2],
-            ms=ms, warm_ms=device_ms(kernels.mhsa, f_args, cold=False),
-            plain_ms=device_ms(kernels.mhsa_plain, f_args),
-            library_ms=device_ms(sdpa, (qh, kh, vh, bias)),
+            ms=ms, warm_ms=warm, plain_ms=plain, library_ms=lib,
             bound_ms=b_ms, bound_by=b_by, calls=calls, tile_rows=tile,
-            blocks=-(-T // tile) * H * B, tflops=mhsa_flops(B, T, H, Dh) / ms / 1e9,
-            rows_ms=rows_ms))
+            blocks=-(-T // tile) * H * B, tflops=mhsa_flops(B, T, H, Dh) / ms / 1e9))
         log(f"[K4] {tag} {dtype_name} B={B} T={T} H={H} Dh={Dh}: {tile} rows a block, "
             f"{rows['mhsa'][-1]['blocks']} blocks, {ms:.4f} ms, "
-            f"{rows['mhsa'][-1]['tflops']:.1f} TFLOP/s; by rows {rows_ms}")
+            f"{rows['mhsa'][-1]['tflops']:.1f} TFLOP/s")
 
         b_args = (q, k, v, pos, mask, dout, H, 0.2, 7)
         leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
@@ -1110,26 +1188,24 @@ def check_attention(shapes, dtype_name, details):
         nbytes = item * (7 * q.numel() + pos.numel()) + 4 * (mask.numel() + pos.numel())
         b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh, backward=True), dtype_name)
         e = errs["mhsa_bwd"]
-        split = k4b_split(b_args)
-        # K4b's first launch at each tile height that fits, at the training row
-        b_rows_ms = {r: device_ms(lambda *a, r=r: attention._launch_bwd(*a, rows=r), b_args)
-                     for r in attention.BWD_ROWS if tag == "train"
-                     and attention.bwd_smem_bytes(r, T, Dh, item) <= kernels._build.MAX_SMEM_BYTES}
+        split = k4b_split(b_args) if timed else {}
         rows["mhsa_bwd"].append(dict(
             name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=0.2,
             max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa_bwd", dtype_name)], ok=e[2],
-            ms=sum(split.values()), split_ms=split,
-            warm_ms=device_ms(kernels.mhsa_bwd, b_args, cold=False),
-            plain_ms=device_ms(kernels.mhsa_bwd_plain, b_args),
+            ms=sum(split.values()) if timed else cuda_ms(lambda: kernels.mhsa_bwd(*b_args)),
+            split_ms=split,
+            warm_ms=None,
+            plain_ms=device_ms(kernels.mhsa_bwd_plain, b_args) if timed else None,
             library_ms=device_ms(
-                lambda a: torch.autograd.grad(lib_out, leaves, a, retain_graph=True), (gh,)),
-            bound_ms=b_ms, bound_by=b_by, calls=calls, rows_ms=b_rows_ms,
+                lambda a: torch.autograd.grad(lib_out, leaves, a, retain_graph=True), (gh,))
+            if timed else None,
+            bound_ms=b_ms, bound_by=b_by, calls=calls,
             tile_rows=attention.fwd_tile_rows(B, H, T, Dh, item, sms, attention.BWD_ROWS)))
         r = rows["mhsa_bwd"][-1]
         log(f"[K4b] {tag} {dtype_name} B={B} T={T} H={H} Dh={Dh}: {r['ms']:.4f} ms by launch "
             f"{json.dumps({k: round(v, 4) for k, v in split.items()})}; autograd of SDPA "
-            f"{r['library_ms']:.4f} ms; {mhsa_flops(B, T, H, Dh, True) / r['ms'] / 1e9:.1f} "
-            f"TFLOP/s; by rows {b_rows_ms}")
+            f"{r['library_ms']} ms; {mhsa_flops(B, T, H, Dh, True) / r['ms'] / 1e9:.1f} "
+            "TFLOP/s")
         del lib_out, leaves, bias, idx
         torch.cuda.empty_cache()
     for v_ in rows.values():
@@ -1194,7 +1270,7 @@ def k4b_edges(dtype_name):
 
 def per_forward(rows):
     """Sum a kernel's rows over one forward, weighting each shape by its calls."""
-    out = {k: 0.0 for k in ("ms", "warm_ms", "plain_ms", "bound_ms")}
+    out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms")}
     lib = 0.0 if all(r["library_ms"] is not None for r in rows) else None
     for r in rows:
         for k in out:
@@ -1580,8 +1656,10 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
             s_per_update=span / (n_updates - 1), peak_mem_gib=peak / 2**30,
             launches=launches, launches_per_update=per_update, first_batch=grads)
         tr.train_step = step
-        largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
-        res["profile"] = profile_update(tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
+        if dtype_name == "bfloat16":  # the split of an update, in the type served at scale
+            largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
+            res["profile"] = profile_update(
+                tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
         results[dtype_name] = res
         log(f"[train {runname}] {json.dumps(res)}")
         del tr
@@ -2274,8 +2352,8 @@ def stream_path(paths, lst, secs, tmp, smi_line):
     fp32 forward on the same features, the streamed features against the
     batch featurizer, the streamed words against the same decoder fed the
     batch emissions at the stream's chunk boundaries, ``cli.streaming_asr``
-    (a subprocess) and ``cli.streaming_asr_multi`` (4 threads) against the
-    in-process words, and K2 and K3 at streaming shapes against their plain
+    (its main, its printed lines read back) and ``cli.streaming_asr_multi``
+    (4 threads) against the in-process words, and K2 and K3 at streaming shapes against their plain
     versions."""
     import contextlib
     import io
@@ -2367,21 +2445,20 @@ def stream_path(paths, lst, secs, tmp, smi_line):
     if bad_words:
         fail(f"stream: streamed words differ from the batch-fed beam's on {bad_words}")
 
-    # the CLIs: streaming_asr as a subprocess on the shortest utterance,
-    # streaming_asr_multi on the 4 shortest with 4 threads, in this process
+    # the CLIs, through their mains in this process: streaming_asr on the
+    # shortest utterance (its printed lines read back), streaming_asr_multi
+    # on the 4 shortest with 4 threads
     by_len = sorted(audio, key=lambda k: len(audio[k]))
     short = next(s for s in samples if s.sample_id == by_len[0])
     t0 = time.perf_counter()
-    cli = subprocess.run(
-        [sys.executable, "-m", "wav2letter_tpu_torch.cli.streaming_asr", f"--bundle={bundle}",
-         f"--input_audio_file={short.audio_path}", f"--lexicon_file={dargs['lexicon_file']}",
-         f"--language_model_file={dargs['language_model_file']}",
-         f"--decoder_options_file={opts}"], cwd=REPO, capture_output=True, text=True,
-        timeout=300)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        streaming_asr.main([f"--bundle={bundle}", f"--input_audio_file={short.audio_path}",
+                            f"--lexicon_file={dargs['lexicon_file']}",
+                            f"--language_model_file={dargs['language_model_file']}",
+                            f"--decoder_options_file={opts}"])
     cli_s = time.perf_counter() - t0
-    if cli.returncode != 0:
-        fail(f"cli.streaming_asr exited {cli.returncode}: {cli.stderr[-2000:]}")
-    cli_words = cli.stdout.split("[final]")[-1].split()
+    cli_words = printed.getvalue().split("[final]")[-1].split()
     if cli_words != words[short.sample_id]:
         fail(f"cli.streaming_asr printed {cli_words}, the stream gave {words[short.sample_id]}")
     multi = [s for s in samples if s.sample_id in by_len[:STREAM_MULTI]]
@@ -2498,7 +2575,7 @@ def stream_path(paths, lst, secs, tmp, smi_line):
 # ---------------------------------------------------------------------------
 # 12. data and tensor parallelism: ranks through torch.distributed
 # ---------------------------------------------------------------------------
-DP_RANKS, DP_BATCH, DP_UPDATES = 2, 4, 4  # ranks on the one card, rows a rank, updates
+DP_RANKS, DP_BATCH, DP_UPDATES = 2, 4, 2  # ranks on the one card, rows a rank, updates
 DP_DYN_SECS = 30.0  # --batching_max_duration a rank (the global budget is twice it)
 DP_TIMEOUT = 420  # seconds for all the ranks' jobs
 TP_LAYERS = 2  # of the transformer's 12, at dp1 x mp2
@@ -2953,14 +3030,14 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
 # phase 13: the soak in small
 # ---------------------------------------------------------------------------
 # the corpus: train 3 min, dev and test 1 min each, in the JAX soak's --fast
-# language; the flagship minus SAUG, bf16, B = 16 for 40 updates, reports at
-# 20; the product chain's grids cut to 3 points, 4 homophone-slice and 4
+# language; the flagship minus SAUG, bf16, B = 16 for 30 updates, reports at
+# 15; the product chain's grids cut to 2 points, 4 homophone-slice and 4
 # streamed utterances
 SOAK_CORPUS = dict(train_hours=0.05, dev_minutes=1.0, test_minutes=1.0, n_words=150,
                    n_homophone_pairs=15, lm_sentences=2000)
-SOAK_BATCH, SOAK_UPDATES, SOAK_REPORT = 16, 40, 20
-SOAK_SIZES = dict(sweep=(0.0, 1.0, 0.5), wordscores=(0.5,), homo_utts=4,
-                  homo_sweep=(0.0, 1.0, 0.5), stream_utts=4)
+SOAK_BATCH, SOAK_UPDATES, SOAK_REPORT = 16, 30, 15
+SOAK_SIZES = dict(sweep=(0.0, 1.0, 1.0), wordscores=(0.5,), homo_utts=4,
+                  homo_sweep=(0.0, 1.0, 1.0), stream_utts=4)
 SOAK_WALL_S = 120  # the phase's budget; printed beside its wall time
 
 
@@ -2969,7 +3046,7 @@ def soak_path(tmp, smi_line):
     flagship's full width. The port's ``synth_corpus.generate`` writes the
     corpus, its ``train_ngram_lm`` the 3-gram LM; the driver's own
     ``_train_regime`` trains in a child process (``cli.train``), SIGKILLs
-    its process group once ``model_last.bin`` of update 20 is whole and
+    its process group once ``model_last.bin`` of update 15 is whole and
     resumes with a bare ``continue``; ``phase_profile`` takes the trained
     run's updates in this process at its largest and median batches (wall,
     device busy, idle share, peak memory), counts one update's launches and
@@ -2981,7 +3058,7 @@ def soak_path(tmp, smi_line):
     ``--emission_dir``, the homophone slice, the beam dump and rescoring,
     ``convert_streaming``, 4 test utterances streamed with the split against
     offline, the top-k against the full-row decode. Checks: every step ran,
-    the kill came after the checkpoint of update 20 and ``continue`` resumed
+    the kill came after the checkpoint of update 15 and ``continue`` resumed
     from it and logged above it, the results hold every key of the JAX
     soak's (``SOAK_RESULTS.json``, but ``train_b32``), the streamed emissions
     are within ``STREAM_EM_TOL`` of the batch network on the same features,
@@ -3058,7 +3135,7 @@ RES_ARCH = os.path.join(REPO, "recipes", "resnet_ctc", "network.arch")
 # phase 13's corpus, cut to its shortest utterances: conv_glu's frames are
 # the input's plus 222, and every frame is a step of ASG's loops
 ASG_TRAIN_UTTS, ASG_TEST_UTTS = 16, 8
-ASG_UPDATES = {"float32": 3, "bfloat16": 3}
+ASG_UPDATES = {"float32": 2, "bfloat16": 2}
 RES_TRAIN_UTTS, RES_MAX_DURATION_S = 24, 60.0
 RES_UPDATES = {"float32": 3, "bfloat16": 3}
 # first batch, card against CPU, fp32: loss relative, each leaf's L2 error
@@ -3159,7 +3236,7 @@ def _leaf_errors(got, ref, masses):
             for k, g in ref.items()}
 
 
-def card_vs_cpu_first_batch(name, flags, expect=None):
+def card_vs_cpu_first_batch(name, flags, expect=None, dtypes=("float32", "bfloat16")):
     """The first training batch's loss and gradients (every leaf, the ASG
     transitions included) on the card (K1, ``F.conv2d``, cuBLAS) in fp32 and
     bf16 against the same model and batch on the CPU in fp32 (the plain
@@ -3179,7 +3256,7 @@ def card_vs_cpu_first_batch(name, flags, expect=None):
     from wav2letter_tpu_torch.runtime.train import Trainer
 
     res, ref, masses = {}, None, {}
-    for dt in ("float32", "bfloat16"):
+    for dt in dtypes:
         cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in flags.items()])
         cfg.update(dict(rundir="", runname="", compute_dtype=dt))
         tr = Trainer(cfg, device="cuda")
@@ -3337,8 +3414,8 @@ def criterion_share(tr, batch):
 def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
     """``cli.train`` at each type for ``updates[type]`` updates (K1 alone on
     the card, or ``expect`` an update, every loss finite), a checkpoint each;
-    numbers of one more update and, with ``share``, of the criterion's part of
-    it in the first type (the criterion runs in fp32 whatever the type)."""
+    in the first type, numbers of one more update and, with ``share``, of the
+    criterion's part of it (the criterion runs in fp32 whatever the type)."""
     import torch
 
     from wav2letter_tpu_torch.cli.train import main as train_main
@@ -3372,9 +3449,11 @@ def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
                    wall_s=wall,
                    s_per_update=span / max(1, n - 1), launches=launches,
                    peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30,
-                   update=update_numbers(tr, batch), nvidia_smi=smi_line)
-        if share and not results:
-            res["criterion"] = criterion_share(tr, batch)
+                   nvidia_smi=smi_line)
+        if not results:
+            res["update"] = update_numbers(tr, batch)
+            if share:
+                res["criterion"] = criterion_share(tr, batch)
         results[dt] = res
         log(f"[{name} train {dt}] {json.dumps(res)}")
         del tr
@@ -3531,7 +3610,7 @@ def asg_path(tmp, corpus, smi_line):
     laps = {}
     first = card_vs_cpu_first_batch("conv_glu", flags)
     laps["first_batch"] = time.perf_counter() - t_phase
-    runs = trained_runs("conv_glu", flags, ASG_UPDATES, smi_line, share=True)
+    runs = trained_runs("conv_glu", flags, ASG_UPDATES, smi_line)
     laps["train"] = time.perf_counter() - t_phase
     # continue the bf16 run by 2 updates through the binary
     rundir, run = flags["rundir"], "conv_glu_bfloat16"
@@ -3603,8 +3682,8 @@ def resnet_path(tmp, corpus, smi_line):
 # ---------------------------------------------------------------------------
 # phases 16 and 17: the attention seq2seq recipes
 # ---------------------------------------------------------------------------
-S2S_TRAIN_UTTS, S2S_TEST_UTTS = 16, 8
-S2S_UPDATES = {"float32": 3, "bfloat16": 3}
+S2S_TRAIN_UTTS, S2S_TEST_UTTS = 16, 4
+S2S_UPDATES = {"float32": 2, "bfloat16": 2}
 # phase 13's corpus is letters (no word pieces): the recipes' word-piece
 # flags give way to the corpus' separator
 S2S_LETTERS = dict(usewordpiece=False, wordseparator="|")
@@ -3636,8 +3715,9 @@ S2S_BEAM_TOL = 1e-4  # native against Python beam scores, and the KV cache's log
 def s2s_kernel_rows(name, spec, train_lst, corpus, details):
     """The path's kernels at the largest training batch's shapes against
     their plain versions, fp32 and bf16: seq2seq_tds's K2, dgrad, K2b at C =
-    10, 14, 18; transformer_s2s's K4, K4b (12 calls, T after the three pools)
-    and K3, K3b at 768."""
+    10, 14, 18 (timed with their library calls); transformer_s2s's K4, K4b
+    (12 calls, T after the three pools; timed once by events) and K3, K3b at
+    768."""
     import torch
 
     from wav2letter_tpu_torch.models import build_arch_module
@@ -3650,8 +3730,8 @@ def s2s_kernel_rows(name, spec, train_lst, corpus, details):
             with torch.device("meta"):
                 model = build_arch_module(spec["arch"], N_FEAT, 512, force_label_dim=False)
             convs, _ = path_calls(model, B, T)
-            rows += check_time_conv(convs, dt, details)
-            back = check_time_conv_backward(convs, dt, details)
+            rows += check_time_conv(convs, dt, details, time_plain=False)
+            back = check_time_conv_backward(convs, dt, details, time_plain=False)
             rows += back["time_conv_dgrad"] + back["time_conv_wgrad"]
         else:
             Ta = pooled_frames(T)
@@ -3890,11 +3970,15 @@ def s2s_path(name, tmp, corpus, smi_line):
         f"parameters | {smi_line}")
     laps = {}
     per_update = expected_launches(spec, 1, 0)
-    first = card_vs_cpu_first_batch(name, flags, per_update)
+    first = card_vs_cpu_first_batch(name, flags, per_update, dtypes=("float32",))
     laps["first_batch"] = time.perf_counter() - t_phase
     kernel_rows = s2s_kernel_rows(name, spec, train_lst, corpus, [])
     laps["kernels"] = time.perf_counter() - t_phase
-    runs = trained_runs(name, flags, S2S_UPDATES, smi_line, share=True, expect=per_update)
+    # the criterion's share of an update: the GRU decoder's; the transformer
+    # decoder's greedy decode (~42k launches) and, in phase 14, ASG's loops
+    # (~35k) take too long to profile in the script's budget
+    runs = trained_runs(name, flags, S2S_UPDATES, smi_line, share=name == "seq2seq_tds",
+                        expect=per_update)
     laps["train"] = time.perf_counter() - t_phase
     windows = {dt: r["windows"] for dt, r in runs.items()}
     # continue the bf16 run by 2 updates through the binary
@@ -3906,12 +3990,12 @@ def s2s_path(name, tmp, corpus, smi_line):
     last = os.path.join(rundir, run, "model_last.bin")
     ckpt = load_checkpoint(last)
     windows["continue"] = [st["window"] for st in rec.steps]
-    # seq2seq_tds: --pretrainWindow=3, on for updates 0-2; transformer_s2s:
-    # --trainWithWindow, always on
-    want_on = name == "transformer_s2s"
-    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) or any(
-            w != [True] * len(w) for w in (windows["float32"], windows["bfloat16"])) \
-            or windows["continue"] != [want_on] * 2 \
+    # the window's gate as the recipe sets it: seq2seq_tds on while updates <
+    # --pretrainWindow (3), transformer_s2s always on (--trainWithWindow)
+    want = {k: [bool(cfg.trainWithWindow) or u < cfg.pretrainWindow for u in range(a, b)]
+            for k, (a, b) in dict(float32=(0, S2S_UPDATES["float32"]), bfloat16=(0, n0),
+                                  **{"continue": (n0, n0 + 2)}).items()}
+    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) or windows != want \
             or not all(math.isfinite(st["loss"]) for st in rec.steps):
         fail(f"{name} continue: updates {tr.updates}/{ckpt.updates}, skipped {tr.skipped}, "
              f"windows {windows}, losses {[st['loss'] for st in rec.steps]}")
@@ -3927,9 +4011,445 @@ def s2s_path(name, tmp, corpus, smi_line):
     out = dict(n_params=n_params, n_decoder_params=n_crit, first_batch=first,
                kernels=kernel_rows, training=runs, windows=windows, decoder=decoder,
                beams=beams, served=served, phase_s=time.perf_counter() - t_phase, laps_s=laps,
-               nvidia_smi=smi_line)
+               nvidia_smi=smi_line, am=last)
     log(f"[{name}] phase {spec['phase']} in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | "
         f"{smi_line}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the language-model slice
+# ---------------------------------------------------------------------------
+# GCNN-14B (``gcnn_lines``) over phase 13's words, trained by ``cli.train_lm``
+# in fp32 on ~1 M tokens of phase 13's Markov chain, then the ConvLM of three
+# decodes (``--lmtype=convlm``). The width is never cut; the utterances and
+# the beam are.
+LM_TOKENS, LM_BATCH, LM_BPTT, LM_UPDATES = 1_000_000, 16, 64, 30
+LM_TRAIN = dict(lr=0.5, momentum=0.9, maxgradnorm=0.1, reportiters=10, seed=0)
+LM_ROW_TOL = 1e-4  # ConvLM log10 rows, card against CPU, fp32: 40 layers of 2048-term sums
+LM_REQUESTS = 32  # deferred requests of the rows' check (one bucket of 32 on each side)
+LM_TEST_UTTS = 8
+LM_PY_UTTS = 2  # the native beam's words against the Python beam's
+LM_DECODE = dict(lmtype="convlm", lm_memory=20000, lmweight=1.0, wordscore=1.0,
+                 beamsize=32, beamthreshold=25, smearing="max", uselexicon=True,
+                 decodertype="wrd", nthread_decoder=2, batchsize=4)
+# the AMs the LM decodes with: phase 13's flagship (CTC), phase 14's conv_glu
+# (ASG) and phase 16's seq2seq_tds, each with its phase's decode flags
+LM_AMS = {
+    "flagship": dict(spec=FLAGSHIP, flags={}),
+    "conv_glu": dict(spec=None, flags=dict(silscore=-0.5)),
+    "seq2seq_tds": dict(spec=S2S_RECIPES["seq2seq_tds"],
+                        flags=dict(eosscore=-1.0, hardselection=1.5, softselection=10.0,
+                                   attentionthreshold=math.inf, nthread_decoder=1)),
+}
+# the new layers at widths a model would use: forward and backward card
+# against CPU, in training mode (BN on the batch's statistics, which it also
+# moves) and in eval mode; (C in, arch lines from (B, 1, C, T))
+LAYER_ROWS = {
+    "bn_1024": (1024, ["V -1 1 1024 0", "BN 1024 2", "RO 2 0 3 1", "L 1024 32"]),
+    "lstm_512_bi_2": (256, ["V -1 1 256 0", "RO 2 0 3 1", "LSTM 256 512 2 1", "L 1024 32"]),
+    "gru_512_bi_2": (256, ["V -1 1 256 0", "RO 2 0 3 1", "GRU 256 512 2 1", "L 1024 32"]),
+    "rnn_512_2": (256, ["V -1 1 256 0", "RO 2 0 3 1", "RNN 256 512 2 0", "L 512 32"]),
+    "posemb_sin_pc": (512, ["V -1 1 512 0", "RO 2 0 3 1", "POSEMB 512 256 0.0",
+                            "SINPOSEMB 512", "PC f64", "PC f32", "L 512 32"]),
+}
+LAYER_TOL = 1e-4  # fp32 (TF32 off), sums of <= 1024 terms and 60 steps in another order
+# an acoustic arch of the new layers for cli.train and continue: BN over the
+# 80 bands, time pooled by 4, learnt positions, a cast, a 2-way GRU of 256
+LAYERS_ARCH = """V -1 1 NFEAT 0
+BN NFEAT 2
+M 4 1 4 1
+RO 2 0 3 1
+POSEMB NFEAT 1024 0.1
+PC f32
+GRU NFEAT 256 1 1
+L 512 NLABEL
+"""
+
+
+def lm_files(root, corpus):
+    """The LM's files: its tokens (phase 13's words, whose lexicon the AMs
+    decode with), a corpus of ``LM_TOKENS`` tokens sampled from phase 13's
+    chain (``sample_chain_sentences``, seed 1) and the GCNN-14B arch over the
+    words plus ``</s>`` and ``<unk>``."""
+    import numpy as np
+
+    from wav2letter_tpu_torch.tools.synth_corpus import load_chain, sample_chain_sentences
+
+    vocab, _, chain = load_chain(0, SOAK_CORPUS["n_words"], SOAK_CORPUS["n_homophone_pairs"])
+    with open(corpus["lexicon"]) as f:
+        lex_words = {line.split()[0] for line in f if line.strip()}
+    if set(vocab) != lex_words:
+        fail(f"lm: the chain's {len(vocab)} words are not the lexicon's {len(lex_words)}")
+    rng = np.random.RandomState(1)
+    sents = sample_chain_sentences(chain, LM_TOKENS // 6, rng)
+    paths = dict(tokens=os.path.join(root, "lm_tokens.txt"),
+                 train=os.path.join(root, "lm_corpus.txt"), arch=os.path.join(root, "gcnn14b.arch"))
+    with open(paths["tokens"], "w") as f:
+        f.write("\n".join(vocab) + "\n")
+    with open(paths["train"], "w") as f:
+        f.writelines(" ".join(vocab[i] for i in s) + "\n" for s in sents)
+    with open(paths["arch"], "w") as f:
+        f.write("\n".join(gcnn_lines(len(vocab) + 2)) + "\n")
+    return paths, sum(len(s) for s in sents), len(vocab) + 2
+
+
+def lm_first_batch(paths, smi_line):
+    """The first (16, 64) block's loss and every leaf's gradient, the LM in
+    eval mode (dropout off), on the card against the CPU (``CARD_CPU_TOL``)."""
+    import copy
+
+    import torch
+
+    from wav2letter_tpu_torch.cli.train_lm import lm_corpus
+    from wav2letter_tpu_torch.data.dictionary import Dictionary
+    from wav2letter_tpu_torch.models.lm import build_lm_model, lm_cross_entropy
+
+    vocab = Dictionary.from_file(paths["tokens"])
+    eos, unk = vocab.add_entry("</s>"), vocab.add_entry("<unk>")
+    ids = torch.from_numpy(lm_corpus(paths["train"], vocab, eos, unk, LM_BATCH, LM_BPTT)
+                           [:, :LM_BPTT])
+    torch.manual_seed(0)
+    cpu = build_lm_model(paths["arch"], len(vocab)).eval()
+    card = copy.deepcopy(cpu).cuda()
+    res = {}
+    for side, m in (("cpu", cpu), ("card", card)):
+        x = ids.to(next(m.parameters()).device)
+        t0 = time.perf_counter()
+        logits, _ = m(x)
+        loss = lm_cross_entropy(logits, x).mean() / LM_BPTT
+        loss.backward()
+        res[side] = (loss.item(), {n: p.grad.float().cpu() for n, p in m.named_parameters()},
+                     time.perf_counter() - t0)
+    errs = _leaf_errors(res["card"][1], res["cpu"][1], {})
+    worst = max(errs, key=errs.get)
+    loss_rel = abs(res["card"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    out = dict(loss_card=res["card"][0], loss_cpu=res["cpu"][0], loss_rel_err=loss_rel,
+               worst_leaf=worst, worst_leaf_err=errs[worst], leaves=len(errs),
+               cpu_s=res["cpu"][2], tol=list(CARD_CPU_TOL), nvidia_smi=smi_line)
+    if loss_rel > CARD_CPU_TOL[0] or errs[worst] > CARD_CPU_TOL[1]:
+        fail(f"lm first batch, card against CPU: {json.dumps(out)}")
+    log(f"[lm first batch] {json.dumps(out)}")
+    del cpu, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train(root, paths, smi_line):
+    """``cli.train_lm`` (its ``train_lm`` and ``save_lm``) on the card:
+    ``LM_UPDATES`` updates at B = 16, bptt 64, fp32; the loss must fall and no
+    kernel of ours launch."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train_lm import save_lm, train_lm
+    from wav2letter_tpu_torch.config import Config
+
+    cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in dict(
+        LM_TRAIN, arch=paths["arch"], train=paths["train"], tokens=paths["tokens"],
+        batchsize=LM_BATCH, iter=LM_UPDATES, rundir=os.path.join(root, "lm_run")).items()])
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train_lm(cfg, LM_BPTT, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = card_launches("lm training", {})
+    save_lm(cfg, out)
+    losses = out["losses"]
+    n_params = sum(p.numel() for p in out["model"].parameters())
+    res = dict(updates=out["updates"], losses=losses, first5=sum(losses[:5]) / 5,
+               last5=sum(losses[-5:]) / 5, wall_s=wall, s_per_update=wall / out["updates"],
+               tokens_per_s=LM_BATCH * LM_BPTT * out["updates"] / wall, n_params=n_params,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches,
+               nvidia_smi=smi_line)
+    if out["updates"] != LM_UPDATES or not all(math.isfinite(v) for v in losses) \
+            or not res["last5"] < res["first5"]:
+        fail(f"lm training: {json.dumps(res)}")
+    log(f"[lm train] {json.dumps(res)}")
+    del out
+    torch.cuda.empty_cache()
+    return res, cfg.rundir
+
+
+def convlm_rows(lm_dir, corpus, smi_line):
+    """``ConvLM.score_batch`` on the card against the CPU on the same weights
+    and requests (histories of the test transcripts' words, 1-48 long): the
+    largest log10 difference within ``LM_ROW_TOL``; and one bucket's device
+    time on the card."""
+    import numpy as np
+
+    from wav2letter_tpu_torch.decoder.convlm import load_convlm
+
+    with open(corpus["lexicon"]) as f:
+        words = list(dict.fromkeys(line.split()[0] for line in f if line.strip()))
+    lms = {dev: load_convlm(os.path.join(lm_dir, "lm_model.bin"),
+                            os.path.join(lm_dir, "lm_vocab.txt"), usr_vocab=words,
+                            device=dev) for dev in ("cuda", "cpu")}
+    with open(corpus["test"]) as f:
+        text = [w for line in f for w in line.split()[3:]]
+    ids = [lms["cpu"].usr_map[words.index(w)] for w in text]
+    rng = np.random.RandomState(5)
+    lens = rng.randint(1, 49, LM_REQUESTS)
+    starts = rng.randint(0, len(ids) - 49, LM_REQUESTS)
+    hists = np.zeros((LM_REQUESTS, 48), np.int32)
+    for i, (s, n) in enumerate(zip(starts, lens)):
+        hists[i, :n] = ids[s: s + n]
+    target = np.asarray([ids[s + n] for s, n in zip(starts, lens)], np.int32)
+    got = lms["cuda"].score_batch(hists, lens, target)
+    want = lms["cpu"].score_batch(hists, lens, target)
+    err = float(np.abs(got - want).max())
+    st = lms["cuda"].stats
+    out = dict(requests=LM_REQUESTS, max_abs_err_log10=err, tol=LM_ROW_TOL,
+               bucket_device_ms=st["device_ms"] / st["device_calls"],
+               mean_log10=float(want.mean()), nvidia_smi=smi_line)
+    if not err <= LM_ROW_TOL:
+        fail(f"ConvLM rows, card against CPU: {json.dumps(out)}")
+    log(f"[lm rows] {json.dumps(out)}")
+    return out
+
+
+def lm_beams(name, am, lst, lm_dir, flags):
+    """On the ``LM_PY_UTTS`` shortest utterances, the native beam's words
+    against the Python beam's, both with the ConvLM on the card."""
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset
+    from wav2letter_tpu_torch.runtime.decode import (S2SBeamParts, build_decoder,
+                                                     result_to_words, s2s_words)
+    from wav2letter_tpu_torch.runtime.test import Evaluator
+
+    lst, _ = shortest(lst, lst[:-4] + "_py.lst", LM_PY_UTTS)
+    ev = Evaluator(Config().update(dict(am=am, test=lst)), device="cuda")
+    cfg = ev.cfg
+    cfg.update(dict(flags, lm=os.path.join(lm_dir, "lm_model.bin"),
+                    lm_vocab=os.path.join(lm_dir, "lm_vocab.txt")))
+    ds = AsrDataset(lst, ev.token_dict, ev.lexicon, cfg, batch_size=LM_PY_UTTS)
+    em, elen = ev.emissions(ds.materialize(ds.batch_specs()[0]))
+    ems = [em[i, : int(elen[i])].float().cpu().numpy() for i in range(LM_PY_UTTS)]
+    words, secs = {}, {}
+    for native in (True, False):
+        t0 = time.perf_counter()
+        if ev.is_s2s:
+            parts = S2SBeamParts(cfg, ev.token_dict, ev.lexicon, use_native=native,
+                                 device=ev.device)
+            eos, L = ev.n_classes - 2, cfg.maxdecoderoutputlen
+            res = [parts.decoder(ev.s2s_criterion, e, eos, L).decode(n_best=1)[0] for e in ems]
+            words[native] = [s2s_words(r, parts.word_dict, ev.token_dict, cfg, ev.n_classes)
+                             for r in res]
+        else:
+            trans = None if ev.transitions is None else ev.transitions.cpu().numpy()
+            dec, wd = build_decoder(cfg, ev.token_dict, ev.lexicon, trans, use_native=native,
+                                    device=ev.device)
+            res = [dec.decode(e, 1)[0] for e in ems]
+            words[native] = [result_to_words(r, wd, ev.token_dict, cfg, ev.n_classes)
+                             for r in res]
+        secs[native] = time.perf_counter() - t0
+    if words[True] != words[False]:
+        fail(f"{name} with the ConvLM: native beam {words[True]} against Python {words[False]}")
+    del ev, em
+    torch.cuda.empty_cache()
+    return dict(utterances=LM_PY_UTTS, words=words[True], native_s=secs[True],
+                python_s=secs[False])
+
+
+def lm_decode(name, am, lst, secs, tmp, lm_dir, smi_line):
+    """``cli.decode --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of ``am`` on
+    ``lst``: the AM's launches as its phase counts them, audio s per wall s,
+    the ConvLM's device calls, cache hit rate and device ms."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+
+    spec, extra = LM_AMS[name]["spec"], LM_AMS[name]["flags"]
+    n_batches = -(-LM_TEST_UTTS // LM_DECODE["batchsize"])
+    flags = dict(LM_DECODE, **extra, am=am, test=lst, sclite=os.path.join(tmp, f"lm_{name}"),
+                 lm=os.path.join(lm_dir, "lm_model.bin"),
+                 lm_vocab=os.path.join(lm_dir, "lm_vocab.txt"))
+    os.environ["W2L_REQUIRE_NATIVE"] = "1"
+    kernels.reset_launches()
+    res = decode_main([f"--{k}={v}" for k, v in flags.items()])
+    torch.cuda.synchronize()
+    launches = card_launches(f"{name} decode with the ConvLM",
+                             None if spec is None else expected_launches(spec, 0, n_batches))
+    lm = res.get("convlm", {})
+    if not (math.isfinite(res["WER"]) and res["decoder"].startswith("Native")
+            and lm.get("device_calls", 0) > 0):
+        fail(f"{name} decode with the ConvLM: {json.dumps(res)}")
+    # the rate after set-up: the AM's (setup_s), and the ConvLM's, which each
+    # consumer thread loads for itself (load_s, summed over the threads)
+    n_threads = flags["nthread_decoder"]
+    out = dict(res, audio_s_per_s=secs / (res["wall_s"] - res["setup_s"]),
+               audio_s_per_s_after_lm_load=secs / (res["wall_s"] - res["setup_s"]
+                                                    - lm["load_s"] / n_threads),
+               cache_hit_rate=lm["hits"] / max(1, lm["lookups"]), launches=launches,
+               nvidia_smi=smi_line)
+    log(f"[lm decode {name}] {json.dumps(out)}")
+    return out
+
+
+def new_layers_card_vs_cpu(smi_line):
+    """``LAYER_ROWS`` forward and backward, card against CPU (and BN's moved
+    statistics), in training and eval mode."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch.models import build_arch_from_lines
+
+    out = {}
+    for name, (c, lines) in LAYER_ROWS.items():
+        for train in (True, False):
+            torch.manual_seed(0)
+            cpu = build_arch_from_lines(lines, 32)
+            card = build_arch_from_lines(lines, 32)
+            card.load_state_dict(cpu.state_dict())
+            card.cuda()
+            g = np.random.RandomState(1)
+            feats = torch.from_numpy(g.randn(4, 60, c).astype(np.float32))
+            flen = torch.tensor([60, 54, 48, 42])
+            res = []
+            for m, dev in ((cpu, "cpu"), (card, "cuda")):
+                m.train(train)
+                t0 = time.perf_counter()
+                y, _ = m(feats.to(dev), flen.to(dev))
+                (y * torch.linspace(-1, 1, y.numel(), device=dev).view(y.shape)).sum().backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                res.append((y.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()},
+                            {k: b.cpu() for k, b in m.named_buffers()},
+                            time.perf_counter() - t0))
+            (y0, g0, b0, t_cpu), (y1, g1, b1, t_card) = res
+            err = ((y1 - y0).abs().max() / y0.abs().max().clamp(min=1.0)).item()
+            gerr = max(((g1[k] - g0[k]).abs().max() / g0[k].abs().max().clamp(min=1e-30)).item()
+                       for k in g0)
+            berr = max([(b1[k] - b0[k]).abs().max().item() for k in b0] or [0.0])
+            key = f"{name}_{'train' if train else 'eval'}"
+            out[key] = dict(out_err=err, grad_err_share=gerr, stats_err=berr,
+                            card_s=t_card, cpu_s=t_cpu)
+            if not (err <= LAYER_TOL and gerr <= LAYER_TOL and berr <= LAYER_TOL):
+                fail(f"layer {key}, card against CPU: {json.dumps(out[key])}")
+    log(f"[lm layers] {json.dumps(out)} | {smi_line}")
+    return out
+
+
+def layers_train_continue(root, corpus, smi_line):
+    """``cli.train`` 2 updates then ``continue`` 2 (the ``Trainer`` that
+    ``cli.train continue`` runs) on ``LAYERS_ARCH`` (BN, GRU, POSEMB, PC):
+    the BN buffers reloaded in equal bits, moved by training, every loss
+    finite, K1 alone launched."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    arch = os.path.join(root, "layers.arch")
+    with open(arch, "w") as f:
+        f.write(LAYERS_ARCH)
+    train_lst, _ = shortest(corpus["train"], os.path.join(root, "layers_train.lst"), 16)
+    flags = dict(arch=arch, train=train_lst, tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 rundir=os.path.join(root, "layers_runs"), runname="layers", criterion="ctc",
+                 mfsc=True, filterbanks=N_FEAT, batchsize=8, lr=0.1, netoptim="sgd",
+                 momentum=0.9, maxgradnorm=1.0, compute_dtype="float32", nthread=2, seed=0,
+                 iter=2, reportiters=2)
+    kernels.reset_launches()
+    with _StepRecorder() as rec:
+        train_main(["train"] + [f"--{k}={v}" for k, v in flags.items()])
+        last = os.path.join(flags["rundir"], "layers", "model_last.bin")
+        saved = load_checkpoint(last).state_dict
+        tr = Trainer(Config().update(dict(rundir=flags["rundir"], runname="layers", iter=4,
+                                          reportiters=2)), mode="continue", device="cuda")
+        bufs = {k: b.cpu() for k, b in tr.model.named_buffers()}
+        reloaded = all(torch.equal(bufs[k], saved[k]) for k in bufs) and len(bufs) == 2
+        tr.run()
+    end = load_checkpoint(last)
+    launches = card_launches("layers arch training")
+    losses = [s["loss"] for s in rec.steps]
+    moved = (end.state_dict["seq.01_BN.var"] - saved["seq.01_BN.var"]).abs().max().item()
+    out = dict(updates=end.updates, losses=losses, buffers_reloaded_equal=reloaded,
+               bn_var_moved_in_continue=moved, launches=launches, nvidia_smi=smi_line)
+    if not (reloaded and end.updates == 4 and len(losses) == 4 and moved > 0
+            and all(math.isfinite(v) for v in losses)):
+        fail(f"layers arch train and continue: {json.dumps(out)}")
+    log(f"[lm layers train] {json.dumps(out)}")
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_path(tmp, corpus, ams, smi_line):
+    """Phase 18: GCNN-14B (``gcnn_lines``, 128/512-4096 wide, over phase
+    13's words) trained with ``cli.train_lm`` (``LM_UPDATES`` updates in fp32,
+    the first batch card against CPU, no kernel of ours launched); the
+    ConvLM's rows card against CPU; ``cli.decode --lmtype=convlm`` of
+    ``LM_TEST_UTTS`` test utterances through ``ams`` (phase 13's flagship with
+    CTC, phase 14's conv_glu with ASG, phase 16's seq2seq_tds; their kernels'
+    launches counted as their phases count them) and the native beam's words
+    against the Python beam's on the two shortest; the new layers card
+    against CPU at model widths; ``LAYERS_ARCH`` trained and continued."""
+    import torch
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "lm")
+    os.makedirs(root, exist_ok=True)
+    laps = {}
+    paths, n_tokens, V = lm_files(root, corpus)
+    laps["files"] = time.perf_counter() - t_phase
+    first = lm_first_batch(paths, smi_line)
+    laps["first_batch"] = time.perf_counter() - t_phase
+    trained, lm_dir = lm_train(root, paths, smi_line)
+    laps["train"] = time.perf_counter() - t_phase
+    rows = convlm_rows(lm_dir, corpus, smi_line)
+    laps["rows"] = time.perf_counter() - t_phase
+    test_lst, test_secs = shortest(corpus["test"], os.path.join(root, "test.lst"), LM_TEST_UTTS)
+    decodes, beams = {}, {}
+    for name, am in ams.items():
+        decodes[name] = lm_decode(name, am, test_lst, test_secs, root, lm_dir, smi_line)
+        beams[name] = lm_beams(name, am, test_lst, lm_dir,
+                               dict(LM_DECODE, **LM_AMS[name]["flags"]))
+        log(f"[lm beams {name}] {json.dumps(beams[name])} | {smi_line}")
+        laps[f"decode_{name}"] = time.perf_counter() - t_phase
+    layers = new_layers_card_vs_cpu(smi_line)
+    laps["layers"] = time.perf_counter() - t_phase
+    layers_run = layers_train_continue(root, corpus, smi_line)
+    laps["layers_train"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    out = dict(vocab=V, lm_tokens=n_tokens, n_params=trained["n_params"], first_batch=first,
+               training=trained, rows=rows, decodes=decodes, beams=beams, layers=layers,
+               layers_train=layers_run, phase_s=time.perf_counter() - t_phase, laps_s=laps,
+               nvidia_smi=smi_line)
+    log(f"[lm] phase 18 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | {smi_line}")
+    return out
+
+
+def seeded_ams(tmp, s):
+    """``--only lm``: the three AMs of phase 18 at their seeded initial
+    weights (the ``Trainer``'s own) on the corpus of the soak ``s``, saved as
+    their phases' runs would be."""
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    root, corpus = os.path.join(tmp, "seeded"), s.paths
+    train_lst, _ = shortest(corpus["train"], os.path.join(tmp, "seeded.lst"), 16)
+    recipe = lambda name, *rest: [  # noqa: E731
+        f"--flagsfile={os.path.join(REPO, 'recipes', name, 'train.cfg')}",
+        f"--arch={os.path.join(REPO, 'recipes', name, 'network.arch')}",
+        f"--train={train_lst}", f"--tokens={corpus['tokens']}",
+        f"--lexicon={corpus['lexicon']}", f"--rundir={root}", f"--runname={name}", *rest]
+    runs = {"flagship": s._train_flags("flagship", 16, 0.2, 0, 0),
+            "conv_glu": recipe("conv_glu"),
+            "seq2seq_tds": recipe("seq2seq_tds", "--encoderdim=512",
+                                  *[f"--{k}={v}" for k, v in S2S_LETTERS.items()])}
+    out = {}
+    for name, flags in runs.items():
+        tr = Trainer(Config.from_sources(argv=flags + ["--seed=0", "--iter=0"]), device="cuda")
+        tr.save()
+        out[name] = os.path.join(tr.rundir, "model_last.bin")
+        del tr
     return out
 
 
@@ -3937,9 +4457,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="", choices=["", "s2s"],
+    ap.add_argument("--only", default="", choices=["", "s2s", "lm"],
                     help="s2s: phases 1, 2, 16 and 17 alone, on phase 13's corpus and LM "
-                         "made without its training; prints no result line")
+                         "made without its training; lm: phases 1, 2 and 18 alone, on "
+                         "phase 13's corpus, with the AMs at their seeded weights; either "
+                         "prints no result line")
+    ap.add_argument("--ams", default="",
+                    help="with --only s2s: a JSON object of the flagship's and conv_glu's "
+                         "checkpoints; phase 18 follows phases 16 and 17 with them and "
+                         "phase 16's seq2seq_tds")
     args = ap.parse_args()
 
     import torch
@@ -3983,22 +4509,31 @@ def main() -> None:
         for line in ptxas:
             log(f"[ptxas] {line}")
 
-    if args.only == "s2s":
+    if args.only:
         with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
             from wav2letter_tpu_torch.tools.soak import Soak
 
             s = Soak(os.path.join(tmp, "soak"), corpus=os.path.join(tmp, "soak_corpus"),
                      corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
             s.phase_corpus()
-            s.phase_lm()
-            corpus = dict(s.paths, lm=os.path.join(s.root, "lm3.arpa"))
-            s2s = {name: s2s_path(name, tmp, corpus, smi_line) for name in S2S_RECIPES}
+            out = {}
+            if args.only == "s2s":
+                s.phase_lm()
+                corpus = dict(s.paths, lm=os.path.join(s.root, "lm3.arpa"))
+                out = {name: s2s_path(name, tmp, corpus, smi_line) for name in S2S_RECIPES}
+                ams = dict(json.loads(args.ams), seq2seq_tds=out["seq2seq_tds"]["am"]) \
+                    if args.ams else None
+            else:
+                ams = seeded_ams(tmp, s)
+            if ams:
+                log(f"[time] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
+                out["lm"] = lm_path(tmp, s.paths, ams, smi_line)
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-            with open(os.path.join(args.out, "chip_smoke_s2s.json"), "w") as f:
-                json.dump(dict(device=kind, nvidia_smi=smi_line, **s2s,
+            with open(os.path.join(args.out, f"chip_smoke_{args.only}.json"), "w") as f:
+                json.dump(dict(device=kind, nvidia_smi=smi_line, **out,
                                seconds=time.perf_counter() - t_start), f, indent=1)
-        log(f"[done] phases 16, 17 alone in {time.perf_counter() - t_start:.1f} s")
+        log(f"[done] --only {args.only} in {time.perf_counter() - t_start:.1f} s")
         return
 
     with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
@@ -4040,19 +4575,28 @@ def main() -> None:
         rows = {"mfsc": check_mfsc(BATCH, S, details)}
         check_mfsc(fl_batch, S_train, details, "train")  # the update's K1, B = 16
         check_mfsc_edges(details)
+        def stamp(what):
+            log(f"[time] phase 3 {what} done at {time.perf_counter() - t_start:.1f} s")
+
         for dt in ("float32", "bfloat16"):
             rows[("time_conv", dt)] = check_time_conv(convs, dt, details, CONV_EDGES)
+            stamp(f"K2 {dt}")
             rows[("residual_ln", dt)] = check_residual_ln(lns, dt, details)
             check_residual_ln_edges(dt, details)
+            stamp(f"K3 {dt}")
             back = check_time_conv_backward(tconvs, dt, details, CONV_EDGES)
             rows[("time_conv_dgrad", dt)] = back["time_conv_dgrad"]
             rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
+            stamp(f"dgrad, K2b {dt}")
             rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(tlns, dt, details)
             rows[("residual_ln@transformer", dt)] = check_residual_ln(tr_lns, dt, details)
             rows[("residual_ln_bwd@transformer", dt)] = check_residual_ln_bwd(
                 tr_tlns, dt, details)
+            stamp(f"K3b {dt}")
             att = check_attention(attn_shapes, dt, details)
+            stamp(f"K4, K4b {dt}")
             check_attention_bwd(k4b_edges(dt), dt, details)
+            stamp(f"K4b edges {dt}")
             rows[("mhsa", dt)] = [r for r in att["mhsa"] if r["tag"] == "serve"]
             rows[("mhsa_bwd", dt)] = [r for r in att["mhsa_bwd"] if r["tag"] == "train"]
             torch.cuda.empty_cache()
@@ -4137,21 +4681,27 @@ def main() -> None:
         torch.cuda.empty_cache()
         resnet = resnet_path(tmp, soaked["corpus"], smi_line)
 
-        log(f"[time] phases 16, 17 start at {time.perf_counter() - t_start:.1f} s")
-        # 16, 17. the attention seq2seq recipes: train, continue, test, decode.
-        # In a process of their own: after phases 3-15 this process's profiler
-        # came back without a device event at phase 16's second K2 row, ten
-        # readings in a row (seen on the H100), where a fresh one reads them.
-        # The child makes phase 13's corpus and LM again from the same seed.
+        log(f"[time] phases 16, 17, 18 start at {time.perf_counter() - t_start:.1f} s")
+        # 16, 17. the attention seq2seq recipes: train, continue, test, decode;
+        # 18. the LM slice, decoding with phase 13's flagship, phase 14's
+        # conv_glu and phase 16's seq2seq_tds. In a process of their own:
+        # after phases 3-15 this process's profiler came back without a device
+        # event at phase 16's second K2 row, ten readings in a row (seen on the
+        # H100), where a fresh one reads them. The child makes phase 13's
+        # corpus and LM again from the same seed.
         torch.cuda.empty_cache()
         s2s_dir = os.path.join(tmp, "s2s")
+        ams = {"flagship": os.path.join(tmp, "soak", "b128", "model_last.bin"),
+               "conv_glu": os.path.join(tmp, "asg", "runs", "conv_glu_bfloat16",
+                                        "model_last.bin")}
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--only", "s2s",
-                                "--out", s2s_dir, "--seed", str(args.seed)], timeout=600)
+                                "--out", s2s_dir, "--seed", str(args.seed),
+                                "--ams", json.dumps(ams)], timeout=900)
         if child.returncode != 0:
-            fail(f"phases 16 and 17 (a child process) exited {child.returncode}")
+            fail(f"phases 16, 17 and 18 (a child process) exited {child.returncode}")
         with open(os.path.join(s2s_dir, "chip_smoke_s2s.json")) as f:
-            s2s = {k: v for k, v in json.load(f).items() if k in S2S_RECIPES}
-        log(f"[time] phases 16, 17 end at {time.perf_counter() - t_start:.1f} s")
+            s2s = {k: v for k, v in json.load(f).items() if k in S2S_RECIPES or k == "lm"}
+        log(f"[time] phases 16, 17, 18 end at {time.perf_counter() - t_start:.1f} s")
 
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
@@ -4172,7 +4722,7 @@ def main() -> None:
             launches=(train_launches[name] if backward
                       else path_served["bfloat16"]["launches"][name]),
             launches_per_update=train_launches[name], dtype=dt,
-            max_abs_err=agg["max_abs_err"], ms=agg["ms"], warm_ms=agg["warm_ms"],
+            max_abs_err=agg["max_abs_err"], ms=agg["ms"],
             plain_ms=agg["plain_ms"],
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
             library_ms=agg["library_ms"], per=per)
@@ -4183,7 +4733,7 @@ def main() -> None:
             entry["layer_norm_ms"] = sum(r["layer_norm_ms"] * r["calls"] for r in krows)
         if name == "time_conv":  # the same kernel as dgrad, per update
             dg = per_forward(rows[("time_conv_dgrad", dt)])
-            entry["dgrad"] = {k: dg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms",
+            entry["dgrad"] = {k: dg[k] for k in ("ms", "plain_ms", "bound_ms",
                                                  "bound_by", "library_ms", "max_abs_err")}
         if name in ("time_conv", "time_conv_wgrad"):  # the fp32 route (3xTF32)
             parts = ([("forward", name), ("dgrad", "time_conv_dgrad")] if name == "time_conv"
@@ -4194,7 +4744,7 @@ def main() -> None:
                 agg = per_forward(krows)
                 entry["float32"][part] = dict(
                     routes=sorted({r["route"] for r in krows}),
-                    **{k: agg[k] for k in ("ms", "warm_ms", "plain_ms", "bound_ms", "bound_by",
+                    **{k: agg[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                            "library_ms", "max_abs_err")})
         if name == "mhsa_bwd":  # K4b's time by launch
             krows = rows[(name, dt)]

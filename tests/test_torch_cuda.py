@@ -1470,3 +1470,75 @@ def test_s2s_beam_step_on_the_card_matches_the_cpu(cuda, kind):
         np.testing.assert_array_equal(got_peaks, want_peaks)
     else:
         assert got_peaks is None and want_peaks is None
+
+
+# the layers the LM slice adds, forward and backward on the card against the
+# CPU: (C in, arch lines from (B, 1, C, T)), output width 7
+NEW_LAYERS = {
+    "bn": (16, ["V -1 1 16 0", "BN 16 2", "RO 2 0 3 1", "L 16 7"]),
+    "lstm_bi": (16, ["V -1 1 16 0", "RO 2 0 3 1", "LSTM 16 32 2 1", "L 64 7"]),
+    "gru_bi": (16, ["V -1 1 16 0", "RO 2 0 3 1", "GRU 16 32 2 1", "L 64 7"]),
+    "rnn": (16, ["V -1 1 16 0", "RO 2 0 3 1", "RNN 16 32 2 0", "L 32 7"]),
+    "posemb_sin_pc": (16, ["V -1 1 16 0", "RO 2 0 3 1", "POSEMB 16 64 0.0", "SINPOSEMB 16",
+                           "PC bf16", "PC f32", "L 16 7"]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_LAYERS))
+@pytest.mark.parametrize("train", [False, True])
+def test_new_layers_on_the_card_match_the_cpu(cuda, name, train):
+    c, lines = NEW_LAYERS[name]
+    torch.manual_seed(0)
+    cpu = build_arch_from_lines(lines, 7)
+    card = build_arch_from_lines(lines, 7)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda)
+    feats = _randn((3, 40, c), 1, "cpu")
+    flen = torch.tensor([40, 31, 22])
+    outs = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        m.train(train)
+        y, _ = m(feats.to(dev), flen.to(dev))
+        (y * torch.arange(y.numel(), device=dev).reshape(y.shape).sin()).sum().backward()
+        outs.append((y.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()},
+                     {k: b.cpu() for k, b in m.named_buffers()}))
+    (y0, g0, b0), (y1, g1, b1) = outs
+    # fp32 (TF32 off), sums over <= 40 steps in another order
+    torch.testing.assert_close(y1, y0, rtol=1e-4, atol=1e-5)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], rtol=1e-4, atol=1e-4 * g0[k].abs().max() + 1e-6)
+    for k in b0:  # BatchNorm's running statistics, moved in training
+        torch.testing.assert_close(b1[k], b0[k], rtol=1e-5, atol=1e-6)
+
+
+def test_lm_and_convlm_on_the_card_match_the_cpu(cuda):
+    """A GCNN-14B at 1/16 of its widths: logits and every gradient of the LM
+    loss, and the ConvLM's deferred scores (log10), card against CPU."""
+    from chip_smoke import gcnn_lines
+    from wav2letter_tpu_torch.decoder.convlm import ConvLM
+    from wav2letter_tpu_torch.models.arch import parse_arch_lines
+    from wav2letter_tpu_torch.models.lm import LMArchModel, lm_cross_entropy
+
+    V = 50
+    torch.manual_seed(0)
+    cpu = LMArchModel(parse_arch_lines(gcnn_lines(V, div=16)), V, V).eval()
+    card = LMArchModel(parse_arch_lines(gcnn_lines(V, div=16)), V, V)
+    card.load_state_dict(cpu.state_dict())
+    card.to(cuda).eval()
+    ids = torch.from_numpy(np.random.RandomState(2).randint(0, V, (4, 32)))
+    res = []
+    for m, dev in ((cpu, "cpu"), (card, cuda)):
+        logits, _ = m(ids.to(dev))
+        lm_cross_entropy(logits, ids.to(dev)).sum().backward()
+        res.append((logits.detach().cpu(), {k: p.grad.cpu() for k, p in m.named_parameters()}))
+    torch.testing.assert_close(res[1][0], res[0][0], rtol=1e-4, atol=1e-4)
+    for k, g in res[0][1].items():
+        torch.testing.assert_close(res[1][1][k], g, rtol=1e-4, atol=1e-4 * g.abs().max())
+    vocab = [f"w{i}" for i in range(V - 2)] + ["</s>", "<unk>"]
+    rng = np.random.RandomState(3)
+    lens = rng.randint(1, 49, size=100).astype(np.int32)
+    hists = rng.randint(0, V, size=(100, 48)).astype(np.int32)
+    words = rng.randint(0, V, size=100).astype(np.int32)
+    got = ConvLM(card, vocab).score_batch(hists, lens, words)
+    want = ConvLM(cpu, vocab).score_batch(hists, lens, words)
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -206,9 +206,11 @@ def test_decode_cli_without_device_flag_needs_a_card(decode_setup):
 
 
 def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
-    """ConvLM is a later slice (M12): asking for it raises and says so, with
-    a CTC checkpoint and with a seq2seq one, whose decode is ported (the same
-    checkpoint's encoder under a GRU decoder decodes without it)."""
+    """ConvLM is ported (the LM slice, M12): asked for without ``--lm_vocab``
+    it raises as JAX's does (under ``W2L_REQUIRE_NATIVE=1`` as the native
+    decoder's failure), with a CTC checkpoint and with a seq2seq one (the
+    same checkpoint's encoder under a GRU decoder), which decodes with the
+    n-gram LM. ``tests/test_torch_convlm.py`` decodes with ConvLMs."""
     import jax
     import jax.numpy as jnp
 
@@ -217,7 +219,7 @@ def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
     from wav2letter_tpu.runtime.checkpoint import save_checkpoint as jax_save
 
     root, am, lst, lms = decode_setup
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises((ValueError, RuntimeError), match="requires --lm_vocab"):
         run_decode(_cfg("torch", am=am, test=lst, lm=lms["arpa"], lmtype="convlm"),
                    device="cpu")
     ckpt = jax_load(am)
@@ -231,7 +233,7 @@ def test_convlm_and_seq2seq_name_their_slices(decode_setup, tmp_path):
     ckpt.config = cfg.serialize()
     s2s = str(tmp_path / "s2s.bin")
     jax_save(s2s, ckpt)
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises((ValueError, RuntimeError), match="requires --lm_vocab"):
         run_decode(_cfg("torch", am=s2s, test=lst, lm=lms["arpa"], lmtype="convlm"),
                    device="cpu")
     res = run_decode(_cfg("torch", am=s2s, test=lst, lm=lms["arpa"]), device="cpu")

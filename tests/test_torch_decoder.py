@@ -209,6 +209,32 @@ def _same(got, want, tol=1e-5):
     assert abs(got.lm_score - want.lm_score) <= tol
 
 
+def test_empty_native_results_read_defined_scores(lm_files):
+    """A result with no hypothesis behind it reads zeros, the same every time:
+    the look-back result of a lexicon beam that saw no frame, and a seq2seq
+    beam whose every hypothesis the attention threshold prunes at its first
+    step (at most the empty hypothesis to read)."""
+    from wav2letter_tpu_torch.decoder.s2s_native import NativeSeq2SeqDecoder
+
+    dec = _decoder(tdec, tnative, "native_lexicon", lm_files, True)
+    for _ in range(2):
+        dec.decode_begin()
+        r = dec.get_best_hypothesis()
+        assert (r.score, r.am_score, r.lm_score, r.words, r.tokens) == (0.0, 0.0, 0.0, [], [])
+    logp = np.log(np.full((1, 6), 1.0 / 6, np.float32))
+
+    def step(state, toks):  # every hypothesis attends to frame 9 of 10
+        return state, np.repeat(logp, len(toks), 0), np.full(len(toks), 9, np.int32)
+
+    s2s = NativeSeq2SeqDecoder(_opts(tdec, False, beam_size=4, beam_size_token=6), 4, step,
+                               lambda k: torch.zeros(k, 1), max_output_len=5,
+                               attention_threshold=2.0)
+    first = s2s.decode(n_best=3)
+    assert s2s.decode(n_best=3) == first
+    got = [(r.score, r.am_score, r.lm_score, r.tokens) for r in first]
+    assert got in ([], [(0.0, 0.0, 0.0, [])])
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("lm", [False, True], ids=["nolm", "lm"])
 @pytest.mark.parametrize("kind", ["lexicon", "lexfree", "native_lexicon", "native_lexfree"])

@@ -183,10 +183,13 @@ def test_recipe_arch_builds_at_full_width():
 
 
 def test_unported_mnemonic_names_its_slice():
-    with pytest.raises(NotImplementedError, match="slice of the remaining layers"):
-        build_arch_from_lines(["POSEMB 64 100 0.1"], NLABEL)
-    with pytest.raises(NotImplementedError, match="'BN'"):
-        build_arch_from_lines(["BN 0 64"], NLABEL)
+    """Every mnemonic of the JAX DSL is ported (no slice is left to name):
+    the last ones build, and a line neither package parses raises, naming
+    it."""
+    build_arch_from_lines(["POSEMB 64 100 0.1"], NLABEL)
+    build_arch_from_lines(["BN 64 0"], NLABEL)
+    with pytest.raises(ValueError, match="cannot parse arch line: 'XYZ 1 2'"):
+        build_arch_from_lines(["XYZ 1 2"], NLABEL)
 
 
 # Narrow copies of the ASG and residual recipes (channels / 8, the layers,

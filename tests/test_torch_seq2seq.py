@@ -69,7 +69,10 @@ CASES = {
     "transformer_2_step": ("tr", 16, dict(label_smooth=0.05, attn_window="step",
                                           softw_offset=3.0, softw_rate=2.0), 2),
     "transformer_2_soft": ("tr", 16, dict(attn_window="soft", softw_std=3.0), 2),
+    # encoder states wider than --encoderdim: flax sizes ck/cv from them
+    "transformer_2_wide": ("tr", 16, dict(), 2),
 }
+WIDE = {"transformer_2_wide": 24}
 
 
 def _batch(seed, B=3, T=12, H=16, U=5):
@@ -99,8 +102,9 @@ def _pair(name, max_len=7, mode="target", seed=1):
         tc = P.Seq2SeqCriterion(P.S2SConfig(**fields), pm)
     else:
         jc = J.TransformerS2SCriterion(J.S2SConfig(**fields), jm, n_tr_layers=layers)
-        tc = P.TransformerS2SCriterion(P.S2SConfig(**fields), pm, n_tr_layers=layers)
-    E = 2 * H if kw.get("attention") == "keyvalue" else H
+        tc = P.TransformerS2SCriterion(P.S2SConfig(**fields), pm, n_tr_layers=layers,
+                                       enc_dim=WIDE.get(name, 0))
+    E = WIDE.get(name) or (2 * H if kw.get("attention") == "keyvalue" else H)
     em, tg, elen, tlen = _batch(0, H=E)
     params = jc.init(jax.random.PRNGKey(seed), *(jnp.asarray(a) for a in (em, tg, elen, tlen)))
     leaves, tdef = jax.tree.flatten(params["params"])
@@ -180,7 +184,7 @@ def _leaves(state):
 
 
 @pytest.mark.parametrize("name", ["gru_keyvalue_soft", "gru_neural_2x2_median",
-                                  "transformer_2_step"])
+                                  "transformer_2_step", "transformer_2_wide"])
 def test_decode_step_and_greedy_match_jax(name):
     jc, params, tc, E = _pair(name, max_len=9, mode="none")
     em, _, elen, _ = _batch(3, H=E)
@@ -468,6 +472,16 @@ RO 2 0 3 1
 TR 8 16 2 40 0 0
 L 8 8
 """,
+    # states of 12 channels for --encoderdim=8: flax sizes the decoder's
+    # cross-attention keys and values from them
+    "transformer_wide": """V -1 1 NFEAT 0
+WN 3 C NFEAT 16 3 1 -1
+GLU 2
+M 1 1 2 1
+RO 2 0 3 1
+TR 8 16 2 40 0 0
+L 8 12
+""",
 }
 
 
@@ -592,12 +606,12 @@ def test_two_ranks_equal_one_process(s2s_data, tmp_path):
                                        err_msg=k)
 
 
-def s2s_jax_checkpoint(data, criterion, path, seed=5):
+def s2s_jax_checkpoint(data, criterion, path, seed=5, **kw):
     """A W2LTPU01 file of the narrow arch and criterion at JAX's init, the
-    criterion perturbed; and its flags."""
+    criterion perturbed; and its flags (``kw`` over ``s2s_flags``')."""
     from wav2letter_tpu.criterions import make_criterion as jax_make
 
-    flags = s2s_flags(data, criterion, "")
+    flags = s2s_flags(data, criterion, "", **kw)
     jcfg = JaxConfig(**flags)
     model = jax_build(flags["arch"], NFEAT, flags["encoderdim"], force_label_dim=False)
     variables = jax.jit(model.init)({"params": jax.random.PRNGKey(seed)},
@@ -616,10 +630,11 @@ def s2s_jax_checkpoint(data, criterion, path, seed=5):
     return flags
 
 
-@pytest.mark.parametrize("criterion", ["seq2seq", "transformer"])
+@pytest.mark.parametrize("criterion", ["seq2seq", "transformer", "transformer_wide"])
 def test_run_test_on_a_jax_checkpoint_matches_jax(s2s_data, tmp_path, criterion):
     am = str(tmp_path / "am.bin")
-    flags = s2s_jax_checkpoint(s2s_data, criterion, am)
+    kw = dict(arch=s2s_data[4][criterion]) if criterion == "transformer_wide" else {}
+    flags = s2s_jax_checkpoint(s2s_data, criterion.split("_")[0], am, **kw)
     ckpt = load_checkpoint(am)
     assert set(ckpt.crit_state_dict) == set(make_criterion(Config(**flags), N_DATA)
                                             .state_dict())

@@ -161,6 +161,40 @@ def test_cli_runs_without_jax(jax_checkpoint):
     assert "NO_JAX_OK" in r.stdout and "TER:" in r.stdout
 
 
+def test_lm_cli_and_convlm_run_without_jax(tmp_path):
+    """``cli.train_lm`` on the CPU, then ``load_convlm`` of what it wrote and
+    a batch of scores, in a process that never imports JAX."""
+    (tmp_path / "corpus.txt").write_text("a b c\nb c a a\nc a b\n" * 20)
+    (tmp_path / "tokens.txt").write_text("a\nb\nc\n")
+    (tmp_path / "lm.arch").write_text("V -1 0 1 1\nE 8 NLABEL\nRO 1 3 0 2\n"
+                                      "WN 3 AC 8 16 3 1 -1 0\nGLU 2\nRO 2 0 3 1\n"
+                                      "WN 0 L 8 NLABEL\n")
+    run = tmp_path / "run"
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from wav2letter_tpu_torch.cli.train_lm import main\n"
+        "from wav2letter_tpu_torch.decoder.convlm import load_convlm\n"
+        f"main(['--arch={tmp_path / 'lm.arch'}', '--train={tmp_path / 'corpus.txt'}',\n"
+        f"      '--tokens={tmp_path / 'tokens.txt'}', '--rundir={run}', '--iter=3',\n"
+        "      '--batchsize=2', '--bptt=8', '--lr=0.1', '--device=cpu'])\n"
+        f"lm = load_convlm('{run / 'lm_model.bin'}', '{run / 'lm_vocab.txt'}',\n"
+        "                 usr_vocab=['a', 'b', 'z'], device='cpu')\n"
+        "s = lm.score_batch(np.zeros((2, 4), np.int32), np.asarray([1, 3]), np.asarray([0, 4]))\n"
+        "assert np.isfinite(s).all() and lm.usr_map == [0, 1, 4], lm.usr_map\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = [m for m in sys.modules if m == 'wav2letter_tpu' or "
+        "m.startswith('wav2letter_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('NO_JAX_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "NO_JAX_OK" in r.stdout and "saved LM" in r.stdout
+
+
 def test_entry_point_without_device_flag_needs_a_card(jax_checkpoint):
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is usable")
@@ -198,7 +232,11 @@ def test_port_imports_no_jax():
             "wav2letter_tpu_torch/tools/soak.py",
             "wav2letter_tpu_torch/criterions/seq2seq.py",
             "wav2letter_tpu_torch/decoder/seq2seq_beam.py",
-            "wav2letter_tpu_torch/decoder/s2s_native.py"} <= rel
+            "wav2letter_tpu_torch/decoder/s2s_native.py",
+            "wav2letter_tpu_torch/models/lm.py",
+            "wav2letter_tpu_torch/decoder/convlm.py",
+            "wav2letter_tpu_torch/cli/train_lm.py",
+            "wav2letter_tpu_torch/tools/convlm_import.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}

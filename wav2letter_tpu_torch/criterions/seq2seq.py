@@ -411,19 +411,21 @@ class Seq2SeqCriterion(nn.Module):
 class TransformerS2SCriterion(nn.Module):
     """The transformer attention decoder (flashlight's TransformerCriterion;
     ``--am_decoder_tr_layers`` layers of 4 heads). It takes encoder states
-    ``hidden`` (``--encoderdim``) wide: flax sizes ``ck``/``cv`` from the first
-    input it sees, the port from the flag."""
+    ``enc_dim`` wide (0: ``hidden``, ``--encoderdim``): flax sizes ``ck``/``cv``
+    from the first input it sees, the port from the arch's output width
+    (``models.arch.output_width``), which the runtimes pass."""
 
     def __init__(self, cfg: S2SConfig,
                  scale_mode: CriterionScaleMode = CriterionScaleMode.NONE,
                  n_tr_layers: int = 2, n_heads: int = 4, tr_dropout: float = 0.0,
-                 tr_layerdrop: float = 0.0):
+                 tr_layerdrop: float = 0.0, enc_dim: int = 0):
         super().__init__()
         c = self.cfg = cfg
         self.scale_mode = scale_mode
         self.n_tr_layers, self.n_heads = n_tr_layers, n_heads
         self.tr_dropout, self.tr_layerdrop = tr_dropout, tr_layerdrop
         D = c.hidden
+        E = enc_dim or D
         self.embedding = Embed(c.n_classes, D)
         self.out = Dense(D, c.n_classes)
         # the residual branches' output projections start at zero: the decoder
@@ -431,8 +433,8 @@ class TransformerS2SCriterion(nn.Module):
         for i in range(n_tr_layers):
             for name, in_dim, init in (("sq", D, "lecun"), ("sk", D, "lecun"),
                                        ("sv", D, "lecun"), ("so", D, "zeros"),
-                                       ("cq", D, "lecun"), ("ck", D, "lecun"),
-                                       ("cv", D, "lecun"), ("co", D, "zeros")):
+                                       ("cq", D, "lecun"), ("ck", E, "lecun"),
+                                       ("cv", E, "lecun"), ("co", D, "zeros")):
                 self.add_module(f"{name}{i}", Dense(in_dim, D, init=init))
             for name in ("ln1", "ln2", "ln3"):
                 self.add_module(f"{name}_{i}", LayerNorm(D))
@@ -441,12 +443,12 @@ class TransformerS2SCriterion(nn.Module):
         self._pe = {}
 
     @classmethod
-    def from_config(cls, cfg, n_classes: int) -> "TransformerS2SCriterion":
+    def from_config(cls, cfg, n_classes: int, enc_dim: int = 0) -> "TransformerS2SCriterion":
         return cls(S2SConfig.from_flags(cfg, n_classes),
                    get_scale_mode(cfg.onorm, cfg.sqnorm),
                    n_tr_layers=max(1, cfg.am_decoder_tr_layers),
                    tr_dropout=cfg.am_decoder_tr_dropout,
-                   tr_layerdrop=cfg.am_decoder_tr_layerdrop)
+                   tr_layerdrop=cfg.am_decoder_tr_layerdrop, enc_dim=enc_dim)
 
     def _layer(self, i: int) -> SimpleNamespace:
         """Layer ``i``'s modules under their names without the index."""
@@ -492,15 +494,8 @@ class TransformerS2SCriterion(nn.Module):
             return 1.0
         return (torch.rand((), device=device) >= self.tr_layerdrop).float()
 
-    def _check_enc(self, enc):
-        want = self.ck0.kernel.shape[0]
-        if enc.shape[-1] != want:
-            raise ValueError(f"transformer criterion built for encoder states of {want} "
-                             f"channels, given {enc.shape[-1]}")
-
     def _decode_all(self, dec_in, enc, enc_mask, train=False, window=False):
         c = self.cfg
-        self._check_enc(enc)
         U1 = dec_in.shape[1]
         dev = enc.device
         x = self.embedding(dec_in).to(enc.dtype) + self._pos(U1, enc.dtype, dev)[None]
@@ -544,7 +539,6 @@ class TransformerS2SCriterion(nn.Module):
         and V from ``enc`` at every step, as in JAX. The step writes this
         position's keys and values into ``state``'s caches in place (a beam
         passes a gathered copy) and returns them in the new state."""
-        self._check_enc(enc)
         pos = state["pos"][:1].long()  # the beams advance in lockstep
         kc, vc = state["k"], state["v"]
         Lmax = kc.shape[2]

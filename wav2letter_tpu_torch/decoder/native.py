@@ -72,8 +72,8 @@ class NativeExternalLM:
     """Host-scored (deferred) LM handle for the native beam decoder —
     the ConvLM path (reference cpc/Decode.cpp:489-517). The native core
     collects each step's pending (history, word) score requests; ``scorer``
-    (a ConvLM, which this package does not carry yet) resolves them with
-    one batched device call via ``score_batch``."""
+    (``decoder/convlm.py::ConvLM``) resolves them with batched device calls
+    via ``score_batch``."""
 
     def __init__(self, scorer):
         self.lib = decoder_lib()
@@ -225,7 +225,7 @@ class NativeBeamDecoder:
         out = []
         toks = np.empty(max_len, np.int32)
         words = np.empty(max_len, np.int32)
-        scores = np.empty(3, np.float64)
+        scores = np.zeros(3, np.float64)  # read back as zeros where no hypothesis writes them
         for i in range(n):
             L = self.lib.w2l_decoder_result(
                 self.ptr, i,
@@ -252,7 +252,7 @@ class NativeBeamDecoder:
         max_len = 100000
         toks = np.empty(max_len, np.int32)
         words = np.empty(max_len, np.int32)
-        scores = np.empty(3, np.float64)
+        scores = np.zeros(3, np.float64)  # read back as zeros where no hypothesis writes them
         L = self.lib.w2l_decoder_best_lookback(
             self.ptr, look_back,
             toks.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),

@@ -144,7 +144,7 @@ class NativeSeq2SeqDecoder:
         max_len = self.max_output_len + 8
         tk = np.empty(max_len, np.int32)
         wd = np.empty(max_len, np.int32)
-        scores = np.empty(3, np.float64)
+        scores = np.zeros(3, np.float64)  # read back as zeros where no hypothesis writes them
         nw = ctypes.c_int32()
         comp = ctypes.c_int32()
         results = []
@@ -369,7 +369,7 @@ class NativeSeq2SeqBatchDecoder:
         max_len = self.max_output_len + 8
         tk = np.empty(max_len, np.int32)
         wd = np.empty(max_len, np.int32)
-        scores = np.empty(3, np.float64)
+        scores = np.zeros(3, np.float64)  # read back as zeros where no hypothesis writes them
         nw = ctypes.c_int32()
         comp = ctypes.c_int32()
         results = []

@@ -1,8 +1,10 @@
 """`.arch` DSL parser -> nn.Module graph — the port of
 ``wav2letter_tpu/models/arch.py`` for the mnemonics of the streaming-convnets,
 transformer, conformer, ResNet, conv-GLU, TIMIT and learnable-frontend recipes
-and of streaming: V RO PD C C1 C2 AC WN (of a conv or an L) TDS L LN DO M A SAUG
-TR CFR RES (with SKIP, SKIPL) and the activations R R6 ELU LG HT T SH GLU LSM PR.
+and of streaming, and of the LM archs: every mnemonic of the JAX DSL, V RO PD C
+C1 C2 AC WN (of a conv or an L) TDS L LN BN DO M A SAUG TR CFR RES (with SKIP,
+SKIPL), the embeddings E ADAPTIVEE POSEMB SINPOSEMB, PC, RNN GRU LSTM and the
+activations R R6 ELU LG HT T SH GLU LSM PR.
 
 Grammar: one layer per line, ``#`` comments, NFEAT/NLABEL substitution
 (reference ``buildSequentialModule``). The model takes features (B, T, C)
@@ -38,27 +40,6 @@ from torch import nn
 from ..kernels import KERNELS
 from . import layers as L
 from .transformer import ConformerLayer, TransformerLayer
-
-PORTED = ("V RO PD C C1 C2 AC WN(C C1 C2 AC L) TDS L LN DO M A SAUG TR CFR "
-          "RES(SKIP SKIPL) R R6 ELU LG HT T SH GLU LSM PR")
-_LATER = {
-    "POSEMB": "the slice of the remaining layers",
-    "SINPOSEMB": "the slice of the remaining layers",
-    "BN": "the slice of the remaining layers",
-    "RNN": "the recurrent slice",
-    "GRU": "the recurrent slice",
-    "LSTM": "the recurrent slice",
-    "E": "the language-model slice",
-    "ADAPTIVEE": "the language-model slice",
-    "PC": "the slice of the remaining layers",
-}
-
-
-def _later(op: str, line: str) -> NotImplementedError:
-    where = _LATER.get(op, "a later slice")
-    return NotImplementedError(
-        f"arch mnemonic {op!r} is not in the slices of the PyTorch port so far "
-        f"({PORTED}); it comes with {where}: {line!r}")
 
 
 @dataclasses.dataclass
@@ -166,7 +147,37 @@ def _parse_one(p: List[str], line: str) -> LayerSpec:
         f, mf, t = int(p[1]), int(p[2]), int(p[3])
         tt, tp, mt = int(p[4]), _num(p[5]), int(p[6])
         return LayerSpec("SAUG", lambda ops: L.SpecAugmentLayer(f, mf, tt, tp, mt), line)
-    raise _later(op, line)
+    if op == "E":
+        return LayerSpec("E", lambda ops: L.Embedding(int(p[1]), int(p[2])), line)
+    if op == "ADAPTIVEE":
+        cutoffs = tuple(int(c) for c in p[2].split(","))
+        if list(cutoffs) != sorted(set(cutoffs)):
+            raise ValueError(f"cutoffs must be strictly ascending: {line}")
+        return LayerSpec("ADAPTIVEE", lambda ops: L.AdaptiveEmbedding(int(p[1]), cutoffs), line)
+    if op == "POSEMB":
+        do = _num(p[3]) if len(p) >= 4 else 0.0
+        return LayerSpec("POSEMB", lambda ops: L.PositionEmbedding(int(p[1]), int(p[2]), do),
+                         line)
+    if op == "SINPOSEMB":
+        sc = _num(p[2]) if len(p) >= 3 else 1.0
+        return LayerSpec("SINPOSEMB", lambda ops: L.SinusoidalPositionEmbedding(int(p[1]), sc),
+                         line)
+    if op == "BN":
+        fdims = tuple(int(x) for x in p[2:])
+        return LayerSpec("BN", lambda ops: L.BatchNorm(fdims, int(p[1])), line)
+    if op == "PC":
+        if p[1] not in L.PC_DTYPES:
+            raise ValueError(f"unknown dtype {p[1]}")
+        dt = L.PC_DTYPES[p[1]]
+        return LayerSpec("PC", lambda ops: L.PrecisionCast(dt), line)
+    if op in ("RNN", "GRU", "LSTM"):
+        mode = {"RNN": "relu", "GRU": "gru", "LSTM": "lstm"}[op]
+        isz, osz = int(p[1]), int(p[2])
+        nl = int(p[3]) if len(p) > 3 else 1
+        bidir = (int(p[4]) > 0) if len(p) > 4 else False
+        do = _num(p[5]) if len(p) > 5 else 0.0
+        return LayerSpec(op, lambda ops: L.RNN(isz, osz, nl, mode, bidir, do), line)
+    raise ValueError(f"cannot parse arch line: {line!r}")
 
 
 def _parse_conv(p: List[str], line: str, wn_dim: int) -> LayerSpec:
@@ -365,6 +376,17 @@ def build_arch_module(arch_path: str, n_feat: int, n_label: int,
                       ops: SimpleNamespace = KERNELS) -> ArchModel:
     lines = parse_arch_file(arch_path, n_feat, n_label)
     return ArchModel(parse_arch_lines(lines), n_label, force_label_dim, ops)
+
+
+def output_width(arch_path: str, n_feat: int, n_label: int, frames: int = 512) -> int:
+    """The width of what the arch emits for ``frames`` frames (its last axis,
+    the label dim left as the arch makes it), from a forward on the meta
+    device: flax infers a consumer's input width from it the same way."""
+    from ..kernels import PLAIN
+
+    with torch.device("meta"):
+        model = build_arch_module(arch_path, n_feat, n_label, force_label_dim=False, ops=PLAIN)
+        return int(model.eval()(torch.zeros(1, frames, n_feat))[0].shape[-1])
 
 
 def build_arch_from_lines(lines: Sequence[str], n_label: int,

@@ -31,12 +31,14 @@ from __future__ import annotations
 import math
 from collections import OrderedDict
 from types import SimpleNamespace
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..criterions.seq2seq import Dense, GRUCell
 from ..features.specaug import SpecAugment
 from ..kernels import KERNELS
 from ..kernels.tconv import time_conv_takes
@@ -395,12 +397,36 @@ class Pool2D(nn.Module):
 
 
 class Dropout(nn.Module):
+    """Dropout in training mode: from ``generator`` where one is set (the LM
+    trainer sets a seeded generator of the device, ``set_generator``), else
+    from the device's global generator."""
+
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.dropout(x, self.rate, self.training)
+        return dropout(x, self.rate, self.training, self.generator)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    if not training or rate <= 0.0:
+        return x
+    if generator is None:
+        return F.dropout(x, rate, True)
+    keep = 1.0 - rate
+    m = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(m, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def set_generator(module: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every dropout (and SpecAugment) layer under ``module`` at
+    ``generator``."""
+    for m in module.modules():
+        if isinstance(m, (Dropout, SpecAugmentLayer)):
+            m.generator = generator
 
 
 class SpecAugmentLayer(nn.Module):
@@ -591,3 +617,296 @@ class TDSBlock(nn.Module):
         h = h + b2
         h = F.dropout(h, self.rate, self.training)
         return self._ln(z, h.view(B, T, D), self.ln2, over_time)
+
+
+# ---------------------------------------------------------------------------
+# embeddings (the LM archs' first layer)
+# ---------------------------------------------------------------------------
+def _af_ids(x: torch.Tensor, what: str) -> torch.Tensor:
+    """Token ids of the AF (d0, d1, d2, 1) layout: stored (1, d2, d1, d0)
+    -> (d2, d1, d0)."""
+    ids = x.long()
+    if ids.dim() == 4:
+        if ids.shape[0] != 1:
+            raise ValueError(f"{what} needs AF d3 == 1, got stored shape {tuple(ids.shape)}")
+        ids = ids[0]
+    return ids
+
+
+class Embedding(nn.Module):
+    """Arch ``E emb n_tokens`` (JAX ``layers.py::Embedding``): AF (d0, d1,
+    d2, 1) ids -> (emb, d0, d1, d2), stored (d2, d1, d0, emb); ``weight``
+    (n_tokens, emb), normal * 0.1."""
+
+    def __init__(self, emb_dim: int, n_tokens: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(n_tokens, emb_dim) * 0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.embedding(_af_ids(x, "Embedding"), self.weight.float())
+
+
+class AdaptiveEmbedding(nn.Module):
+    """Arch ``ADAPTIVEE emb c1,c2,...`` (Baevski & Auli 2018; JAX
+    ``layers.py::AdaptiveEmbedding``): cluster i = ids in [c_{i-1}, c_i) has
+    an embedding ``emb{i}`` of width emb / 4^i, projected up to emb by
+    ``proj{i}`` where the widths differ; the clusters' rows are summed under
+    their masks. The AF layout is Embedding's."""
+
+    def __init__(self, emb_dim: int, cutoffs: Tuple[int, ...]):
+        super().__init__()
+        self.emb_dim, self.cutoffs = emb_dim, tuple(cutoffs)
+        lo = 0
+        for i, hi in enumerate(self.cutoffs):
+            dim = max(1, emb_dim // (4 ** i))
+            self.register_parameter(f"emb{i}", nn.Parameter(torch.randn(hi - lo, dim) * 0.02))
+            if dim != emb_dim:
+                self.register_parameter(
+                    f"proj{i}", nn.Parameter(torch.randn(dim, emb_dim) / math.sqrt(dim)))
+            lo = hi
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ids = _af_ids(x, "AdaptiveEmbedding")
+        out = torch.zeros(ids.shape + (self.emb_dim,), device=ids.device)
+        lo = 0
+        for i, hi in enumerate(self.cutoffs):
+            vec = F.embedding((ids - lo).clamp(0, hi - lo - 1), getattr(self, f"emb{i}"))
+            proj = getattr(self, f"proj{i}", None)
+            if proj is not None:
+                vec = vec @ proj
+            in_cluster = (ids >= lo) & (ids < hi)
+            out = out + torch.where(in_cluster[..., None], vec, torch.zeros((), device=ids.device))
+            lo = hi
+        return out
+
+
+# ---------------------------------------------------------------------------
+# position embeddings, precision cast
+# ---------------------------------------------------------------------------
+class PositionEmbedding(nn.Module):
+    """Arch ``POSEMB dim context [dropout]`` (JAX ``layers.py::
+    PositionEmbedding``): a learnt ``embedding`` (context, dim), normal *
+    0.1, added to the (..., T, C) input, then dropout (``do``)."""
+
+    def __init__(self, layer_dim: int, context_size: int, dropout: float = 0.0):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.randn(context_size, layer_dim) * 0.1)
+        self.do = Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.do(x + self.embedding[: x.shape[-2]].to(x.dtype))
+
+
+def sinusoid_table(T: int, C: int) -> np.ndarray:
+    """The (T, C) float32 table of ``SINPOSEMB``, built in numpy as JAX
+    builds it (odd C included)."""
+    pos = np.arange(T)[:, None].astype(np.float32)
+    div = np.exp(np.arange(0, C, 2) * (-math.log(10000.0) / C)).astype(np.float32)
+    pe = np.zeros((T, C), np.float32)
+    pe[:, 0::2] = np.sin(pos * div)
+    pe[:, 1::2] = np.cos(pos * div[: (C // 2) + (C % 2)][: pe[:, 1::2].shape[1]])
+    return pe
+
+
+class SinusoidalPositionEmbedding(nn.Module):
+    """Arch ``SINPOSEMB dim [scale]``: ``x * scale + table``, the table of
+    the input's (T, C) (``sinusoid_table``), kept per shape and device."""
+
+    def __init__(self, layer_dim: int, input_scale: float = 1.0):
+        super().__init__()
+        self.input_scale = input_scale
+        self._tables = {}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        T, C = x.shape[-2], x.shape[-1]
+        key = (T, C, x.dtype, str(x.device))
+        if key not in self._tables:
+            self._tables[key] = torch.from_numpy(sinusoid_table(T, C)).to(x.device, x.dtype)
+        return x * self.input_scale + self._tables[key]
+
+
+PC_DTYPES = {"f16": torch.float16, "f32": torch.float32, "f64": torch.float64,
+             "b8": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+class PrecisionCast(nn.Module):
+    """Arch ``PC dtype`` (``PC_DTYPES``: f16, f32, f64, b8 or bf16): a cast."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.dtype)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm
+# ---------------------------------------------------------------------------
+class BatchNorm(nn.Module):
+    """Arch ``BN size dims...`` (JAX ``layers.py::BatchNorm``): statistics
+    over every stored axis but the AF feature dims, in fp32, the biased
+    variance, eps 1e-5, per-feature ``weight`` and ``bias``. Training
+    normalizes by the batch's statistics and moves the running ones as flax
+    does, ``ra = 0.9 ra + 0.1 batch`` (torch's ``momentum`` is the other
+    share); eval normalizes by the running ones. The buffers ``mean`` and
+    ``var`` take JAX's keepdims shape of a 4-d input where one feature dim
+    fixes it (flat otherwise, reshaped on load)."""
+
+    def __init__(self, feat_af_dims: Tuple[int, ...], feat_size: int,
+                 momentum: float = 0.9, epsilon: float = 1e-5):
+        super().__init__()
+        self.feat_af_dims, self.momentum, self.epsilon = tuple(feat_af_dims), momentum, epsilon
+        self.weight = nn.Parameter(torch.ones(feat_size))
+        self.bias = nn.Parameter(torch.zeros(feat_size))
+        shape = (feat_size,)
+        if len(self.feat_af_dims) == 1:
+            shape = [1] * 4
+            shape[3 - self.feat_af_dims[0]] = feat_size
+        self.register_buffer("mean", torch.zeros(shape))
+        self.register_buffer("var", torch.ones(shape))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        for name in ("mean", "var"):
+            t = state_dict.get(prefix + name)
+            if t is not None and t.shape != getattr(self, name).shape \
+                    and t.numel() == getattr(self, name).numel():
+                state_dict[prefix + name] = t.reshape(getattr(self, name).shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feat = sorted(x.dim() - 1 - d for d in self.feat_af_dims)
+        red = tuple(a for a in range(x.dim()) if a not in feat)
+        shape = tuple(x.shape[a] if a in feat else 1 for a in range(x.dim()))
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=red, keepdim=True)
+            var = xf.var(dim=red, keepdim=True, unbiased=False)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_((m * self.mean.view(shape) + (1 - m) * mean).view_as(self.mean))
+                self.var.copy_((m * self.var.view(shape) + (1 - m) * var).view_as(self.var))
+        else:
+            mean, var = self.mean.view(shape), self.var.view(shape)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RNNs
+# ---------------------------------------------------------------------------
+class LSTMCell(nn.Module):
+    """flax ``nn.OptimizedLSTMCell``: input parts ``ii if ig io`` without a
+    bias, hidden parts ``hi hf hg ho`` with one; ``c' = f c + i g``,
+    ``h' = o tanh(c')``, gates sigmoid but g (tanh)."""
+
+    GATES = ("i", "f", "g", "o")
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        for g in self.GATES:
+            self.add_module(f"i{g}", Dense(in_dim, hidden, use_bias=False))
+            self.add_module(f"h{g}", Dense(hidden, hidden, init="orthogonal"))
+        self.hidden = hidden
+
+    def inputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The input parts of every step at once: (..., T, 4 * hidden)."""
+        w = torch.cat([getattr(self, f"i{g}").kernel for g in self.GATES], dim=1)
+        return x @ w.to(x.dtype)
+
+    def step(self, carry, xi: torch.Tensor):
+        c, h = carry
+        w = torch.cat([getattr(self, f"h{g}").kernel for g in self.GATES], dim=1)
+        b = torch.cat([getattr(self, f"h{g}").bias for g in self.GATES])
+        i, f, g, o = (xi + h @ w.to(h.dtype) + b.to(h.dtype)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        return (c, h), h
+
+    def zeros(self, x: torch.Tensor):
+        z = x.new_zeros(x.shape[:-2] + (self.hidden,))
+        return (z, z)
+
+
+class GRUStepCell(GRUCell):
+    """flax ``nn.GRUCell`` (the seq2seq criterion's six dense parts), stepped
+    with its input parts computed for every step at once."""
+
+    def inputs(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.ir(x), self.iz(x), getattr(self, "in")(x)], dim=-1)
+
+    def step(self, h, xi: torch.Tensor):
+        xr, xz, xn = xi.chunk(3, dim=-1)
+        r = torch.sigmoid(xr + self.hr(h))
+        z = torch.sigmoid(xz + self.hz(h))
+        n = torch.tanh(xn + r * self.hn(h))
+        h = (1.0 - z) * n + z * h
+        return h, h
+
+    def zeros(self, x: torch.Tensor):
+        return x.new_zeros(x.shape[:-2] + (self.hn.kernel.shape[0],))
+
+
+class SimpleReluCell(nn.Module):
+    """JAX ``layers.py::SimpleReluCell``: ``h' = relu(i(x) + h(h))``, ``i``
+    with a bias, ``h`` without."""
+
+    def __init__(self, in_dim: int, hidden: int):
+        super().__init__()
+        self.i = Dense(in_dim, hidden)
+        self.h = Dense(hidden, hidden, use_bias=False)
+        self.hidden = hidden
+
+    def inputs(self, x: torch.Tensor) -> torch.Tensor:
+        return self.i(x)
+
+    def step(self, h, xi: torch.Tensor):
+        h = torch.relu(xi + self.h(h))
+        return h, h
+
+    def zeros(self, x: torch.Tensor):
+        return x.new_zeros(x.shape[:-2] + (self.hidden,))
+
+
+class RNN(nn.Module):
+    """Arch ``RNN|GRU|LSTM in hidden [layers [bidir [dropout]]]`` (JAX
+    ``layers.py::RNN``) over the stored (..., T, C) input: cells
+    ``l{layer}d{direction}`` under flax's parameter names, a loop over the
+    whole padded time axis (no lengths, as flax's ``nn.RNN`` runs it), the
+    backward direction over the reversed axis and its outputs put back in
+    order (``keep_order``), the directions concatenated, dropout ``do{k}``
+    between layers."""
+
+    CELLS = {"lstm": LSTMCell, "gru": GRUStepCell, "relu": SimpleReluCell}
+
+    def __init__(self, in_dim: int, hidden: int, n_layers: int = 1, mode: str = "lstm",
+                 bidirectional: bool = False, dropout: float = 0.0):
+        super().__init__()
+        self.n_layers, self.n_dirs = n_layers, 2 if bidirectional else 1
+        d = in_dim
+        for li in range(n_layers):
+            for di in range(self.n_dirs):
+                self.add_module(f"l{li}d{di}", self.CELLS[mode](d, hidden))
+            if dropout > 0 and li < n_layers - 1:
+                self.add_module(f"do{li}", Dropout(dropout))
+            d = hidden * self.n_dirs
+
+    @staticmethod
+    def _run(cell, h: torch.Tensor, reverse: bool) -> torch.Tensor:
+        xi = cell.inputs(h)
+        carry, T = cell.zeros(h), h.shape[-2]
+        outs = [None] * T
+        for t in (range(T - 1, -1, -1) if reverse else range(T)):
+            carry, outs[t] = cell.step(carry, xi[..., t, :])
+        return torch.stack(outs, dim=-2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, (T, C) = x.shape[:-2], x.shape[-2:]
+        h = x.reshape(-1, T, C)
+        for li in range(self.n_layers):
+            outs = [self._run(getattr(self, f"l{li}d{di}"), h, di == 1)
+                    for di in range(self.n_dirs)]
+            h = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+            if hasattr(self, f"do{li}"):
+                h = getattr(self, f"do{li}")(h)
+        return h.reshape(lead + h.shape[1:])

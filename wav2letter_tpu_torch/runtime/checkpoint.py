@@ -65,11 +65,15 @@ def load_checkpoint(path: str) -> Checkpoint:
         magic = f.read(len(JAX_MAGIC))
     if magic == JAX_MAGIC:
         payload = read_jax_checkpoint(path)
+        state = convert_jax_params(payload["model_params"])
+        # the mutable collections (BatchNorm's running statistics) are buffers
+        state.update(convert_jax_params((payload.get("model_state") or {}).get(
+            "batch_stats", {})))
         return Checkpoint(
             config=payload["config"],
             epoch=int(payload["epoch"]),
             updates=int(payload["updates"]),
-            state_dict=convert_jax_params(payload["model_params"]),
+            state_dict=state,
             version=int(payload["version"]),
             crit_state_dict=convert_jax_params(payload.get("crit_params") or {}),
             opt_state=_jax_sgd_state(payload.get("opt_state"), int(payload["updates"])),
@@ -207,13 +211,16 @@ def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX param tree (nested dicts of arrays, e.g. ``{"seq": {"03_C2":
-    {"weight", "bias"}}}``) -> state dict ``{"seq.03_C2.weight": ...}``.
+    {"weight", "bias"}}}``) -> state dict ``{"seq.03_C2.weight": ...}``; a
+    ``batch_stats`` tree (BatchNorm's ``mean``, ``var``) converts the same way.
 
     Names and shapes are kept (Conv2D OIHW, Linear (in, out), WNLinear ``v``
     (in, out) and ``g``, LayerNorm scalars, the ASG ``transitions``, and the
     seq2seq criterions' flax modules as they are: ``Dense`` ``kernel`` (in,
     out) and ``bias``, ``embedding/embedding``, ``LayerNorm`` ``scale`` and
-    ``bias``, a GRU cell's six parts ``gru{i}/{ir,iz,in,hr,hz,hn}``), so the
+    ``bias``, a GRU cell's six parts ``gru{i}/{ir,iz,in,hr,hz,hn}``; the LM
+    layers' ``E`` ``weight``, ``ADAPTIVEE`` ``emb{i}``/``proj{i}``, ``POSEMB``
+    ``embedding``, the RNN cells ``l{k}d{d}/{ii,hi,...}``, ``vocab_proj``), so the
     conversion is a path rename and a copy; a residual block's layers move
     under the block (``_RES_TO_PORT``)."""
     out: Dict[str, torch.Tensor] = {}

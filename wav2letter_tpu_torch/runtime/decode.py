@@ -2,7 +2,9 @@
 ``wav2letter_tpu/runtime/decode.py``: offline lexicon beam decoding of CTC or
 ASG emissions with an n-gram LM (ASG's with the checkpoint's transitions, no
 blank, and the replabels packed into the trie's spellings and unpacked from
-the hypotheses, as in JAX), and the seq2seq criterions' beam with the
+the hypotheses, as in JAX) with an n-gram LM or a ConvLM (``--lmtype=convlm``:
+``decoder/convlm.py`` on the decode device, one a consumer thread, scoring
+the native beam's deferred requests in batches), and the seq2seq criterions' beam with the
 decoder in the loop (``decoder/seq2seq_beam.py``, ``decoder/s2s_native.py``:
 the encoder states of an utterance on the device, one decoder step a call
 for all hypotheses, the beam on the host; ``--s2s_batch_decode=N`` steps N
@@ -14,8 +16,6 @@ producer threads forward batches on the device through ``Evaluator`` (the
 serving forward, K1-K4) and ``--nthread_decoder`` consumers run the native C++
 beam decoder on the host. Outputs: WER/TER meters, sclite ``.hyp``/``.ref``/
 ``.log`` files and the ``--isbeamdump`` n-best dump.
-
-Not in the port yet: ConvLM (``--lmtype=convlm``, the LM slice M12).
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ DECODE_FLAGS = (
     "beamsize", "beamsizetoken", "beamthreshold", "smearing",
     "decodertype", "uselexicon", "logadd", "nthread_decoder", "sclite",
     "show", "showletters", "isbeamdump", "smoothingtemperature",
-    "lmtype", "lmdict", "emission_queue_size",
+    "lmtype", "lm_vocab", "lm_memory", "lmdict", "emission_queue_size",
     "attentionthreshold", "hardselection", "softselection", "s2s_batch_decode",
     "use_completed_hyp",
 )
@@ -84,11 +84,12 @@ def _native_failed(exc: BaseException, what: str = "beam decoder"):
     warnings.warn(msg, RuntimeWarning, stacklevel=3)
 
 
-def make_decode_lm(cfg, usr_vocab):
+def make_decode_lm(cfg, usr_vocab, device="cuda"):
     """LM selection per ``--lmtype`` (reference Decode.cpp:242-277): ``kenlm``
-    (default; ARPA or binary n-gram). ``--lmdict``: explicit LM dictionary —
-    usr tokens are scored through its entries (tokens absent from it score as
-    <unk>)."""
+    (default; ARPA or binary n-gram) or ``convlm`` (a GCNN LM forwarded on
+    ``device`` with the ``--lm_vocab`` mapping and an ``--lm_memory`` score
+    cache). ``--lmdict``: explicit LM dictionary — usr tokens are scored
+    through its entries (tokens absent from it score as <unk>)."""
     if not cfg.lm:
         return ZeroLM()
     if cfg.lmdict:
@@ -96,6 +97,11 @@ def make_decode_lm(cfg, usr_vocab):
 
         lmd = Dictionary.from_file(cfg.lmdict)
         usr_vocab = [w if lmd.contains(w) else "<unk>" for w in (usr_vocab or [])]
+    if cfg.lmtype == "convlm":
+        from ..decoder.convlm import load_convlm
+
+        return load_convlm(cfg.lm, cfg.lm_vocab, usr_vocab=usr_vocab,
+                           lm_memory=cfg.lm_memory, device=device)
     return KenLM(cfg.lm, usr_vocab=usr_vocab)
 
 
@@ -109,18 +115,11 @@ def _spellings(cfg, token_dict, spellings, n_tokens):
             yield toks
 
 
-def _no_convlm(cfg):
-    if cfg.lm and cfg.lmtype == "convlm":
-        raise NotImplementedError(
-            "--lmtype=convlm is not in the slices of the PyTorch port so far "
-            "(n-gram LMs only); ConvLM comes with the LM slice (M12)")
-
-
-def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
+def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True,
+                  device="cuda"):
     """Construct the decoder per flags (reference Decode.cpp:242-624).
     Prefers the native C++ core; falls back to Python only as
-    ``_native_failed`` allows."""
-    _no_convlm(cfg)
+    ``_native_failed`` allows. A ConvLM runs on ``device``."""
     opts = DecoderOptions.from_config(cfg)
     n_tokens = len(token_dict)
     sil = token_dict.get_index(cfg.wordseparator) if cfg.wordseparator in token_dict else 0
@@ -135,7 +134,7 @@ def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
         try:
             return _build_native_decoder(
                 cfg, opts, token_dict, lexicon, word_dict, transitions,
-                sil, blank, n_tokens, use_lexicon, word_level_lm,
+                sil, blank, n_tokens, use_lexicon, word_level_lm, device,
             )
         except Exception as e:
             _native_failed(e)  # raises under W2L_REQUIRE_NATIVE=1
@@ -145,7 +144,7 @@ def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
         if word_level_lm
         else token_dict.entries()
     )
-    lm = make_decode_lm(cfg, vocab)
+    lm = make_decode_lm(cfg, vocab, device)
 
     if use_lexicon:
         trie = Trie(n_tokens)
@@ -177,25 +176,31 @@ def build_decoder(cfg, token_dict, lexicon, transitions=None, use_native=True):
 
 def _build_native_decoder(cfg, opts, token_dict, lexicon, word_dict,
                           transitions, sil, blank, n_tokens, use_lexicon,
-                          word_level_lm):
-    from ..decoder.native import NativeBeamDecoder, NativeLM, NativeTrie
+                          word_level_lm, device="cuda"):
+    from ..decoder.native import NativeBeamDecoder, NativeExternalLM, NativeLM, NativeTrie
 
     lm = None
+    convlm = None
     if cfg.lm:
         vocab = (
             word_dict.entries() if (word_level_lm and word_dict)
             else token_dict.entries()
         )
-        lm = NativeLM(cfg.lm, usr_vocab=vocab)
+        if cfg.lmtype == "convlm":  # scored on the device through deferred requests
+            convlm = make_decode_lm(cfg, vocab, device)
+            lm = NativeExternalLM(convlm)
+        else:
+            lm = NativeLM(cfg.lm, usr_vocab=vocab)
     trie = None
     unk = -1
     if use_lexicon:
         trie = NativeTrie(n_tokens)
-        # word start scores for smearing: the Python LM reused just for the
-        # unigram scores
+        # word start scores for smearing: the ConvLM's cached start row, or
+        # the Python n-gram LM reused just for the unigram scores
         score_lm = None
         if cfg.lm and word_level_lm:
-            score_lm = KenLM(cfg.lm, usr_vocab=word_dict.entries())
+            score_lm = convlm if convlm is not None else KenLM(
+                cfg.lm, usr_vocab=word_dict.entries())
         start = score_lm.start(False) if score_lm else None
         for w, spellings in lexicon.entries.items():
             widx = word_dict.get_index(w)
@@ -222,8 +227,7 @@ class S2SBeamParts:
     whether the native core serves them; the Python beam only as
     ``_native_failed`` allows."""
 
-    def __init__(self, cfg, token_dict, lexicon, use_native=True):
-        _no_convlm(cfg)
+    def __init__(self, cfg, token_dict, lexicon, use_native=True, device="cuda"):
         self.opts = DecoderOptions.from_config(cfg)
         self.word_dict = make_word_dict(lexicon) if lexicon else None
         vocab = (self.word_dict.entries() if (cfg.decodertype == "wrd" and self.word_dict)
@@ -238,10 +242,12 @@ class S2SBeamParts:
             except Exception as e:
                 _native_failed(e, what="s2s beam decoder")  # raises if required
         if self.native:
-            from ..decoder.native import NativeLM, NativeTrie
+            from ..decoder.native import NativeExternalLM, NativeLM, NativeTrie
 
             self.lm = None
-            if cfg.lm:
+            if cfg.lm and cfg.lmtype == "convlm":
+                self.lm = NativeExternalLM(make_decode_lm(cfg, vocab, device))
+            elif cfg.lm:
                 if cfg.lmdict:
                     from ..data.dictionary import Dictionary
 
@@ -249,7 +255,7 @@ class S2SBeamParts:
                     vocab = [w if lmd.contains(w) else "<unk>" for w in vocab]
                 self.lm = NativeLM(cfg.lm, usr_vocab=list(vocab))
         else:
-            self.lm = make_decode_lm(cfg, vocab)
+            self.lm = make_decode_lm(cfg, vocab, device)
         self.trie = None
         n = len(token_dict)
         if cfg.uselexicon and lexicon:
@@ -322,6 +328,12 @@ def result_to_words(res, word_dict, token_dict, cfg, n_classes):
     )
 
 
+def convlm_stats(lm):
+    """The counters of the ConvLM behind ``lm`` (a native deferred-LM handle
+    or the LM itself), or None for any other LM."""
+    return getattr(getattr(lm, "scorer", lm), "stats", None)
+
+
 def sparse_rows(vals: np.ndarray, idx: np.ndarray, n_classes: int) -> np.ndarray:
     """(T, k) top-k values and indices -> (T, n_classes) rows, -1e30 elsewhere."""
     e = np.full((vals.shape[0], n_classes), -1e30, np.float32)
@@ -334,7 +346,9 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
     beam decoder the consumers built (``decoder``), and the seconds spent in
     the model's set-up (``setup_s``), by the producers in the forward and its
     copies to the host (``forward_s``), by the consumers in the beam
-    (``beam_s``, summed over threads), and in all (``wall_s``)."""
+    (``beam_s``, summed over threads), and in all (``wall_s``); with a ConvLM
+    its counters summed over the consumers' (``convlm``: device calls, rows,
+    lookups, cache hits, device ms, seconds of loading)."""
     t_start = time.perf_counter()
     ev = Evaluator(cfg, device=device)
     setup_s = time.perf_counter() - t_start
@@ -352,6 +366,13 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
     beam_dump: Dict[str, list] = {}
     times = {"forward_s": 0.0, "beam_s": 0.0}
     decoders = set()
+    lm_totals: Dict[str, float] = {}
+
+    def count_lm(lm):
+        stats = convlm_stats(lm)
+        with lock:
+            for k, v in (stats or {}).items():
+                lm_totals[k] = lm_totals.get(k, 0) + v
 
     # --nthread_decoder_am_forward producer threads, each forwarding a
     # disjoint stripe of the batch list (reference Decode.cpp:362-453 runs
@@ -424,7 +445,7 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
     def s2s_consumer():
         """The seq2seq beams: one utterance at a time, or with
         ``--s2s_batch_decode=N`` (native core only) up to N queued ones at once."""
-        parts = S2SBeamParts(ecfg, ev.token_dict, ev.lexicon)
+        parts = S2SBeamParts(ecfg, ev.token_dict, ev.lexicon, device=ev.device)
         eos, max_len = ev.n_classes - 2, ecfg.maxdecoderoutputlen
         n_best = 50 if ecfg.isbeamdump else 1
         batched = parts.native and (ecfg.s2s_batch_decode or 1) > 1
@@ -462,7 +483,7 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
         while True:
             item = emq.get()
             if item is None:
-                return
+                return count_lm(parts.lm)
             items, last = [item], False
             while bdec is not None and len(items) < ecfg.s2s_batch_decode:
                 try:
@@ -487,18 +508,19 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
             for (sidx, sid, _, ref_toks), results in zip(items, res_lists):
                 handle(sidx, sid, ref_toks, results, beam_s / len(items))
             if last:
-                return
+                return count_lm(parts.lm)
 
     def consumer():
         if ev.is_s2s:
             return s2s_consumer()
-        dec, word_dict = build_decoder(ecfg, ev.token_dict, ev.lexicon, transitions)
+        dec, word_dict = build_decoder(ecfg, ev.token_dict, ev.lexicon, transitions,
+                                       device=ev.device)
         with lock:
             decoders.add(type(dec).__name__)
         while True:
             item = emq.get()
             if item is None:
-                return
+                return count_lm(getattr(dec, "_lm", None) or getattr(dec, "lm", None))
             sidx, sid, em, ref_toks = item
             if ecfg.smoothingtemperature != 1.0 and ecfg.smoothingtemperature > 0:
                 em = em / ecfg.smoothingtemperature
@@ -599,6 +621,8 @@ def run_decode(cfg: Config, device: str = "cuda") -> Dict[str, float]:
     res = {"WER": meters.wrd_edit.error_rate(), "TER": meters.tkn_edit.error_rate(),
            "decoder": ",".join(sorted(decoders)), "setup_s": setup_s, **times,
            "wall_s": time.perf_counter() - t_start}
+    if lm_totals:
+        res["convlm"] = lm_totals
     print(f"[Decode {ecfg.test}] WER: {res['WER']:.2f}%")
     return res
 

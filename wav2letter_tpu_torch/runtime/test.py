@@ -28,7 +28,7 @@ from ..data.dictionary import unpack_replabels
 from ..data.targets import tokens_to_words
 from ..features import FeatureParams, Featurizer
 from ..kernels import disable_tf32
-from ..models.arch import build_arch_module
+from ..models.arch import build_arch_module, output_width
 from ..ops.asg import asg_collapse, asg_loss, asg_viterbi
 from ..ops.ctc import ctc_collapse, ctc_loss, ctc_viterbi
 from .checkpoint import load_checkpoint
@@ -126,7 +126,8 @@ class Evaluator:
             self.transitions = ckpt.crit_state_dict["transitions"].float().to(self.device)
         self.s2s_criterion = None  # the seq2seq decoder, on the device
         if self.is_s2s:
-            crit = make_criterion(cfg, self.n_classes)
+            crit = make_criterion(cfg, self.n_classes, output_width(
+                arch_path, self.n_feat, encoder_dim(cfg, self.n_classes)))
             crit.load_state_dict(ckpt.crit_state_dict, strict=True)
             self.s2s_criterion = crit.to(self.device).eval()
 

@@ -62,7 +62,7 @@ from ..data.targets import tokens_to_words
 from ..features import FeatureParams, Featurizer
 from ..features.specaug import SpecAugment
 from ..kernels import disable_tf32
-from ..models.arch import build_arch_module
+from ..models.arch import build_arch_module, output_width
 from ..optim import LRSchedule, make_optimizer
 from ..parallel import MeshSpec, make_mesh, replicate, shard_batch, shard_params, to_host_local
 from ..parallel.distributed import backend_for, init_distributed, local_rank
@@ -168,7 +168,9 @@ class Trainer:
         torch.manual_seed(cfg.seed)  # the model's, then the criterion's initial weights
         self.model = build_arch_module(arch_path, self.n_feat, encoder_dim(cfg, self.n_classes),
                                        force_label_dim=not self.is_s2s)
-        self.criterion = make_criterion(cfg, self.n_classes)
+        enc_dim = (output_width(arch_path, self.n_feat, encoder_dim(cfg, self.n_classes))
+                   if self.is_s2s else 0)
+        self.criterion = make_criterion(cfg, self.n_classes, enc_dim)
         if self.mesh.spec.n_data > 1 and any(True for _ in self.model.buffers()):
             raise _not_yet("running statistics (a BatchNorm) on several data ranks",
                            "a later slice")
@@ -294,6 +296,9 @@ class Trainer:
             ("criterion." + n, p) for n, p in self.criterion.named_parameters()]
         for _, p in named:
             p.grad = None
+        # the running statistics (BatchNorm) move in the forward; a non-finite
+        # step keeps the old ones, as JAX keeps its model_state
+        stats = [b.clone() for b in self.model.buffers()]
         rows = None
         if self.mesh.distributed:  # the global batch's real rows
             rows = b["row_mask"].sum()
@@ -320,6 +325,8 @@ class Trainer:
             finite = bool(np.isfinite(loss_v) and np.isfinite(gn_v))
             if not finite:
                 torch._foreach_zero_(grads)
+                for b, old in zip(self.model.buffers(), stats):
+                    b.copy_(old)
             elif cfg.maxgradnorm > 0:
                 scale = min(1.0, cfg.maxgradnorm / (gn_v + 1e-12))
                 torch._foreach_mul_(grads, scale)

@@ -1,3 +1,4 @@
 """Host-side tools of the port: n-gram LM training and binary conversion
 (``ngram_lm``), beam dumps (``rescore``), the synthetic corpus
-(``synth_corpus``) and the convergence soak (``soak``)."""
+(``synth_corpus``), the convergence soak (``soak``) and the import of torch
+ConvLM checkpoints (``convlm_import``)."""
