@@ -186,7 +186,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    chain (the first batch's loss and every leaf's gradient card against CPU,
    ``CARD_CPU_TOL``; the loss falls; no kernel of ours launched); the
    ConvLM's deferred scores card against CPU (``LM_ROW_TOL``); ``cli.decode
-   --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of 8 test utterances through
+   --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of 4 test utterances through
    phase 13's trained flagship (CTC, the native lexicon beam), phase 14's
    conv_glu (ASG) and phase 16's seq2seq_tds (the native seq2seq beam), each
    AM's launches counted as its phase counts them, audio s per wall s and the
@@ -199,10 +199,32 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    follows 16 and 17 in their child process; ``--only lm`` runs phases 1, 2
    and 18 alone, on phase 13's corpus, with the three AMs at their seeded
    weights.
+19. the hooks of ``cli.train`` and ``cli.test``, first in the child process of
+   16-18: the mls plugin (``recipes/mls/train_english.cfg`` with
+   ``--arch=recipes/mls/mling_plugin.py``, which the loader maps to the port's
+   ``plugins/mling.py``; 4 TR layers of 256, H = 4, Dh = 64; the corpus's 16
+   shortest utterances, inside K4's gate after the pool) with the first batch
+   card against CPU (``CARD_CPU_TOL``), K4, K4b, K3 and K3b at its shapes
+   against their plain versions, 3 fp32 and 2 bf16 updates through
+   ``cli.train`` (1 K1, 4 K4, 4 K4b, 8 K3, 8 K3b an update; the rows through
+   K4 counted; one more update's wall, busy and idle), ``continue`` for 1
+   and ``cli.test``; the flagship (B = 16, bf16, 2 updates each) plain, with
+   ``--remat`` (every forward kernel but K1 launched twice), with
+   ``--features_device=host`` (no K1) and with an ``--sfx_config`` chain of
+   all six effects, the data threads' ms a batch and the peak memory with
+   and without remat; two gloo ranks on the card against one process, one
+   update each (run by phase 12's ranks in the full run): ``LAYERS_ARCH``'s
+   BatchNorm at dp2, novograd at dp1 x mp2 on the flagship,
+   ``recipes/conv_glu`` at full width at dp1 x mp2 (its convs split over
+   their time taps and its head over its outputs, as JAX splits them).
+   ``--only hooks`` runs phases 1, 2 and 19 alone.
 
 Phase 3 times the paths' rows by the profiler (cold, plain, library; K1 also
 warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, the
 attention's edge shapes) once by CUDA events.
+
+The kernels line holds each kernel's row of the main paths and, from phase
+19, the mls plugin's K3, K3b, K4 and K4b.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -214,6 +236,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import math
@@ -1099,7 +1122,9 @@ def check_attention(shapes, dtype_name, details):
     every shape of ``shapes`` [(tag, B, T, H, Dh, masked, calls)], without
     dropout and at rate 0.2 (the same seed on both sides: the same keep mask);
     K4b twice for equal bits. Times at the rate the path runs the shape with:
-    0 for the serving shape's forward, 0.2 for the rest. The library's call is
+    0 for the serving shape's forward, 0.1 for the mls plugin's (tag ``mls``,
+    whose K4 and K4b are both timed by the profiler), 0.2 for the rest. The
+    library's call is
     ``scaled_dot_product_attention`` on pre-split heads with the relative-
     position bias and the key mask passed as ``attn_mask``, and its autograd
     for q, k, v (it has no gradient for the table)."""
@@ -1143,10 +1168,12 @@ def check_attention(shapes, dtype_name, details):
             note("mhsa_bwd", (res[0], res[1], res[2] and same))
             del got, back, want, again, grads
 
-        rate_f = 0.0 if tag == "serve" else 0.2
+        rate_f = {"serve": 0.0, "mls": 0.1}.get(tag, 0.2)
+        rate_b = 0.1 if tag == "mls" else 0.2
         # the paths' rows are timed by the profiler (cold, plain, library): K4
-        # at the serving row, K4b at the training row; the others once by events
-        timed_fwd, timed = tag == "serve", tag == "train"
+        # at the serving row, K4b at the training row, both at the mls row;
+        # the others once by events
+        timed_fwd, timed = tag in ("serve", "mls"), tag in ("train", "mls")
         item = q.element_size()
         qh, kh, vh = (t.view(B, T, H, Dh).transpose(1, 2).contiguous() for t in (q, k, v))
         ar = torch.arange(T, device="cuda")
@@ -1181,16 +1208,16 @@ def check_attention(shapes, dtype_name, details):
             f"{rows['mhsa'][-1]['blocks']} blocks, {ms:.4f} ms, "
             f"{rows['mhsa'][-1]['tflops']:.1f} TFLOP/s")
 
-        b_args = (q, k, v, pos, mask, dout, H, 0.2, 7)
+        b_args = (q, k, v, pos, mask, dout, H, rate_b, 7)
         leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
-        lib_out = sdpa(*leaves, bias, 0.2)
+        lib_out = sdpa(*leaves, bias, rate_b)
         gh = dout.view(B, T, H, Dh).transpose(1, 2).contiguous()
         nbytes = item * (7 * q.numel() + pos.numel()) + 4 * (mask.numel() + pos.numel())
         b_ms, b_by = bound(nbytes, mhsa_flops(B, T, H, Dh, backward=True), dtype_name)
         e = errs["mhsa_bwd"]
         split = k4b_split(b_args) if timed else {}
         rows["mhsa_bwd"].append(dict(
-            name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=0.2,
+            name="mhsa_bwd", tag=tag, dtype=dtype_name, shape=[B, T, H, Dh], rate=rate_b,
             max_abs_err=e[0], max_rel_err=e[1], tol=TOL[("mhsa_bwd", dtype_name)], ok=e[2],
             ms=sum(split.values()) if timed else cuda_ms(lambda: kernels.mhsa_bwd(*b_args)),
             split_ms=split,
@@ -2838,13 +2865,15 @@ def _cut_arch(src, dst, keep_tr=None):
     return dst
 
 
-def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
+def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, seed):
     """Phase 12: the flagship at full width on two gloo ranks on the card (4
     rows each, fp32 and bf16, dropout 0 and no SpecAugment) against one
     process at 8; dynamic batching likewise (fp32); the transformer's first
     ``TP_LAYERS`` layers at dp1 x mp2 (K4 and K4b on 2 of 4 heads) against
     one process, where gloo gathers CUDA tensors; one NCCL rank through
-    ``cli.train`` with torchrun's variables against one process."""
+    ``cli.train`` with torchrun's variables against one process. The same
+    ranks run phase 19's BatchNorm, novograd and conv_glu jobs
+    (``hook_parallel_jobs``)."""
     import socket
 
     import torch
@@ -2880,8 +2909,11 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
         dict(name="tp", flags=flags(tr_spec, "float32", n, valid="", iter=2, mp_axis=2),
              dump=os.path.join(root, "tp.pt"), needs="all_gather", spy_heads=True),
     ]
+    hook_root = os.path.join(root, "hooks")
+    hdata = hook_data(hook_root, seed)
+    hook_cases, hook_jobs = hook_parallel_jobs(hook_root, hdata)
     t0 = time.perf_counter()
-    ranks = _run_ranks(DP_RANKS, jobs, root)
+    ranks = _run_ranks(DP_RANKS, jobs + hook_jobs, root)
     ranks_s = time.perf_counter() - t0
     probe = ranks[0]["probe"]
     log(f"[dp] gloo on CUDA tensors, {DP_RANKS} ranks on one card: {json.dumps(probe)}")
@@ -2898,6 +2930,8 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
                     for k, v in build_arch_module(arch, N_FEAT, N_TOKENS + 1).state_dict().items()}
     out = dict(probe=probe, ranks_s=ranks_s, backend="gloo (2 ranks on one card)")
     for name, r in ranks[0]["runs"].items():
+        if name in hook_cases:
+            continue
         other = ranks[1]["runs"][name]
         spec = tr_spec if name == "tp" else fl_spec
         dt = "float32" if name in ("float32", "dynamic", "tp") else "bfloat16"
@@ -2959,6 +2993,8 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line):
             f"updates/s")
         del ref_tr
         torch.cuda.empty_cache()
+
+    out["hooks"] = hook_parallel_held(hook_root, hdata, hook_cases, ranks, smi_line)
 
     # one NCCL rank through the command line, as torchrun would start it,
     # against the fp32 run's one-process reference
@@ -3206,6 +3242,8 @@ def _loss_and_grads(tr, b, masses=None):
     """Loss and the gradient of every leaf (model and criterion) of one batch,
     the modules in eval mode (dropout off), autograd on; and the emission T.
     With ``masses`` (a dict), the scalar leaves' masses go into it."""
+    import torch
+
     named = list(tr.model.named_parameters()) + [
         ("criterion." + n, p) for n, p in tr.criterion.named_parameters()]
     tr.model.eval()
@@ -3221,7 +3259,9 @@ def _loss_and_grads(tr, b, masses=None):
         h.remove()
     if masses is not None:
         masses.update(found)
-    return loss.item(), {n: p.grad.detach().float().cpu() for n, p in named}, em.shape[1]
+    # a leaf no loss reads (the mls plugin's LID head) has no gradient: JAX's 0
+    return loss.item(), {n: (p.grad.detach().float().cpu() if p.grad is not None
+                             else torch.zeros(p.shape)) for n, p in named}, em.shape[1]
 
 
 def _leaf_errors(got, ref, masses):
@@ -3244,7 +3284,8 @@ def card_vs_cpu_first_batch(name, flags, expect=None, dtypes=("float32", "bfloat
     ``CARD_CPU_TOL[0]``, each leaf within ``CARD_CPU_TOL[1]`` (``_leaf_errors``)
     or, where a leaf is over that, within twice what the CPU's own gradient
     of that leaf moves when the features change by 1e-7 relative
-    (``CONDITIONING``, measured on every fp32 run and reported): an fp32
+    (``CONDITIONING``, measured and reported on an fp32 run where a leaf is
+    over ``CARD_CPU_TOL[1]``): an fp32
     gradient cannot be held closer than its conditioning, whatever computes
     it."""
     import torch
@@ -3286,7 +3327,8 @@ def card_vs_cpu_first_batch(name, flags, expect=None, dtypes=("float32", "bfloat
                    criterion_rel_l2={k: errs[k] for k in pg if k.startswith("criterion.")},
                    gated=dt == "float32", card_s=card_s)
         over = [k for k in worst if errs[k] > CARD_CPU_TOL[1]]
-        if dt == "float32":  # the gradient's fp32 conditioning, on the CPU
+        cmp["conditioning"] = None
+        if dt == "float32" and over:  # the gradient's fp32 conditioning, on the CPU
             feats = tr.featurizer
             gen = torch.Generator().manual_seed(0)
 
@@ -4028,7 +4070,7 @@ LM_TOKENS, LM_BATCH, LM_BPTT, LM_UPDATES = 1_000_000, 16, 64, 30
 LM_TRAIN = dict(lr=0.5, momentum=0.9, maxgradnorm=0.1, reportiters=10, seed=0)
 LM_ROW_TOL = 1e-4  # ConvLM log10 rows, card against CPU, fp32: 40 layers of 2048-term sums
 LM_REQUESTS = 32  # deferred requests of the rows' check (one bucket of 32 on each side)
-LM_TEST_UTTS = 8
+LM_TEST_UTTS = 4
 LM_PY_UTTS = 2  # the native beam's words against the Python beam's
 LM_DECODE = dict(lmtype="convlm", lm_memory=20000, lmweight=1.0, wordscore=1.0,
                  beamsize=32, beamthreshold=25, smearing="max", uselexicon=True,
@@ -4426,6 +4468,381 @@ def lm_path(tmp, corpus, ams, smi_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the hooks of cli.train and cli.test
+# ---------------------------------------------------------------------------
+MLS_PLUGIN = os.path.join(REPO, "recipes", "mls", "mling_plugin.py")
+MLS_CFG = os.path.join(REPO, "recipes", "mls", "train_english.cfg")
+MLS_TRAIN_UTTS, MLS_TEST_UTTS = 16, 8  # the shortest: T <= 240 after the pool
+# phase 13's corpus generator (its seed: the same words, tokens and lexicon)
+# at 2-3 words a sentence: ~1.6-4.5 s, where phase 13's 4-8 words make 4-8 s,
+# past K4's gate after the plugin's one pool at --pad_multiple=128
+MLS_CORPUS = dict(SOAK_CORPUS, train_hours=0.025, dev_minutes=0.1, test_minutes=0.5,
+                  lm_sentences=10, min_words=2, max_words=3)
+MLS_UPDATES = {"float32": 3, "bfloat16": 2}
+MLS_BPTT = 240  # the plugin's TR layers: K4's gate is T <= bptt after the pool
+# the plugin's encoder: 4 TR layers of H = 4, Dh = 64 over 256 after one
+# stride-2 pool of a weight-normed conv (F.conv2d); layerdrop scales, not skips
+MLS_SPEC = dict(name="mls", per_forward={"mfsc": 1, "mhsa": 4, "residual_ln": 8},
+                per_backward={"mhsa_bwd": 4, "residual_ln_bwd": 8})
+HOOK_UTTS, HOOK_UPDATES = 32, 2  # the flagship's hooks: 2 updates at B = 16 each
+NOISE_CLIPS = 4  # synthesized noise files of the sfx chain's AdditiveNoise
+HOOK_RANKS = 2
+
+
+def _sfx_config(root):
+    """A chain of all six effects, its noise list synthesized (coloured noise
+    of 1-3 s)."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(5)
+    clips = []
+    for i in range(NOISE_CLIPS):
+        n = int(16000 * rng.uniform(1.0, 3.0))
+        clips.append(os.path.join(root, f"noise{i}.npy"))
+        np.save(clips[-1], np.cumsum(0.05 * rng.randn(n)).astype(np.float32) % 0.3)
+    with open(os.path.join(root, "noise.txt"), "w") as f:
+        f.write("\n".join(clips) + "\n")
+    chain = [
+        {"type": "Amplify", "conf": {"ratioMin": 0.7, "ratioMax": 1.3}},
+        {"type": "AdditiveNoise", "conf": {"listFilePath": os.path.join(root, "noise.txt"),
+                                           "minSnr": 10, "maxSnr": 30, "nClipsMax": 2}},
+        {"type": "ReverbEcho", "conf": {"proba": 0.8, "repeatMax": 4}},
+        {"type": "TimeStretch", "conf": {"factorMin": 0.9, "factorMax": 1.1, "proba": 0.8}},
+        {"type": "Normalize", "conf": {"onlyIfTooHigh": True}},
+        {"type": "ClampAmplitude", "conf": {}},
+    ]
+    path = os.path.join(root, "sfx.json")
+    with open(path, "w") as f:
+        json.dump(chain, f)
+    return path
+
+
+def _k4_rows_spy():
+    """Wraps ``KERNELS.mhsa``: the rows (utterances x model blocks) of each
+    launch; ``restore`` undoes it."""
+    from wav2letter_tpu_torch import kernels
+
+    rows, orig = [], kernels.KERNELS.mhsa
+
+    def mhsa(q, *a):
+        rows.append(int(q.shape[0]))
+        return orig(q, *a)
+
+    kernels.KERNELS.mhsa = mhsa
+    return rows, lambda: setattr(kernels.KERNELS, "mhsa", orig)
+
+
+def mls_path(root, corpus, smi_line):
+    """The mls plugin at full width through the port's binaries:
+    ``recipes/mls/train_english.cfg`` with ``--arch=recipes/mls/mling_plugin.py``
+    (the loader maps the flax file to ``plugins/mling.py``) on phase 13's
+    corpus made with 2-3 words a sentence (``MLS_CORPUS``; letters and its
+    separator, not the recipe's word pieces; the ``MLS_TRAIN_UTTS`` shortest,
+    whose padded T stays inside K4's gate after the pool): the first batch
+    card against CPU (``CARD_CPU_TOL``), K4, K4b,
+    K3 and K3b at the update's shapes against their plain versions, 3 fp32 and
+    2 bf16 updates through ``cli.train`` with every update's launches held
+    to the arch (the rows through K4 counted), ``continue`` for 1, then
+    ``cli.test``."""
+    import torch
+
+    from wav2letter_tpu_torch.cli.test import main as test_main
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import AsrDataset, make_token_dict
+    from wav2letter_tpu_torch.models.plugin import load_plugin_module
+    from wav2letter_tpu_torch.plugins.mling import MultilingualAM
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    from wav2letter_tpu_torch.tools.synth_corpus import generate
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    short = generate(os.path.join(root, "corpus"), **MLS_CORPUS)
+    for k in ("tokens", "lexicon"):
+        if open(short[k]).read() != open(corpus[k]).read():
+            fail(f"mls: the short corpus's {k} differ from phase 13's")
+    train_lst, _ = shortest(short["train"], os.path.join(root, "train.lst"), MLS_TRAIN_UTTS)
+    test_lst, test_secs = shortest(short["test"], os.path.join(root, "test.lst"),
+                                   MLS_TEST_UTTS)
+    flags = dict(flagsfile=MLS_CFG, arch=MLS_PLUGIN, train=train_lst, tokens=corpus["tokens"],
+                 lexicon=corpus["lexicon"], rundir=os.path.join(root, "runs"), nthread=2,
+                 seed=0, **S2S_LETTERS)
+    cfg = Config.from_sources(argv=[f"--{k}={v}" for k, v in flags.items()])
+    td = make_token_dict(cfg.tokens, cfg.criterion)
+    with torch.device("meta"):
+        model = load_plugin_module(MLS_PLUGIN, cfg.num_features(), len(td))
+    if not isinstance(model, MultilingualAM):
+        fail(f"mls: the plugin loaded as {type(model).__name__}")
+    n_params = sum(p.numel() for p in model.parameters())
+    specs = AsrDataset(cfg.train, td, None, cfg).batch_specs()
+    big = max(specs, key=lambda sp: sp.max_input_frames * len(sp.indices))
+    B, T = len(big.indices), big.max_input_frames
+    Ta = -(-T // 2)  # the plugin's stride-2 pool
+    if max(sp.max_input_frames for sp in specs) > 2 * MLS_BPTT:
+        fail(f"mls: a batch of {max(sp.max_input_frames for sp in specs)} frames is past "
+             f"K4's gate (T <= {MLS_BPTT} after the pool)")
+    log(f"[mls] phase 19: {n_params} parameters ({cfg.num_features()} banks, {len(td)} "
+        f"classes), {len(specs)} batches, the largest B={B} T={T} ({Ta} after the pool) | "
+        f"{smi_line}")
+    laps = {}
+    per_update = expected_launches(MLS_SPEC, 1, 0)
+    first = card_vs_cpu_first_batch("mls", flags, per_update, dtypes=("float32",))
+    laps["first_batch"] = time.perf_counter() - t_phase
+    kernel_rows, details = {}, []
+    lns = [(B * Ta, 256)] * 8
+    for dt in ("float32", "bfloat16"):
+        att = check_attention([("mls", B, Ta, 4, 64, True, 4)], dt, details)
+        kernel_rows[("mhsa", dt)] = att["mhsa"]
+        kernel_rows[("mhsa_bwd", dt)] = att["mhsa_bwd"]
+        kernel_rows[("residual_ln", dt)] = check_residual_ln(lns, dt, details)
+        kernel_rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(lns, dt, details)
+        torch.cuda.empty_cache()
+    bad = [r for r in details if not r["ok"]]
+    if bad:
+        fail(f"mls: {len(bad)} kernel checks disagree with the plain versions: "
+             f"{json.dumps(bad[0])}")
+    laps["kernels"] = time.perf_counter() - t_phase
+    k4_rows, restore = _k4_rows_spy()
+    try:
+        runs = trained_runs("mls", flags, MLS_UPDATES, smi_line, expect=per_update)
+    finally:
+        restore()
+    n_upd = sum(MLS_UPDATES.values())
+    rows_k4 = dict(launches=len(k4_rows), rows=sum(k4_rows))
+    # every forward of every update (4 layers) through K4, each over the batch's rows
+    if len(k4_rows) != 4 * (n_upd + 2) or not all(r > 0 for r in k4_rows):
+        fail(f"mls: K4 took {len(k4_rows)} launches ({k4_rows}) in {n_upd} updates")
+    laps["train"] = time.perf_counter() - t_phase
+    run, n0 = "mls_float32", MLS_UPDATES["float32"]
+    from wav2letter_tpu_torch import kernels
+
+    kernels.reset_launches()
+    with _StepRecorder() as rec:
+        train_main(["continue", f"--rundir={flags['rundir']}", f"--runname={run}",
+                    f"--iter={n0 + 1}", f"--reportiters={n0 + 1}"])
+    card_launches("mls continue", per_update)
+    last = os.path.join(flags["rundir"], run, "model_last.bin")
+    ckpt = load_checkpoint(last)
+    if ckpt.updates != n0 + 1 or len(rec.steps) != 1 or not rec.steps[0]["finite"] \
+            or Config.deserialize(ckpt.config).arch != MLS_PLUGIN:
+        fail(f"mls continue: update {ckpt.updates}, steps {rec.steps}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = test_main([f"--am={last}", f"--test={test_lst}", "--batchsize=4"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not math.isfinite(res["loss"]):
+        fail(f"mls cli.test: {res}")
+    # the recipe's dynamic batching, stored in the checkpoint, sets the batches
+    n_batches = max(1, kernels.LAUNCHES["mfsc"])
+    test = dict(res, wall_s=wall, audio_s_per_s=test_secs / wall, batches=n_batches,
+                launches=card_launches("mls cli.test", expected_launches(MLS_SPEC, 0,
+                                                                         n_batches)))
+    laps["test"] = time.perf_counter() - t_phase
+    out = dict(n_params=n_params, batch=[B, T, Ta], first_batch=first, runs=runs,
+               k4_rows=rows_k4, continued=dict(loss=rec.steps[0]["loss"]), test=test,
+               kernel_rows={f"{k[0]}@{k[1]}": v for k, v in kernel_rows.items()},
+               laps_s=laps, nvidia_smi=smi_line)
+    log(f"[mls] {json.dumps(dict(rows_k4=rows_k4, update=runs['float32'].get('update'), test=test, laps=laps))}")
+    return out
+
+
+def _hook_runs(root, data, smi_line):
+    """The flagship at full width (B = 16, bf16, ``HOOK_UPDATES`` updates
+    each, on synthesized utterances of 4-8 s): as it is, with ``--remat``,
+    with ``--features_device=host`` and with ``--sfx_config`` (all six
+    effects). Each run's launches are held to its hook: remat launches every
+    forward kernel twice an update but K1 (the featurizer runs outside the
+    recomputed forward), host features no K1; remat's and host features'
+    first loss to the plain run's. The data threads' ms a batch (plain, host
+    features, sfx) and the peak memory with and without remat."""
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    lst, tokens, lexicon = data
+    base = train_flags(FLAGSHIP, lst, lst, tokens, lexicon, "", "bfloat16", HOOK_UPDATES)
+    base.update(valid="", runname="", reportiters=HOOK_UPDATES)  # no run dir, no checkpoint
+    plain = expected_launches(FLAGSHIP, HOOK_UPDATES, 0)
+    fwd = FLAGSHIP["per_forward"]
+    hooks = {
+        "plain": ({}, plain),
+        "remat": (dict(remat=True), {k: v + (fwd.get(k, 0) * HOOK_UPDATES
+                                             if k != "mfsc" else 0)
+                                     for k, v in plain.items()}),
+        "host_features": (dict(features_device="host"), dict(plain, mfsc=0)),
+        "sfx": (dict(sfx_config=_sfx_config(root)), plain),
+    }
+    out = {}
+    for name, (extra, want) in hooks.items():
+        cfg = Config()
+        cfg.update(dict(base, **extra))
+        tr = Trainer(cfg, device="cuda")
+        specs = tr.train_ds.batch_specs()
+        tr.train_ds.materialize(specs[-1])  # warm: the CPU featurizer's first call
+        t0 = time.perf_counter()
+        for sp in specs[:2]:
+            batch = tr.train_ds.materialize(sp)
+        data_ms = (time.perf_counter() - t0) * 1e3 / len(specs[:2])
+        if ("feats" in batch) != (name == "host_features"):
+            fail(f"hooks {name}: the data threads shipped {sorted(batch)}")
+        res = _drive(tr)
+        if res["launches"] != want or not res["finite"] or res["updates"] != HOOK_UPDATES:
+            fail(f"hooks {name}: launches {res['launches']} (expected {want}), finite "
+                 f"{res['finite']}, {res['updates']} updates")
+        out[name] = dict(losses=res["losses"], launches=res["launches"],
+                         update_ms=res["update_ms"], peak_mem_gib=res["peak_mem_gib"],
+                         data_ms_a_batch=data_ms, batch_fields=sorted(batch),
+                         nvidia_smi=smi_line)
+        log(f"[hooks {name}] {json.dumps(out[name])}")
+        del tr
+        gc.collect()  # _drive's wrapper leaves the trainer in a reference cycle
+        torch.cuda.empty_cache()
+    p0 = out["plain"]["losses"][0]
+    for name in ("remat", "host_features"):
+        err = abs(out[name]["losses"][0] - p0) / abs(p0)
+        out[name]["first_loss_rel_err"] = err
+        # remat: the same forward on the same batch; host features: K1's
+        # plain version on the CPU, then the same bf16 cast
+        if err > (1e-6 if name == "remat" else DP_TOL["bfloat16"][0]):
+            fail(f"hooks {name}: first loss {out[name]['losses'][0]} against {p0}")
+    out["remat"]["peak_mem_saved_gib"] = out["plain"]["peak_mem_gib"] - \
+        out["remat"]["peak_mem_gib"]
+    log(f"[hooks] peak memory {out['plain']['peak_mem_gib']:.3f} GiB, with --remat "
+        f"{out['remat']['peak_mem_gib']:.3f} GiB; data threads' ms a batch: plain "
+        f"{out['plain']['data_ms_a_batch']:.1f}, host features "
+        f"{out['host_features']['data_ms_a_batch']:.1f}, sfx "
+        f"{out['sfx']['data_ms_a_batch']:.1f} | {smi_line}")
+    return out
+
+
+def hook_parallel_jobs(root, data):
+    """Phase 19's jobs for two gloo ranks on the card (phase 12's harness; the
+    full run adds them to phase 12's ranks), one update each, to hold against
+    one process: ``LAYERS_ARCH`` (its BatchNorm's statistics over the global
+    batch) at dp2, the flagship with novograd at dp1 x mp2 (its TDS linears
+    split), and ``recipes/conv_glu`` at full width with CTC over the 9998
+    classes at dp1 x mp2 (three weight-normed convs split over their time
+    taps and the head over its outputs, as JAX splits them). Dropout 0
+    everywhere. Returns (cases, jobs)."""
+    lst, tokens, lexicon = data
+    os.makedirs(root, exist_ok=True)
+    layers = os.path.join(root, "layers.arch")
+    with open(layers, "w") as f:
+        f.write(LAYERS_ARCH.replace("POSEMB NFEAT 1024 0.1", "POSEMB NFEAT 1024 0.0"))
+    fl_arch = _cut_arch(ARCH, os.path.join(root, "flagship_do0.arch"))
+    glu_arch = _cut_arch(GLU_ARCH, os.path.join(root, "conv_glu_do0.arch"))
+    n = HOOK_RANKS * 4
+
+    def flags(arch, **kw):
+        f = dict(train=lst, tokens=tokens, lexicon=lexicon, rundir="", runname="", arch=arch,
+                 criterion="ctc", mfsc=True, filterbanks=N_FEAT, compute_dtype="float32",
+                 nthread=2, onorm="target", sqnorm=True, iter=1, reportiters=1, seed=0,
+                 netoptim="sgd", lr=0.05, momentum=0.9, maxgradnorm=0.5, batchsize=n)
+        f.update(kw)
+        return f
+
+    cases = {
+        "bn_dp2": (layers, flags(layers, batchsize=4), {"mfsc": 1}, []),
+        "novograd_mp2": (fl_arch, flags(fl_arch, netoptim="novograd", lr=0.01, mp_axis=2,
+                                        localnrmlleftctx=300),
+                         expected_launches(FLAGSHIP, 1, 0), None),
+        "conv_glu_mp2": (glu_arch, flags(glu_arch, mp_axis=2, filterbanks=40),
+                         {"mfsc": 1}, ["seq.07_C.v", "seq.13_C.v", "seq.19_C.v",
+                                       "seq.26_WNL.v"]),
+    }
+    jobs = [dict(name=k, flags=f, dump=os.path.join(root, f"{k}.pt"), needs="all_gather")
+            for k, (_, f, _, _) in cases.items()]
+    return cases, jobs
+
+
+def hook_parallel_held(root, data, cases, ranks, smi_line):
+    """The ranks' runs of ``hook_parallel_jobs``: launches, the replicas (DP)
+    or the split (TP, JAX's decisions), and each against one process."""
+    import torch
+
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.parallel.sharding import split_plan
+
+    tokens = data[1]
+    n = HOOK_RANKS * 4
+    out = dict(probe=ranks[0]["probe"])
+    for name, (arch, f, want, split) in cases.items():
+        if name not in ranks[0]["runs"]:
+            fail(f"hooks {name}: not run (gloo's all-gather {ranks[0]['probe']})")
+        r, other = ranks[0]["runs"][name], ranks[1]["runs"][name]
+        for rr in (r, other):
+            want_l = {k: want.get(k, 0) for k in rr["launches"]}
+            if rr["launches"] != want_l or not rr["finite"]:
+                fail(f"hooks {name}: launches {rr['launches']}, expected {want_l}; finite "
+                     f"{rr['finite']}")
+        n_feat, n_classes = f["filterbanks"], len(open(tokens).read().split()) + 1
+        if "mp2" in name:  # JAX's split (conv_glu's as tests/test_torch_hooks.py has it)
+            if split is None:
+                with torch.device("meta"):
+                    split = sorted(split_plan(build_arch_module(arch, n_feat, n_classes), 2))
+            if not split or r["sharded"] != sorted(split):
+                fail(f"hooks {name}: split {r['sharded']}, expected {split}")
+            r["split"] = split
+        elif r["digest"] != other["digest"]:
+            fail(f"hooks {name}: the replicas differ")
+        ref_flags = dict(f, mp_axis=1, batchsize=n)
+        torch.manual_seed(ref_flags["seed"])  # the trainers' seeded start
+        p0 = {k: v.detach().clone() for k, v in
+              build_arch_module(arch, n_feat, n_classes).state_dict().items()}
+        ref_tr, ref, ref_p = _one_process(ref_flags)
+        got_p = torch.load(os.path.join(root, f"{name}.pt"))
+        r["held"] = _held(name, "float32", r, ref, got_p, ref_p, p0)
+        if name == "bn_dp2":  # the running statistics moved alike
+            stats = [k for k in got_p if k.endswith((".mean", ".var"))]
+            if not stats or any((got_p[k] - ref_p[k]).abs().max() > 1e-4 * (
+                    1 + ref_p[k].abs().max()) for k in stats):
+                fail(f"hooks bn_dp2: running statistics {stats} differ from one process")
+        r["one_process"] = {k: ref[k] for k in ("losses", "update_ms", "peak_mem_gib")}
+        out[name] = r
+        del ref_tr
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[hooks parallel] {json.dumps({k: v for k, v in out.items() if k != 'probe'})} | "
+        f"{smi_line}")
+    return out
+
+
+def hook_data(root, seed):
+    """The hooks' utterances: 32 synthesized ones of 4-8 s over the flagship's
+    9998 classes."""
+    lst, tokens, lexicon, _ = synth_dataset(os.path.join(root, "data"), seed + 19, HOOK_UTTS,
+                                            "hooks", dur=(4.0, 8.0))
+    return lst, tokens, lexicon
+
+
+def hooks_path(tmp, corpus, smi_line, seed, parallel=True):
+    """Phase 19: the mls plugin (``mls_path``), the flagship's hooks
+    (``_hook_runs``) and, with ``parallel`` (the full run has phase 12's
+    ranks run them), BatchNorm, novograd and conv_glu on two gloo ranks."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "hooks")
+    out = dict(mls=mls_path(os.path.join(root, "mls"), corpus, smi_line))
+    out["laps_s"] = {"mls": time.perf_counter() - t_phase}
+    data = hook_data(root, seed)
+    out["flagship"] = _hook_runs(os.path.join(root, "flagship"), data, smi_line)
+    out["laps_s"]["flagship"] = time.perf_counter() - t_phase
+    if parallel:
+        cases, jobs = hook_parallel_jobs(os.path.join(root, "parallel"), data)
+        ranks = _run_ranks(HOOK_RANKS, jobs, os.path.join(root, "parallel"))
+        out["parallel"] = hook_parallel_held(os.path.join(root, "parallel"), data, cases,
+                                             ranks, smi_line)
+        out["laps_s"]["parallel"] = time.perf_counter() - t_phase
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[hooks] phase 19 in {out['phase_s']:.1f} s (laps {json.dumps(out['laps_s'])}) | "
+        f"{smi_line}")
+    return out
+
+
 def seeded_ams(tmp, s):
     """``--only lm``: the three AMs of phase 18 at their seeded initial
     weights (the ``Trainer``'s own) on the corpus of the soak ``s``, saved as
@@ -4457,11 +4874,15 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="", choices=["", "s2s", "lm"],
+    ap.add_argument("--only", default="", choices=["", "s2s", "lm", "hooks"],
                     help="s2s: phases 1, 2, 16 and 17 alone, on phase 13's corpus and LM "
                          "made without its training; lm: phases 1, 2 and 18 alone, on "
-                         "phase 13's corpus, with the AMs at their seeded weights; either "
-                         "prints no result line")
+                         "phase 13's corpus, with the AMs at their seeded weights; hooks: "
+                         "phases 1, 2 and 19 alone, on phase 13's corpus; each prints no "
+                         "result line")
+    ap.add_argument("--corpus", default="",
+                    help="with --only: phase 13's corpus directory, where it is made "
+                         "already")
     ap.add_argument("--ams", default="",
                     help="with --only s2s: a JSON object of the flagship's and conv_glu's "
                          "checkpoints; phase 18 follows phases 16 and 17 with them and "
@@ -4513,17 +4934,26 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="w2l_chip_smoke_") as tmp:
             from wav2letter_tpu_torch.tools.soak import Soak
 
-            s = Soak(os.path.join(tmp, "soak"), corpus=os.path.join(tmp, "soak_corpus"),
+            s = Soak(os.path.join(tmp, "soak"),
+                     corpus=args.corpus or os.path.join(tmp, "soak_corpus"),
                      corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
             s.phase_corpus()
-            out = {}
-            if args.only == "s2s":
+            out, ams = {}, None
+            if args.only == "hooks":
+                log(f"[time] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+                out["hooks"] = hooks_path(tmp, s.paths, smi_line, args.seed)
+            elif args.only == "s2s":
+                if args.ams:  # the full run: 19 first (its ranks' jobs ran in phase 12)
+                    log(f"[time] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
+                    out["hooks"] = hooks_path(tmp, s.paths, smi_line, args.seed,
+                                              parallel=False)
                 s.phase_lm()
                 corpus = dict(s.paths, lm=os.path.join(s.root, "lm3.arpa"))
-                out = {name: s2s_path(name, tmp, corpus, smi_line) for name in S2S_RECIPES}
+                out.update({name: s2s_path(name, tmp, corpus, smi_line)
+                            for name in S2S_RECIPES})
                 ams = dict(json.loads(args.ams), seq2seq_tds=out["seq2seq_tds"]["am"]) \
                     if args.ams else None
-            else:
+            elif args.only == "lm":
                 ams = seeded_ams(tmp, s)
             if ams:
                 log(f"[time] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
@@ -4664,7 +5094,8 @@ def main() -> None:
         log(f"[time] phase 12 starts at {time.perf_counter() - t_start:.1f} s")
         # 12. data and tensor parallelism through torch.distributed
         torch.cuda.empty_cache()
-        parallel = data_parallel_path(tmp, train_lst, lst, tokens, lexicon, smi_line)
+        parallel = data_parallel_path(tmp, train_lst, lst, tokens, lexicon, smi_line,
+                                      args.seed)
 
         log(f"[time] phase 13 starts at {time.perf_counter() - t_start:.1f} s")
         # 13. the soak in small: corpus, LM, training killed and continued, the chain
@@ -4681,7 +5112,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         resnet = resnet_path(tmp, soaked["corpus"], smi_line)
 
-        log(f"[time] phases 16, 17, 18 start at {time.perf_counter() - t_start:.1f} s")
+        log(f"[time] phases 19, 16, 17, 18 start at {time.perf_counter() - t_start:.1f} s")
+        # 19. the hooks (the mls plugin; the flagship with --remat, host
+        # features, sfx; its ranks' jobs ran in phase 12);
         # 16, 17. the attention seq2seq recipes: train, continue, test, decode;
         # 18. the LM slice, decoding with phase 13's flagship, phase 14's
         # conv_glu and phase 16's seq2seq_tds. In a process of their own:
@@ -4698,10 +5131,12 @@ def main() -> None:
                                 "--out", s2s_dir, "--seed", str(args.seed),
                                 "--ams", json.dumps(ams)], timeout=900)
         if child.returncode != 0:
-            fail(f"phases 16, 17 and 18 (a child process) exited {child.returncode}")
+            fail(f"phases 19, 16, 17 and 18 (a child process) exited {child.returncode}")
         with open(os.path.join(s2s_dir, "chip_smoke_s2s.json")) as f:
-            s2s = {k: v for k, v in json.load(f).items() if k in S2S_RECIPES or k == "lm"}
-        log(f"[time] phases 16, 17, 18 end at {time.perf_counter() - t_start:.1f} s")
+            s2s = json.load(f)
+        hooks = dict(s2s.pop("hooks"), parallel=parallel["hooks"])
+        s2s = {k: v for k, v in s2s.items() if k in S2S_RECIPES or k == "lm"}
+        log(f"[time] phases 19, 16, 17, 18 end at {time.perf_counter() - t_start:.1f} s")
 
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
@@ -4762,6 +5197,20 @@ def main() -> None:
             if name == "time_conv":
                 entry["stream"]["chunk_ms"] = streamed["k2_chunk"]["ms"]
         kernels_line.append(entry)
+    # phase 19: the mls plugin's K3, K3b, K4 and K4b at its shapes, launches of
+    # its bf16 training run
+    mls = hooks["mls"]
+    for name in ("residual_ln", "residual_ln_bwd", "mhsa", "mhsa_bwd"):
+        agg = per_forward(mls["kernel_rows"][f"{name}@bfloat16"])
+        replaces, source = TPU_KERNELS[name]
+        kernels_line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, model="mls_plugin",
+            launches=mls["runs"]["bfloat16"]["launches"][name],
+            launches_per_update=expected_launches(MLS_SPEC, 1, 0)[name], dtype="bfloat16",
+            max_abs_err=agg["max_abs_err"], ms=agg["ms"], plain_ms=agg["plain_ms"],
+            bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
+            library_ms=agg["library_ms"], per="update on the largest training batch"
+            if name.endswith("_bwd") else "forward of the largest training batch"))
     summary = dict(kernels=kernels_line)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -4776,6 +5225,7 @@ def main() -> None:
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
                            soak=soaked, conv_glu=asg, resnet_ctc=resnet, **s2s,
+                           hooks=hooks,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

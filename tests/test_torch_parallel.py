@@ -21,10 +21,13 @@ takes rows ``d::2`` of each global batch.
   one process, the transitions equal in bits on both ranks;
 * random streams: with dropout and SpecAugment the replicas stay identical
   while the ranks' dropout masks and K4 seeds differ;
-* TP: a 1024x2048 linear, TDS blocks and a transformer (K4's plain version on
-  2 of 4 heads; with 1 head the unfused path) at dp1 x mp2 and dp2 x mp2
-  against one process; the gathered checkpoints load in one process, and
-  ``continue`` starts the optimizer slots afresh;
+* BatchNorm at dp2: the global batch's statistics, against one process;
+* TP: a 1024x2048 linear (also under novograd), TDS blocks, a transformer
+  (K4's plain version on 2 of 4 heads; with 1 head the unfused path) and
+  conv_glu's weight-normed convs (split over their time taps, as JAX splits
+  them) and linears at dp1 x mp2 and dp2 x mp2 against one process; the
+  gathered checkpoints load in one process, and ``continue`` starts the
+  optimizer slots afresh;
 * joining a group, and the kernel build's file lock.
 """
 
@@ -67,17 +70,33 @@ TR4_ARCH = ("V -1 1 NFEAT 0\nC NFEAT 256 8 4 4\nRO 2 0 3 1\nTR 256 4096 4 100 0.
 TR1_ARCH = TR4_ARCH.replace("4096 4 100", "4096 1 100")
 NOISY_ARCH = ("V -1 NFEAT 1 0\nSAUG 4 2 2 100 1.0 2\nV -1 1 NFEAT 0\nC NFEAT 32 8 4 4\nRO 2 0 3 1\n"
               "TR 32 64 4 100 0.2\nDO 0.2\nL 32 NLABEL\n")
+# a BatchNorm over the conv's channels (its statistics over the global batch)
+BN_ARCH = "V -1 1 NFEAT 0\nC NFEAT 32 8 4 4\nBN 32 2\nRO 2 0 3 1\nL 32 NLABEL\n"
+# conv_glu's kinds: weight-normed convs (strided and padded, and SAME) and
+# weight-normed linears; at min_shard_size 128 every v splits its last axis
+# (the convs' time taps, the linears' outputs), the g's stay whole
+GLU_ARCH = ("V -1 1 NFEAT 0\nWN 3 C NFEAT 64 8 2 4\nGLU 2\nWN 3 C 32 64 6 1 -1\nGLU 2\n"
+            "RO 2 0 3 1\nWN 0 L 32 64\nGLU 0\nWN 0 L 32 NLABEL\n")
 ARCHS = dict(small=SMALL_ARCH, big=BIG_ARCH, tds=TDS_ARCH, tr4=TR4_ARCH, tr1=TR1_ARCH,
-             noisy=NOISY_ARCH)
+             noisy=NOISY_ARCH, bn=BN_ARCH, glu=GLU_ARCH)
 
-# name -> (arch, flags of both sides, flags of the ranks alone)
+# name -> (arch, flags of both sides, flags of the ranks alone); the name's
+# part before its mesh names the one-process run it is held to, and a
+# ``min_shard_size`` among the ranks' flags lowers JAX's 2^20 for the job
 TP_CASES = {
     "big_dp1xmp2": ("big", dict(iter=6), dict(mp_axis=2)),
     "big_dp2xmp2": ("big", dict(iter=6), dict(mp_axis=2, batchsize=4)),
     "tds_dp1xmp2": ("tds", dict(iter=4, filterbanks=80), dict(mp_axis=2)),
     "tr4_dp1xmp2": ("tr4", dict(iter=4), dict(mp_axis=2)),
     "tr1_dp1xmp2": ("tr1", dict(iter=4), dict(mp_axis=2)),
+    # novograd's per-tensor norm of a column-split weight, summed over the group
+    "novograd_dp1xmp2": ("big", dict(iter=3, netoptim="novograd", lr=0.01), dict(mp_axis=2)),
+    "glu_dp1xmp2": ("glu", dict(iter=3), dict(mp_axis=2, min_shard_size=128)),
 }
+
+
+def _ref(name):
+    return name.rsplit("_", 1)[0]
 
 
 def _base(data, archs, arch, rundir, **kw):
@@ -118,13 +137,26 @@ def _wait(procs):
     return outs
 
 
-def _one_process(flags, mode="train", init=""):
+def _one_process(flags, mode="train", init="", threads=None):
+    """A run in this process; with ``threads``, on as many CPU threads. The
+    ranks run on one (``OMP_NUM_THREADS=1``). The CPU GEMMs round by their
+    thread count: on the big arch one bias entry's second gradient moves by
+    40% between 1 and 8 threads of one process at equal parameters (an input
+    within rounding of a ReLU's kink, by all appearances), and novograd,
+    which divides a tensor's step by its gradient's norm, carries that into
+    the parameters at 7.8e-5 after 3 updates."""
     cfg = Config()
     cfg.update(flags)
     tr = Trainer(cfg, mode=mode, init_model_path=init, device="cpu")
     losses, add = [], tr.meters.train.loss.add
     tr.meters.train.loss.add = lambda v, n=1: (losses.append(float(v)), add(v, n))
-    tr.run()
+    before = torch.get_num_threads()
+    if threads:
+        torch.set_num_threads(threads)
+    try:
+        tr.run()
+    finally:
+        torch.set_num_threads(before)
     return dict(losses=losses, params=tr.model.state_dict(),
                 crit_params=tr.criterion.state_dict(), updates=tr.updates,
                 valid={t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
@@ -162,6 +194,7 @@ def world(tmp_path_factory):
                 batching_strategy="dynamic", batching_max_duration=1.2)
     asg = asg_flags(*asg_dataset(rd("asg_data"), 16, 13), batchsize=4, iter=4,
                     rundir=rd("asg"), runname="run")
+    bn = _base(data, archs, "bn", rd("bn"), iter=3)
     two = [
         dict(flags=dp, mode="fork", init=init, out=rd("out/dp")),
         # update 2's checkpoint, continued to 4 (compared with update 4's)
@@ -173,10 +206,13 @@ def world(tmp_path_factory):
         dict(flags=_base(data, archs, "noisy", rd("noisy"), batchsize=4, iter=2,
                          saug_start_update=0, saug_tmaskt=8, saug_fmaskf=4),
              spy_dropout=True, out=rd("out/noisy")),
+        dict(flags=dict(bn, batchsize=4), out=rd("out/bn")),
     ]
     four = []
     for name, (arch, kw, tp) in TP_CASES.items():
-        job = dict(flags=_base(data, archs, arch, rd(name), **kw, **tp), out=rd(f"out/{name}"))
+        tp = dict(tp)
+        job = dict(min_shard_size=tp.pop("min_shard_size", None), out=rd(f"out/{name}"),
+                   flags=_base(data, archs, arch, rd(name), **kw, **tp))
         (four if "dp2" in name else two).append(job)
     # tensor parallelism with continue: the optimizer slots start afresh, as in JAX
     two.append(dict(flags=dict(rundir=rd("tp_continue"), runname="run", iter=7),
@@ -189,11 +225,13 @@ def world(tmp_path_factory):
             "dyn": _one_process(dict(dyn, batchsize=8, batching_max_duration=2.4,
                                      rundir=rd("one_dyn"))),
             "asg": _one_process(dict(asg, batchsize=8, rundir=rd("one_asg"))),
+            "bn": _one_process(dict(bn, rundir=rd("one_bn"))),
         }
-        for arch, kw in {("big", "iter"): dict(iter=6), ("tds", "iter"): dict(
-                iter=4, filterbanks=80), ("tr4", "iter"): dict(iter=4),
-                ("tr1", "iter"): dict(iter=4)}.items():
-            one[arch[0]] = _one_process(_base(data, archs, arch[0], rd(f"one_{arch[0]}"), **kw))
+        for name, (arch, kw, _) in TP_CASES.items():
+            if _ref(name) not in one:
+                one[_ref(name)] = _one_process(
+                    _base(data, archs, arch, rd(f"one_{_ref(name)}"), **kw),
+                    threads=1 if kw.get("netoptim") == "novograd" else None)
     finally:
         logs = [_wait(g) for g in groups]
 
@@ -243,14 +281,23 @@ def test_joining_needs_the_rendezvous(monkeypatch):
 # ---------------------------------------------------------------------------
 # data parallelism
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("case", ["dp", "dyn"])
+@pytest.mark.parametrize("case", ["dp", "dyn", "bn"])
 def test_two_ranks_equal_one_process(world, case):
+    """With ``bn`` a BatchNorm normalizes by the global batch's statistics:
+    the loss, the parameters and the running statistics equal one process at
+    twice the rows, and the replicas' statistics are equal in bits."""
     r0, r1 = world["ranks"](case, 2)
     one = world["one"][case]
     assert r0["updates"] == r1["updates"] == one["updates"]
     assert r0["losses"] == r1["losses"]  # the global batch's loss on both
     np.testing.assert_allclose(r0["losses"], one["losses"], rtol=1e-4, atol=1e-5)
     _close(r0["params"], one["params"], rtol=1e-3, atol=1e-5)
+    if case == "bn":
+        stats = ["seq.02_BN.mean", "seq.02_BN.var"]
+        assert set(stats) <= set(r0["params"])
+        for k in stats:
+            assert torch.equal(r0["params"][k], r1["params"][k]), k
+        assert not torch.equal(r0["params"][stats[1]], torch.ones_like(r0["params"][stats[1]]))
 
 
 def test_two_ranks_with_asg_equal_one_process(world):
@@ -348,11 +395,12 @@ def test_tensor_parallel_equals_one_process(world, name):
     arch = TP_CASES[name][0]
     n = 4 if "dp2" in name else 2
     ranks = world["ranks"](name, n)
-    one = world["one"][arch]
+    one = world["one"][_ref(name)]
     want_split = {
         "big": ["seq.03_L.weight"],
         "tds": ["seq.05_TDS.lin1.weight", "seq.05_TDS.lin2.weight"],
         "tr4": [f"seq.0{i}_TR.{w}.weight" for i in (3, 4) for w in ("w1", "w2")],
+        "glu": ["seq.01_C.v", "seq.03_C.v", "seq.06_WNL.v", "seq.08_WNL.v"],
     }
     want_split["tr1"] = want_split["tr4"]
     for r, res in enumerate(ranks):
@@ -378,7 +426,8 @@ def test_tensor_parallel_equals_one_process(world, name):
     model = build_arch_module(world["archs"][arch], nfeat, 6)
     model.load_state_dict(ckpt.state_dict, strict=True)
     _close(model.state_dict(), one["params"], rtol=2e-3, atol=2e-5)
-    for k, t in ckpt.opt_state["state"]["trace"].items():
+    slot = "mu" if TP_CASES[name][1].get("netoptim") == "novograd" else "trace"
+    for k, t in ckpt.opt_state["state"][slot].items():
         assert t.shape == one["params"][k].shape, k
     assert params_to_jax_tree(ckpt.state_dict)
 

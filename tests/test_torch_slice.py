@@ -148,6 +148,12 @@ def test_cli_runs_without_jax(jax_checkpoint):
         "import runpy, sys\n"
         f"sys.argv = ['test', '--am={am}', '--test={lst}', '--device=cpu']\n"
         "runpy.run_module('wav2letter_tpu_torch.cli.test', run_name='__main__')\n"
+        # the plugin loader (with the mls plugin mapped), sfx and the host
+        # featurizer, as cli.train imports them
+        "from wav2letter_tpu_torch.models.plugin import load_plugin_module\n"
+        "from wav2letter_tpu_torch.data import sfx\n"
+        "from wav2letter_tpu_torch.features import HostFeaturizer\n"
+        "load_plugin_module('recipes/mls/mling_plugin.py', 40, 30)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'wav2letter_tpu' or "
         "m.startswith('wav2letter_tpu.')]\n"
@@ -236,7 +242,10 @@ def test_port_imports_no_jax():
             "wav2letter_tpu_torch/models/lm.py",
             "wav2letter_tpu_torch/decoder/convlm.py",
             "wav2letter_tpu_torch/cli/train_lm.py",
-            "wav2letter_tpu_torch/tools/convlm_import.py"} <= rel
+            "wav2letter_tpu_torch/tools/convlm_import.py",
+            "wav2letter_tpu_torch/models/plugin.py",
+            "wav2letter_tpu_torch/plugins/mling.py",
+            "wav2letter_tpu_torch/data/sfx.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}

@@ -4,7 +4,9 @@
 
 Joins a gloo group through a ``file://`` rendezvous (no port to race for),
 then runs each job of the JSON list in turn: a ``Trainer`` on the CPU on the
-job's flags, in its mode, with the spies the job asks for. What the test
+job's flags, in its mode, with the spies the job asks for (and JAX's
+2^20-element split threshold lowered where the job names a
+``min_shard_size``). What the test
 compares goes to ``<job out>/rank<R>.pt``. Imports neither JAX nor the JAX
 package.
 """
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from wav2letter_tpu_torch.config import Config
 from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
+from wav2letter_tpu_torch.parallel import sharding
 from wav2letter_tpu_torch.runtime.train import Trainer
 
 
@@ -71,6 +74,7 @@ def run_job(job, rank):
     else:
         cfg = Config()
         cfg.update(job["flags"])
+    sharding.MIN_SHARD_SIZE = job.get("min_shard_size") or 2**20
     tr = Trainer(cfg, mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
                  device="cpu")
     losses, attn, masks = [], [], []

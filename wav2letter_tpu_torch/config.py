@@ -69,9 +69,11 @@ _DEFS: List[FlagDef] = [
        "cross-utterance batched s2s beam decode: N utterances' beams "
        "advance through one jitted decoder-step device call (native only)"),
     _f("features_device", str, "host",
-       "'host': featurize in the data threads and ship bf16 features "
-       "(reference W2lDataset placement; ~4x less accelerator-bound traffic)"
-       " | 'tpu': fuse MFSC into the jitted train step"),
+       "'host', given explicitly (command line or flagsfile): the trainer "
+       "featurizes in the data threads and ships the features, bf16 under "
+       "--compute_dtype=bfloat16 (reference W2lDataset placement). Otherwise the "
+       "card featurizes inside the update (kernel K1): the port's default, where "
+       "the JAX package's default 'host' featurizes on the host"),
     # --- features ---
     _f("mfsc", bool, False),
     _f("mfcc", bool, False),

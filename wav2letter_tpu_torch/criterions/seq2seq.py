@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import column_parallel
 from .base import CriterionScaleMode, get_scale_mode, scale_losses
 
 NEG = -1e30
@@ -133,7 +134,12 @@ def _lecun_normal(in_dim: int, out_dim: int) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense``: ``x @ kernel + bias``, kernel (in, out)."""
+    """flax ``nn.Dense``: ``x @ kernel + bias``, kernel (in, out). Under
+    tensor parallelism (``tp``, set by ``parallel.shard_params``) the kernel
+    holds this rank's output columns, as ``models.layers.Linear``'s weight."""
+
+    TP_PARAMS = ("kernel",)
+    tp = None
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True,
                  init: str = "lecun"):
@@ -148,6 +154,9 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_dim)) if use_bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            y = column_parallel(x, self.kernel.to(x.dtype), self.tp)
+            return y if self.bias is None else y + self.bias.to(x.dtype)
         # one GEMM with the bias in its epilogue: a decoder step is launch-bound
         return F.linear(x, self.kernel.to(x.dtype).t(),
                         None if self.bias is None else self.bias.to(x.dtype))

@@ -19,6 +19,7 @@ import dataclasses
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .listfile import ListSample
 
@@ -212,6 +213,9 @@ def pad_batch_rows(batch: dict, multiple: int) -> dict:
         pad = target - b
         out = {}
         for k, v in batch.items():
+            if isinstance(v, torch.Tensor):  # host features (bf16 has no numpy dtype)
+                out[k] = torch.cat([v, v.new_zeros((pad,) + tuple(v.shape[1:]))])
+                continue
             widths = [(0, pad)] + [(0, 0)] * (v.ndim - 1)
             fill = -1 if k == "sample_idx" else 0
             out[k] = np.pad(v, widths, constant_values=fill)

@@ -5,12 +5,16 @@ Reference pipeline (``createDataset`` + ``loadPrefetchDataset``,
 target encode → sort/bucket → batch → shard → N-thread prefetch.
 
 Copied from the JAX package: featurization happens on the device after the
-batch is built — the host pipeline only decodes audio and encodes targets.
-Batches are padded to a bounded set of shapes (see batching.py).
+batch is built — the host pipeline decodes audio, applies the
+``--sfx_config`` chain and encodes targets — unless a host featurizer is set
+(``--features_device=host``). Batches are padded to a bounded set of shapes
+(see batching.py).
 
 Each batch is a dict of numpy arrays:
     audio      (B, S)  float32, zero-padded
     audio_len  (B,)    int32 — valid samples per row
+    (with a host featurizer, ``feats`` (B, T, C), a CPU tensor in fp32 or
+    bf16, and ``feat_len`` (B,) int32 take the place of ``audio``)
     target     (B, U)  int32, padded with -1
     target_len (B,)    int32
     sample_idx (B,)    int64 — index into the dataset's sample list
@@ -113,10 +117,13 @@ class AsrDataset:
             world_rank=world_rank,
             world_size=world_size,
         )
+        # sound-effect augmentation chain (--sfx_config)
+        self.sfx = None
         if cfg.sfx_config:
-            raise NotImplementedError(
-                "--sfx_config (sound-effect augmentation) is not in the slices of "
-                "the PyTorch port so far; it comes with the augmentation slice")
+            from .sfx import read_sound_effect_config
+
+            self.sfx = read_sound_effect_config(cfg.sfx_config, cfg.seed)
+        self.host_featurizer = None
 
         # samples per frame for audio padding: frames*stride + framesize
         self.sr = cfg.samplerate
@@ -135,6 +142,13 @@ class AsrDataset:
         """Padded sample count such that featurizing yields >= n_frames frames."""
         return (n_frames - 1) * self.stride_samples + self.frame_samples
 
+    def set_host_featurizer(self, featurizer) -> None:
+        """Featurize in the prefetch threads (reference W2lDataset
+        placement): ``materialize`` then ships (B, T, C) features instead of
+        raw audio — see ``features.HostFeaturizer``. ``audio_len`` is kept
+        for the speed meters."""
+        self.host_featurizer = featurizer
+
     def materialize(self, spec: BatchSpec) -> Dict[str, np.ndarray]:
         # pad_rows: multi-process lockstep — every rank materializes the same
         # local row count (rows beyond the index list are padding rows with
@@ -148,6 +162,8 @@ class AsrDataset:
         tgt_len = np.zeros((b,), dtype=np.int32)
         for i, idx in enumerate(spec.indices):
             wav = load_audio(self.samples[idx].audio_path, self.sr)
+            if self.sfx is not None:
+                wav = self.sfx(wav)
             l = min(len(wav), s_max)
             audio[i, :l] = wav[:l]
             audio_len[i] = l
@@ -160,6 +176,16 @@ class AsrDataset:
                 np.full((b - len(spec.indices),), -1, np.int64),
             ]
         )
+        if self.host_featurizer is not None:
+            feats, flen = self.host_featurizer(audio, audio_len)
+            return {
+                "feats": feats,
+                "feat_len": flen.astype(np.int32),
+                "audio_len": audio_len,
+                "target": tgt,
+                "target_len": tgt_len,
+                "sample_idx": sample_idx,
+            }
         return {
             "audio": audio,
             "audio_len": audio_len,

@@ -1,6 +1,7 @@
 from .frontend import (
     FeatureParams,
     Featurizer,
+    HostFeaturizer,
     local_normalize,
     mel_filterbank,
     n_fft_for,
@@ -10,6 +11,7 @@ from .specaug import SpecAugment
 __all__ = [
     "FeatureParams",
     "Featurizer",
+    "HostFeaturizer",
     "SpecAugment",
     "local_normalize",
     "mel_filterbank",

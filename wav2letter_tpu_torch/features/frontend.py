@@ -11,6 +11,8 @@ without dither, which only training turns on:
 
 For MFSC and MFCC the framing, |DFT|, mel and log run as one call of kernel
 K1 (``kernels.mfsc``) on the pre-emphasized audio; the rest is plain PyTorch.
+``HostFeaturizer`` runs the same module on the CPU in the data threads
+(``--features_device=host``), where K1's wrapper takes its plain version.
 """
 
 from __future__ import annotations
@@ -213,3 +215,24 @@ def local_normalize(feats: torch.Tensor, left_ctx: int, right_ctx: int) -> torch
     mean_y = (cs[:, hi] - cs[:, lo]) / n
     var = torch.clamp((cs2[:, hi] - cs2[:, lo]) / n - mean_y * mean_y, min=0.0)
     return (y - mean_y) / torch.sqrt(var + 1e-10)
+
+
+class HostFeaturizer:
+    """The featurizer of the host data pipeline (``--features_device=host``;
+    JAX ``features/frontend.py::HostFeaturizer``): the reference featurizes
+    in its data-loading threads and ships (T, C) features. ``Featurizer`` on
+    the CPU, called by the prefetch threads on numpy batches; it returns the
+    features as a CPU tensor in ``out_dtype`` (bf16 under
+    ``--compute_dtype=bfloat16``, half the bytes of fp32 audio a frame-channel)
+    and their lengths as int32 numpy."""
+
+    def __init__(self, params: FeatureParams, out_dtype: torch.dtype = torch.float32):
+        self._feat = Featurizer(params)
+        self.out_dtype = out_dtype
+
+    @torch.no_grad()
+    def __call__(self, audio: np.ndarray, audio_len: np.ndarray
+                 ) -> Tuple[torch.Tensor, np.ndarray]:
+        feats, flen = self._feat(torch.from_numpy(np.asarray(audio, np.float32)),
+                                 torch.from_numpy(np.asarray(audio_len, np.int32)))
+        return feats.to(self.out_dtype), flen.numpy()

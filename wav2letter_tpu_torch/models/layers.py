@@ -28,6 +28,7 @@ and the gradients flow through the re-indexing back to the stored params.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections import OrderedDict
 from types import SimpleNamespace
@@ -35,6 +36,7 @@ from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -42,7 +44,9 @@ from ..criterions.seq2seq import Dense, GRUCell
 from ..features.specaug import SpecAugment
 from ..kernels import KERNELS
 from ..kernels.tconv import time_conv_takes
-from ..parallel.sharding import column_parallel
+from ..parallel.mesh import current_mesh
+from ..parallel.sharding import (column_parallel, enter_model_region, gather_columns,
+                                 reduce_from_model)
 
 Pads = Union[int, Tuple[int, int]]
 
@@ -147,7 +151,14 @@ class WNLinear(nn.Module):
     """Weight-normalized Linear (arch ``WN wn_dim L in out``), as the JAX
     ``arch.py::WNLinear``: stored ``v`` (in, out) and ``g``, the weight
     ``v / sqrt(sum(v^2) + 1e-12) * g`` with the norm over inputs (``WN 0``,
-    ``g`` (out,)) or over outputs (``WN 1``, ``g`` (in,))."""
+    ``g`` (out,)) or over outputs (``WN 1``, ``g`` (in,)).
+
+    Under tensor parallelism (``tp``) ``v`` holds this rank's output columns:
+    ``WN 0`` takes the matching entries of ``g``, ``WN 1`` sums its norm over
+    the model group; the product is gathered as ``Linear``'s."""
+
+    TP_PARAMS = ("v",)
+    tp = None
 
     def __init__(self, in_dim: int, out_dim: int, use_bias: bool = True, wn_dim: int = 0):
         super().__init__()
@@ -160,15 +171,23 @@ class WNLinear(nn.Module):
                      if use_bias else None)
 
     def _weight(self, dtype: torch.dtype) -> torch.Tensor:
-        v = self.v
-        nrm = torch.sqrt((v * v).sum(dim=self.norm_axis, keepdim=True) + 1e-12)
-        g = self.g[None, :] if self.norm_axis == 0 else self.g[:, None]
+        v, g, mesh = self.v, self.g, self.tp
+        ss = (v * v).sum(dim=self.norm_axis, keepdim=True)
+        if mesh is not None:
+            g = enter_model_region(g, mesh)
+            if self.norm_axis == 0:
+                n = v.shape[1]
+                g = g[mesh.model_index * n:(mesh.model_index + 1) * n]
+            else:
+                ss = enter_model_region(reduce_from_model(ss, mesh), mesh)
+        nrm = torch.sqrt(ss + 1e-12)
+        g = g[None, :] if self.norm_axis == 0 else g[:, None]
         return (v / nrm * g).to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w, b = _derived(self, x.dtype, lambda: (
             self._weight(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
-        y = x @ w
+        y = column_parallel(x, w, self.tp)
         return y if b is None else y + b
 
 
@@ -213,7 +232,16 @@ class Conv2D(nn.Module):
     The time-only narrow form (wy=1, sy=1, py=0, no dilation, groups or weight
     norm, weights within ``K2_MAX_WEIGHT_BYTES``, a shape the kernels take)
     runs kernel K2 in the f-major chain layout. Every other form is one
-    ``F.conv2d``, as the JAX package leaves it to ``lax.conv_general_dilated``."""
+    ``F.conv2d``, as the JAX package leaves it to ``lax.conv_general_dilated``.
+
+    Under tensor parallelism (``tp``) the weight (or ``v``) holds this rank's
+    share of the time taps, the last axis of OIHW, which is the one JAX
+    splits: the rank convolves its taps over the input shifted by their
+    offset, and the partial outputs are summed over the model group
+    (``_tap_parallel``); a weight norm sums its squares over the group."""
+
+    TP_PARAMS = ("weight", "v")
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int, wx: int, wy: int = 1, sx: int = 1,
                  sy: int = 1, px: Pads = 0, py: int = 0, dx: int = 1, dy: int = 1,
@@ -249,11 +277,14 @@ class Conv2D(nn.Module):
     def _oihw(self, dtype: torch.dtype) -> torch.Tensor:
         if self.wn_dim < 0:
             return self.weight.to(dtype)
-        norm = torch.sqrt((self.v * self.v).sum(dim=(1, 2, 3), keepdim=True) + 1e-12)
-        return (self.g * self.v / norm).to(dtype)
+        ss, g = (self.v * self.v).sum(dim=(1, 2, 3), keepdim=True), self.g
+        if self.tp is not None:  # the norm spans every rank's taps
+            ss = enter_model_region(reduce_from_model(ss, self.tp), self.tp)
+            g = enter_model_region(g, self.tp)
+        return (g * self.v / torch.sqrt(ss + 1e-12)).to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.time_only:
+        if self.time_only and self.tp is None:
             y = self.chain(to_chain(x), x.shape[2], self.pads(x.shape[3]))
             return from_chain(y, self.out_ch)
         return self.general(x, self.pads(x.shape[3]))
@@ -271,11 +302,28 @@ class Conv2D(nn.Module):
             self._oihw(x.dtype), None if self.bias is None else self.bias.to(x.dtype)))
         ph = (_same_pads(x.shape[2], self.wy, self.sy, self.dy) if self.py == -1
               else (self.py, self.py))
+        if self.tp is not None:
+            return self._tap_parallel(x, w, bias, pw, ph)
         if pw[0] != pw[1] or ph[0] != ph[1]:
             x = F.pad(x, (*pw, *ph))
             pw = ph = (0, 0)
         return F.conv2d(x, w, bias, stride=(self.sy, self.sx), padding=(ph[0], pw[0]),
                         dilation=(self.dy, self.dx), groups=self.groups)
+
+    def _tap_parallel(self, x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                      pw: Tuple[int, int], ph: Tuple[int, int]) -> torch.Tensor:
+        """``general`` with this rank's taps ``[k0, k0 + n)`` of the kernel:
+        ``y[t] = sum_k w[k] xpad[t*sx + k*dx]`` restricted to them is the conv
+        of ``w`` over ``xpad`` from ``k0*dx`` on, cut to the full output's
+        length; the model group sums the parts, then the bias is added."""
+        mesh = self.tp
+        x = F.pad(enter_model_region(x, mesh), (*pw, *ph))
+        t_out = (x.shape[3] - (self.wx - 1) * self.dx - 1) // self.sx + 1
+        k0 = mesh.model_index * w.shape[3]
+        y = F.conv2d(x[..., k0 * self.dx:], w, None, stride=(self.sy, self.sx),
+                     dilation=(self.dy, self.dx), groups=self.groups)
+        y = reduce_from_model(y[..., :t_out].contiguous(), mesh)
+        return y if bias is None else y + bias[:, None, None]
 
 
 class AsymmetricConv1D(nn.Module):
@@ -636,14 +684,19 @@ def _af_ids(x: torch.Tensor, what: str) -> torch.Tensor:
 class Embedding(nn.Module):
     """Arch ``E emb n_tokens`` (JAX ``layers.py::Embedding``): AF (d0, d1,
     d2, 1) ids -> (emb, d0, d1, d2), stored (d2, d1, d0, emb); ``weight``
-    (n_tokens, emb), normal * 0.1."""
+    (n_tokens, emb), normal * 0.1. Under tensor parallelism (``tp``) the
+    weight holds this rank's feature columns, gathered after the lookup."""
+
+    TP_PARAMS = ("weight",)
+    tp = None
 
     def __init__(self, emb_dim: int, n_tokens: int):
         super().__init__()
         self.weight = nn.Parameter(torch.randn(n_tokens, emb_dim) * 0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.embedding(_af_ids(x, "Embedding"), self.weight.float())
+        y = F.embedding(_af_ids(x, "Embedding"), self.weight.float())
+        return y if self.tp is None else gather_columns(y, self.tp)
 
 
 class AdaptiveEmbedding(nn.Module):
@@ -743,6 +796,44 @@ class PrecisionCast(nn.Module):
 # ---------------------------------------------------------------------------
 # BatchNorm
 # ---------------------------------------------------------------------------
+_STATISTICS_FROZEN = [False]
+
+
+@contextlib.contextmanager
+def statistics_frozen():
+    """Running statistics stay where they are inside: the recompute of a
+    checkpointed forward moves them no second time (``jax.checkpoint`` of the
+    pure forward moves them once)."""
+    _STATISTICS_FROZEN[0] = True
+    try:
+        yield
+    finally:
+        _STATISTICS_FROZEN[0] = False
+
+
+class _DataSum(torch.autograd.Function):
+    """Forward: the sum over the data group of each rank's partial sum.
+    Backward: the sum over the data group of the ranks' gradients of it, since
+    each rank's loss reaches the shared sum through its own rows."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=mesh.data_group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.mesh.data_group)
+        return g, None
+
+
+def _data_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    return _DataSum.apply(x, mesh)
+
+
 class BatchNorm(nn.Module):
     """Arch ``BN size dims...`` (JAX ``layers.py::BatchNorm``): statistics
     over every stored axis but the AF feature dims, in fp32, the biased
@@ -751,7 +842,14 @@ class BatchNorm(nn.Module):
     does, ``ra = 0.9 ra + 0.1 batch`` (torch's ``momentum`` is the other
     share); eval normalizes by the running ones. The buffers ``mean`` and
     ``var`` take JAX's keepdims shape of a 4-d input where one feature dim
-    fixes it (flat otherwise, reshaped on load)."""
+    fixes it (flat otherwise, reshaped on load).
+
+    On several data ranks (the current mesh's data axis) the batch statistics
+    are those of the global batch, padded rows included, as under JAX's
+    ``pjit``: the count, the sum and then the centred sum of squares are
+    summed over the data group inside autograd (``_data_sum``), so every rank
+    normalizes alike and moves the running statistics alike. Inside a
+    ``--remat`` recompute (``statistics_frozen``) they do not move again."""
 
     def __init__(self, feat_af_dims: Tuple[int, ...], feat_size: int,
                  momentum: float = 0.9, epsilon: float = 1e-5):
@@ -779,15 +877,22 @@ class BatchNorm(nn.Module):
         red = tuple(a for a in range(x.dim()) if a not in feat)
         shape = tuple(x.shape[a] if a in feat else 1 for a in range(x.dim()))
         xf = x.float()
-        if self.training:
+        mesh = current_mesh()
+        if not self.training:
+            mean, var = self.mean.view(shape), self.var.view(shape)
+        elif mesh is not None and mesh.distributed and mesh.spec.n_data > 1:
+            n = xf.new_tensor(float(xf.numel() // math.prod(shape)))
+            dist.all_reduce(n, group=mesh.data_group)
+            mean = _data_sum(xf.sum(dim=red, keepdim=True), mesh) / n
+            var = _data_sum(((xf - mean) ** 2).sum(dim=red, keepdim=True), mesh) / n
+        else:
             mean = xf.mean(dim=red, keepdim=True)
             var = xf.var(dim=red, keepdim=True, unbiased=False)
+        if self.training and not _STATISTICS_FROZEN[0]:
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_((m * self.mean.view(shape) + (1 - m) * mean).view_as(self.mean))
                 self.var.copy_((m * self.var.view(shape) + (1 - m) * var).view_as(self.var))
-        else:
-            mean, var = self.mean.view(shape), self.var.view(shape)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.weight.view(shape) + self.bias.view(shape)).to(x.dtype)
 

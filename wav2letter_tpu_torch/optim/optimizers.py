@@ -18,7 +18,7 @@ the parameters are. Updates are applied in place.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -52,6 +52,10 @@ class Optimizer:
         self.momentum, self.weight_decay = momentum, weight_decay
         self.beta1, self.beta2, self.eps, self.rho = beta1, beta2, epsilon, rho
         self.count = 0
+        # column shards under tensor parallelism, and the sum over their model
+        # group: novograd's per-tensor norm is over the whole array, as optax's
+        self.sharded: frozenset = frozenset()
+        self.shard_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         slots = list(_SLOTS[self.name])
         if self.name == "sgd" and momentum > 0:
             slots.append(("trace", 0.0))
@@ -102,6 +106,8 @@ class Optimizer:
                 p.add_(st["trace"][n].mul_(m).add_(u))
             else:  # novograd: one second moment per parameter tensor
                 sq = g.float().pow(2).sum()
+                if n in self.sharded:
+                    sq = self.shard_sum(sq)
                 nu, mu = st["nu"][n], st["mu"][n]
                 if c == 1:
                     nu.copy_(sq)

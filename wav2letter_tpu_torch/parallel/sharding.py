@@ -11,10 +11,12 @@ they are written out:
   are split ``data_index::n_data``, :func:`dataset_shard`), so a batch is
   placed on the rank's one device as it is (:func:`shard_batch`);
 * a layer with a sharded weight computes its own output columns and gathers
-  them over the model group (:func:`gather_columns`); the replicated input
-  enters through :func:`enter_model_region`, whose backward sums the
-  partial input gradients of the model group. The rest of the net sees the
-  replicated math;
+  them over the model group (:func:`gather_columns`), or, where the split
+  axis is summed over (a conv's time taps), its partial output and sums it
+  over the group (:func:`reduce_from_model`); the replicated input enters
+  through :func:`enter_model_region`, whose backward sums the partial input
+  gradients of the model group. The rest of the net sees the replicated
+  math;
 * :func:`all_reduce_grads` sums gradients over the data axis, and
   :func:`global_norm` counts each shard once.
 """
@@ -22,7 +24,7 @@ they are written out:
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,9 +54,11 @@ def dataset_shard(mesh: Mesh) -> Tuple[int, int]:
 def shard_batch(mesh: Mesh, batch: Dict[str, Any], device: torch.device
                 ) -> Dict[str, torch.Tensor]:
     """This rank's rows of the global batch, the fields an update reads, on
-    its device. The dataset already holds only them: this is a copy."""
-    return {k: torch.from_numpy(np.asarray(batch[k])).to(device)
-            for k in ("audio", "audio_len", "target", "target_len", "row_mask")}
+    its device: the audio, or the features a host featurizer made of it. The
+    dataset already holds only them: this is a copy."""
+    inputs = ("feats", "feat_len") if "feats" in batch else ("audio", "audio_len")
+    return {k: torch.as_tensor(batch[k]).to(device)
+            for k in inputs + ("target", "target_len", "row_mask")}
 
 
 def to_host_local(mesh: Mesh, x: torch.Tensor) -> np.ndarray:
@@ -62,10 +66,18 @@ def to_host_local(mesh: Mesh, x: torch.Tensor) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
-def param_spec(path: str, x: torch.Tensor, min_shard_size: int = 2**20) -> Spec:
+# JAX's size rule; the tests lower it so that narrow layers split
+MIN_SHARD_SIZE = 2**20
+
+
+def param_spec(path: str, x: torch.Tensor, min_shard_size: Optional[int] = None) -> Spec:
     """JAX's rule: params of >= 2 dims and >= ``min_shard_size`` elements
-    split their last axis (the output features of a (in, out) ``Linear``)
-    over the model axis; the rest replicate."""
+    split their last axis over the model axis; the rest replicate. The port's
+    params have JAX's layouts, so the axis is JAX's: the output features of a
+    (in, out) ``Linear``, ``WNLinear`` ``v`` or ``Dense`` kernel, an
+    ``Embedding``'s features, an OIHW conv weight's time taps."""
+    if min_shard_size is None:
+        min_shard_size = MIN_SHARD_SIZE
     shape = tuple(x.shape)
     if len(shape) < 2 or int(np.prod(shape)) < min_shard_size:
         return ()
@@ -78,31 +90,43 @@ def _columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return x[..., j * n:(j + 1) * n]
 
 
-def shard_params(mesh: Mesh, model: nn.Module, tensor_parallel: bool = False
-                 ) -> Dict[str, Spec]:
-    """Replicate ``model``, then under tensor parallelism keep only this
-    rank's columns of every parameter :func:`param_spec` splits and whose last
-    axis the model axis divides (the others stay whole, as in JAX). The
-    owning module gets ``tp = mesh``; a module that cannot compute with a
-    shard (no ``TP_PARAMS``) raises. Returns the specs of the split params."""
-    replicate(mesh, model)
-    mp = mesh.spec.n_model
-    if mp == 1 or not tensor_parallel:
-        return {}
-    sharded = {}
+def split_plan(model: nn.Module, n_model: int) -> Dict[str, Tuple[nn.Module, str, Spec]]:
+    """The params that tensor parallelism over ``n_model`` ranks splits, as
+    JAX decides: :func:`param_spec`'s, where the model axis divides the last
+    axis (the others stay whole). Maps each full name to (owning module,
+    param name, spec); a module that cannot compute on a shard (no
+    ``TP_PARAMS``) raises."""
+    plan = {}
     for mod_name, mod in model.named_modules():
         for name, p in mod.named_parameters(recurse=False):
             spec = param_spec(name, p)
-            if not spec or p.shape[-1] % mp:
+            if not spec or p.shape[-1] % n_model:
                 continue
             full = f"{mod_name}.{name}" if mod_name else name
             if name not in getattr(mod, "TP_PARAMS", ()):
                 raise NotImplementedError(
                     f"tensor parallelism of {full} ({type(mod).__name__}) is not in the "
-                    "port: only a Linear's weight computes on its columns")
-            p.data = _columns(p.data, mesh).contiguous()
-            mod.tp = mesh
-            sharded[full] = spec
+                    "port: this module cannot compute on a shard of it")
+            plan[full] = (mod, name, spec)
+    return plan
+
+
+def shard_params(mesh: Mesh, model: nn.Module, tensor_parallel: bool = False
+                 ) -> Dict[str, Spec]:
+    """Replicate ``model``, then under tensor parallelism keep only this
+    rank's part of the last axis of every param :func:`split_plan` names;
+    the owning module gets ``tp = mesh``. Every module a recipe reaches at
+    full width can compute on its part. Returns the specs of the split
+    params."""
+    replicate(mesh, model)
+    if mesh.spec.n_model == 1 or not tensor_parallel:
+        return {}
+    sharded = {}
+    for full, (mod, name, spec) in split_plan(model, mesh.spec.n_model).items():
+        p = getattr(mod, name)
+        p.data = _columns(p.data, mesh).contiguous()
+        mod.tp = mesh
+        sharded[full] = spec
     return sharded
 
 
@@ -148,6 +172,26 @@ class _EnterModelRegion(torch.autograd.Function):
         return g, None
 
 
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the sum over the model group of each rank's partial value.
+    Backward: identity, since what follows is replicated and every rank
+    holds the same gradient of the sum."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=mesh.model_group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    return _ReduceFromModel.apply(x, mesh)
+
+
 def gather_columns(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return _GatherColumns.apply(x, mesh)
 
@@ -162,6 +206,12 @@ def column_parallel(x: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None:
         return x @ w
     return gather_columns(enter_model_region(x, mesh) @ w, mesh)
+
+
+def model_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``x`` summed over the model group, in place (no autograd)."""
+    dist.all_reduce(x, group=mesh.model_group)
+    return x
 
 
 def all_reduce_grads(mesh: Mesh, replicated: List[torch.Tensor],

@@ -29,6 +29,7 @@ from ..data.targets import tokens_to_words
 from ..features import FeatureParams, Featurizer
 from ..kernels import disable_tf32
 from ..models.arch import build_arch_module, output_width
+from ..models.plugin import is_plugin, load_plugin_module
 from ..ops.asg import asg_collapse, asg_loss, asg_viterbi
 from ..ops.ctc import ctc_collapse, ctc_loss, ctc_viterbi
 from .checkpoint import load_checkpoint
@@ -111,13 +112,15 @@ class Evaluator:
         self.featurizer = Featurizer(FeatureParams.from_config(cfg)).to(self.device)
         self.n_feat = cfg.num_features()
         arch_path = os.path.join(cfg.archdir, cfg.arch) if cfg.archdir else cfg.arch
-        if arch_path.endswith(".py") or ":" in arch_path:
-            raise NotImplementedError(
-                "plugin archs are not in the first slice of the PyTorch port")
         self.is_s2s = cfg.criterion in S2S_CRITERIONS
-        self.model = build_arch_module(arch_path, self.n_feat,
-                                       encoder_dim(cfg, self.n_classes),
-                                       force_label_dim=not self.is_s2s)
+        out_dim = encoder_dim(cfg, self.n_classes)
+        if is_plugin(arch_path):  # models/plugin.py; a plugin emits what it is asked for
+            self.model = load_plugin_module(arch_path, self.n_feat, out_dim)
+            enc_dim = out_dim
+        else:
+            self.model = build_arch_module(arch_path, self.n_feat, out_dim,
+                                           force_label_dim=not self.is_s2s)
+            enc_dim = output_width(arch_path, self.n_feat, out_dim) if self.is_s2s else 0
         self.model.load_state_dict(ckpt.state_dict, strict=True)
         self.model.to(self.device).eval()
         self.dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
@@ -126,8 +129,7 @@ class Evaluator:
             self.transitions = ckpt.crit_state_dict["transitions"].float().to(self.device)
         self.s2s_criterion = None  # the seq2seq decoder, on the device
         if self.is_s2s:
-            crit = make_criterion(cfg, self.n_classes, output_width(
-                arch_path, self.n_feat, encoder_dim(cfg, self.n_classes)))
+            crit = make_criterion(cfg, self.n_classes, enc_dim)
             crit.load_state_dict(ckpt.crit_state_dict, strict=True)
             self.s2s_criterion = crit.to(self.device).eval()
 

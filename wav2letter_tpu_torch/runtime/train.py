@@ -38,14 +38,25 @@ the all-reduced row count), and gradients are summed over the data axis
 before the clip norm and the non-finite guard, so every rank takes the same
 branch and the replicas stay bit-identical. With ``--mp_axis`` > 1 the big
 weights are column-split over the model axis (tensor parallelism). Rank 0
-alone writes logs, configs and checkpoints (gathered to full shape).
+alone writes logs, configs and checkpoints (gathered to full shape). A
+BatchNorm's batch statistics are those of the global batch (summed over the
+data axis inside autograd), so its running statistics move alike everywhere.
 
-Not in this slice (each raises, naming the slice it waits for):
-``--features_device=host``, plugin archs, ``--remat``.
+``--arch`` may name a plugin (``models/plugin.py``: a ``.py`` file or
+``module:attr``; the JAX package's ``recipes/mls/mling_plugin.py`` maps to
+``plugins/mling.py``). ``--features_device=host``, given explicitly on the
+command line or in a flagsfile (the port's default featurizes on the card,
+JAX's on the host), featurizes in the data threads (``HostFeaturizer``) and
+ships the features; the update then starts at SpecAugment, and a
+``continue`` keeps the choice. ``--remat`` recomputes the model's forward in
+the backward (``torch.utils.checkpoint``), with the SpecAugment generator's
+draws and the running statistics as the first forward had them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Dict, Optional
 
@@ -53,31 +64,29 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..criterions import make_criterion
 from ..data import AsrDataset, Lexicon, PrefetchIterator, make_token_dict
 from ..data.batching import pad_batch_rows
 from ..data.targets import tokens_to_words
-from ..features import FeatureParams, Featurizer
+from ..features import FeatureParams, Featurizer, HostFeaturizer
 from ..features.specaug import SpecAugment
 from ..kernels import disable_tf32
 from ..models.arch import build_arch_module, output_width
+from ..models.layers import statistics_frozen
+from ..models.plugin import is_plugin, load_plugin_module
 from ..optim import LRSchedule, make_optimizer
 from ..parallel import MeshSpec, make_mesh, replicate, shard_batch, shard_params, to_host_local
 from ..parallel.distributed import backend_for, init_distributed, local_rank
 from ..parallel.mesh import set_current_mesh
-from ..parallel.sharding import all_reduce_grads, dataset_shard, gather_full, global_norm
+from ..parallel.sharding import (all_reduce_grads, dataset_shard, gather_full, global_norm,
+                                 model_sum)
 from .checkpoint import (Checkpoint, find_last_checkpoint, load_checkpoint,
                          run_index_paths, save_checkpoint)
 from .meters import TrainMeters, get_log_string, sync_meters
 from .test import S2S_CRITERIONS, encoder_dim, path_tokens, resolve_device, target_tokens
-
-
-def _not_yet(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the slices of the PyTorch port so far (CTC, ASG, seq2seq); "
-        f"it comes with {slice_name}")
 
 
 class Trainer:
@@ -118,11 +127,12 @@ class Trainer:
             raise ValueError(f"unknown mode {mode!r}: train, continue or fork")
         self.cfg = cfg
 
-        if explicit.get("features_device") == "host":
-            raise _not_yet("--features_device=host (featurizing in the data threads)",
-                           "the host-featurizer slice")
-        if cfg.remat:
-            raise _not_yet("--remat", "the memory slice")
+        # the card featurizes unless the host was asked for by name (JAX's
+        # default is the host); a continue keeps the run's choice
+        self.host_features = (
+            explicit["features_device"] == "host" if "features_device" in explicit
+            else bool(resume is not None and mode == "continue"
+                      and resume.extra.get("host_features")))
 
         # --- ranks: join the group, then one device a rank ---
         dev = torch.device(device)
@@ -137,9 +147,6 @@ class Trainer:
         self.mesh = make_mesh(MeshSpec.from_config(cfg), self.device)
         set_current_mesh(self.mesh)  # mesh-aware layers (the attention's head split)
         self.tensor_parallel = self.mesh.spec.n_model > 1
-        if self.tensor_parallel and cfg.netoptim == "novograd":
-            raise _not_yet("novograd under tensor parallelism (its per-tensor norms of "
-                           "column shards)", "a later slice")
         if self.rundir and self.mesh.rank == 0:
             os.makedirs(self.rundir, exist_ok=True)
 
@@ -163,17 +170,16 @@ class Trainer:
         # --- model + criterion ---
         self.is_s2s = cfg.criterion in S2S_CRITERIONS
         arch_path = os.path.join(cfg.archdir, cfg.arch) if cfg.archdir else cfg.arch
-        if arch_path.endswith(".py") or ":" in arch_path:
-            raise _not_yet("a plugin arch", "the plugin slice")
+        out_dim = encoder_dim(cfg, self.n_classes)
         torch.manual_seed(cfg.seed)  # the model's, then the criterion's initial weights
-        self.model = build_arch_module(arch_path, self.n_feat, encoder_dim(cfg, self.n_classes),
-                                       force_label_dim=not self.is_s2s)
-        enc_dim = (output_width(arch_path, self.n_feat, encoder_dim(cfg, self.n_classes))
-                   if self.is_s2s else 0)
+        if is_plugin(arch_path):  # a plugin emits what it is asked for
+            self.model = load_plugin_module(arch_path, self.n_feat, out_dim)
+            enc_dim = out_dim if self.is_s2s else 0
+        else:
+            self.model = build_arch_module(arch_path, self.n_feat, out_dim,
+                                           force_label_dim=not self.is_s2s)
+            enc_dim = output_width(arch_path, self.n_feat, out_dim) if self.is_s2s else 0
         self.criterion = make_criterion(cfg, self.n_classes, enc_dim)
-        if self.mesh.spec.n_data > 1 and any(True for _ in self.model.buffers()):
-            raise _not_yet("running statistics (a BatchNorm) on several data ranks",
-                           "a later slice")
         if resume is not None:
             self.model.load_state_dict(resume.state_dict, strict=True)
             if resume.crit_state_dict:
@@ -191,6 +197,8 @@ class Trainer:
         self.net_opt = make_optimizer(
             self.model.named_parameters(), cfg.netoptim, cfg.momentum, cfg.weightdecay,
             cfg.adambeta1, cfg.adambeta2, cfg.optimepsilon, cfg.optimrho)
+        self.net_opt.sharded = frozenset(self.sharded)
+        self.net_opt.shard_sum = functools.partial(model_sum, mesh=self.mesh)
         self.crit_opt = make_optimizer(
             self.criterion.named_parameters(), cfg.critoptim, cfg.momentum, 0.0,
             cfg.adambeta1, cfg.adambeta2, cfg.optimepsilon, cfg.optimrho)
@@ -221,6 +229,11 @@ class Trainer:
             self.valid_ds[tag] = AsrDataset(
                 path, self.token_dict, self.lexicon, cfg, batch_size=vbs,
                 world_rank=w_rank, world_size=w_size)
+        if self.host_features:
+            hf = HostFeaturizer(FeatureParams.from_config(cfg), out_dtype=(
+                torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32))
+            for ds in [self.train_ds, *self.valid_ds.values()]:
+                ds.set_host_featurizer(hf)
 
         self.meters = TrainMeters(list(self.valid_ds.keys()))
         self.best_val: Dict[str, float] = {}
@@ -268,11 +281,17 @@ class Trainer:
         dither: the JAX trainer passes no dither key either."""
         with self._timed(self.meters.fwd_timer, "w2l/forward"):
             with torch.no_grad():
-                feats, flen = self.featurizer(b["audio"], b["audio_len"])
+                if "feats" in b:  # featurized in the data threads
+                    feats, flen = b["feats"].float(), b["feat_len"]
+                else:
+                    feats, flen = self.featurizer(b["audio"], b["audio_len"])
                 if self.specaug is not None and train and saug_on:
                     feats = self.specaug(feats, generator, flen)
                 feats = feats.to(self.compute_dtype)
-            em, elen = self.model(feats, flen, generator=generator)
+            if self.cfg.remat and train:
+                em, elen = self._remat_forward(feats, flen, generator)
+            else:
+                em, elen = self.model(feats, flen, generator=generator)
             em = em.float()
         with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
             kw = dict(train=train, window=self._window_active()) if self.is_s2s else {}
@@ -280,6 +299,29 @@ class Trainer:
             rm = b["row_mask"]
             loss = (losses * rm).sum() / (rm.sum() if rows is None else rows).clamp(min=1.0)
         return loss, em, elen
+
+    def _remat_forward(self, feats, flen, generator):
+        """The model's forward, recomputed in the backward as ``jax.checkpoint``
+        does. ``checkpoint`` restores the default generators (dropout, K4's
+        seeds); the recompute here also replays the SpecAugment layers' draws
+        from ``generator`` and leaves the running statistics alone."""
+        start = None if generator is None else generator.get_state()
+
+        @contextlib.contextmanager
+        def recompute():
+            after = None if generator is None else generator.get_state()
+            if generator is not None:
+                generator.set_state(start)
+            try:
+                with statistics_frozen():
+                    yield
+            finally:
+                if generator is not None:
+                    generator.set_state(after)
+
+        return checkpoint(lambda f: self.model(f, flen, generator=generator), feats,
+                          use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), recompute()))
 
     def train_step(self, batch, lr: float, lr_crit: float, saug_on: bool, seed: int):
         """One attempt at an update on a padded batch. Returns (loss, finite,
@@ -391,15 +433,17 @@ class Trainer:
             return
         state = {n: self._full(n, t) for n, t in self.model.state_dict().items()}
         opt = self.net_opt.state_dict()
-        if self.sharded:
-            opt["state"] = {slot: {n: self._full(n, t).cpu() for n, t in d.items()}
+        if self.sharded:  # (novograd's 0-d nu is the whole array's already)
+            opt["state"] = {slot: {n: (self._full(n, t) if t.dim() else t).cpu()
+                                   for n, t in d.items()}
                             for slot, d in self.net_opt.state.items()}
         if self.mesh.rank == 0:
             ckpt = Checkpoint(
                 config=self.cfg.serialize(), epoch=self.epoch, updates=self.updates,
                 state_dict=state, crit_state_dict=self.criterion.state_dict(),
                 opt_state=opt, crit_opt_state=self.crit_opt.state_dict(),
-                extra={"amp_scale": self.amp_scale, "amp_good": self._amp_good})
+                extra={"amp_scale": self.amp_scale, "amp_good": self._amp_good,
+                       "host_features": self.host_features})
             save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
             if tag:
                 save_checkpoint(os.path.join(self.rundir, f"model_{tag}.bin"), ckpt)
