@@ -111,9 +111,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    all-reduce, broadcast and all-gather of CUDA tensors; then the flagship at
    full width with dropout 0 and no SpecAugment (a copy of its arch) trains
    ``DP_UPDATES`` updates at 4 rows a rank against one process at 8, in fp32
-   (with a validation pass and rank 0's checkpoint) and bf16, and 2 updates
-   with ``--batching_strategy=dynamic``; the transformer's first 2 layers
-   train at dp1 x mp2 (tensor parallelism: K4 and K4b on 2 of its 4 heads)
+   (with a validation pass and rank 0's checkpoint) and one update in bf16,
+   and 2 updates with ``--batching_strategy=dynamic``; the transformer's
+   first 2 layers train at dp1 x mp2 (tensor parallelism: K4 and K4b on 2 of its 4 heads)
    where gloo gathers CUDA tensors; each run's launches are checked on both
    ranks, its losses and parameters held to one process (``DP_TOL``), the
    DP replicas to equal bits, the summed validation counts to one process's
@@ -124,8 +124,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    gloo's, not NCCL's.
 13. the soak in small (``wav2letter_tpu_torch/tools/soak.py``, ``soak_path``):
    a 3-minute synthetic corpus from the port's ``synth_corpus``, its 3-gram
-   LM, the flagship minus SAUG trained in bf16 at B = 16 for 30 updates in a
-   child ``cli.train``, SIGKILLed once the checkpoint of update 15 is whole
+   LM, the flagship minus SAUG trained in bf16 at B = 16 for 20 updates in a
+   child ``cli.train``, SIGKILLed once the checkpoint of update 10 is whole
    and resumed by a bare ``continue``; the soak's ``profile`` step on the
    trained run in this process (a steady update's wall, device busy, idle
    share and peak memory at the largest and median batches, one update's
@@ -146,7 +146,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the card against the same model and batch on the CPU (fp32 gated:
    ``CARD_CPU_TOL``; bf16 reported), ``ASG_UPDATES`` updates in fp32 and in
    bf16 through ``cli.train`` (in fp32 one more update's wall, device busy,
-   idle share, launches and peak memory), ``continue`` for 2 more
+   idle share, launches and peak memory), ``continue`` for 1 more
    (the transitions moved from ``transdiag·I`` and stored in equal bits);
    on the trained model's emissions the card's ``asg_loss`` and its
    gradients, ``asg_viterbi`` and ``asg_forced_align`` against the CPU's
@@ -171,8 +171,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    against their plain versions (K2, dgrad, K2b at C = 10, 14, 18; K4, K4b,
    K3, K3b at the transformer's); ``S2S_UPDATES`` updates in fp32 and bf16
    through ``cli.train`` with every update's launches held to the arch (no
-   K3 in seq2seq_tds), then ``continue`` for 2, the attention window's gate
-   as the recipe sets it; on the trained model's encoder states the
+   K3 in seq2seq_tds), then ``continue`` (for 2 across seq2seq_tds's window
+   switch, for 1 in transformer_s2s), the attention window's gate as the
+   recipe sets it; on the trained model's encoder states the
    decoder's teacher-forced logits and greedy tokens card against CPU (ties
    counted), the KV-cached step against the full decoder, the native beam
    against the Python beam, one decoder step at K = 80; then ``cli.test``
@@ -186,12 +187,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    chain (the first batch's loss and every leaf's gradient card against CPU,
    ``CARD_CPU_TOL``; the loss falls; no kernel of ours launched); the
    ConvLM's deferred scores card against CPU (``LM_ROW_TOL``); ``cli.decode
-   --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of 4 test utterances through
+   --lmtype=convlm`` (``W2L_REQUIRE_NATIVE=1``) of 2 test utterances through
    phase 13's trained flagship (CTC, the native lexicon beam), phase 14's
    conv_glu (ASG) and phase 16's seq2seq_tds (the native seq2seq beam), each
    AM's launches counted as its phase counts them, audio s per wall s and the
    ConvLM's device calls, cache hit rate and device ms printed, and the
-   native beam's words against the Python beam's on the two shortest; the
+   native beam's words against the Python beam's on the shortest; the
    new layers (BN over 1024 channels, an LSTM, a GRU and a ReLU RNN of 512,
    2 layers, POSEMB, SINPOSEMB, PC) forward and backward card against CPU;
    ``cli.train`` 2 updates then ``continue`` 2 on ``LAYERS_ARCH`` (BN, GRU,
@@ -218,13 +219,36 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``recipes/conv_glu`` at full width at dp1 x mp2 (its convs split over
    their time taps and its head over its outputs, as JAX splits them).
    ``--only hooks`` runs phases 1, 2 and 19 alone.
+20. the semi- and self-supervised trainers at full width, on phase 13's
+   corpus and 3-gram, in a child process of their own (``--only semi`` runs
+   phases 1, 2 and 20 alone): CPC (``recipes/cpc/pretrain.cfg``, its three
+   archs on raw audio, B = 8): the first batch (the 4 shortest utterances)
+   card against CPU in the unsupervised phase (the card's mask and negatives
+   given to the CPU; ``CARD_CPU_TOL``), 2 unsupervised and 2 supervised updates through
+   ``cli.train_cpc`` (each 1 K2, 1 K2b, 12 K3, 12 K3b: ``CPC_SPEC``),
+   ``continue`` for 1 and a ``--pretrainmodel`` start, and K2, K2b, K3, K3b at
+   its shapes against their plain versions; slimIPL
+   (``recipes/slimipl/train.cfg``, the flagship at B = 16) through
+   ``cli.train_slimipl`` with ``--slimIPL_start=2``, type ``cache`` and then
+   ``fixed-pre-cache`` with the EMA and soft labels, each update's and each
+   PL generation's launches held, and ``continue`` with the caches restored in
+   equal bits; LPM (``recipes/local_prior_match/train.cfg``, ``seq2seq_tds``
+   with the 80 banks and ``--encoderdim=1024`` the recipe leaves out,
+   ``LPM_FIX``): one batch's proposals card against CPU,
+   2 paired and 2 unpaired updates through ``cli.train_lpm`` with
+   ``--propupdate=2``; IPL through ``cli.ipl`` on the flagship: a seed round
+   and one round of 2 updates, its PLs from the native beam with the 3-gram,
+   stopped once they are written and resumed from its state file. Each
+   trainer prints one steady update's wall, device busy, idle share and peak
+   memory, and its launches by kernel.
 
 Phase 3 times the paths' rows by the profiler (cold, plain, library; K1 also
 warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, the
 attention's edge shapes) once by CUDA events.
 
 The kernels line holds each kernel's row of the main paths and, from phase
-19, the mls plugin's K3, K3b, K4 and K4b.
+19, the mls plugin's K3, K3b, K4 and K4b, and from phase 20 CPC's K2, K2b, K3
+and K3b.
 
 It prints ``{"kernels": [...]}``, then the ``nvidia-smi`` line, then as the
 last line ``{"ok": true, "device": {...}}``. Any failed check exits non-zero
@@ -2867,10 +2891,10 @@ def _cut_arch(src, dst, keep_tr=None):
 
 def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, seed):
     """Phase 12: the flagship at full width on two gloo ranks on the card (4
-    rows each, fp32 and bf16, dropout 0 and no SpecAugment) against one
-    process at 8; dynamic batching likewise (fp32); the transformer's first
-    ``TP_LAYERS`` layers at dp1 x mp2 (K4 and K4b on 2 of 4 heads) against
-    one process, where gloo gathers CUDA tensors; one NCCL rank through
+    rows each, fp32, and one update in bf16, dropout 0 and no SpecAugment)
+    against one process at 8; dynamic batching likewise (fp32); the
+    transformer's first ``TP_LAYERS`` layers at dp1 x mp2 (K4 and K4b on 2
+    of 4 heads) against one process, where gloo gathers CUDA tensors; one NCCL rank through
     ``cli.train`` with torchrun's variables against one process. The same
     ranks run phase 19's BatchNorm, novograd and conv_glu jobs
     (``hook_parallel_jobs``)."""
@@ -2901,7 +2925,7 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
     jobs = [
         dict(name="float32", flags=flags(fl_spec, "float32", DP_BATCH,
                                          rundir=os.path.join(root, "runs"))),
-        dict(name="bfloat16", flags=flags(fl_spec, "bfloat16", DP_BATCH),
+        dict(name="bfloat16", flags=flags(fl_spec, "bfloat16", DP_BATCH, valid="", iter=1),
              dump=os.path.join(root, "bfloat16.pt")),
         dict(name="dynamic", flags=flags(fl_spec, "float32", DP_BATCH, **dyn,
                                          batching_max_duration=DP_DYN_SECS),
@@ -2935,7 +2959,7 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
         other = ranks[1]["runs"][name]
         spec = tr_spec if name == "tp" else fl_spec
         dt = "float32" if name in ("float32", "dynamic", "tp") else "bfloat16"
-        valid_batches = 0 if name in ("dynamic", "tp") else 1
+        valid_batches = 0 if name in ("bfloat16", "dynamic", "tp") else 1
         want = expected_launches(spec, r["updates"], valid_batches)
         for rr in (r, other):
             if rr["launches"] != want or not rr["finite"]:
@@ -3066,12 +3090,12 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
 # phase 13: the soak in small
 # ---------------------------------------------------------------------------
 # the corpus: train 3 min, dev and test 1 min each, in the JAX soak's --fast
-# language; the flagship minus SAUG, bf16, B = 16 for 30 updates, reports at
-# 15; the product chain's grids cut to 2 points, 4 homophone-slice and 4
+# language; the flagship minus SAUG, bf16, B = 16 for 20 updates, reports at
+# 10; the product chain's grids cut to 2 points, 4 homophone-slice and 4
 # streamed utterances
 SOAK_CORPUS = dict(train_hours=0.05, dev_minutes=1.0, test_minutes=1.0, n_words=150,
                    n_homophone_pairs=15, lm_sentences=2000)
-SOAK_BATCH, SOAK_UPDATES, SOAK_REPORT = 16, 30, 15
+SOAK_BATCH, SOAK_UPDATES, SOAK_REPORT = 16, 20, 10
 SOAK_SIZES = dict(sweep=(0.0, 1.0, 1.0), wordscores=(0.5,), homo_utts=4,
                   homo_sweep=(0.0, 1.0, 1.0), stream_utts=4)
 SOAK_WALL_S = 120  # the phase's budget; printed beside its wall time
@@ -3082,7 +3106,7 @@ def soak_path(tmp, smi_line):
     flagship's full width. The port's ``synth_corpus.generate`` writes the
     corpus, its ``train_ngram_lm`` the 3-gram LM; the driver's own
     ``_train_regime`` trains in a child process (``cli.train``), SIGKILLs
-    its process group once ``model_last.bin`` of update 15 is whole and
+    its process group once ``model_last.bin`` of update 10 is whole and
     resumes with a bare ``continue``; ``phase_profile`` takes the trained
     run's updates in this process at its largest and median batches (wall,
     device busy, idle share, peak memory), counts one update's launches and
@@ -3094,7 +3118,7 @@ def soak_path(tmp, smi_line):
     ``--emission_dir``, the homophone slice, the beam dump and rescoring,
     ``convert_streaming``, 4 test utterances streamed with the split against
     offline, the top-k against the full-row decode. Checks: every step ran,
-    the kill came after the checkpoint of update 15 and ``continue`` resumed
+    the kill came after the checkpoint of update 10 and ``continue`` resumed
     from it and logged above it, the results hold every key of the JAX
     soak's (``SOAK_RESULTS.json``, but ``train_b32``), the streamed emissions
     are within ``STREAM_EM_TOL`` of the batch network on the same features,
@@ -3357,60 +3381,107 @@ def card_vs_cpu_first_batch(name, flags, expect=None, dtypes=("float32", "bfloat
     return res
 
 
-class _StepRecorder:
-    """Patches ``Trainer.train_step`` for the trainers ``cli.train`` builds:
-    each update's wall end, loss, finiteness, launches and frames."""
+class _Calls:
+    """Patches methods (``(class, name)`` pairs) for the run inside: each
+    call's name, wall end (drained), launches on the card, loss and
+    finiteness where the method returns them first, its object, and what
+    ``extra(obj, *args)`` reads before the call."""
 
-    def __init__(self):
-        self.steps = []
+    def __init__(self, *targets, extra=None):
+        self.targets, self.extra, self.calls = targets, extra, []
 
     def __enter__(self):
         import torch
 
         from wav2letter_tpu_torch import kernels
-        from wav2letter_tpu_torch.runtime.train import Trainer
 
-        self.orig = orig = Trainer.train_step
-        steps = self.steps
+        self.saved = []
+        calls = self.calls
+        for cls, name in self.targets:
+            orig = getattr(cls, name)
+            self.saved.append((cls, name, orig, name in cls.__dict__))
 
-        def step(tr, batch, *a):
-            before = dict(kernels.LAUNCHES)
-            window = tr._window_active()  # the seq2seq attention window's gate
-            out = orig(tr, batch, *a)
-            torch.cuda.synchronize()
-            steps.append(dict(end=time.perf_counter(), loss=out[0], finite=out[1],
-                              frames=int(batch["audio"].shape[1]), window=window,
-                              launches={k: v - before[k] for k, v in kernels.LAUNCHES.items()}))
-            return out
+            def wrapped(obj, *a, _orig=orig, _name=name, **kw):
+                more = self.extra(obj, *a) if self.extra else {}
+                before = dict(kernels.LAUNCHES)
+                out = _orig(obj, *a, **kw)
+                torch.cuda.synchronize()
+                head = out[:2] if isinstance(out, tuple) and isinstance(out[0], float) \
+                    else (None, None)
+                calls.append(dict(name=_name, end=time.perf_counter(), loss=head[0],
+                                  finite=head[1], obj=obj,
+                                  launches={k: v - before[k]
+                                            for k, v in kernels.LAUNCHES.items()}, **more))
+                return out
 
-        Trainer.train_step = step
+            setattr(cls, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        from wav2letter_tpu_torch.runtime.train import Trainer
+        for cls, name, orig, own in reversed(self.saved):
+            if own:
+                setattr(cls, name, orig)
+            else:
+                delattr(cls, name)
 
-        Trainer.train_step = self.orig
+    def held(self, what, expect):
+        """Fails unless every call launched what ``expect[its name]`` says
+        (and nothing else) and every loss is finite; returns the launches by
+        kernel summed over the calls, and the calls by name."""
+        from wav2letter_tpu_torch import kernels
+
+        total = {k: 0 for k in kernels.LAUNCHES}
+        for c in self.calls:
+            want = {k: expect[c["name"]].get(k, 0) for k in kernels.LAUNCHES}
+            if c["launches"] != want:
+                fail(f"{what}: a {c['name']} launched {c['launches']}, expected {want}")
+            if c["loss"] is not None and not (c["finite"] and math.isfinite(c["loss"])):
+                fail(f"{what}: a {c['name']} gave loss {c['loss']} (finite {c['finite']})")
+            for k, v in c["launches"].items():
+                total[k] += v
+        names = {}
+        for c in self.calls:
+            names[c["name"]] = names.get(c["name"], 0) + 1
+        return total, names
+
+
+def _train_steps():
+    """``_Calls`` on ``Trainer.train_step``, for the trainers ``cli.train``
+    builds: each update also with its frames and the seq2seq attention
+    window's gate."""
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    return _Calls((Trainer, "train_step"), extra=lambda tr, batch, *a: dict(
+        frames=int(batch["audio"].shape[1]), window=tr._window_active()))
 
 
 def update_numbers(tr, batch):
     """One more update of a trained ``Trainer`` at learning rate 0: its wall
     time (drained), then one under the profiler: device busy time, idle share,
     launches on the card; peak memory of the two."""
+    return dict(batch=list(batch["audio"].shape),
+                **step_numbers(lambda: tr.train_step(batch, 0.0, 0.0, False, 12345)))
+
+
+def step_numbers(fn):
+    """``fn()`` (one step) timed on the wall (drained), then once more under
+    the profiler: device busy time, idle share, launches on the card; the peak
+    memory of the two."""
     import torch
 
-    args = (batch, 0.0, 0.0, False, 12345)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    tr.train_step(*args)
+    fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    prof = profile_device(lambda: tr.train_step(*args))
-    events = list(device_events(prof))
+    events = list(device_events(profile_device(fn)))
     busy = sum(e.self_device_time_total for e in events) / 1e3
-    return dict(batch=list(batch["audio"].shape), wall_ms=wall_ms, device_busy_ms=busy,
-                idle_share=1 - busy / wall_ms, device_launches=sum(e.count for e in events),
-                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    return dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
+                device_launches=sum(e.count for e in events),
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                top_kernels_ms={e.key[:80]: e.self_device_time_total / 1e3 for e in top})
 
 
 def criterion_share(tr, batch):
@@ -3472,17 +3543,18 @@ def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
         kernels.reset_launches()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with _StepRecorder() as rec:
+        with _train_steps() as rec:
             tr = train_main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = card_launches(f"{name} {dt} training",
                                  None if expect is None else {k: v * n for k, v in expect.items()})
-        steps = rec.steps
+        steps = rec.calls
         if len(steps) != n or not all(s["finite"] and math.isfinite(s["loss"]) for s in steps):
             fail(f"{name} {dt}: {len(steps)} updates, {[(s['loss'], s['finite']) for s in steps]}")
         if any(s["launches"]["mfsc"] != 1 for s in steps):
-            fail(f"{name} {dt}: an update launched K1 other than once: {steps}")
+            fail(f"{name} {dt}: an update launched K1 other than once: "
+                 f"{[st['launches'] for st in steps]}")
         span = steps[-1]["end"] - steps[0]["end"]
         largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
         batch = pad_batch_rows(tr.train_ds.materialize(largest), 1)
@@ -3654,16 +3726,16 @@ def asg_path(tmp, corpus, smi_line):
     laps["first_batch"] = time.perf_counter() - t_phase
     runs = trained_runs("conv_glu", flags, ASG_UPDATES, smi_line)
     laps["train"] = time.perf_counter() - t_phase
-    # continue the bf16 run by 2 updates through the binary
+    # continue the bf16 run by 1 update through the binary
     rundir, run = flags["rundir"], "conv_glu_bfloat16"
     n0 = ASG_UPDATES["bfloat16"]
     tr = train_main(["continue", f"--rundir={rundir}", f"--runname={run}",
-                     f"--iter={n0 + 2}", f"--reportiters={n0 + 2}"])
+                     f"--iter={n0 + 1}", f"--reportiters={n0 + 1}"])
     last = os.path.join(rundir, run, "model_last.bin")
     ckpt = load_checkpoint(last)
     trans = tr.criterion.transitions.detach().cpu()
     eye = 4.0 * torch.eye(n_classes)
-    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) \
+    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 1, n0 + 1, 0) \
             or not torch.equal(ckpt.crit_state_dict["transitions"], trans) \
             or torch.equal(trans, eye):
         fail(f"conv_glu continue: updates {tr.updates}/{ckpt.updates}, skipped {tr.skipped}, "
@@ -3979,9 +4051,9 @@ def s2s_path(name, tmp, corpus, smi_line):
     ``--encoderdim=512``) or 17 (``recipes/transformer_s2s``, its
     ``train.cfg``) at full width through the port's binaries on phase 13's
     corpus (its shortest utterances; letters, not the recipes' word pieces):
-    the first batch card against CPU, the path's kernels at its shapes, 3 fp32
-    and 3 bf16 updates and ``continue`` for 2 (the window's gate as the recipe
-    sets it), the decoder card against CPU, the beams, then ``cli.test`` and
+    the first batch card against CPU, the path's kernels at its shapes,
+    ``S2S_UPDATES`` fp32 and bf16 updates and ``continue`` for 2 (seq2seq_tds,
+    across its window's switch) or 1 (the window's gate as the recipe sets it), the decoder card against CPU, the beams, then ``cli.test`` and
     ``cli.decode``."""
     import torch
 
@@ -4023,24 +4095,27 @@ def s2s_path(name, tmp, corpus, smi_line):
                         expect=per_update)
     laps["train"] = time.perf_counter() - t_phase
     windows = {dt: r["windows"] for dt, r in runs.items()}
-    # continue the bf16 run by 2 updates through the binary
+    # continue the bf16 run through the binary: across the attention window's
+    # switch where the recipe has one (seq2seq_tds's, at --pretrainWindow =
+    # 3), else by one update
+    n_cont = 1 if cfg.trainWithWindow else 2
     rundir, run = flags["rundir"], f"{name}_bfloat16"
     n0 = S2S_UPDATES["bfloat16"]
-    with _StepRecorder() as rec:
+    with _train_steps() as rec:
         tr = train_main(["continue", f"--rundir={rundir}", f"--runname={run}",
-                         f"--iter={n0 + 2}", f"--reportiters={n0 + 2}"])
+                         f"--iter={n0 + n_cont}", f"--reportiters={n0 + n_cont}"])
     last = os.path.join(rundir, run, "model_last.bin")
     ckpt = load_checkpoint(last)
-    windows["continue"] = [st["window"] for st in rec.steps]
+    windows["continue"] = [st["window"] for st in rec.calls]
     # the window's gate as the recipe sets it: seq2seq_tds on while updates <
     # --pretrainWindow (3), transformer_s2s always on (--trainWithWindow)
     want = {k: [bool(cfg.trainWithWindow) or u < cfg.pretrainWindow for u in range(a, b)]
             for k, (a, b) in dict(float32=(0, S2S_UPDATES["float32"]), bfloat16=(0, n0),
-                                  **{"continue": (n0, n0 + 2)}).items()}
-    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + 2, n0 + 2, 0) or windows != want \
-            or not all(math.isfinite(st["loss"]) for st in rec.steps):
+                                  **{"continue": (n0, n0 + n_cont)}).items()}
+    if (tr.updates, ckpt.updates, tr.skipped) != (n0 + n_cont,) * 2 + (0,) \
+            or windows != want or not all(math.isfinite(st["loss"]) for st in rec.calls):
         fail(f"{name} continue: updates {tr.updates}/{ckpt.updates}, skipped {tr.skipped}, "
-             f"windows {windows}, losses {[st['loss'] for st in rec.steps]}")
+             f"windows {windows}, losses {[st['loss'] for st in rec.calls]}")
     del tr
     torch.cuda.empty_cache()
     laps["continue"] = time.perf_counter() - t_phase
@@ -4070,8 +4145,8 @@ LM_TOKENS, LM_BATCH, LM_BPTT, LM_UPDATES = 1_000_000, 16, 64, 30
 LM_TRAIN = dict(lr=0.5, momentum=0.9, maxgradnorm=0.1, reportiters=10, seed=0)
 LM_ROW_TOL = 1e-4  # ConvLM log10 rows, card against CPU, fp32: 40 layers of 2048-term sums
 LM_REQUESTS = 32  # deferred requests of the rows' check (one bucket of 32 on each side)
-LM_TEST_UTTS = 4
-LM_PY_UTTS = 2  # the native beam's words against the Python beam's
+LM_TEST_UTTS = 2
+LM_PY_UTTS = 1  # the native beam's words against the Python beam's
 LM_DECODE = dict(lmtype="convlm", lm_memory=20000, lmweight=1.0, wordscore=1.0,
                  beamsize=32, beamthreshold=25, smearing="max", uselexicon=True,
                  decodertype="wrd", nthread_decoder=2, batchsize=4)
@@ -4399,7 +4474,7 @@ def layers_train_continue(root, corpus, smi_line):
                  momentum=0.9, maxgradnorm=1.0, compute_dtype="float32", nthread=2, seed=0,
                  iter=2, reportiters=2)
     kernels.reset_launches()
-    with _StepRecorder() as rec:
+    with _train_steps() as rec:
         train_main(["train"] + [f"--{k}={v}" for k, v in flags.items()])
         last = os.path.join(flags["rundir"], "layers", "model_last.bin")
         saved = load_checkpoint(last).state_dict
@@ -4410,7 +4485,7 @@ def layers_train_continue(root, corpus, smi_line):
         tr.run()
     end = load_checkpoint(last)
     launches = card_launches("layers arch training")
-    losses = [s["loss"] for s in rec.steps]
+    losses = [s["loss"] for s in rec.calls]
     moved = (end.state_dict["seq.01_BN.var"] - saved["seq.01_BN.var"]).abs().max().item()
     out = dict(updates=end.updates, losses=losses, buffers_reloaded_equal=reloaded,
                bn_var_moved_in_continue=moved, launches=launches, nvidia_smi=smi_line)
@@ -4620,15 +4695,16 @@ def mls_path(root, corpus, smi_line):
     from wav2letter_tpu_torch import kernels
 
     kernels.reset_launches()
-    with _StepRecorder() as rec:
+    with _train_steps() as rec:
         train_main(["continue", f"--rundir={flags['rundir']}", f"--runname={run}",
                     f"--iter={n0 + 1}", f"--reportiters={n0 + 1}"])
     card_launches("mls continue", per_update)
     last = os.path.join(flags["rundir"], run, "model_last.bin")
     ckpt = load_checkpoint(last)
-    if ckpt.updates != n0 + 1 or len(rec.steps) != 1 or not rec.steps[0]["finite"] \
+    if ckpt.updates != n0 + 1 or len(rec.calls) != 1 or not rec.calls[0]["finite"] \
             or Config.deserialize(ckpt.config).arch != MLS_PLUGIN:
-        fail(f"mls continue: update {ckpt.updates}, steps {rec.steps}")
+        fail(f"mls continue: update {ckpt.updates}, "
+             f"steps {[(c['loss'], c['finite']) for c in rec.calls]}")
     kernels.reset_launches()
     t0 = time.perf_counter()
     res = test_main([f"--am={last}", f"--test={test_lst}", "--batchsize=4"])
@@ -4643,7 +4719,7 @@ def mls_path(root, corpus, smi_line):
                                                                          n_batches)))
     laps["test"] = time.perf_counter() - t_phase
     out = dict(n_params=n_params, batch=[B, T, Ta], first_batch=first, runs=runs,
-               k4_rows=rows_k4, continued=dict(loss=rec.steps[0]["loss"]), test=test,
+               k4_rows=rows_k4, continued=dict(loss=rec.calls[0]["loss"]), test=test,
                kernel_rows={f"{k[0]}@{k[1]}": v for k, v in kernel_rows.items()},
                laps_s=laps, nvidia_smi=smi_line)
     log(f"[mls] {json.dumps(dict(rows_k4=rows_k4, update=runs['float32'].get('update'), test=test, laps=laps))}")
@@ -4843,6 +4919,521 @@ def hooks_path(tmp, corpus, smi_line, seed, parallel=True):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the semi- and self-supervised trainers
+# ---------------------------------------------------------------------------
+CPC_ARCHS = [os.path.join(REPO, "recipes", "cpc", f"{n}.arch")
+             for n in ("encoder", "context", "predict")]
+CPC_CFG = os.path.join(REPO, "recipes", "cpc", "pretrain.cfg")
+SLIM_CFG = os.path.join(REPO, "recipes", "slimipl", "train.cfg")
+LPM_CFG = os.path.join(REPO, "recipes", "local_prior_match", "train.cfg")
+# phase 13's corpus, its shortest utterances; CPC's first batch card against
+# CPU takes the 4 shortest, so that the CPU's full-width update stays short
+CPC_UTTS, CPC_CHECK_UTTS = 16, 4
+SLIM_UTTS, SLIM_UPDATES = 32, 6
+LPM_UTTS, LPM_CHECK_UTTS = 16, 4
+IPL_TRAIN_UTTS, IPL_UNSUP_UTTS = 16, 8
+# per update of either phase, as recipes/cpc's archs imply: the encoder's
+# first conv (C 1 512 10 5 3 on raw audio) is time-only and takes the audio
+# (K2, no dgrad, K2b); its four 512-channel convs are past K2's shared memory
+# (F.conv2d), its LNs plain; each of the six TR layers takes K3 twice, and K4
+# only where T <= bptt = 128 frames, 0.64 s of audio at the encoder's stride of
+# 80 samples, far below phase 13's utterances (unfused attention). No K1: raw
+# features.
+CPC_SPEC = dict(name="cpc", per_forward={"time_conv": 1, "residual_ln": 12},
+                per_backward={"time_conv_wgrad": 1, "residual_ln_bwd": 12})
+# an LPM proposal: one forward of seq2seq_tds's encoder (its greedy decode runs
+# no kernel of ours)
+LPM_SPEC = S2S_RECIPES["seq2seq_tds"]
+# recipes/local_prior_match/train.cfg runs in neither package as it stands: it
+# sets no features for seq2seq_tds's arch (80 banks: that recipe's --mfsc
+# --filterbanks=80) and no --encoderdim, which its content attention needs to
+# equal the arch's output of 1024
+LPM_FIX = dict(mfsc=True, filterbanks=N_FEAT, encoderdim=1024)
+
+
+def _argv(flags):
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def _kernel_shapes():
+    """Wraps ``KERNELS.time_conv`` and ``KERNELS.residual_ln``: each call's
+    key as ``check_time_conv`` (B, T, F, C, CO, K, stride, pads) and
+    ``check_residual_ln`` (R, D) take it; ``restore`` undoes it."""
+    from wav2letter_tpu_torch import kernels
+
+    convs, lns = [], []
+    tc, ln = kernels.KERNELS.time_conv, kernels.KERNELS.residual_ln
+
+    def time_conv(z, w, freq, stride, pads, *a, **kw):
+        K, C, CO = w.shape
+        convs.append((z.shape[0], z.shape[1], freq, C, CO, K, stride, tuple(pads)))
+        return tc(z, w, freq, stride, pads, *a, **kw)
+
+    def residual_ln(x, *a, **kw):
+        lns.append(tuple(x.shape))
+        return ln(x, *a, **kw)
+
+    kernels.KERNELS.time_conv, kernels.KERNELS.residual_ln = time_conv, residual_ln
+
+    def restore():
+        kernels.KERNELS.time_conv, kernels.KERNELS.residual_ln = tc, ln
+
+    return convs, lns, restore
+
+
+def _grads(net):
+    return {n: (p.grad.detach().float().cpu() if p.grad is not None else None)
+            for n, p in net.named_parameters()}
+
+
+def cpc_semi(root, corpus, smi_line):
+    """``recipes/cpc`` (``pretrain.cfg``: raw audio, B = 8, adam; its three
+    archs at full width) on phase 13's shortest utterances, the list both
+    ``--train`` and ``--train2``: the first batch (the 4 shortest) card
+    against CPU in the unsupervised phase (the card's draws given to the CPU,
+    dropout and layerdrop 0 in a copy of the context arch); 2 unsupervised and 2
+    supervised updates through ``cli.train_cpc``, each update's launches held
+    to ``CPC_SPEC``; ``continue`` for 1; a ``--pretrainmodel`` start from the
+    saved model; one steady update's numbers; K2, K2b, K3 and K3b at the
+    largest batch's shapes against their plain versions."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train_cpc import main as cpc_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+    from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    lst, secs = shortest(corpus["train"], os.path.join(root, "train.lst"), CPC_UTTS)
+    check_lst, _ = shortest(corpus["train"], os.path.join(root, "check.lst"), CPC_CHECK_UTTS)
+    flags = dict(flagsfile=CPC_CFG, arch=",".join(CPC_ARCHS), train=lst, train2=lst,
+                 tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 rundir=os.path.join(root, "runs"), runname="cpc", nthread=2, seed=0)
+    alternate = dict(unsupdates=1, supdates=1)  # CPC flags: one update of each in turn
+    per_update = expected_launches(CPC_SPEC, 1, 0)
+    laps = {}
+
+    # the first batch, card against CPU: the same seeded weights on both
+    nodrop = _cut_arch(CPC_ARCHS[1], os.path.join(root, "context_nodrop.arch"))
+    cfg = Config.from_sources(argv=_argv(dict(
+        flags, train=check_lst, train2=check_lst, batchsize=CPC_CHECK_UTTS, rundir="",
+        runname="", arch=",".join([CPC_ARCHS[0], nodrop, CPC_ARCHS[2]]))))
+    card, cpu = (CPCTrainer(cfg, cpc_flags=alternate, device=d) for d in ("cuda", "cpu"))
+    n_params = sum(p.numel() for p in card.net.parameters())
+    log(f"[cpc] phase 20: {n_params} parameters (encoder, context, predict, criterion) | "
+        f"{smi_line}")
+    ds = card.unsup_ds
+    batch = pad_batch_rows(ds.materialize(ds.batch_specs(shuffle_seed=cfg.seed)[0]), 1)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss_c, _, draws = card.unsup_step(batch, 0.0, 7)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card_launches("cpc first batch", per_update)
+    g_card = _grads(card.net)
+    t0 = time.perf_counter()
+    loss_p = cpu.unsup_step(batch, 0.0, 7, draws={k: v.cpu() for k, v in draws.items()})[0]
+    cpu_s = time.perf_counter() - t0
+    errs = _leaf_errors(g_card, _grads(cpu.net), {})
+    worst = sorted(errs, key=errs.get, reverse=True)
+    first = dict(batch=list(batch["audio"].shape), loss_card=loss_c, loss_cpu=loss_p,
+                 loss_rel_err=abs(loss_c - loss_p) / abs(loss_p), n_leaves=len(errs),
+                 card_s=card_s, cpu_s=cpu_s,
+                 worst_leaves=[dict(name=k, rel_l2=errs[k]) for k in worst[:3]])
+    first["ok"] = bool(math.isfinite(loss_c) and first["loss_rel_err"] <= CARD_CPU_TOL[0]
+                       and errs[worst[0]] <= CARD_CPU_TOL[1])
+    log(f"[cpc first batch] {json.dumps(first)}")
+    if not first["ok"]:
+        fail(f"cpc: the first batch's loss or gradients on the card differ from the CPU: "
+             f"{json.dumps(first)}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    laps["first_batch"] = time.perf_counter() - t_phase
+
+    # 2 unsupervised and 2 supervised updates, continue for 1, pretrainmodel
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
+        tr = cpc_main(["train"] + _argv(dict(flags, **alternate)) + ["--iter=4"])
+    launches, names = rec.held("cpc training", {"unsup_step": per_update,
+                                                "sup_step": per_update})
+    phases = [c["name"] for c in rec.calls]
+    if phases != ["unsup_step", "sup_step"] * 2 or tr.updates != 4:
+        fail(f"cpc: updates {tr.updates}, phases {phases}")
+    ends = [c["end"] for c in rec.calls]
+    train = dict(updates=4, phases=phases, losses=[c["loss"] for c in rec.calls],
+                 s_per_update=(ends[-1] - ends[0]) / 3, launches=launches,
+                 peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30)
+    largest = max(tr.unsup_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+    big = pad_batch_rows(tr.unsup_ds.materialize(largest), 1)
+    convs, lns, restore = _kernel_shapes()  # one update's calls, at the largest batch
+    try:
+        tr.unsup_step(big, 0.0, 99)
+    finally:
+        restore()
+    train["update"] = dict(batch=list(big["audio"].shape),
+                           **step_numbers(lambda: tr.unsup_step(big, 0.0, 99)))
+    del tr
+    torch.cuda.empty_cache()
+    laps["train"] = time.perf_counter() - t_phase
+    with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
+        tr = cpc_main(["continue"] + _argv(dict(flags, **alternate)) + ["--iter=5"])
+    rec.held("cpc continue", {"unsup_step": per_update, "sup_step": per_update})
+    last = os.path.join(flags["rundir"], "cpc", "model_last.bin")
+    ckpt = load_checkpoint(last)
+    if tr.updates != 5 or ckpt.updates != 5 or [c["name"] for c in rec.calls] != ["unsup_step"]:
+        fail(f"cpc continue: updates {tr.updates}/{ckpt.updates}, "
+             f"{[c['name'] for c in rec.calls]}")
+    del tr
+    cfg = Config.from_sources(argv=_argv(dict(flags, runname="cpc_pretrained", iter=1)))
+    tr = CPCTrainer(cfg, cpc_flags=dict(alternate, pretrainmodel=last), device="cuda")
+    same = all(torch.equal(v.cpu(), ckpt.state_dict[k]) for k, v in tr.net.state_dict().items())
+    with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
+        tr.run()
+    rec.held("cpc pretrained", {"unsup_step": per_update, "sup_step": per_update})
+    if not same or tr.updates != 1:
+        fail(f"cpc --pretrainmodel: weights loaded {same}, updates {tr.updates}")
+    del tr
+    torch.cuda.empty_cache()
+    laps["continue_pretrain"] = time.perf_counter() - t_phase
+
+    # the path's kernels at the largest batch's shapes (fp32: CPC trains fp32)
+    if len(convs) != 1 or len(lns) != 12 or len(set(lns)) != 1:
+        fail(f"cpc: one forward's K2 calls {convs}, K3 calls {lns}")
+    details = []
+    rows = {"time_conv": check_time_conv(convs, "float32", details),
+            "time_conv_wgrad": check_time_conv_backward(convs, "float32",
+                                                        details)["time_conv_wgrad"],
+            "residual_ln": check_residual_ln(lns, "float32", details),
+            "residual_ln_bwd": check_residual_ln_bwd(lns, "float32", details)}
+    bad = [r for r in details if not r["ok"]]
+    if bad:
+        fail(f"cpc: {len(bad)} kernel checks disagree with the plain versions: "
+             f"{json.dumps(bad[0])}")
+    laps["kernels"] = time.perf_counter() - t_phase
+    out = dict(n_params=n_params, audio_s=secs, first_batch=first, training=train,
+               kernel_rows={k: [{kk: r[kk] for kk in ("name", "dtype", "shape", "calls", "ms",
+                                                        "plain_ms", "library_ms", "bound_ms",
+                                                        "bound_by", "max_abs_err")}
+                                for r in v] for k, v in rows.items()},
+               laps_s=laps, nvidia_smi=smi_line)
+    log(f"[cpc] {json.dumps(dict(training=train, laps=laps))} | {smi_line}")
+    return out
+
+
+def slimipl_semi(root, corpus, smi_line):
+    """``recipes/slimipl/train.cfg`` (the flagship at full width, B = 16) on
+    phase 13's shortest utterances, the list both ``--train`` and
+    ``--train2`` (its transcripts meter the PLs' quality), through
+    ``cli.train_slimipl`` with ``--slimIPL_start=2``: type ``cache``, then
+    ``fixed-pre-cache`` with the EMA and soft labels (a fixed cache of 2
+    batches), ``SLIM_UPDATES`` updates each; every model update's launches
+    held to phase 6's (1 K1, 15 K2 + 14 dgrad, 15 K2b, 22 K3, 22 K3b) and every
+    PL generation's to a forward's (1 K1, 15 K2, 22 K3); then ``continue``
+    with the caches (and the EMA) restored in equal bits, for one update; one
+    steady update's numbers."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train_slimipl import main as slim_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.runtime.train import Trainer
+    from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    lst, secs = shortest(corpus["train"], os.path.join(root, "train.lst"), SLIM_UTTS)
+    flags = dict(flagsfile=SLIM_CFG, arch=ARCH, train=lst, train2=lst,
+                 tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 rundir=os.path.join(root, "runs"), nthread=2, seed=0,
+                 iter=SLIM_UPDATES, reportiters=0, slimIPL_start=2, **FLAGSHIP["flags"])
+    expect = {"train_step": expected_launches(FLAGSHIP, 1, 0),
+              "soft_step": expected_launches(FLAGSHIP, 1, 0),
+              "_pl_forward": expected_launches(FLAGSHIP, 0, 1)}
+    targets = ((Trainer, "train_step"), (SlimIPLTrainer, "soft_step"),
+               (SlimIPLTrainer, "_pl_forward"))
+    out, laps = {}, {}
+    for name, extra in (("cache", dict(slimIPL_type="cache")),
+                        ("fixed_soft_ema", dict(slimIPL_type="fixed-pre-cache",
+                                                slimIPL_fixed_cache_updates=2,
+                                                slimIPL_ema="true", slimIPL_use_soft="true"))):
+        argv = _argv(dict(flags, runname=name, **extra))
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with _Calls(*targets) as rec:
+            tr = slim_main(["train"] + argv)
+        launches, calls = rec.held(f"slimIPL {name}", expect)
+        if tr.updates != SLIM_UPDATES or not calls.get("_pl_forward") \
+                or calls.get("train_step", 0) + calls.get("soft_step", 0) < 3 \
+                or (name != "cache" and not calls.get("soft_step")):
+            fail(f"slimIPL {name}: updates {tr.updates}, calls {calls}")
+        run = dict(calls=calls, launches=launches, losses=[c["loss"] for c in rec.calls
+                                                           if c["loss"] is not None],
+                   cache=len(tr.cache), soft_cache=len(tr.soft_cache),
+                   fixed_cache=list(tr.fixed_cache), pl_quality_wer=tr.pl_quality.error_rate(),
+                   peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30)
+        if name == "cache":
+            largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+            run["update"] = update_numbers(tr, pad_batch_rows(tr.train_ds.materialize(largest),
+                                                              1))
+        saved = (dict(tr.cache), {k: v.copy() for k, v in tr.soft_cache.items()},
+                 list(tr.fixed_cache), tr._cache_hits, tr._label_cursor,
+                 None if tr.ema_model is None else [p.detach().cpu().clone() for p in
+                                                   tr.ema_model.parameters()])
+        del tr
+        torch.cuda.empty_cache()
+        # continue: the caches come back as the run left them, then one update
+        cfg = Config.from_sources(argv=[f"--rundir={flags['rundir']}", f"--runname={name}",
+                                        f"--iter={SLIM_UPDATES + 1}"])
+        ipl_flags = {k: v for k, v in dict(flags, **extra).items() if k.startswith("slimIPL")}
+        ipl_flags = {k: (v == "true" if v in ("true", "false") else v)
+                     for k, v in ipl_flags.items()}
+        tr = SlimIPLTrainer(cfg, ipl_flags=ipl_flags, mode="continue", device="cuda")
+        ema = None if tr.ema_model is None else [p.detach().cpu() for p in
+                                                 tr.ema_model.parameters()]
+        same = (tr.cache == saved[0] and sorted(tr.soft_cache) == sorted(saved[1])
+                and all(tr.soft_cache[k].dtype == v.dtype and np.array_equal(tr.soft_cache[k], v)
+                        for k, v in saved[1].items())
+                and (list(tr.fixed_cache), tr._cache_hits, tr._label_cursor) == saved[2:5]
+                and (ema is None) == (saved[5] is None)
+                and (ema is None or all(torch.equal(a, b) for a, b in zip(ema, saved[5]))))
+        with _Calls(*targets) as rec:
+            tr.run()
+        rec.held(f"slimIPL {name} continue", expect)
+        if not same or tr.updates != SLIM_UPDATES + 1:
+            fail(f"slimIPL {name} continue: caches restored {same}, updates {tr.updates}")
+        run["continued"] = dict(restored=dict(cache=len(saved[0]), soft_cache=len(saved[1]),
+                                              fixed_cache=saved[2], ema=saved[5] is not None),
+                                calls=[c["name"] for c in rec.calls])
+        del tr
+        torch.cuda.empty_cache()
+        out[name] = run
+        laps[name] = time.perf_counter() - t_phase
+        log(f"[slimipl {name}] {json.dumps(run)}")
+    out.update(laps_s=laps, nvidia_smi=smi_line, audio_s=secs)
+    return out
+
+
+def _greedy_ties(card, cpu, batch, proposals):
+    """The card's proposals (fp32) step by step on the CPU copy of the
+    proposal decoder, over the card's encoder states: a row may part from the
+    CPU's greedy choice only at a step whose top-2 margin there is within
+    ``S2S_TIE`` (counted), and each row's proposal is the card's greedy path."""
+    import torch
+
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+
+    b = card._to_device(pad_batch_rows(batch, 1))
+    with torch.no_grad():
+        feats, flen = card.featurizer(b["audio"], b["audio_len"])
+        em, elen = card.proposal_model(feats.float(), flen)
+        toks, lens = (t.cpu() for t in card.proposal_crit.greedy_path(em.float(), elen))
+        em, elen = em.float().cpu(), elen.cpu()
+        crit, c = cpu.proposal_crit, cpu.proposal_crit.cfg
+        B, T = em.shape[:2]
+        mask = torch.arange(T)[None, :] < elen[:, None]
+        state, prev = crit.init_state(B), torch.full((B,), c.eos_idx)
+        parted, ties, compared = [False] * B, 0, 0
+        for u in range(min(int(lens.max()) + 1, toks.shape[1]) if lens.numel() else 0):
+            state, lg = crit.decode_step(state, prev, em, mask, u)
+            best = lg.argmax(dim=-1)
+            for i in range(B):
+                if not parted[i] and u <= int(lens[i]):
+                    compared += 1
+                    if int(best[i]) != int(toks[i, u]):
+                        margin = (lg[i, best[i]] - lg[i, int(toks[i, u])]).item()
+                        if margin > S2S_TIE:
+                            fail(f"lpm: proposal token {u} of row {i}: card {int(toks[i, u])}, "
+                                 f"CPU {int(best[i])}, margin {margin}")
+                        parted[i], ties = True, ties + 1
+            prev = toks[:, u].long()
+    paths = [[int(t) for t in toks[i, : int(lens[i])]] for i in range(B)]
+    if [h[0] if h else [] for h, _ in proposals] != paths:
+        fail(f"lpm: the proposals are not the card's greedy paths: {proposals}, {paths}")
+    return dict(greedy_steps_compared=compared, greedy_ties=ties)
+
+
+def lpm_semi(root, corpus, smi_line):
+    """``recipes/local_prior_match/train.cfg`` (``seq2seq_tds``, with
+    ``LPM_FIX``: the recipe sets neither its features nor ``--encoderdim``) on
+    phase 13's shortest utterances (letters), the list both paired and
+    unpaired, phase 13's 3-gram as the prior: one unpaired batch's proposals
+    (the 4 shortest, fp32) card against CPU on the same seeded weights, a
+    row parting only at a tie (``_greedy_ties``); then 2
+    paired and 2 unpaired updates with ``--propupdate=2`` through
+    ``cli.train_lpm``, each update's launches held to phase 16's and each
+    proposal's to an encoder forward's (1 K1, 14 K2), the proposal refreshed
+    after updates 2 and 4; one steady update's numbers."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.train_lpm import main as lpm_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.runtime.train import Trainer
+    from wav2letter_tpu_torch.runtime.train_lpm import LPMTrainer
+
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    lst, secs = shortest(corpus["train"], os.path.join(root, "train.lst"), LPM_UTTS)
+    flags = dict(flagsfile=LPM_CFG, arch=os.path.join(REPO, "recipes", "seq2seq_tds",
+                                                      "network.arch"),
+                 train=lst, train2=lst, tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 lm=corpus["lm"], rundir=os.path.join(root, "runs"), runname="lpm",
+                 nthread=2, seed=0, **S2S_LETTERS, **LPM_FIX)
+    per_update, per_prop = expected_launches(LPM_SPEC, 1, 0), expected_launches(LPM_SPEC, 0, 1)
+    laps = {}
+    cfg = Config.from_sources(argv=_argv(dict(flags, compute_dtype="float32")))
+    fl = dict(unpairedBatchsize=LPM_CHECK_UTTS)
+    card = LPMTrainer(cfg, lpm_flags=fl, device="cuda")
+    cpu = LPMTrainer(cfg, lpm_flags=fl, device="cpu")
+    ds = card.unpaired_ds
+    spec = min(ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+    batch = ds.materialize(spec)
+    kernels.reset_launches()
+    got = card._propose(batch)
+    card_launches("lpm proposal", per_prop)
+    t0 = time.perf_counter()
+    want = cpu._propose(batch)
+    cpu_s = time.perf_counter() - t0
+    prop = dict(batch=list(batch["audio"].shape), tokens=[len(h[0]) if h else 0 for h, _ in got],
+                cpu_s=cpu_s, rows_equal=sum(g == w for g, w in zip(got, want)),
+                **_greedy_ties(card, cpu, batch, got))
+    log(f"[lpm proposals] {json.dumps(prop)}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    laps["proposals"] = time.perf_counter() - t_phase
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with _Calls((Trainer, "train_step"), (LPMTrainer, "_proposal_tokens")) as rec:
+        tr = lpm_main(["train"] + _argv(flags) + ["--iter=4", "--propupdate=2"])
+    launches, calls = rec.held("lpm training", {"train_step": per_update,
+                                                "_proposal_tokens": per_prop})
+    if tr.updates != 4 or calls != {"train_step": 4, "_proposal_tokens": 2} \
+            or tr.refreshed_at != [2, 4]:
+        fail(f"lpm: updates {tr.updates}, calls {calls}, refreshed {tr.refreshed_at}")
+    ends = [c["end"] for c in rec.calls if c["name"] == "train_step"]
+    largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+    run = dict(updates=4, calls=calls, launches=launches, refreshed_at=tr.refreshed_at,
+               losses=[c["loss"] for c in rec.calls if c["loss"] is not None],
+               s_per_update=(ends[-1] - ends[0]) / 3,
+               peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30,
+               update=update_numbers(tr, pad_batch_rows(tr.train_ds.materialize(largest), 1)))
+    del tr
+    torch.cuda.empty_cache()
+    laps["train"] = time.perf_counter() - t_phase
+    log(f"[lpm] {json.dumps(run)}")
+    return dict(proposals=prop, training=run, audio_s=secs, laps_s=laps, nvidia_smi=smi_line)
+
+
+def ipl_semi(root, corpus, smi_line):
+    """``cli.ipl`` on the flagship at full width (phase 6's training flags,
+    B = 16) on phase 13's shortest training utterances, its shortest test
+    utterances unlabeled: a seed round of 2 updates, then one round of 2 whose
+    PLs come from the native lexicon beam with phase 13's 3-gram, stopped once
+    the round's PLs are written and resumed from ``ipl_state.json`` (the PLs
+    written again, equal); every update's and every forward's launches held;
+    one steady update's numbers."""
+    import torch
+
+    import wav2letter_tpu_torch.runtime.ipl as ipl
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.ipl import main as ipl_main
+    from wav2letter_tpu_torch.data.batching import pad_batch_rows
+    from wav2letter_tpu_torch.runtime.test import Evaluator
+    from wav2letter_tpu_torch.runtime.train import Trainer
+
+    os.environ.setdefault("W2L_REQUIRE_NATIVE", "1")
+    t_phase = time.perf_counter()
+    os.makedirs(root, exist_ok=True)
+    train_lst, _ = shortest(corpus["train"], os.path.join(root, "train.lst"), IPL_TRAIN_UTTS)
+    unsup_lst, unsup_secs = shortest(corpus["test"], os.path.join(root, "unsup.lst"),
+                                     IPL_UNSUP_UTTS)
+    flags = dict(arch=ARCH, criterion="ctc", mfsc=True, filterbanks=N_FEAT, onorm="target",
+                 sqnorm=True, compute_dtype="bfloat16", train=train_lst,
+                 tokens=corpus["tokens"], lexicon=corpus["lexicon"], rundir=root,
+                 runname="ipl", nthread=2, seed=0, reportiters=0, lm=corpus["lm"],
+                 lmweight=1.0, wordscore=0.5, beamsize=50, beamsizetoken=10,
+                 beamthreshold=25, smearing="max", **FLAGSHIP["flags"], **FLAGSHIP["train"])
+    argv = _argv(flags) + [f"--unsup_train={unsup_lst}", "--ipl_rounds=1",
+                           "--ipl_seed_iters=2", "--ipl_round_iters=2",
+                           "--ipl_max_ngram_repeats=100"]
+    expect = {"train_step": expected_launches(FLAGSHIP, 1, 0),
+              "emissions": expected_launches(FLAGSHIP, 0, 1)}
+    targets = ((Trainer, "train_step"), (Evaluator, "emissions"))
+    write = ipl.write_pseudo_labeled_list
+
+    class Stop(Exception):
+        pass
+
+    def write_then_stop(*a):
+        n = write(*a)
+        raise Stop(n)
+
+    kernels.reset_launches()
+    ipl.write_pseudo_labeled_list = write_then_stop
+    try:
+        with _Calls(*targets) as rec:
+            ipl_main(argv)
+        fail("ipl: the loop did not reach the round's pseudo-labels")
+    except Stop as e:
+        n_pl = e.args[0]
+    finally:
+        ipl.write_pseudo_labeled_list = write
+    first, first_calls = rec.held("ipl to the PLs", expect)
+    run = os.path.join(root, "ipl")
+    with open(os.path.join(run, "ipl_state.json")) as f:
+        state = json.load(f)
+    with open(os.path.join(run, "pl_round01.lst")) as f:
+        pls = f.read()
+    if state["round"] != 1 or first_calls.get("train_step") != 2 \
+            or not first_calls.get("emissions"):
+        fail(f"ipl: state {state}, calls {first_calls}")
+    t0 = time.perf_counter()
+    with _Calls(*targets) as rec:
+        state = ipl_main(argv)
+    resume_s = time.perf_counter() - t0
+    second, second_calls = rec.held("ipl resumed", expect)
+    with open(os.path.join(run, "pl_round01.lst")) as f:
+        same = f.read() == pls
+    if state["round"] != 2 or second_calls.get("train_step") != 2 or not same:
+        fail(f"ipl resumed: state {state}, calls {second_calls}, PLs equal {same}")
+    tr = [c["obj"] for c in rec.calls if c["name"] == "train_step"][-1]
+    largest = max(tr.train_ds.batch_specs(), key=lambda sp: sp.max_input_frames)
+    update = update_numbers(tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
+    del tr, rec
+    torch.cuda.empty_cache()
+    out = dict(n_pl=n_pl, unsup_utts=IPL_UNSUP_UTTS, unsup_audio_s=unsup_secs,
+               to_pls=dict(calls=first_calls, launches=first),
+               resumed=dict(calls=second_calls, launches=second, wall_s=resume_s,
+                            pls_equal=same),
+               history=state["history"], update=update,
+               phase_s=time.perf_counter() - t_phase, nvidia_smi=smi_line)
+    log(f"[ipl] {json.dumps(out)}")
+    return out
+
+
+def semi_path(tmp, corpus, smi_line):
+    """Phase 20: CPC, slimIPL, LPM and IPL at full width (``cpc_semi``,
+    ``slimipl_semi``, ``lpm_semi``, ``ipl_semi``)."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "semi")
+    out, laps = {}, {}
+    for name, fn in (("cpc", cpc_semi), ("slimipl", slimipl_semi), ("lpm", lpm_semi),
+                     ("ipl", ipl_semi)):
+        out[name] = fn(os.path.join(root, name), corpus, smi_line)
+        laps[name] = time.perf_counter() - t_phase
+    out.update(laps_s=laps, phase_s=time.perf_counter() - t_phase)
+    log(f"[semi] phase 20 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | {smi_line}")
+    return out
+
+
 def seeded_ams(tmp, s):
     """``--only lm``: the three AMs of phase 18 at their seeded initial
     weights (the ``Trainer``'s own) on the corpus of the soak ``s``, saved as
@@ -4874,11 +5465,12 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="", choices=["", "s2s", "lm", "hooks"],
+    ap.add_argument("--only", default="", choices=["", "s2s", "lm", "hooks", "semi"],
                     help="s2s: phases 1, 2, 16 and 17 alone, on phase 13's corpus and LM "
                          "made without its training; lm: phases 1, 2 and 18 alone, on "
                          "phase 13's corpus, with the AMs at their seeded weights; hooks: "
-                         "phases 1, 2 and 19 alone, on phase 13's corpus; each prints no "
+                         "phases 1, 2 and 19 alone, on phase 13's corpus; semi: phases 1, "
+                         "2 and 20 alone, on phase 13's corpus and LM; each prints no "
                          "result line")
     ap.add_argument("--corpus", default="",
                     help="with --only: phase 13's corpus directory, where it is made "
@@ -4955,6 +5547,11 @@ def main() -> None:
                     if args.ams else None
             elif args.only == "lm":
                 ams = seeded_ams(tmp, s)
+            elif args.only == "semi":
+                s.phase_lm()
+                log(f"[time] phase 20 starts at {time.perf_counter() - t_start:.1f} s")
+                out["semi"] = semi_path(tmp, dict(s.paths, lm=os.path.join(s.root, "lm3.arpa")),
+                                        smi_line)
             if ams:
                 log(f"[time] phase 18 starts at {time.perf_counter() - t_start:.1f} s")
                 out["lm"] = lm_path(tmp, s.paths, ams, smi_line)
@@ -5138,6 +5735,17 @@ def main() -> None:
         s2s = {k: v for k, v in s2s.items() if k in S2S_RECIPES or k == "lm"}
         log(f"[time] phases 19, 16, 17, 18 end at {time.perf_counter() - t_start:.1f} s")
 
+        # 20. the semi- and self-supervised trainers, in a process of their own
+        # for the same reason; it makes phase 13's corpus and LM again
+        semi_dir = os.path.join(tmp, "semi_out")
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--only", "semi",
+                                "--out", semi_dir, "--seed", str(args.seed)], timeout=600)
+        if child.returncode != 0:
+            fail(f"phase 20 (a child process) exited {child.returncode}")
+        with open(os.path.join(semi_dir, "chip_smoke_semi.json")) as f:
+            semi = json.load(f)["semi"]
+        log(f"[time] phase 20 ends at {time.perf_counter() - t_start:.1f} s")
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -5211,6 +5819,22 @@ def main() -> None:
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
             library_ms=agg["library_ms"], per="update on the largest training batch"
             if name.endswith("_bwd") else "forward of the largest training batch"))
+    # phase 20: CPC's K2 and K2b (the encoder's first conv on raw audio) and K3,
+    # K3b (its context's rows of 768) at its largest batch, fp32, launches of
+    # its 4 updates
+    cpc = semi["cpc"]
+    for name in ("time_conv", "time_conv_wgrad", "residual_ln", "residual_ln_bwd"):
+        agg = per_forward(cpc["kernel_rows"][name])
+        replaces, source = TPU_KERNELS[name]
+        kernels_line.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, model="cpc",
+            launches=cpc["training"]["launches"][name],
+            launches_per_update=expected_launches(CPC_SPEC, 1, 0)[name], dtype="float32",
+            max_abs_err=agg["max_abs_err"], ms=agg["ms"], plain_ms=agg["plain_ms"],
+            bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
+            library_ms=agg["library_ms"], per="update on the largest training batch"
+            if name in ("time_conv_wgrad", "residual_ln_bwd")
+            else "forward of the largest training batch"))
     summary = dict(kernels=kernels_line)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -5225,7 +5849,7 @@ def main() -> None:
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
                            soak=soaked, conv_glu=asg, resnet_ctc=resnet, **s2s,
-                           hooks=hooks,
+                           hooks=hooks, semi=semi,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

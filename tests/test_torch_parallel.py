@@ -22,6 +22,7 @@ takes rows ``d::2`` of each global batch.
 * random streams: with dropout and SpecAugment the replicas stay identical
   while the ranks' dropout masks and K4 seeds differ;
 * BatchNorm at dp2: the global batch's statistics, against one process;
+* slimIPL with soft labels over a fixed cache: 2 ranks against one process;
 * TP: a 1024x2048 linear (also under novograd), TDS blocks, a transformer
   (K4's plain version on 2 of 4 heads; with 1 head the unfused path) and
   conv_glu's weight-normed convs (split over their time taps, as JAX splits
@@ -46,6 +47,7 @@ import torch
 from tests.test_parallel_equivalence import BIG_ARCH, SMALL_ARCH
 from tests.test_torch_asg import asg_dataset, asg_flags
 from tests.util_synth import make_dataset
+from tests.util_torch_parallel import spy_losses
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from wav2letter_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -56,6 +58,7 @@ from wav2letter_tpu_torch.parallel.distributed import init_distributed
 from wav2letter_tpu_torch.parallel.mesh import MeshSpec, mesh_coords
 from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint, params_to_jax_tree
 from wav2letter_tpu_torch.runtime.train import Trainer
+from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GROUP_TIMEOUT = 240  # seconds; a hung collective fails the fixture
@@ -137,19 +140,21 @@ def _wait(procs):
     return outs
 
 
-def _one_process(flags, mode="train", init="", threads=None):
+def _one_process(flags, mode="train", init="", threads=None, ipl=None):
     """A run in this process; with ``threads``, on as many CPU threads. The
     ranks run on one (``OMP_NUM_THREADS=1``). The CPU GEMMs round by their
     thread count: on the big arch one bias entry's second gradient moves by
     40% between 1 and 8 threads of one process at equal parameters (an input
     within rounding of a ReLU's kink, by all appearances), and novograd,
     which divides a tensor's step by its gradient's norm, carries that into
-    the parameters at 7.8e-5 after 3 updates."""
+    the parameters at 7.8e-5 after 3 updates. With ``ipl``, a
+    ``SlimIPLTrainer`` on those slimIPL flags."""
     cfg = Config()
     cfg.update(flags)
-    tr = Trainer(cfg, mode=mode, init_model_path=init, device="cpu")
-    losses, add = [], tr.meters.train.loss.add
-    tr.meters.train.loss.add = lambda v, n=1: (losses.append(float(v)), add(v, n))
+    kw = dict(mode=mode, init_model_path=init, device="cpu")
+    tr = SlimIPLTrainer(cfg, ipl_flags=ipl, **kw) if ipl else Trainer(cfg, **kw)
+    losses = []
+    spy_losses(tr, losses)
     before = torch.get_num_threads()
     if threads:
         torch.set_num_threads(threads)
@@ -195,6 +200,17 @@ def world(tmp_path_factory):
     asg = asg_flags(*asg_dataset(rd("asg_data"), 16, 13), batchsize=4, iter=4,
                     rundir=rd("asg"), runname="run")
     bn = _base(data, archs, "bn", rd("bn"), iter=3)
+    # slimIPL on the list without its transcripts: 2 supervised updates, then
+    # windows of 1 + 2 over a fixed cache of 2 soft-labeled batches (its PLs
+    # labeled by each rank for its rows, the soft loss over the global frames)
+    unsup = rd("unsup.lst")
+    with open(data[0]) as f, open(unsup, "w") as g:
+        g.writelines(" ".join(line.split()[:3]) + "\n" for line in f)
+    slim = _base(data, archs, "small", rd("slim"), batchsize=4, iter=9, train2=unsup)
+    slim_ipl = dict(slimIPL_start=2, slimIPL_sup_updates=1, slimIPL_unsup_updates=2,
+                    slimIPL_type="fixed-pre-cache", slimIPL_use_soft=True,
+                    slimIPL_fixed_cache_updates=2, slimIPL_fixed_cache_update_prob=0.5,
+                    slimIPL_ema=True, slimIPL_ema_decay=0.9)
     two = [
         dict(flags=dp, mode="fork", init=init, out=rd("out/dp")),
         # update 2's checkpoint, continued to 4 (compared with update 4's)
@@ -207,6 +223,7 @@ def world(tmp_path_factory):
                          saug_start_update=0, saug_tmaskt=8, saug_fmaskf=4),
              spy_dropout=True, out=rd("out/noisy")),
         dict(flags=dict(bn, batchsize=4), out=rd("out/bn")),
+        dict(flags=slim, ipl=slim_ipl, out=rd("out/slim")),
     ]
     four = []
     for name, (arch, kw, tp) in TP_CASES.items():
@@ -226,6 +243,8 @@ def world(tmp_path_factory):
                                      rundir=rd("one_dyn"))),
             "asg": _one_process(dict(asg, batchsize=8, rundir=rd("one_asg"))),
             "bn": _one_process(dict(bn, rundir=rd("one_bn"))),
+            "slim": _one_process(dict(slim, batchsize=8, rundir=rd("one_slim")),
+                                 ipl=slim_ipl),
         }
         for name, (arch, kw, _) in TP_CASES.items():
             if _ref(name) not in one:
@@ -298,6 +317,26 @@ def test_two_ranks_equal_one_process(world, case):
         for k in stats:
             assert torch.equal(r0["params"][k], r1["params"][k]), k
         assert not torch.equal(r0["params"][stats[1]], torch.ones_like(r0["params"][stats[1]]))
+
+
+def test_two_ranks_with_slimipl_soft_labels_equal_one_process(world):
+    """slimIPL with soft labels on 2 ranks: every supervised and soft-label
+    update's loss is the global batch's, and the replicas equal one process
+    at twice the rows; each rank labels its own rows, and the caches written
+    hold every row's labels."""
+    r0, r1 = world["ranks"]("slim", 2)
+    one = world["one"]["slim"]
+    assert r0["updates"] == r1["updates"] == one["updates"] == 9
+    assert r0["losses"] == r1["losses"]
+    kinds = [k for k, _ in one["losses"]]
+    assert [k for k, _ in r0["losses"]] == kinds and kinds.count("unsup") >= 2
+    np.testing.assert_allclose([v for _, v in r0["losses"]], [v for _, v in one["losses"]],
+                               rtol=1e-4, atol=1e-5)
+    for k, v in r0["params"].items():
+        assert torch.equal(v, r1["params"][k]), k
+    _close(r0["params"], one["params"], rtol=1e-3, atol=1e-5)
+    with np.load(os.path.join(world["rd"]("slim"), "run", "pl_cache_soft.npz")) as z:
+        assert len(z.files) == 16
 
 
 def test_two_ranks_with_asg_equal_one_process(world):

@@ -154,6 +154,14 @@ def test_cli_runs_without_jax(jax_checkpoint):
         "from wav2letter_tpu_torch.data import sfx\n"
         "from wav2letter_tpu_torch.features import HostFeaturizer\n"
         "load_plugin_module('recipes/mls/mling_plugin.py', 40, 30)\n"
+        # the semi- and self-supervised trainers, their CLIs and tools
+        "import wav2letter_tpu_torch.cli.train_cpc, wav2letter_tpu_torch.cli.train_slimipl\n"
+        "import wav2letter_tpu_torch.cli.train_lpm, wav2letter_tpu_torch.cli.ipl\n"
+        "from wav2letter_tpu_torch.runtime import train_cpc, train_slimipl, train_lpm, ipl\n"
+        "from wav2letter_tpu_torch.runtime import profiling\n"
+        "from wav2letter_tpu_torch.criterions import cpc\n"
+        "from wav2letter_tpu_torch.data import scheduler\n"
+        "from wav2letter_tpu_torch.tools import pseudo_label\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "bad = [m for m in sys.modules if m == 'wav2letter_tpu' or "
         "m.startswith('wav2letter_tpu.')]\n"
@@ -245,7 +253,19 @@ def test_port_imports_no_jax():
             "wav2letter_tpu_torch/tools/convlm_import.py",
             "wav2letter_tpu_torch/models/plugin.py",
             "wav2letter_tpu_torch/plugins/mling.py",
-            "wav2letter_tpu_torch/data/sfx.py"} <= rel
+            "wav2letter_tpu_torch/data/sfx.py",
+            "wav2letter_tpu_torch/criterions/cpc.py",
+            "wav2letter_tpu_torch/data/scheduler.py",
+            "wav2letter_tpu_torch/tools/pseudo_label.py",
+            "wav2letter_tpu_torch/runtime/profiling.py",
+            "wav2letter_tpu_torch/runtime/train_cpc.py",
+            "wav2letter_tpu_torch/runtime/train_slimipl.py",
+            "wav2letter_tpu_torch/runtime/train_lpm.py",
+            "wav2letter_tpu_torch/runtime/ipl.py",
+            "wav2letter_tpu_torch/cli/train_cpc.py",
+            "wav2letter_tpu_torch/cli/train_slimipl.py",
+            "wav2letter_tpu_torch/cli/train_lpm.py",
+            "wav2letter_tpu_torch/cli/ipl.py"} <= rel
     bad = {os.path.relpath(p, REPO): sorted(set(_imported_roots(p)) & FORBIDDEN)
            for p in files}
     assert not {k: v for k, v in bad.items() if v}

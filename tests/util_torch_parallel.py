@@ -3,8 +3,9 @@
     python -m tests.util_torch_parallel RANK WORLD RENDEZVOUS JOBS.json
 
 Joins a gloo group through a ``file://`` rendezvous (no port to race for),
-then runs each job of the JSON list in turn: a ``Trainer`` on the CPU on the
-job's flags, in its mode, with the spies the job asks for (and JAX's
+then runs each job of the JSON list in turn: a ``Trainer`` (a
+``SlimIPLTrainer`` where the job gives ``ipl`` flags) on the CPU on the job's
+flags, in its mode, with the spies the job asks for (and JAX's
 2^20-element split threshold lowered where the job names a
 ``min_shard_size``). What the test
 compares goes to ``<job out>/rank<R>.pt``. Imports neither JAX nor the JAX
@@ -27,6 +28,7 @@ from wav2letter_tpu_torch.config import Config
 from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
 from wav2letter_tpu_torch.parallel import sharding
 from wav2letter_tpu_torch.runtime.train import Trainer
+from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 
 def _spy_attention(tr, calls):
@@ -62,6 +64,19 @@ def _spy_dropout(masks):
     return orig
 
 
+def spy_losses(tr, losses):
+    """Record every loss the trainer meters, in order: ``("sup", v)`` and,
+    for slimIPL, ``("unsup", v)``; a plain ``Trainer``'s as floats."""
+    meters = [("sup", tr.meters.train)]
+    if hasattr(tr, "meters_unsup"):
+        meters.append(("unsup", tr.meters_unsup))
+    for kind, m in meters:
+        def add(v, n=1, kind=kind, orig=m.loss.add):
+            losses.append((kind, float(v)) if len(meters) > 1 else float(v))
+            orig(v, n)
+        m.loss.add = add
+
+
 def run_job(job, rank):
     if job.get("resume_from"):  # continue from an earlier checkpoint of another run
         run = os.path.join(job["flags"]["rundir"], job["flags"]["runname"])
@@ -75,11 +90,11 @@ def run_job(job, rank):
         cfg = Config()
         cfg.update(job["flags"])
     sharding.MIN_SHARD_SIZE = job.get("min_shard_size") or 2**20
-    tr = Trainer(cfg, mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
-                 device="cpu")
+    kw = dict(mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
+              device="cpu")
+    tr = SlimIPLTrainer(cfg, ipl_flags=job["ipl"], **kw) if job.get("ipl") else Trainer(cfg, **kw)
     losses, attn, masks = [], [], []
-    add = tr.meters.train.loss.add
-    tr.meters.train.loss.add = lambda v, n=1: (losses.append(float(v)), add(v, n))
+    spy_losses(tr, losses)
     _spy_attention(tr, attn)
     orig = _spy_dropout(masks) if job.get("spy_dropout") else None
     try:

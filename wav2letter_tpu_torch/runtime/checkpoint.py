@@ -195,6 +195,14 @@ def jax_param_name(key: str) -> str:
     return _rename(key, _RES_TO_JAX).replace(".", "/")
 
 
+# The CPC trainer's four parameter groups (``runtime/train_cpc.py``): the
+# encoder, context and predict archs and the criterion, whose two flax
+# ``Dense`` layers (``kernel`` (in, out)) are ``nn.Linear`` here (``weight``
+# (out, in)).
+CPC_GROUPS = ("enc", "ctx", "prd", "cpc")
+_CPC_DENSE = re.compile(r"^cpc\.(mutual_enc|mutual_ctx)\.weight$")
+
+
 def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`convert_jax_params`: a state dict, or any dict of
     tensors under the port's dotted names (gradients, optimizer slots), as the
@@ -205,7 +213,10 @@ def params_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         *path, leaf = jax_param_name(key).split("/")
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = t.detach().float().cpu().numpy()
+        a = t.detach().float().cpu().numpy()
+        if _CPC_DENSE.match(key):
+            leaf, a = "kernel", a.T
+        node[leaf] = a
     return tree
 
 
@@ -222,7 +233,17 @@ def convert_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     layers' ``E`` ``weight``, ``ADAPTIVEE`` ``emb{i}``/``proj{i}``, ``POSEMB``
     ``embedding``, the RNN cells ``l{k}d{d}/{ii,hi,...}``, ``vocab_proj``), so the
     conversion is a path rename and a copy; a residual block's layers move
-    under the block (``_RES_TO_PORT``)."""
+    under the block (``_RES_TO_PORT``). The CPC trainer's tree of four groups
+    (``CPC_GROUPS``) converts group by group, the criterion's ``Dense``
+    kernels transposed into ``nn.Linear`` weights."""
+    if isinstance(tree, dict) and set(tree) == set(CPC_GROUPS):
+        out = {}
+        for g in CPC_GROUPS:
+            for k, v in convert_jax_params(tree[g]).items():
+                if g == "cpc" and k.endswith(".kernel"):
+                    k, v = k[: -len("kernel")] + "weight", v.t().contiguous()
+                out[f"{g}.{k}"] = v
+        return out
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Any, prefix: str) -> None:

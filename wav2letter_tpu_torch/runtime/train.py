@@ -89,6 +89,12 @@ from .meters import TrainMeters, get_log_string, sync_meters
 from .test import S2S_CRITERIONS, encoder_dim, path_tokens, resolve_device, target_tokens
 
 
+def update_seed(base: int, update: int) -> int:
+    """The seed of update ``update``'s draws from a run's ``base``: a function
+    of the update index, not of a running stream, so ``continue`` replays them."""
+    return base * 1_000_003 + update
+
+
 class Trainer:
     def __init__(self, cfg: Config, mode: str = "train", init_model_path: str = "",
                  device: str = "cuda"):
@@ -126,6 +132,7 @@ class Trainer:
         elif mode != "train":
             raise ValueError(f"unknown mode {mode!r}: train, continue or fork")
         self.cfg = cfg
+        self._resume = resume  # the checkpoint started from, for subclasses
 
         # the card featurizes unless the host was asked for by name (JAX's
         # default is the host); a continue keeps the run's choice
@@ -277,8 +284,20 @@ class Trainer:
               generator: Optional[torch.Generator] = None,
               rows: Optional[torch.Tensor] = None):
         """Masked mean of the per-sample losses, the fp32 emissions and their
-        lengths; ``rows`` (default: the batch's) divides the masked sum. No
-        dither: the JAX trainer passes no dither key either."""
+        lengths; ``rows`` (default: the batch's) divides the masked sum."""
+        em, elen = self._emissions(b, train, saug_on, generator)
+        with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
+            kw = dict(train=train, window=self._window_active()) if self.is_s2s else {}
+            losses = self.criterion(em, b["target"], elen, b["target_len"], **kw)
+            rm = b["row_mask"]
+            loss = (losses * rm).sum() / (rm.sum() if rows is None else rows).clamp(min=1.0)
+        return loss, em, elen
+
+    def _emissions(self, b, train: bool, saug_on: bool = False,
+                   generator: Optional[torch.Generator] = None):
+        """The fp32 emissions of a batch on the device and their lengths:
+        features (or the host's), SpecAugment, the model. No dither: the JAX
+        trainer passes no dither key either."""
         with self._timed(self.meters.fwd_timer, "w2l/forward"):
             with torch.no_grad():
                 if "feats" in b:  # featurized in the data threads
@@ -292,13 +311,7 @@ class Trainer:
                 em, elen = self._remat_forward(feats, flen, generator)
             else:
                 em, elen = self.model(feats, flen, generator=generator)
-            em = em.float()
-        with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
-            kw = dict(train=train, window=self._window_active()) if self.is_s2s else {}
-            losses = self.criterion(em, b["target"], elen, b["target_len"], **kw)
-            rm = b["row_mask"]
-            loss = (losses * rm).sum() / (rm.sum() if rows is None else rows).clamp(min=1.0)
-        return loss, em, elen
+            return em.float(), elen
 
     def _remat_forward(self, feats, flen, generator):
         """The model's forward, recomputed in the backward as ``jax.checkpoint``
@@ -328,7 +341,6 @@ class Trainer:
         viterbi path, path lengths), the loss that of the global batch. A
         non-finite loss or gradient zeroes the gradients, and the optimizers
         still step (momentum moves the params), as in the JAX step."""
-        cfg = self.cfg
         self.model.train()
         self.criterion.train()
         b = self._to_device(batch)
@@ -343,18 +355,47 @@ class Trainer:
         stats = [b.clone() for b in self.model.buffers()]
         rows = None
         if self.mesh.distributed:  # the global batch's real rows
-            rows = b["row_mask"].sum()
-            dist.all_reduce(rows, group=self.mesh.data_group)
+            rows = self._global_count(b["row_mask"].sum())
         loss, em, elen = self._loss(b, True, saug_on, gen, rows)
         with self._timed(self.meters.bwd_timer, "w2l/backward"):
             (loss * self.amp_scale).backward()
         with torch.no_grad():  # before the update moves the criterion's params
             vit, vlen = self._viterbi(em, elen)
+        loss_v, finite = self._apply_update(named, loss, stats, lr, lr_crit, self.amp_scale)
+        return loss_v, finite, vit, vlen
+
+    def _step_seed(self, base: int) -> int:
+        """The draws' seed of this update on this rank: a function of the
+        global update index, not a running stream, and of the data index, so
+        each rank draws for its own rows (the ranks of a model group compute
+        one replicated activation and must draw alike). Index 0 draws as one
+        process does. The step is golden-ratio sized because the CPU
+        generator keeps only a seed's low 32 bits."""
+        return update_seed(base, self.updates) + self.mesh.data_index * 0x9E3779B9
+
+    def _global_count(self, local) -> torch.Tensor:
+        """``local`` (a count of this rank's rows or frames) summed over the
+        data ranks: the divisor of a global batch's loss, and the count on
+        which every rank takes the same branch."""
+        n = torch.as_tensor(local, dtype=torch.float32, device=self.device).clone()
+        if self.mesh.distributed:
+            dist.all_reduce(n, group=self.mesh.data_group)
+        return n
+
+    def _apply_update(self, named, loss, stats, lr: float, lr_crit: Optional[float],
+                      amp_scale: float = 1.0):
+        """The end of an update, after the backward of ``loss * amp_scale``
+        over the ``named`` parameters: unscale, sum the gradients and the loss
+        over the ranks, clip by the global norm and step. A non-finite loss
+        or gradient zeroes the gradients and puts back the buffers ``stats``;
+        the optimizers still step (momentum moves the params), as in the JAX
+        step. ``lr_crit`` None leaves the criterion's optimizer alone.
+        Returns (the global batch's loss, finite)."""
         with self._timed(self.meters.optim_timer, "w2l/optimizer"):
             rep = [p.grad for n, p in named if p.grad is not None and n not in self.sharded]
             shard = [p.grad for n, p in named if p.grad is not None and n in self.sharded]
-            if self.amp_scale != 1.0:
-                torch._foreach_mul_(rep + shard, 1.0 / self.amp_scale)
+            if amp_scale != 1.0:
+                torch._foreach_mul_(rep + shard, 1.0 / amp_scale)
             loss = loss.detach().reshape(1).clone()
             with record_function("w2l/all_reduce"):
                 all_reduce_grads(self.mesh, rep + [loss], shard)
@@ -369,12 +410,13 @@ class Trainer:
                 torch._foreach_zero_(grads)
                 for b, old in zip(self.model.buffers(), stats):
                     b.copy_(old)
-            elif cfg.maxgradnorm > 0:
-                scale = min(1.0, cfg.maxgradnorm / (gn_v + 1e-12))
+            elif self.cfg.maxgradnorm > 0:
+                scale = min(1.0, self.cfg.maxgradnorm / (gn_v + 1e-12))
                 torch._foreach_mul_(grads, scale)
             self.net_opt.step(lr)
-            self.crit_opt.step(lr_crit)
-        return loss_v, finite, vit, vlen
+            if lr_crit is not None:
+                self.crit_opt.step(lr_crit)
+        return loss_v, finite
 
     @torch.no_grad()
     def eval_step(self, batch):
@@ -426,6 +468,10 @@ class Trainer:
         gathered over the model group where ``name`` is a column shard."""
         return gather_full(self.mesh, t) if name in self.sharded else t
 
+    def _ckpt_extra(self) -> Dict:
+        """Subclass hook: more state for the checkpoint's ``extra``."""
+        return {}
+
     def save(self, tag: Optional[str] = None):
         """Collective under tensor parallelism (every rank gathers the
         shards); rank 0 writes, the others wait at a barrier."""
@@ -443,7 +489,7 @@ class Trainer:
                 state_dict=state, crit_state_dict=self.criterion.state_dict(),
                 opt_state=opt, crit_opt_state=self.crit_opt.state_dict(),
                 extra={"amp_scale": self.amp_scale, "amp_good": self._amp_good,
-                       "host_features": self.host_features})
+                       "host_features": self.host_features, **self._ckpt_extra()})
             save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
             if tag:
                 save_checkpoint(os.path.join(self.rundir, f"model_{tag}.bin"), ckpt)
@@ -485,14 +531,7 @@ class Trainer:
                 self.meters.timer.start()
                 lr = self.net_sched(self.updates, self.epoch)
                 lr_crit = self.crit_sched(self.updates, self.epoch)
-                # a function of the global update index, not a running stream,
-                # and of the data index: each rank draws for its own rows (the
-                # ranks of a model group compute one replicated activation and
-                # must draw alike). Index 0 draws as one process does. The step
-                # is golden-ratio sized because the CPU generator keeps only a
-                # seed's low 32 bits.
-                seed = ((cfg.seed + 7) * 1_000_003 + self.updates
-                        + self.mesh.data_index * 0x9E3779B9)
+                seed = self._step_seed(cfg.seed + 7)
                 saug_on = 0 <= cfg.saug_start_update <= self.updates
                 batch = pad_batch_rows(batch, 1)
                 n_rows = batch["audio_len"].shape[0]
