@@ -60,8 +60,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    peak memory;
 7. phases 4-6 again for the transformer (``recipes/transformer_ctc/
    network.arch`` at full width and depth, 97,670,462 parameters): served at
-   batch 4 (1 K1, 12 K4, 24 K3 and no K2 per batch), trained at batch 8 with
-   adam, gradient clipping at 0.1, dropout 0.2 and layerdrop 0.1 (per update
+   batch 4 (1 K1, 12 K4, 24 K3 and no K2 per batch), trained at batch 8 (2
+   bf16 and 2 fp32 updates) with adam, gradient clipping at 0.1, dropout 0.2 and layerdrop 0.1 (per update
    12 K4, 12 K4b, 24 K3, 24 K3b; the loss must fall), resumed and served;
 8. the conformer (``recipes/conformer_ctc/network.arch`` at full width, 4 of
    its 16 layers): two updates and a validation pass on utterances of 4-6.3 s
@@ -112,7 +112,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    full width with dropout 0 and no SpecAugment (a copy of its arch) trains
    ``DP_UPDATES`` updates at 4 rows a rank against one process at 8, in fp32
    (with a validation pass and rank 0's checkpoint) and one update in bf16,
-   and 2 updates with ``--batching_strategy=dynamic``; the transformer's
+   and 1 update with ``--batching_strategy=dynamic``; the transformer's
    first 2 layers train at dp1 x mp2 (tensor parallelism: K4 and K4b on 2 of its 4 heads)
    where gloo gathers CUDA tensors; each run's launches are checked on both
    ranks, its losses and parameters held to one process (``DP_TOL``), the
@@ -121,7 +121,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    torchrun's variables (``--enable_distributed --world_size=1``) against
    the same one-process run. Updates/s, the gradient reduction's wall ms an
    update and its share, and the peak memory a rank are printed; gloo's are
-   gloo's, not NCCL's.
+   gloo's, not NCCL's. The same ranks run phase 21's CPC jobs on phase 13's
+   corpus, which this phase makes.
 13. the soak in small (``wav2letter_tpu_torch/tools/soak.py``, ``soak_path``):
    a 3-minute synthetic corpus from the port's ``synth_corpus``, its 3-gram
    LM, the flagship minus SAUG trained in bf16 at B = 16 for 20 updates in a
@@ -170,7 +171,7 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    first batch card against CPU as in 14, in fp32 only; the path's kernels at its shapes
    against their plain versions (K2, dgrad, K2b at C = 10, 14, 18; K4, K4b,
    K3, K3b at the transformer's); ``S2S_UPDATES`` updates in fp32 and bf16
-   through ``cli.train`` with every update's launches held to the arch (no
+   (transformer_s2s: one in bf16) through ``cli.train`` with every update's launches held to the arch (no
    K3 in seq2seq_tds), then ``continue`` (for 2 across seq2seq_tds's window
    switch, for 1 in transformer_s2s), the attention window's gate as the
    recipe sets it; on the trained model's encoder states the
@@ -241,6 +242,26 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    stopped once they are written and resumed from its state file. Each
    trainer prints one steady update's wall, device busy, idle share and peak
    memory, and its launches by kernel.
+21. the tools and the flashlight reader, in a child process of their own
+   (``--only tools`` runs phases 1, 2, the data and checkpoints of 4, the
+   corpus of 13 and 21 alone, with a seeded flagship for 13's and its own two
+   CPC ranks): (a) phase 4's fp32 flagship forged as a flashlight checkpoint
+   (96,660,482 parameters) through ``cli.test`` in bf16 and fp32 (emissions
+   equal in bits to the port's checkpoint's, 1 K1, 15 K2, 22 K3 a batch),
+   ``cli.decode`` with phase 10's 3-gram (phase 10's words) and
+   ``cli.convert_streaming`` with one utterance streamed (equal in bits to
+   the stream of the port's checkpoint); (b) ``tools/prod_scale.py``'s
+   200k-word lexicon and 4-gram (``PROD_LM_TOKENS``: its LM corpus cut) and
+   ``cli.decode`` of phase 13's flagship on 8 test utterances with the
+   probing ``.bin``, the ``.qt`` and the ARPA (the ``.bin``'s words the
+   ARPA's, all in the lexicon): manifest, set-up, rate, peak host RSS; (c)
+   phase 13's utterances as a LibriSpeech tree through ``data_prep`` and
+   ``wordpiece`` into ``cli.train --usewordpiece=true`` on the flagship (2
+   bf16 updates at B = 16, phase 6's launches each) and ``cli.test``; (d)
+   CPC (``recipes/cpc``, full width, fp32, B = 4 a rank) on two gloo ranks,
+   run by phase 12's ranks: one unsupervised and one supervised update and
+   ``continue`` for 1, held to one process at B = 8 (``CPC_DP_TOL``), the
+   replicas equal in bits, 1 K2, 1 K2b, 12 K3, 12 K3b an update a rank.
 
 Phase 3 times the paths' rows by the profiler (cold, plain, library; K1 also
 warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, the
@@ -297,6 +318,7 @@ LONG_LAYERS, LONG_BPTT = 2, 2000
 # transformer's counts are fixed. The transformer trains with its recipe's
 # flags, but the learning rate and warm-up (0.03 after 32000 updates) are cut
 # to what a few updates can show; SpecAugment starts at update 10000 there.
+# ``updates``: the spec's own depth where it is not ``TRAIN_UPDATES``.
 FLAGSHIP = dict(
     name="flagship", arch=ARCH, n_params=96_660_482, flags=dict(localnrmlleftctx=300),
     per_forward={"mfsc": 1, "time_conv": 15, "residual_ln": 22},
@@ -310,7 +332,7 @@ TRANSFORMER = dict(
     train=dict(batchsize=8, netoptim="adam", adambeta1=0.9, adambeta2=0.98, lr=5e-4,
                warmup=2, lr_sched="inv_sqrt", lr_step_decay=50000, maxgradnorm=0.1,
                saug_start_update=10000),
-    opt_slot="mu", loss_falls=True)
+    opt_slot="mu", loss_falls=True, updates={"bfloat16": 2, "float32": 2})
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PASSES = 1  # steady-state passes over the served list per type
@@ -1648,7 +1670,7 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
 
     rundir = os.path.join(tmp, "runs")
     results = {}
-    for dtype_name, n_updates in TRAIN_UPDATES.items():
+    for dtype_name, n_updates in spec.get("updates", TRAIN_UPDATES).items():
         flags = train_flags(spec, train_lst, serve_lst, tokens, lexicon, rundir, dtype_name,
                             n_updates)
         runname = flags["runname"]
@@ -1717,7 +1739,7 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
         torch.cuda.empty_cache()
 
     # continue: 2 more bf16 updates from model_last.bin, through the command line's main
-    n0 = TRAIN_UPDATES["bfloat16"]
+    n0 = spec.get("updates", TRAIN_UPDATES)["bfloat16"]
     kernels.reset_launches()
     runname = f"{spec['name']}_bfloat16"
     tr = train_main(["continue", f"--rundir={rundir}", f"--runname={runname}",
@@ -2779,7 +2801,8 @@ def _dp_rank(rank, world, init, jobs, out_dir):
         for job in jobs:
             if job.get("needs") and result["probe"][job["needs"]] != "ok":
                 continue
-            result["runs"][job["name"]] = _dp_job(job, rank)
+            result["runs"][job["name"]] = (_cpc_dp_job(job, rank) if job.get("cpc")
+                                           else _dp_job(job, rank))
         dist.barrier()
     except Exception:  # reported to the parent, which fails the phase
         result["error"] = traceback.format_exc()
@@ -2897,7 +2920,8 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
     of 4 heads) against one process, where gloo gathers CUDA tensors; one NCCL rank through
     ``cli.train`` with torchrun's variables against one process. The same
     ranks run phase 19's BatchNorm, novograd and conv_glu jobs
-    (``hook_parallel_jobs``)."""
+    (``hook_parallel_jobs``) and phase 21's CPC jobs (``cpc_rank_jobs``, on
+    phase 13's corpus, which this makes)."""
     import socket
 
     import torch
@@ -2921,7 +2945,7 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
         f.update(batchsize=batch, validbatchsize=batch, reportiters=DP_UPDATES, **kw)
         return f
 
-    dyn = dict(batching_strategy="dynamic", valid="", iter=2)
+    dyn = dict(batching_strategy="dynamic", valid="", iter=1)
     jobs = [
         dict(name="float32", flags=flags(fl_spec, "float32", DP_BATCH,
                                          rundir=os.path.join(root, "runs"))),
@@ -2936,8 +2960,15 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
     hook_root = os.path.join(root, "hooks")
     hdata = hook_data(hook_root, seed)
     hook_cases, hook_jobs = hook_parallel_jobs(hook_root, hdata)
+    # phase 21's CPC jobs on phase 20's utterances: phase 13's corpus, made
+    # here (phase 13 finds it made)
+    from wav2letter_tpu_torch.tools.soak import Soak
+
+    soak = Soak(os.path.join(tmp, "soak"), corpus=os.path.join(tmp, "soak_corpus"),
+                corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
+    soak.phase_corpus()
     t0 = time.perf_counter()
-    ranks = _run_ranks(DP_RANKS, jobs + hook_jobs, root)
+    ranks = _run_ranks(DP_RANKS, jobs + hook_jobs + cpc_rank_jobs(root, soak.paths), root)
     ranks_s = time.perf_counter() - t0
     probe = ranks[0]["probe"]
     log(f"[dp] gloo on CUDA tensors, {DP_RANKS} ranks on one card: {json.dumps(probe)}")
@@ -2954,7 +2985,7 @@ def data_parallel_path(tmp, train_lst, serve_lst, tokens, lexicon, smi_line, see
                     for k, v in build_arch_module(arch, N_FEAT, N_TOKENS + 1).state_dict().items()}
     out = dict(probe=probe, ranks_s=ranks_s, backend="gloo (2 ranks on one card)")
     for name, r in ranks[0]["runs"].items():
-        if name in hook_cases:
+        if name in hook_cases or name.startswith("cpc"):  # held in phases 19 and 21
             continue
         other = ranks[1]["runs"][name]
         spec = tr_spec if name == "tp" else fl_spec
@@ -3561,7 +3592,7 @@ def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
         res = dict(updates=n, losses=[s["loss"] for s in steps],
                    frames=[s["frames"] for s in steps], windows=[s["window"] for s in steps],
                    wall_s=wall,
-                   s_per_update=span / max(1, n - 1), launches=launches,
+                   s_per_update=span / (n - 1) if n > 1 else None, launches=launches,
                    peak_mem_gib_training=torch.cuda.max_memory_allocated() / 2**30,
                    nvidia_smi=smi_line)
         if not results:
@@ -3817,7 +3848,7 @@ S2S_RECIPES = {
         per_forward={"mfsc": 1, "time_conv": 14},
         per_backward={"time_conv": 13, "time_conv_wgrad": 14}),
     "transformer_s2s": dict(
-        phase=17, flags={},
+        phase=17, flags={}, updates={"float32": 2, "bfloat16": 1},
         per_forward={"mfsc": 1, "mhsa": 12, "residual_ln": 24},
         per_backward={"mhsa_bwd": 12, "residual_ln_bwd": 24}),
 }
@@ -4052,7 +4083,8 @@ def s2s_path(name, tmp, corpus, smi_line):
     ``train.cfg``) at full width through the port's binaries on phase 13's
     corpus (its shortest utterances; letters, not the recipes' word pieces):
     the first batch card against CPU, the path's kernels at its shapes,
-    ``S2S_UPDATES`` fp32 and bf16 updates and ``continue`` for 2 (seq2seq_tds,
+    ``S2S_UPDATES`` fp32 and bf16 updates (or the recipe's own ``updates``)
+    and ``continue`` for 2 (seq2seq_tds,
     across its window's switch) or 1 (the window's gate as the recipe sets it), the decoder card against CPU, the beams, then ``cli.test`` and
     ``cli.decode``."""
     import torch
@@ -4091,7 +4123,8 @@ def s2s_path(name, tmp, corpus, smi_line):
     # the criterion's share of an update: the GRU decoder's; the transformer
     # decoder's greedy decode (~42k launches) and, in phase 14, ASG's loops
     # (~35k) take too long to profile in the script's budget
-    runs = trained_runs(name, flags, S2S_UPDATES, smi_line, share=name == "seq2seq_tds",
+    updates = spec.get("updates", S2S_UPDATES)
+    runs = trained_runs(name, flags, updates, smi_line, share=name == "seq2seq_tds",
                         expect=per_update)
     laps["train"] = time.perf_counter() - t_phase
     windows = {dt: r["windows"] for dt, r in runs.items()}
@@ -4100,7 +4133,7 @@ def s2s_path(name, tmp, corpus, smi_line):
     # 3), else by one update
     n_cont = 1 if cfg.trainWithWindow else 2
     rundir, run = flags["rundir"], f"{name}_bfloat16"
-    n0 = S2S_UPDATES["bfloat16"]
+    n0 = updates["bfloat16"]
     with _train_steps() as rec:
         tr = train_main(["continue", f"--rundir={rundir}", f"--runname={run}",
                          f"--iter={n0 + n_cont}", f"--reportiters={n0 + n_cont}"])
@@ -4110,7 +4143,7 @@ def s2s_path(name, tmp, corpus, smi_line):
     # the window's gate as the recipe sets it: seq2seq_tds on while updates <
     # --pretrainWindow (3), transformer_s2s always on (--trainWithWindow)
     want = {k: [bool(cfg.trainWithWindow) or u < cfg.pretrainWindow for u in range(a, b)]
-            for k, (a, b) in dict(float32=(0, S2S_UPDATES["float32"]), bfloat16=(0, n0),
+            for k, (a, b) in dict(float32=(0, updates["float32"]), bfloat16=(0, n0),
                                   **{"continue": (n0, n0 + n_cont)}).items()}
     if (tr.updates, ckpt.updates, tr.skipped) != (n0 + n_cont,) * 2 + (0,) \
             or windows != want or not all(math.isfinite(st["loss"]) for st in rec.calls):
@@ -5434,6 +5467,587 @@ def semi_path(tmp, corpus, smi_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the tools, the flashlight reader and CPC on two ranks
+# ---------------------------------------------------------------------------
+# prod_scale's LM corpus, cut from the JAX default of 24,000,000 tokens so that
+# the build stays well inside the phase (a 200k-word pass of every lexicon word
+# comes on top); the full size is ``python -m wav2letter_tpu_torch.tools.
+# prod_scale --root DIR``
+PROD_LM_TOKENS = 200_000
+PROD_DECODE_UTTS = 8
+PROD_DECODE_FLAGS = ["--batchsize=4", "--beamsize=100", "--beamthreshold=25", "--lmweight=1",
+                     "--wordscore=0.5", "--smearing=max", "--nthread_decoder=1"]
+WP_UTTS, WP_VOCAB, WP_UPDATES = 16, 64, 2  # the wordpiece chain: utterances, pieces, updates
+# CPC on two gloo ranks against one process at the global batch: the recipe's
+# archs at full width, the context's dropout and layerdrop 0 (each rank draws
+# its own rows' masks), fp32; adam's epsilon 1e-4 as in tests/test_torch_cpc.py,
+# since the attention's key bias has a gradient of exactly 0 that both sides
+# compute as rounding noise, which adam's default epsilon turns into steps of
+# either sign. Loss (relative) and the parameters' distance from one process
+# as a share of the distance they moved, over the whole net.
+CPC_DP_RANKS, CPC_DP_BATCH = 2, 4  # ranks, rows a rank (B = 8 in all)
+CPC_DP_TOL = (1e-5, 1e-3)
+FL_PARTS = {"C2": ("",), "LN": ("",), "L": ("",),
+            "TDS": ("conv.", "ln1.", "lin1.", "lin2.", "ln2.")}
+
+
+def forge_flashlight(path, state, arch_path, gflags, noise=b"\x07\x00xyz"):
+    """``state`` (the port's state dict of ``arch_path``) as a flashlight
+    training checkpoint, the layout ``tests/util_torch_flashlight.py`` forges:
+    the version string, a cfg map holding ``gflags``, then each param as an
+    AF array (dims reversed, column-major) after ``noise``, in the reference
+    converter's ``params()`` order. Returns the bytes written."""
+    import struct
+
+    import numpy as np
+
+    def string(s):
+        b = s.encode()
+        return struct.pack("<Q", len(b)) + b
+
+    with open(arch_path) as f:
+        lines = [l.strip() for l in f if l.strip() and not l.strip().startswith("#")]
+    n = 0
+    with open(path, "wb") as f:
+        f.write(string("0.3") + struct.pack("<Q", 1) + string("gflags") + string(gflags))
+        for i, line in enumerate(lines):
+            kind = line.split()[0]
+            for part in FL_PARTS.get(kind, ()):
+                for leaf in ("weight", "bias"):
+                    a = np.ascontiguousarray(
+                        state[f"seq.{i:02d}_{kind}.{part}{leaf}"].float().numpy())
+                    dims = tuple(reversed(a.shape)) + (1,) * (4 - a.ndim)
+                    f.write(noise + struct.pack("<4q", *dims) + struct.pack("<I", 0)
+                            + struct.pack("<Q", a.nbytes) + a.tobytes())
+                    n += a.size
+        f.write(noise)
+    return n
+
+
+def _test_run(argv, sclite, em_dir, want):
+    """``cli.test`` on ``argv`` with ``--sclite`` and ``--emission_dir``,
+    its launches held to ``want``: (result, hypotheses, seconds)."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.test import main as test_main
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = test_main(argv + [f"--sclite={sclite}", f"--emission_dir={em_dir}"])
+    torch.cuda.synchronize()
+    card_launches(f"cli.test {argv[0]}", want)
+    lst = [a.split("=", 1)[1] for a in argv if a.startswith("--test=")][0]
+    return res, read_hyps(sclite, lst), time.perf_counter() - t0
+
+
+def flashlight_tools(root, paths, lst, secs, arpa, hyps10, n_batches, smi_line):
+    """Phase 21 (a): phase 4's flagship checkpoints (bf16 and fp32) as
+    flashlight checkpoints (``forge_flashlight``, their gflags the
+    checkpoints' flags) through ``cli.test`` (emissions equal in bits to the port's
+    checkpoint's, the same hypotheses and WER, 1 K1, 15 K2, 22 K3 a batch),
+    ``cli.decode`` with phase 10's 3-gram (phase 10's fp32 words), and
+    ``cli.convert_streaming`` then one utterance streamed (every chunk's
+    output equal in bits to the stream of the port's checkpoint's bundle)."""
+    import numpy as np
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli import convert_streaming, streaming_asr
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import read_list_file
+    from wav2letter_tpu_torch.data.audio import load_audio
+    from wav2letter_tpu_torch.inference import load_streaming_bundle
+    from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint
+
+    os.makedirs(root, exist_ok=True)
+    # one file a type: --compute_dtype is a training flag, read from the
+    # checkpoint's flags as the port's own checkpoints carry it
+    fls, out, cfg = {}, {}, None
+    for dt in ("bfloat16", "float32"):
+        ckpt = load_checkpoint(paths[dt])
+        cfg = Config.deserialize(ckpt.config)
+        fls[dt] = os.path.join(root, f"fl_{dt}.bin")
+        t0 = time.perf_counter()
+        n = forge_flashlight(fls[dt], ckpt.state_dict, cfg.arch,
+                             "\n".join(f"--{k}={v}" for k, v in cfg.asdict().items()) + "\n")
+        forge_s = time.perf_counter() - t0
+        if n != FLAGSHIP["n_params"]:
+            fail(f"flashlight: forged {n} parameters, expected {FLAGSHIP['n_params']}")
+        mb = os.path.getsize(fls[dt]) / 1e6
+        t0 = time.perf_counter()
+        got = load_checkpoint(fls[dt])
+        load_s = time.perf_counter() - t0
+        if got.extra.get("flashlight_version") != "0.3" or got.config != ckpt.config or set(
+                got.state_dict) != set(ckpt.state_dict) or not all(
+                    torch.equal(got.state_dict[k], v) for k, v in ckpt.state_dict.items()):
+            fail(f"flashlight {dt}: load_checkpoint of the forged file differs from the port's "
+                 "checkpoint")
+        log(f"[flashlight {dt}] forged {n} parameters, {mb:.1f} MB in {forge_s:.2f} s; "
+            f"load_checkpoint (header, scan, arch walk, conversion) {load_s:.2f} s | {smi_line}")
+        del got, ckpt
+        out[dt] = dict(n_params=n, mb=mb, forge_s=forge_s, load_s=load_s)
+    fl = fls["float32"]
+    serve = expected_launches(FLAGSHIP, 0, n_batches)
+    base = [f"--test={lst}", f"--batchsize={BATCH}"]
+    for dt in ("bfloat16", "float32"):
+        own = _test_run([f"--am={paths[dt]}"] + base, os.path.join(root, dt, "own"),
+                        os.path.join(root, dt, "own_em"), serve)
+        mine = _test_run([f"--am={fls[dt]}"] + base, os.path.join(root, dt, "fl"),
+                         os.path.join(root, dt, "fl_em"), serve)
+        unequal = []
+        for s in read_list_file(lst):
+            a, b = (np.load(os.path.join(root, dt, d, f"{s.sample_id}.npz"))["emission"]
+                    for d in ("own_em", "fl_em"))
+            if a.shape != b.shape or not np.array_equal(a, b):
+                unequal.append(s.sample_id)
+        row = dict(WER=mine[0]["WER"], TER=mine[0]["TER"], own_WER=own[0]["WER"],
+                   own_TER=own[0]["TER"], test_s=mine[2], own_test_s=own[2], launches=serve,
+                   emissions_equal=not unequal)
+        log(f"[flashlight cli.test {dt}] {json.dumps(row)}")
+        if unequal or mine[1] != own[1] or (mine[0]["WER"], mine[0]["TER"]) != (
+                own[0]["WER"], own[0]["TER"]):
+            fail(f"flashlight {dt}: cli.test differs from the port's checkpoint: emissions "
+                 f"of {unequal}, hypotheses equal {mine[1] == own[1]}")
+        out[dt].update(row)
+
+    os.environ["W2L_REQUIRE_NATIVE"] = "1"
+    runs = {}
+    for name, am in (("fl", fl),) + ((("own", paths["float32"]),) if hyps10 is None else ()):
+        d = os.path.join(root, "decode_" + name)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        res = decode_main([f"--am={am}", f"--test={lst}", f"--lm={arpa}", *DECODE_FLAGS,
+                           f"--sclite={d}"])
+        torch.cuda.synchronize()
+        card_launches(f"flashlight cli.decode {name}", serve)
+        runs[name] = dict(WER=res["WER"], wall_s=res["wall_s"], setup_s=res["setup_s"],
+                          hyps=read_hyps(d, lst))
+    want = hyps10 if hyps10 is not None else runs["own"]["hyps"]
+    if runs["fl"]["hyps"] != want:
+        fail("flashlight: cli.decode of the forged file decodes otherwise than phase 10")
+    out["decode"] = dict(WER=runs["fl"]["WER"], wall_s=runs["fl"]["wall_s"],
+                         setup_s=runs["fl"]["setup_s"], audio_s_per_wall_s=secs / (
+                             runs["fl"]["wall_s"] - runs["fl"]["setup_s"]),
+                         words_equal_phase10=True, phase10_in_this_run=hyps10 is not None)
+    log(f"[flashlight cli.decode float32] {json.dumps(out['decode'])}")
+
+    streams, meta = {}, None
+    opts = os.path.join(root, "decoder.json")
+    with open(opts, "w") as f:
+        json.dump(STREAM_DECODER, f)
+    shortest_utt = min(read_list_file(lst), key=lambda s: s.duration_ms)
+    for name, am in (("own", paths["float32"]), ("fl", fl)):
+        bundle = os.path.join(root, f"{name}.stream")
+        with contextlib.redirect_stdout(io.StringIO()):
+            convert_streaming.main([f"--am={am}", f"--out={bundle}"])
+        net, featp, meta = load_streaming_bundle(bundle, "cuda")
+        dec, word_dict, tok_dict, blank = streaming_asr.build_decoder(
+            {"lexicon_file": cfg.lexicon, "language_model_file": arpa,
+             "decoder_options_file": opts}, meta)
+        audio = load_audio(shortest_utt.audio_path, featp.sample_rate)
+        r = stream_one(net, featp, audio, dec)
+        streams[name] = dict(r, words=streaming_asr.result_words(
+            r["result"], word_dict, tok_dict, blank, str(meta["wordseparator"])))
+        del net
+    a, b = streams["own"], streams["fl"]
+    same = (a["cut"] == b["cut"] and a["tail"] == b["tail"] and np.array_equal(a["em"], b["em"])
+            and torch.equal(a["feats"], b["feats"]) and a["words"] == b["words"])
+    out["stream"] = dict(utterance=shortest_utt.sample_id, chunks=len(a["cut"]),
+                         frames=int(len(a["em"])), words=len(a["words"]), bit_equal=same)
+    log(f"[flashlight stream] {json.dumps(out['stream'])}")
+    if not same:
+        fail("flashlight: the stream of the forged file's bundle differs from the port's")
+    torch.cuda.empty_cache()
+    return out
+
+
+def prod_scale_tools(root, corpus, am, smi_line):
+    """Phase 21 (b): ``build_prod_artifacts`` (200k words, a 4-gram of
+    ``PROD_LM_TOKENS`` tokens) and ``cli.decode`` of phase 13's flagship on
+    ``PROD_DECODE_UTTS`` test utterances with the 200k lexicon and the
+    probing ``.bin``, the ``.qt`` and the ARPA (the native NgramLM): the
+    ``.bin``'s words the ARPA's, every word in the lexicon (but in a
+    hypothesis where the beam completed no word, which the decode spells
+    from its tokens)."""
+    import resource
+
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.decode import main as decode_main
+    from wav2letter_tpu_torch.runtime import decode as decode_module
+    from wav2letter_tpu_torch.tools.prod_scale import build_prod_artifacts
+
+    os.makedirs(root, exist_ok=True)
+    t0 = time.perf_counter()
+    art = build_prod_artifacts(os.path.join(root, "prod"), n_lexicon=200_000,
+                               lm_tokens=PROD_LM_TOKENS, order=4)
+    build_s = time.perf_counter() - t0
+    with open(art["manifest"]) as f:
+        manifest = json.load(f)
+    rss_build = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    log(f"[prod_scale] manifest {json.dumps(manifest)}; built in {build_s:.1f} s, peak host "
+        f"RSS {rss_build:.2f} GiB | {smi_line}")
+    with open(art["lexicon"]) as f:
+        lexicon_words = {line.split("\t", 1)[0] for line in f}
+    with open(corpus["test"]) as f:
+        rows = [line for line in f if line.strip()][:PROD_DECODE_UTTS]
+    lst = os.path.join(root, "test8.lst")
+    with open(lst, "w") as f:
+        f.writelines(rows)
+    secs = sum(float(r.split()[2]) for r in rows) / 1000.0
+    os.environ["W2L_REQUIRE_NATIVE"] = "1"
+    n_batches = -(-len(rows) // 4)
+    serve = expected_launches(FLAGSHIP, 0, n_batches)
+    setups, build = [], decode_module.build_decoder
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        res = build(*a, **kw)
+        setups.append(time.perf_counter() - t)
+        return res
+
+    runs = {}
+    decode_module.build_decoder = timed_build
+    try:
+        for key in ("bin", "qt", "arpa"):
+            d = os.path.join(root, key)
+            setups.clear()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            res = decode_main([f"--am={am}", f"--test={lst}", f"--lexicon={art['lexicon']}",
+                               f"--lm={art[key]}", *PROD_DECODE_FLAGS, f"--sclite={d}"])
+            torch.cuda.synchronize()
+            launches = card_launches(f"prod_scale decode {key}", serve)
+            hyps = read_hyps(d, lst)
+            runs[key] = dict(WER=res["WER"], decoder=res["decoder"], setup_am_s=res["setup_s"],
+                             setup_decoder_s=list(setups), wall_s=res["wall_s"],
+                             forward_s=res["forward_s"], beam_s=res["beam_s"],
+                             audio_s_per_wall_s=secs / res["wall_s"],
+                             launches_per_batch={k: v // n_batches for k, v in launches.items()},
+                             peak_rss_gib=resource.getrusage(
+                                 resource.RUSAGE_SELF).ru_maxrss / 2**20,
+                             hyps=hyps)
+            # a hypothesis in which the beam completed no word is spelled from
+            # its tokens (``result_to_words``, as JAX and the reference do):
+            # none of its words is then the lexicon's; every other hypothesis
+            # holds the lexicon's words alone
+            inside = {sid: [w in lexicon_words for w in ws] for sid, ws in hyps.items()}
+            mixed = [sid for sid, v in inside.items() if any(v) and not all(v)]
+            runs[key]["spelled_utterances"] = sum(1 for v in inside.values() if v and not any(v))
+            runs[key]["words_in_lexicon"] = sum(sum(v) for v in inside.values())
+            if res["decoder"] != "NativeBeamDecoder" or mixed:
+                fail(f"prod_scale decode {key}: decoder {res['decoder']}, words outside the "
+                     f"lexicon beside its words in {mixed}")
+            log(f"[prod_scale decode {key}] "
+                f"{json.dumps({k: v for k, v in runs[key].items() if k != 'hyps'})}")
+    finally:
+        decode_module.build_decoder = build
+    if runs["bin"]["hyps"] != runs["arpa"]["hyps"]:
+        fail("prod_scale: the probing .bin decodes otherwise than the ARPA")
+    runs["qt"]["words_equal_bin"] = runs["qt"]["hyps"] == runs["bin"]["hyps"]
+    for r in runs.values():
+        r.pop("hyps")
+    return dict(manifest=manifest, build_s=build_s, lm_tokens=PROD_LM_TOKENS,
+                peak_rss_gib_build=rss_build, utterances=len(rows), audio_s=secs, decode=runs,
+                nvidia_smi=smi_line)
+
+
+def wordpiece_tools(root, corpus, soak_flags, smi_line):
+    """Phase 21 (c): phase 13's ``WP_UTTS`` shortest training utterances as a
+    LibriSpeech tree, ``prepare_librispeech_split``, ``word_counts_from_lists``,
+    ``UnigramWordPiece`` (``WP_VOCAB`` pieces) and its tokens and 2-best
+    lexicon; ``cli.train --usewordpiece=true`` on the flagship at full width
+    (its last layer over the pieces), ``WP_UPDATES`` bf16 updates at B = 16,
+    each launching what phase 6 counts; then ``cli.test``."""
+    import shutil
+
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.cli.test import main as test_main
+    from wav2letter_tpu_torch.cli.train import main as train_main
+    from wav2letter_tpu_torch.tools.data_prep import prepare_librispeech_split
+    from wav2letter_tpu_torch.tools.wordpiece import UnigramWordPiece, word_counts_from_lists
+
+    t0 = time.perf_counter()
+    with open(corpus["train"]) as f:
+        rows = sorted((float(l.split()[2]), l.split()) for l in f if l.strip())[:WP_UTTS]
+    tree = os.path.join(root, "LibriSpeech")
+    for i, (_, parts) in enumerate(rows):
+        spk, chap = 100 + i // 8, 200 + i // 8
+        d = os.path.join(tree, "train-clean-100", str(spk), str(chap))
+        os.makedirs(d, exist_ok=True)
+        uid = f"{spk}-{chap}-{i % 8:04d}"
+        shutil.copy(parts[1], os.path.join(d, uid + ".wav"))
+        with open(os.path.join(d, f"{spk}-{chap}.trans.txt"), "a") as f:
+            f.write(f"{uid} {' '.join(parts[3:]).upper()}\n")
+    lst = os.path.join(root, "train-clean-100.lst")
+    n = prepare_librispeech_split(tree, "train-clean-100", lst)
+    counts = word_counts_from_lists([lst])
+    wp = UnigramWordPiece(vocab_size=WP_VOCAB, max_piece_len=6).fit(counts)
+    tokens, lexicon = os.path.join(root, "wp.tokens"), os.path.join(root, "wp.lexicon")
+    pieces = wp.save_tokens(counts, tokens)
+    wp.save_lexicon(counts.keys(), lexicon, n_best=2)
+    # save_tokens lists the pieces of each word's best segmentation; the
+    # second-best ones may hold others, which the targets need as tokens
+    with open(lexicon) as f:
+        spelled = {p for line in f for p in line.split("\t", 1)[1].split()}
+    extra = sorted(spelled - set(pieces))
+    if extra:
+        with open(tokens, "a") as f:
+            f.write("\n".join(extra) + "\n")
+    prep_s = time.perf_counter() - t0
+    if n != WP_UTTS:
+        fail(f"wordpiece: prepare_librispeech_split listed {n} of {WP_UTTS} utterances")
+    flags = [a for a in soak_flags if not a.split("=")[0] in (
+        "--train", "--valid", "--tokens", "--lexicon", "--rundir", "--runname", "--iter",
+        "--reportiters", "--batchsize")]
+    flags += [f"--train={lst}", f"--tokens={tokens}", f"--lexicon={lexicon}",
+              f"--rundir={root}", "--runname=wp", f"--iter={WP_UPDATES}", "--reportiters=0",
+              "--batchsize=16", "--usewordpiece=true", "--wordseparator=_", "--valid="]
+    per_update = expected_launches(FLAGSHIP, 1, 0)
+    with _train_steps() as rec:
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            tr = train_main(["train"] + flags)
+        train_s = time.perf_counter() - t1
+    launches, calls = rec.held("wordpiece training", {"train_step": per_update})
+    n_classes, n_params = tr.n_classes, sum(p.numel() for p in tr.model.parameters())
+    if calls.get("train_step") != WP_UPDATES or tr.updates != WP_UPDATES:
+        fail(f"wordpiece: {calls} updates through cli.train, expected {WP_UPDATES}")
+    del tr
+    torch.cuda.empty_cache()
+    am = os.path.join(root, "wp", "model_last.bin")
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = test_main([f"--am={am}", f"--test={lst}", "--batchsize=4"])
+    torch.cuda.synchronize()
+    card_launches("wordpiece cli.test", expected_launches(FLAGSHIP, 0, WP_UTTS // 4))
+    out = dict(utterances=n, words=len(counts), pieces=len(pieces), pieces_2best=len(extra),
+               classes=n_classes,
+               n_params=n_params, prep_s=prep_s, train_s=train_s, updates=WP_UPDATES,
+               launches_per_update=per_update, losses=[c["loss"] for c in rec.calls],
+               test=dict(WER=res["WER"], TER=res["TER"]), nvidia_smi=smi_line)
+    if not all(math.isfinite(v) for v in (res["WER"], res["TER"], *out["losses"])):
+        fail(f"wordpiece: {json.dumps(out)}")
+    log(f"[wordpiece] {json.dumps(out)}")
+    return out
+
+
+def cpc_rank_flags(root, corpus):
+    """The CPC jobs' flags and CPC flags (``CPC_DP_BATCH`` rows a rank, phase
+    20's utterances); the one-process reference takes the global batch."""
+    lst, _ = shortest(corpus["train"], os.path.join(root, "cpc_train.lst"), CPC_UTTS)
+    nodrop = _cut_arch(CPC_ARCHS[1], os.path.join(root, "cpc_context_nodrop.arch"))
+    flags = dict(flagsfile=CPC_CFG, arch=",".join([CPC_ARCHS[0], nodrop, CPC_ARCHS[2]]),
+                 train=lst, train2=lst, tokens=corpus["tokens"], lexicon=corpus["lexicon"],
+                 rundir=os.path.join(root, "cpc_runs"), runname="cpc", nthread=2, seed=0,
+                 batchsize=CPC_DP_BATCH, optimepsilon=1e-4, iter=2)
+    return flags, dict(unsupdates=1, supdates=1)
+
+
+def cpc_rank_jobs(root, corpus):
+    """CPC's jobs for two gloo ranks (phase 12's spawn in the full run): one
+    unsupervised and one supervised update, then ``continue`` for 1; rank 0
+    dumps the weights after each."""
+    flags, cpc = cpc_rank_flags(root, corpus)
+    return [dict(name="cpc", cpc=cpc, flags=flags, mode="train",
+                 dump=os.path.join(root, "cpc_2.pt")),
+            dict(name="cpc_continue", cpc=cpc, flags=dict(flags, iter=3), mode="continue",
+                 dump=os.path.join(root, "cpc_3.pt"))]
+
+
+def _cpc_dp_job(job, rank):
+    """One CPC job on a rank: each update's phase, loss, launches and drained
+    wall end, the gradient reduction's time, the weights' digest."""
+    import hashlib
+
+    import torch
+
+    import wav2letter_tpu_torch.runtime.train_cpc as cpc_module
+    from wav2letter_tpu_torch.config import Config
+
+    reduce, reduce_ms = cpc_module.all_reduce_grads, []
+
+    def timed_reduce(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        reduce(*a)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t) * 1e3)
+
+    cfg = Config.from_sources(argv=_argv(job["flags"]))
+    cpc_module.all_reduce_grads = timed_reduce
+    try:
+        tr = cpc_module.CPCTrainer(cfg, cpc_flags=job["cpc"], mode=job["mode"],
+                                   device="cuda:0")
+        with _Calls((cpc_module.CPCTrainer, "unsup_step"),
+                    (cpc_module.CPCTrainer, "sup_step")) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.run()
+    finally:
+        cpc_module.all_reduce_grads = reduce
+    state = {k: v.detach().cpu() for k, v in tr.net.state_dict().items()}
+    h = hashlib.sha256()
+    for k, v in state.items():
+        h.update(k.encode())
+        h.update(v.numpy().tobytes())
+    if rank == 0:
+        torch.save(state, job["dump"])
+    ends = [t0] + [c["end"] for c in rec.calls]
+    res = dict(updates=tr.updates, phases=[c["name"] for c in rec.calls],
+               losses=[c["loss"] for c in rec.calls],
+               launches=[c["launches"] for c in rec.calls],
+               update_ms=[(b - a) * 1e3 for a, b in zip(ends, ends[1:])], reduce_ms=reduce_ms,
+               digest=h.hexdigest(), n_params=sum(v.numel() for v in tr.net.parameters()))
+    del tr
+    torch.cuda.empty_cache()
+    return res
+
+
+def cpc_ranks_held(root, corpus, ranks, smi_line):
+    """Phase 21 (d): the ranks' CPC jobs (``cpc_rank_jobs``) against one
+    process at the global batch on the card: each update's launches
+    (``CPC_SPEC``), the replicas equal in bits, the losses and the weights
+    after 2 updates and after ``continue`` for 1 (against 3 straight
+    updates) within ``CPC_DP_TOL``."""
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
+
+    flags, cpc = cpc_rank_flags(root, corpus)
+    per_update = expected_launches(CPC_SPEC, 1, 0)
+    runs = [r["runs"] for r in ranks]
+    for name, phases in (("cpc", ["unsup_step", "sup_step"]), ("cpc_continue", ["unsup_step"])):
+        for r in runs:
+            if r[name]["phases"] != phases or any(l != per_update for l in r[name]["launches"]):
+                fail(f"cpc on {CPC_DP_RANKS} ranks, {name}: phases {r[name]['phases']}, "
+                     f"launches {r[name]['launches']} (expected {per_update} an update)")
+        if runs[0][name]["digest"] != runs[1][name]["digest"] or \
+                runs[0][name]["losses"] != runs[1][name]["losses"]:
+            fail(f"cpc on {CPC_DP_RANKS} ranks, {name}: the replicas or their losses differ")
+    # one process at the global batch, 3 straight updates
+    cfg = Config.from_sources(argv=_argv(dict(
+        flags, rundir="", runname="", iter=3, batchsize=CPC_DP_BATCH * CPC_DP_RANKS)))
+    tr = CPCTrainer(cfg, cpc_flags=cpc, device="cuda")
+    p0 = {k: v.detach().cpu().clone() for k, v in tr.net.state_dict().items()}
+    snaps, losses = [], []
+    for name in ("unsup_step", "sup_step"):
+        step = getattr(tr, name)
+
+        def wrapped(*a, _step=step, **kw):
+            res = _step(*a, **kw)
+            losses.append(res[0])
+            snaps.append({k: v.detach().cpu().clone() for k, v in tr.net.state_dict().items()})
+            return res
+
+        setattr(tr, name, wrapped)
+    tr.run()
+    del tr
+    torch.cuda.empty_cache()
+    got_losses = runs[0]["cpc"]["losses"] + runs[0]["cpc_continue"]["losses"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got_losses, losses))
+    held = dict(losses=got_losses, one_process=losses, loss_rel_err=loss_err)
+    for tag, dump, snap in (("after_2", "cpc_2.pt", snaps[1]), ("after_continue", "cpc_3.pt",
+                                                                  snaps[2])):
+        got = torch.load(os.path.join(root, dump))
+        moved = math.sqrt(sum((snap[k] - p0[k]).double().pow(2).sum().item() for k in p0))
+        diff = {k: (got[k] - snap[k]).double().norm().item() for k in p0}
+        held[tag] = dict(param_rel_err=math.sqrt(sum(v * v for v in diff.values())) / moved,
+                         moved=moved, worst=sorted(diff, key=diff.get)[-3:][::-1])
+    r0 = runs[0]["cpc"]
+    steady = r0["update_ms"][1:]
+    held.update(n_params=r0["n_params"], update_ms=r0["update_ms"], reduce_ms=r0["reduce_ms"],
+                reduce_share=sum(r0["reduce_ms"][1:]) / sum(steady), tol=list(CPC_DP_TOL),
+                launches_per_update=per_update, nvidia_smi=smi_line)
+    held["ok"] = bool(len(got_losses) == len(losses) == 3 and loss_err <= CPC_DP_TOL[0]
+                      and held["after_2"]["param_rel_err"] <= CPC_DP_TOL[1]
+                      and held["after_continue"]["param_rel_err"] <= CPC_DP_TOL[1])
+    log(f"[cpc ranks] {json.dumps(held)}")
+    log(f"[cpc ranks] gloo x{CPC_DP_RANKS} on one card, B = {CPC_DP_BATCH} a rank: update "
+        f"{json.dumps(r0['update_ms'])} ms, reduction {json.dumps(r0['reduce_ms'])} ms "
+        f"(share {held['reduce_share']:.3f}) | {smi_line}")
+    if not held["ok"]:
+        fail(f"cpc on {CPC_DP_RANKS} ranks differs from one process: {json.dumps(held)}")
+    return held
+
+
+def tools_path(tmp, corpus, inputs, smi_line, seed):
+    """Phase 21: (a) the flashlight reader, (b) the production-scale decode,
+    (c) data_prep and wordpiece into ``cli.train``, (d) CPC on two ranks.
+    ``inputs`` (the full run) names phase 4's list and checkpoints, phase 10's
+    LM and fp32 decode, phase 13's trained flagship and the directory of phase
+    12's ranks; without them this makes phase 4's data and checkpoints, the
+    3-gram, a seeded flagship on phase 13's tokens, and spawns the CPC ranks."""
+    import torch
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.data import read_list_file
+    from wav2letter_tpu_torch.runtime.train import Trainer
+    from wav2letter_tpu_torch.tools.ngram_lm import train_ngram_lm
+    from wav2letter_tpu_torch.tools.soak import Soak
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "tools")
+    os.makedirs(root, exist_ok=True)
+    s = Soak(os.path.join(root, "seeded"), corpus=os.path.dirname(corpus["train"]),
+             corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
+    soak_flags = s._train_flags("flagship", 16, 0.2, 0, 0)
+    laps = {}
+    if inputs:
+        lst, paths = inputs["lst"], inputs["paths"]
+        tokens, lexicon = inputs["tokens"], inputs["lexicon"]
+        arpa, soak_am, ranks_dir = inputs["lm"], inputs["soak_am"], inputs["ranks"]
+        hyps10 = read_hyps(inputs["decode"], lst)
+        ranks = []
+        for r in range(CPC_DP_RANKS):
+            with open(os.path.join(ranks_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    else:  # phases 4 and 13 in the part phase 21 reads
+        lst, tokens, lexicon, _ = synth_dataset(os.path.join(root, "data"), seed)
+        paths, _ = save_model(FLAGSHIP, root, seed, tokens, lexicon)
+        text = os.path.join(root, "corpus.txt")
+        with open(lst) as f, open(text, "w") as out:
+            out.writelines(" ".join(line.split()[3:]) + "\n" for line in f)
+        arpa = os.path.join(root, "lm.arpa")
+        train_ngram_lm(text, arpa, order=3)
+        tr = Trainer(Config.from_sources(argv=soak_flags + ["--seed=0", "--iter=0"]),
+                     device="cuda")
+        tr.save()
+        soak_am = os.path.join(tr.rundir, "model_last.bin")
+        del tr
+        hyps10, ranks_dir = None, os.path.join(root, "ranks")
+        os.makedirs(ranks_dir, exist_ok=True)
+        ranks = _run_ranks(CPC_DP_RANKS, cpc_rank_jobs(ranks_dir, corpus), ranks_dir)
+        laps["inputs"] = time.perf_counter() - t_phase
+    secs = sum(u.duration_ms for u in read_list_file(lst)) / 1e3
+    n_batches = batch_shapes(lst, tokens, lexicon)[0]
+    out = {}
+    out["flashlight"] = flashlight_tools(os.path.join(root, "flashlight"), paths, lst, secs,
+                                         arpa, hyps10, n_batches, smi_line)
+    laps["flashlight"] = time.perf_counter() - t_phase
+    out["prod_scale"] = prod_scale_tools(os.path.join(root, "prod_scale"), corpus, soak_am,
+                                         smi_line)
+    laps["prod_scale"] = time.perf_counter() - t_phase
+    out["wordpiece"] = wordpiece_tools(os.path.join(root, "wordpiece"), corpus, soak_flags,
+                                       smi_line)
+    laps["wordpiece"] = time.perf_counter() - t_phase
+    out["cpc_ranks"] = cpc_ranks_held(ranks_dir, corpus, ranks, smi_line)
+    laps["cpc_ranks"] = time.perf_counter() - t_phase
+    torch.cuda.empty_cache()
+    out.update(laps_s=laps, phase_s=time.perf_counter() - t_phase)
+    log(f"[tools] phase 21 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | {smi_line}")
+    return out
+
+
 def seeded_ams(tmp, s):
     """``--only lm``: the three AMs of phase 18 at their seeded initial
     weights (the ``Trainer``'s own) on the corpus of the soak ``s``, saved as
@@ -5465,13 +6079,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="directory for the detailed JSON")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="", choices=["", "s2s", "lm", "hooks", "semi"],
+    ap.add_argument("--only", default="", choices=["", "s2s", "lm", "hooks", "semi", "tools"],
                     help="s2s: phases 1, 2, 16 and 17 alone, on phase 13's corpus and LM "
                          "made without its training; lm: phases 1, 2 and 18 alone, on "
                          "phase 13's corpus, with the AMs at their seeded weights; hooks: "
                          "phases 1, 2 and 19 alone, on phase 13's corpus; semi: phases 1, "
-                         "2 and 20 alone, on phase 13's corpus and LM; each prints no "
-                         "result line")
+                         "2 and 20 alone, on phase 13's corpus and LM; tools: phases 1, 2, "
+                         "the data and checkpoints of 4, the corpus of 13 and 21 alone; "
+                         "each prints no result line")
     ap.add_argument("--corpus", default="",
                     help="with --only: phase 13's corpus directory, where it is made "
                          "already")
@@ -5479,6 +6094,10 @@ def main() -> None:
                     help="with --only s2s: a JSON object of the flagship's and conv_glu's "
                          "checkpoints; phase 18 follows phases 16 and 17 with them and "
                          "phase 16's seq2seq_tds")
+    ap.add_argument("--inputs", default="",
+                    help="with --only tools: a JSON object of the full run's files that "
+                         "phase 21 reads (phase 4's list, vocabulary and checkpoints, "
+                         "phase 10's LM and decode, phase 13's flagship, phase 12's ranks)")
     args = ap.parse_args()
 
     import torch
@@ -5529,7 +6148,8 @@ def main() -> None:
             s = Soak(os.path.join(tmp, "soak"),
                      corpus=args.corpus or os.path.join(tmp, "soak_corpus"),
                      corpus_kw=SOAK_CORPUS, sizes=SOAK_SIZES, device="cuda")
-            s.phase_corpus()
+            if not (args.corpus and os.path.exists(os.path.join(args.corpus, "meta.json"))):
+                s.phase_corpus()
             out, ams = {}, None
             if args.only == "hooks":
                 log(f"[time] phase 19 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5547,6 +6167,10 @@ def main() -> None:
                     if args.ams else None
             elif args.only == "lm":
                 ams = seeded_ams(tmp, s)
+            elif args.only == "tools":
+                log(f"[time] phase 21 starts at {time.perf_counter() - t_start:.1f} s")
+                out["tools"] = tools_path(tmp, s.paths, json.loads(args.inputs)
+                                          if args.inputs else None, smi_line, args.seed)
             elif args.only == "semi":
                 s.phase_lm()
                 log(f"[time] phase 20 starts at {time.perf_counter() - t_start:.1f} s")
@@ -5746,6 +6370,24 @@ def main() -> None:
             semi = json.load(f)["semi"]
         log(f"[time] phase 20 ends at {time.perf_counter() - t_start:.1f} s")
 
+        # 21. the tools, the flashlight reader and CPC on two ranks (run by
+        # phase 12's ranks), in a process of their own on this run's files
+        tools_dir = os.path.join(tmp, "tools_out")
+        inputs = dict(lst=lst, tokens=tokens, lexicon=lexicon, paths=paths,
+                      lm=os.path.join(tmp, "decode", "lm.arpa"),
+                      decode=os.path.join(tmp, "decode", "float32", "topk"),
+                      soak_am=os.path.join(tmp, "soak", "b128", "model_last.bin"),
+                      ranks=os.path.join(tmp, "dp"))
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--only", "tools",
+                                "--out", tools_dir, "--seed", str(args.seed), "--corpus",
+                                os.path.join(tmp, "soak_corpus"), "--inputs",
+                                json.dumps(inputs)], timeout=600)
+        if child.returncode != 0:
+            fail(f"phase 21 (a child process) exited {child.returncode}")
+        with open(os.path.join(tools_dir, "chip_smoke_tools.json")) as f:
+            tools = json.load(f)["tools"]
+        log(f"[time] phase 21 ends at {time.perf_counter() - t_start:.1f} s")
+
     kernels_line = []
     fwd, upd = "forward of the largest serving batch", "update on the largest training batch"
     for name, per, model_name in (
@@ -5849,7 +6491,7 @@ def main() -> None:
                            conformer=conformer, long_context=long_context,
                            decode=decoded, streaming=streamed, data_parallel=parallel,
                            soak=soaked, conv_glu=asg, resnet_ctc=resnet, **s2s,
-                           hooks=hooks, semi=semi,
+                           hooks=hooks, semi=semi, tools=tools,
                            seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(summary))

@@ -376,16 +376,3 @@ def test_continue_replays_and_pretrain(data, tmp_path):
             data, tmp_path / "none").items()]), cpc_flags=fl, mode="continue", device="cpu")
 
 
-@pytest.mark.parametrize("how", ["torchrun", "flags"])
-def test_trainer_refuses_several_ranks(data, tmp_path, monkeypatch, how):
-    """CPC trains in one process: launched on several ranks, by torchrun's
-    variables or by ``--enable_distributed --world_size``, it raises before
-    it reads any data, rather than train the ranks apart."""
-    kw = {}
-    if how == "torchrun":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-    else:
-        kw = dict(enable_distributed=True, world_size=2)
-    _, cfg = _cfgs(data, tmp_path, **kw)
-    with pytest.raises(NotImplementedError, match="on 2 ranks"):
-        CPCTrainer(cfg, cpc_flags=dict(CPC_FLAGS), device="cpu")

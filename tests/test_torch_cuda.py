@@ -1542,3 +1542,52 @@ def test_lm_and_convlm_on_the_card_match_the_cpu(cuda):
     got = ConvLM(card, vocab).score_batch(hists, lens, words)
     want = ConvLM(cpu, vocab).score_batch(hists, lens, words)
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# a narrow streaming-convnets stage, commented as the recipe's arch is
+FL_ARCH = ("# a narrow streaming stage\nV -1 NFEAT 1 0\nPD 0 6 2\nC2 1 4 9 1 2 1 0 0\nR\n"
+           "LN 1 2\n# its TDS block\nTDS 4 9 16 0.0 0 1 0\nRO 2 1 0 3\nV 64 -1 1 0\n"
+           "L 64 NLABEL\nV NLABEL 0 -1 1\n")
+
+
+def test_flashlight_checkpoint_on_the_card(cuda, tmp_path):
+    """``load_checkpoint`` of a forged flashlight file, moved to the card,
+    gives emissions equal in bits to those of the port's own checkpoint of
+    the same weights, through K2 and K3."""
+    import importlib.util
+    import os
+
+    from wav2letter_tpu_torch.config import Config
+    from wav2letter_tpu_torch.models import build_arch_module
+    from wav2letter_tpu_torch.runtime.checkpoint import (Checkpoint, load_checkpoint,
+                                                         save_checkpoint)
+
+    # the forger beside this file, by path: a machine may have a `tests`
+    # package of its own on the path
+    spec = importlib.util.spec_from_file_location(
+        "util_torch_flashlight", os.path.join(os.path.dirname(__file__),
+                                              "util_torch_flashlight.py"))
+    util = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(util)
+    arch = tmp_path / "fl.arch"
+    arch.write_text(FL_ARCH)
+    torch.manual_seed(0)
+    state = build_arch_module(str(arch), 16, 10).state_dict()
+    save_checkpoint(str(tmp_path / "own.bin"), Checkpoint(
+        config=Config().serialize(), epoch=0, updates=0, state_dict=state))
+    util.forge_flashlight(tmp_path / "fl.bin", state, str(arch),
+                     f"--criterion=ctc\n--arch={arch}\n--filterbanks=16\n")
+    x = _randn((2, 200, 16), 7, cuda)
+    xl = torch.tensor([200, 150], device=cuda)
+    ems = []
+    for name in ("own.bin", "fl.bin"):
+        model = build_arch_module(str(arch), 16, 10)
+        model.load_state_dict(load_checkpoint(str(tmp_path / name)).state_dict, strict=True)
+        model.to(cuda).eval()
+        before = dict(kernels.LAUNCHES)
+        with torch.no_grad():
+            ems.append(model(x, xl)[0])
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 2
+        assert kernels.LAUNCHES["residual_ln"] > before["residual_ln"]
+    assert torch.equal(ems[0], ems[1])

@@ -23,6 +23,10 @@ takes rows ``d::2`` of each global batch.
   while the ranks' dropout masks and K4 seeds differ;
 * BatchNorm at dp2: the global batch's statistics, against one process;
 * slimIPL with soft labels over a fixed cache: 2 ranks against one process;
+* CPC (``tests/test_torch_cpc.py``'s narrow archs over raw audio): one
+  unsupervised and one supervised update on 2 ranks against one process at
+  the global batch, bit-identical replicas, and 1 + ``continue`` for 1
+  against 2 straight updates;
 * TP: a 1024x2048 linear (also under novograd), TDS blocks, a transformer
   (K4's plain version on 2 of 4 heads; with 1 head the unfused path) and
   conv_glu's weight-normed convs (split over their time taps, as JAX splits
@@ -46,8 +50,9 @@ import torch
 
 from tests.test_parallel_equivalence import BIG_ARCH, SMALL_ARCH
 from tests.test_torch_asg import asg_dataset, asg_flags
+from tests.test_torch_cpc import CPC_FLAGS, CTX, ENC, PRD
 from tests.util_synth import make_dataset
-from tests.util_torch_parallel import spy_losses
+from tests.util_torch_parallel import spy_cpc_losses, spy_losses
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from wav2letter_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -58,6 +63,7 @@ from wav2letter_tpu_torch.parallel.distributed import init_distributed
 from wav2letter_tpu_torch.parallel.mesh import MeshSpec, mesh_coords
 from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint, params_to_jax_tree
 from wav2letter_tpu_torch.runtime.train import Trainer
+from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
 from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,6 +174,31 @@ def _one_process(flags, mode="train", init="", threads=None, ipl=None):
                        for t, m in tr.meters.valid.items()})
 
 
+def _cpc_base(data, arch, rundir, **kw):
+    lst, tokens, lexicon = data
+    flags = dict(train=lst, train2=lst, tokens=tokens, lexicon=lexicon, batchsize=4,
+                 features_type="raw", criterion="ctc", lr=1e-3, netoptim="adam",
+                 maxgradnorm=5.0, iter=2, nthread=1, pad_multiple=16, compute_dtype="float32",
+                 arch=arch, rundir=rundir, runname="run", reportiters=0, seed=4,
+                 optimepsilon=1e-4)
+    flags.update(kw)
+    return flags
+
+
+# one unsupervised update, then one supervised
+CPC_FL = dict(CPC_FLAGS, supdelay=1, unsupdates=1, supdates=1)
+
+
+def _one_cpc(flags):
+    cfg = Config()
+    cfg.update(flags)
+    tr = CPCTrainer(cfg, cpc_flags=CPC_FL, device="cpu")
+    losses = []
+    spy_cpc_losses(tr, losses)
+    tr.run()
+    return dict(losses=losses, params=tr.net.state_dict(), updates=tr.updates)
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("parallel"))
@@ -180,6 +211,13 @@ def world(tmp_path_factory):
 
     def rd(name):
         return os.path.join(root, name)
+
+    cpc_arch = []
+    for name, text in (("enc", ENC), ("ctx", CTX), ("prd", PRD)):
+        cpc_arch.append(os.path.join(root, f"cpc_{name}.arch"))
+        with open(cpc_arch[-1], "w") as f:
+            f.write(text)
+    cpc_arch = ",".join(cpc_arch)
 
     # the JAX dp8 trainer; its initial weights seed the port's DP runs
     jcfg = JaxConfig()
@@ -224,6 +262,12 @@ def world(tmp_path_factory):
              spy_dropout=True, out=rd("out/noisy")),
         dict(flags=dict(bn, batchsize=4), out=rd("out/bn")),
         dict(flags=slim, ipl=slim_ipl, out=rd("out/slim")),
+        dict(flags=_cpc_base(data, cpc_arch, rd("cpc")), cpc=CPC_FL, out=rd("out/cpc")),
+        # CPC: 1 update, then continue for 1 (compared with the 2 above)
+        dict(flags=_cpc_base(data, cpc_arch, rd("cpc_cont"), iter=1), cpc=CPC_FL,
+             out=rd("out/cpc_first")),
+        dict(flags=_cpc_base(data, cpc_arch, rd("cpc_cont")), cpc=CPC_FL, mode="continue",
+             out=rd("out/cpc_cont")),
     ]
     four = []
     for name, (arch, kw, tp) in TP_CASES.items():
@@ -245,6 +289,7 @@ def world(tmp_path_factory):
             "bn": _one_process(dict(bn, rundir=rd("one_bn"))),
             "slim": _one_process(dict(slim, batchsize=8, rundir=rd("one_slim")),
                                  ipl=slim_ipl),
+            "cpc": _one_cpc(_cpc_base(data, cpc_arch, rd("one_cpc"), batchsize=8)),
         }
         for name, (arch, kw, _) in TP_CASES.items():
             if _ref(name) not in one:
@@ -354,6 +399,43 @@ def test_two_ranks_with_asg_equal_one_process(world):
         _close(r0[key], one[key], rtol=1e-3, atol=1e-5)
     assert set(r0["crit_params"]) == {"transitions"}
     assert not torch.equal(r0["crit_params"]["transitions"], 4.0 * torch.eye(7))
+
+
+@pytest.mark.parametrize("check", ["one_process", "replicas", "continue"])
+def test_two_ranks_with_cpc_equal_one_process(world, check):
+    """CPC on 2 ranks: the mask and the negatives drawn once for the global
+    batch, the losses over its real rows, the four groups' gradients summed
+    before the gates and the clip. After one unsupervised and one supervised
+    update the ranks equal one process at twice the rows; the replicas are
+    equal in bits; 1 update and ``continue`` for 1 equal the 2 straight
+    updates in bits, from rank 0's checkpoint."""
+    r0, r1 = world["ranks"]("cpc", 2)
+    if check == "one_process":
+        one = world["one"]["cpc"]
+        assert r0["updates"] == one["updates"] == 2
+        assert [k for k, _ in r0["losses"]] == [k for k, _ in one["losses"]] == ["unsup", "sup"]
+        assert r0["losses"] == r1["losses"]  # the global batch's loss on both
+        np.testing.assert_allclose([v for _, v in r0["losses"]],
+                                   [v for _, v in one["losses"]], rtol=1e-5, atol=1e-6)
+        _close(r0["params"], one["params"], rtol=1e-3, atol=1e-5)
+    elif check == "replicas":
+        assert set(r0["params"]) == set(r1["params"])
+        assert {k.split(".", 1)[0] for k in r0["params"]} == {"enc", "ctx", "prd", "cpc"}
+        for k in r0["params"]:
+            assert torch.equal(r0["params"][k], r1["params"][k]), k
+    else:
+        first = world["ranks"]("cpc_first", 2)[0]
+        c0, c1 = world["ranks"]("cpc_cont", 2)
+        assert first["updates"] == 1 and c0["updates"] == c1["updates"] == 2
+        assert first["losses"] + c0["losses"] == r0["losses"]
+        run = os.path.join(world["rd"]("cpc_cont"), "run")
+        assert os.listdir(run) == ["model_last.bin"]  # rank 0 alone wrote
+        ckpt = load_checkpoint(os.path.join(run, "model_last.bin"))
+        assert ckpt.updates == 2
+        for k in r0["params"]:
+            assert torch.equal(c0["params"][k], r0["params"][k]), k
+            assert torch.equal(c1["params"][k], r0["params"][k]), k
+            assert torch.equal(ckpt.state_dict[k], r0["params"][k]), k
 
 
 def test_two_ranks_equal_the_jax_dp8_trainer(world):

@@ -4,7 +4,8 @@
 
 Joins a gloo group through a ``file://`` rendezvous (no port to race for),
 then runs each job of the JSON list in turn: a ``Trainer`` (a
-``SlimIPLTrainer`` where the job gives ``ipl`` flags) on the CPU on the job's
+``SlimIPLTrainer`` where the job gives ``ipl`` flags, a ``CPCTrainer``
+where it gives ``cpc`` flags) on the CPU on the job's
 flags, in its mode, with the spies the job asks for (and JAX's
 2^20-element split threshold lowered where the job names a
 ``min_shard_size``). What the test
@@ -28,6 +29,7 @@ from wav2letter_tpu_torch.config import Config
 from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
 from wav2letter_tpu_torch.parallel import sharding
 from wav2letter_tpu_torch.runtime.train import Trainer
+from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
 from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 
@@ -77,6 +79,33 @@ def spy_losses(tr, losses):
         m.loss.add = add
 
 
+def spy_cpc_losses(tr, losses):
+    """Record every update's ``(phase, loss)`` of a ``CPCTrainer``."""
+    unsup, sup = tr.unsup_step, tr.sup_step
+
+    def unsup_step(*a, **kw):
+        res = unsup(*a, **kw)
+        losses.append(("unsup", res[0]))
+        return res
+
+    def sup_step(*a, **kw):
+        res = sup(*a, **kw)
+        losses.append(("sup", res[0]))
+        return res
+
+    tr.unsup_step, tr.sup_step = unsup_step, sup_step
+
+
+def run_cpc_job(job, rank, cfg):
+    tr = CPCTrainer(cfg, cpc_flags=job["cpc"], mode=job.get("mode", "train"), device="cpu")
+    losses = []
+    spy_cpc_losses(tr, losses)
+    tr.run()
+    torch.save({"losses": losses, "updates": tr.updates,
+                "params": {k: v.detach().clone() for k, v in tr.net.state_dict().items()}},
+               os.path.join(job["out"], f"rank{rank}.pt"))
+
+
 def run_job(job, rank):
     if job.get("resume_from"):  # continue from an earlier checkpoint of another run
         run = os.path.join(job["flags"]["rundir"], job["flags"]["runname"])
@@ -89,6 +118,8 @@ def run_job(job, rank):
     else:
         cfg = Config()
         cfg.update(job["flags"])
+    if job.get("cpc") is not None:
+        return run_cpc_job(job, rank, cfg)
     sharding.MIN_SHARD_SIZE = job.get("min_shard_size") or 2**20
     kw = dict(mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
               device="cpu")

@@ -8,8 +8,13 @@ loss scale)}. It also reads the JAX package's ``W2LTPU01`` files (8-byte
 magic + a flax msgpack dict whose arrays are msgpack ExtType 1, possibly in
 flax's chunked form) and converts their param tree with
 :func:`convert_jax_params` and, where it holds one, their SGD momentum trace
-with ``optim.sgd_state_from_optax``. Either way loading yields a
-:class:`Checkpoint` whose ``state_dict`` fits the port's ``ArchModel``.
+with ``optim.sgd_state_from_optax``. A third format is the reference's own:
+a file that is neither ``W2LTPU01`` nor the zip archive ``torch.save``
+writes is read as a flashlight (cereal) training checkpoint by
+``tools/flashlight_import.py`` (the model-zoo path of the reference's
+``StreamingTDSModelConverter.cpp:148-284``), its stored gflags becoming the
+config. Every way, loading yields a :class:`Checkpoint` whose
+``state_dict`` fits the port's ``ArchModel``.
 
 Files of a run, as in the JAX package: ``model_last.bin`` at every save,
 ``model_iter_NNN.bin`` per report, ``model_<tag>.bin`` for the best of each
@@ -21,12 +26,14 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import struct
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 JAX_MAGIC = b"W2LTPU01"
+ZIP_MAGIC = b"PK\x03\x04"  # torch.save's archive
 VERSION = 1
 
 
@@ -80,6 +87,8 @@ def load_checkpoint(path: str) -> Checkpoint:
             crit_opt_state=_jax_sgd_state(payload.get("crit_opt_state"),
                                           int(payload["updates"])),
         )
+    if magic[:len(ZIP_MAGIC)] != ZIP_MAGIC:
+        return load_flashlight_checkpoint(path)
     payload = torch.load(path, map_location="cpu", weights_only=True)
     return Checkpoint(
         config=payload["config"],
@@ -91,6 +100,44 @@ def load_checkpoint(path: str) -> Checkpoint:
         opt_state=payload.get("opt_state"),
         crit_opt_state=payload.get("crit_opt_state"),
         extra=payload.get("extra", {}),
+    )
+
+
+def load_flashlight_checkpoint(path: str) -> Checkpoint:
+    """A reference (flashlight/cereal) training checkpoint, as the JAX
+    package's ``load_checkpoint`` reads it (``runtime/checkpoint.py:122-158``
+    there): the param tree of ``import_checkpoint`` through
+    :func:`convert_jax_params`, the stored gflags the port's flags know as
+    the config, and an ASG checkpoint's transitions from the first leftover
+    array. Unlike JAX's, which returns None for any failure, a file that does
+    not read raises the importer's error, naming the path; and the
+    transitions are found in the scanned array's unit dims."""
+    from ..config import Config
+    from ..tools.flashlight_import import import_checkpoint
+
+    try:
+        version, flags, tree, leftover = import_checkpoint(path)
+        cfg = Config()
+        known = set(cfg._values)
+        cfg.update({k: v for k, v in flags.items() if k in known})
+        epoch, updates = int(flags.get("epoch", 0) or 0), int(flags.get("nupdates", 0) or 0)
+    except (ValueError, struct.error, UnicodeDecodeError, OSError) as e:
+        raise ValueError(f"{path}: not a checkpoint (neither W2LTPU01, nor a torch.save "
+                         f"archive, nor a flashlight file): {e}") from e
+    crit = {}
+    if flags.get("criterion") == "asg" and leftover:
+        # the scan gives every array 4 dims; JAX's reader, which tests for 2,
+        # never takes the transitions
+        t = np.asarray(leftover[0], np.float32).squeeze()
+        if t.ndim == 2 and t.shape[0] == t.shape[1]:
+            crit["transitions"] = torch.from_numpy(t.copy())
+    return Checkpoint(
+        config=cfg.serialize(),
+        epoch=epoch,
+        updates=updates,
+        state_dict=convert_jax_params({"seq": tree}),
+        crit_state_dict=crit,
+        extra={"flashlight_version": version},
     )
 
 

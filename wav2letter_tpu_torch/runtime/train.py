@@ -95,6 +95,14 @@ def update_seed(base: int, update: int) -> int:
     return base * 1_000_003 + update
 
 
+def rank_seed(seed: int, data_index: int) -> int:
+    """``seed`` for the rank at ``data_index`` of the data axis, so that each
+    rank draws for its own rows; index 0 draws as one process does. The step
+    is golden-ratio sized because the CPU generator keeps only a seed's low
+    32 bits."""
+    return seed + data_index * 0x9E3779B9
+
+
 class Trainer:
     def __init__(self, cfg: Config, mode: str = "train", init_model_path: str = "",
                  device: str = "cuda"):
@@ -368,10 +376,8 @@ class Trainer:
         """The draws' seed of this update on this rank: a function of the
         global update index, not a running stream, and of the data index, so
         each rank draws for its own rows (the ranks of a model group compute
-        one replicated activation and must draw alike). Index 0 draws as one
-        process does. The step is golden-ratio sized because the CPU
-        generator keeps only a seed's low 32 bits."""
-        return update_seed(base, self.updates) + self.mesh.data_index * 0x9E3779B9
+        one replicated activation and must draw alike)."""
+        return rank_seed(update_seed(base, self.updates), self.mesh.data_index)
 
     def _global_count(self, local) -> torch.Tensor:
         """``local`` (a count of this rank's rows or frames) summed over the

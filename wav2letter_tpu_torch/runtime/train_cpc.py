@@ -27,8 +27,17 @@ both data streams and its key stream, a ``continue`` here skips the batches the
 run consumed, so 2 updates and ``continue`` for 2 take the batches and draws of
 4 updates.
 
-It trains in one process: on several ranks it raises (the JAX trainer's data
-parallelism is not ported).
+Several ranks (``--enable_distributed``, or a process group the caller has
+initialized) train data-parallel as JAX's trainer does over its mesh: the
+weights are rank 0's everywhere, each rank reads the rows
+``data_index::n_data`` of every global batch of both lists (padded to the
+global batch's T, so every rank masks the same K), the mask and the negatives
+are drawn once for the global (B, T) from the update's generator and each
+rank takes its rows, the losses divide by the global count of real rows, and
+the four groups' gradients (and the loss) are summed over the ranks before
+the gates, the clip and the non-finite guard. Two ranks are then one process
+at the global batch, but for dropout, which each rank draws for its own rows
+(as ``Trainer`` does). Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
+from torch.profiler import record_function
 
 from ..config import Config
 from ..criterions.cpc import CPCConfig, CPCCriterion
@@ -50,10 +61,12 @@ from ..kernels import disable_tf32
 from ..models.arch import build_arch_module
 from ..ops.ctc import ctc_loss
 from ..optim import LRSchedule, make_optimizer
-from ..parallel.distributed import world_size
+from ..parallel import MeshSpec, make_mesh, replicate
+from ..parallel.distributed import backend_for, init_distributed, local_rank
+from ..parallel.sharding import all_reduce_grads, dataset_shard
 from .checkpoint import Checkpoint, find_last_checkpoint, load_checkpoint, save_checkpoint
 from .test import resolve_device
-from .train import update_seed
+from .train import rank_seed, update_seed
 
 # CPC-specific flags (reference DEFINEs, cpc/Train.cpp:45-203), carried in a
 # side dict: they are the recipe's, not core flags. JAX's defaults.
@@ -99,15 +112,19 @@ class CPCTrainer:
             raise ValueError(
                 "--criterion2: only 'ctc' is supported (the reference default;"
                 " no vox_populi recipe uses another supervised criterion)")
-        ranks = max(cfg.world_size if cfg.enable_distributed else 1, world_size(),
-                    int(os.environ.get("WORLD_SIZE", "1")))
-        if ranks > 1:
-            raise NotImplementedError(
-                f"CPC training on {ranks} ranks: the port trains CPC in one process only")
         self.updates = 0
         self.mode = mode
-        self.device = resolve_device(device)
+        # --- ranks: join the group, then one device a rank (as ``Trainer``) ---
+        dev = torch.device(device)
+        if cfg.enable_distributed:
+            init_distributed(backend_for(dev), cfg.world_rank, cfg.world_size)
+        if dev.type == "cuda" and dev.index is None and dist.is_initialized():
+            dev = torch.device("cuda", local_rank())
+        self.device = resolve_device(str(dev))
+        if self.device.index is not None:
+            torch.cuda.set_device(self.device)
         disable_tf32()
+        self.mesh = make_mesh(MeshSpec.from_config(cfg), self.device)
         self.rundir = os.path.join(cfg.rundir, cfg.runname) if cfg.runname else cfg.rundir
         resume = None
         if mode == "continue" and self.rundir:
@@ -117,7 +134,7 @@ class CPCTrainer:
                     f"continue: no checkpoint (model_last.bin) under {self.rundir!r}")
             resume = load_checkpoint(last)
             self.updates = resume.updates
-        if self.rundir:
+        if self.rundir and self.mesh.rank == 0:
             os.makedirs(self.rundir, exist_ok=True)
 
         tokens_path = os.path.join(cfg.tokensdir, cfg.tokens) if cfg.tokensdir else cfg.tokens
@@ -160,6 +177,7 @@ class CPCTrainer:
         if resume is not None:
             self.net.load_state_dict(resume.state_dict, strict=True)
         self.net.to(self.device)
+        replicate(self.mesh, self.net)
 
         # --- one optimizer; the two phases' schedules ---
         lr2 = float(self.fl["lr2"]) or cfg.lr
@@ -173,10 +191,14 @@ class CPCTrainer:
         if resume is not None and resume.opt_state:
             self.opt.load_state_dict(resume.opt_state)
 
-        self.sup_ds = (AsrDataset(cfg.train, self.token_dict, self.lexicon, cfg)
+        # each rank reads the rows of its data index of every global batch
+        w_rank, w_size = dataset_shard(self.mesh)
+        self.sup_ds = (AsrDataset(cfg.train, self.token_dict, self.lexicon, cfg,
+                                  world_rank=w_rank, world_size=w_size)
                        if cfg.train else None)
         self.unsup_ds = (AsrDataset(cfg.train2, self.token_dict, self.lexicon, cfg,
-                                    allow_empty_targets=True)
+                                    allow_empty_targets=True,
+                                    world_rank=w_rank, world_size=w_size)
                          if cfg.train2 else None)
 
     # ------------------------------------------------------------------
@@ -212,26 +234,49 @@ class CPCTrainer:
         self.predict.eval()  # JAX applies it without train=True
         for p in self.net.parameters():
             p.grad = None
-        torch.manual_seed(seed)  # dropout: the device's global generator
+        # dropout: the device's global generator, each rank for its own rows
+        torch.manual_seed(rank_seed(seed, self.mesh.data_index))
         b = {k: torch.as_tensor(batch[k]).to(self.device)
              for k in ("audio", "audio_len", "target", "target_len", "row_mask")}
         feats, flen = self.featurizer(b["audio"], b["audio_len"])
         enc, elen = self.encoder(feats.float(), flen)
         return b, enc, elen
 
+    def _global_rows(self, row_mask: torch.Tensor) -> torch.Tensor:
+        """The global batch's real rows (summed over the data ranks): the
+        losses' divisor and the row count of the global draws."""
+        n = row_mask.sum().to(torch.float32).reshape(1).clone()
+        if self.mesh.distributed:
+            dist.all_reduce(n, group=self.mesh.data_group)
+        return n[0]
+
+    def _my_rows(self, B: int, n: int) -> torch.Tensor:
+        """The rows of the global draws (``n`` rows) that this rank's ``B``
+        rows take (``data_index::n_data``); a padding row past them takes the
+        last one's."""
+        rows = self.mesh.data_index + self.mesh.spec.n_data * torch.arange(
+            B, device=self.device)
+        return rows.clamp(max=max(n - 1, 0))
+
     def _finish(self, loss, gates: Dict[str, float], lr: float, max_norm: float):
-        """Gate, clip (``max_norm`` > 0), zero a non-finite step's gradients,
-        then step; returns (loss, finite)."""
+        """Sum the gradients and the loss over the ranks, then gate, clip
+        (``max_norm`` > 0), zero a non-finite step's gradients, and step;
+        returns (the global batch's loss, finite)."""
         with torch.no_grad():
-            grads = []
+            groups = []
             for g, mod in self.net.items():
                 for p in mod.parameters():
                     if p.grad is None:
                         p.grad = torch.zeros_like(p)
-                    if gates[g] != 1.0:
-                        p.grad.mul_(gates[g])
-                    grads.append(p.grad)
-            loss_v = float(loss.detach())
+                    groups.append((g, p.grad))
+            grads = [x for _, x in groups]
+            loss = loss.detach().reshape(1).clone()
+            with record_function("w2l/all_reduce"):
+                all_reduce_grads(self.mesh, grads + [loss], [])
+            for g, x in groups:
+                if gates[g] != 1.0:
+                    x.mul_(gates[g])
+            loss_v = float(loss[0])
             finite = bool(np.isfinite(loss_v))
             if max_norm > 0:
                 gn = torch.linalg.vector_norm(
@@ -244,30 +289,33 @@ class CPCTrainer:
         return loss_v, finite
 
     def unsup_step(self, batch, lr: float, seed: int, draws: Optional[Dict] = None):
-        """One CPC update on a padded batch. ``draws``: ``mask_idx`` (B, K) and
-        ``r`` (B, K, n) to use instead of drawing. Returns (loss, finite, the
-        draws used)."""
+        """One CPC update on a padded batch (this rank's rows of the global
+        batch). ``draws``: ``mask_idx`` (n, K) and ``r`` (n, K, negatives) of
+        the global batch's ``n`` real rows, to use instead of drawing. Returns
+        (loss, finite, the global draws used)."""
         b, enc, elen = self._begin(batch, seed)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
         B, T = enc.shape[:2]
-        if draws is None:
-            mask, mask_idx = self.cpc.make_mask(B, T, gen, self.device)
-            r = self.cpc.negative_draws(B, mask_idx.shape[1], gen, self.device)
+        n = self._global_rows(b["row_mask"])
+        if draws is None:  # once for the global (n, T), the same on every rank
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            _, g_idx = self.cpc.make_mask(int(n), T, gen, self.device)
+            g_r = self.cpc.negative_draws(int(n), g_idx.shape[1], gen, self.device)
         else:
-            mask_idx = torch.as_tensor(draws["mask_idx"]).to(self.device).long()
-            r = torch.as_tensor(draws["r"]).to(self.device)
-            mask = torch.zeros((B, T), dtype=torch.bool, device=self.device).scatter_(
-                1, mask_idx, True)
+            g_idx = torch.as_tensor(draws["mask_idx"]).to(self.device).long()
+            g_r = torch.as_tensor(draws["r"]).to(self.device)
+        rows = self._my_rows(B, g_idx.shape[0])
+        mask_idx, r = g_idx[rows], g_r[rows]
+        mask = torch.zeros((B, T), dtype=torch.bool, device=self.device).scatter_(
+            1, mask_idx, True)
         ctx, _ = self.context(self.cpc.apply_mask(enc, mask), elen)
         losses = self.cpc(enc, ctx, mask_idx, r=r)
-        rm = b["row_mask"]
-        loss = (losses * rm).sum() / rm.sum().clamp(min=1.0)
+        loss = (losses * b["row_mask"]).sum() / n.clamp(min=1.0)
         l2pen = float(self.fl["l2_enc_pen"])
-        if l2pen > 0:
-            loss = loss + l2pen * enc.float().pow(2).mean()
+        if l2pen > 0:  # the mean over the global (padded) batch, once summed
+            loss = loss + l2pen * enc.float().pow(2).mean() / self.mesh.spec.n_data
         loss.backward()
         loss_v, finite = self._finish(loss, self._grad_gates("unsup"), lr, 0.0)
-        return loss_v, finite, {"mask_idx": mask_idx, "r": r}
+        return loss_v, finite, {"mask_idx": g_idx, "r": g_r}
 
     def sup_step(self, batch, lr: float, seed: int):
         """One CTC update through the three archs; returns (loss, finite)."""
@@ -275,8 +323,8 @@ class CPCTrainer:
         ctx, clen = self.context(enc, elen)
         em, emlen = self.predict(ctx, clen)
         losses = ctc_loss(em.float(), b["target"], emlen, b["target_len"])
-        rm = b["row_mask"]
-        loss = (losses * rm).sum() / rm.sum().clamp(min=1.0)
+        n = self._global_rows(b["row_mask"])
+        loss = (losses * b["row_mask"]).sum() / n.clamp(min=1.0)
         loss.backward()
         # the supervised phase clips with --maxgradnorm2 when set
         # (Train.cpp:84-85, :1341-1351), else --maxgradnorm
@@ -327,6 +375,8 @@ class CPCTrainer:
             if losses[ph]:
                 parts.append(f"loss-{ph}: {np.mean(losses[ph]):10.5f}")
         line = " | ".join(parts)
+        if self.mesh.rank != 0:
+            return
         print(line, flush=True)
         if self.rundir:
             with open(os.path.join(self.rundir, "001_log"), "a") as f:
@@ -334,10 +384,15 @@ class CPCTrainer:
 
     def save_checkpoint(self):
         """``model_last.bin``: the four groups under ``enc.``, ``ctx.``,
-        ``prd.``, ``cpc.``, the optimizer and ``extra["cpc_flags"]``."""
+        ``prd.``, ``cpc.``, the optimizer and ``extra["cpc_flags"]``; rank 0
+        writes, the others wait at a barrier."""
         if not self.rundir:
             return
-        ckpt = Checkpoint(config=self.cfg.serialize(), epoch=0, updates=self.updates,
-                          state_dict=self.net.state_dict(), opt_state=self.opt.state_dict(),
-                          extra={"cpc_flags": dict(self.fl)})
-        save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
+        if self.mesh.rank == 0:
+            ckpt = Checkpoint(config=self.cfg.serialize(), epoch=0, updates=self.updates,
+                              state_dict=self.net.state_dict(),
+                              opt_state=self.opt.state_dict(),
+                              extra={"cpc_flags": dict(self.fl)})
+            save_checkpoint(os.path.join(self.rundir, "model_last.bin"), ckpt)
+        if self.mesh.distributed:
+            dist.barrier()
