@@ -20,7 +20,10 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    backward kernels
    (K2 as dgrad, K2b time-conv weight gradient, K3b residual LayerNorm
    backward, K4b attention backward) and the three autograd functions at the
-   shapes of the training paths' largest batch; K4 and K4b also at T=188
+   shapes of the training paths' largest batch, K3b also through its
+   shared-memory route (D = 100 bf16 / 98 fp32, one vector past the
+   register route, an unaligned view), each K3b row with the route, warps a
+   row and rows a block its launch took; K4 and K4b also at T=188
    unmasked, at the gate's edge T=460, at the conformer's H=4, Dh=128,
    T=240 and at T=17 and 65, which cut K4's tiles raggedly, without dropout
    and at rate 0.2 with the same keep mask on both sides; K4b alone also at
@@ -264,8 +267,8 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    replicas equal in bits, 1 K2, 1 K2b, 12 K3, 12 K3b an update a rank.
 
 Phase 3 times the paths' rows by the profiler (cold, plain, library; K1 also
-warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, the
-attention's edge shapes) once by CUDA events.
+warm) and the rows off the paths (``CONV_EDGES``, ``LN_EDGES``, K3b's
+shared-memory rows, the attention's edge shapes) once by CUDA events.
 
 The kernels line holds each kernel's row of the main paths and, from phase
 19, the mls plugin's K3, K3b, K4 and K4b, and from phase 20 CPC's K2, K2b, K3
@@ -900,7 +903,7 @@ def check_residual_ln(lns, dtype_name, details):
         row = dict(name="residual_ln", dtype=dtype_name, shape=[R, D], max_abs_err=err,
                    max_rel_err=rel, tol=TOL[("residual_ln", dtype_name)], ok=ok,
                    ms=device_ms(kernels.residual_ln, args),
-                   warm_ms=None,
+                   warm_ms=device_ms(kernels.residual_ln, args, cold=False),
                    plain_ms=device_ms(kernels.residual_ln_plain, args),
                    library_ms=lib_ms, layer_norm_ms=ln_ms, bound_ms=b_ms, bound_by=b_by,
                    calls=lns.count(key), **_ln_layout(x))
@@ -1066,7 +1069,44 @@ def check_time_conv_backward(convs, dtype_name, details, edges=(), time_plain=Tr
     return {k: [r for r in v if not r["edge"]] for k, v in rows.items()}
 
 
+def _ln_bwd_taken(args):
+    """K3b's outputs on ``args`` and the layout its launch took: (route,
+    warps a row, rows a block), read from the warps a row the wrapper hands
+    its launch (0: shared memory, one row a block) and csrc's one-warp rows a
+    block."""
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels import layernorm
+    from wav2letter_tpu_torch.kernels.trace_k3b import bwd_rows
+
+    taken, launch = [], layernorm._launch_bwd
+
+    def spy(*a):
+        taken.append(a[-1])
+        return launch(*a)
+
+    layernorm._launch_bwd = spy
+    try:
+        out = kernels.residual_ln_bwd(*args)
+    finally:
+        layernorm._launch_bwd = launch
+    wpr = taken[0]
+    if not wpr:
+        return out, (layernorm.SHARED_MEMORY, 0, 1)
+    return out, (layernorm.REGISTERS, wpr, bwd_rows() if wpr == 1 else 1)
+
+
+def _ln_bwd_log(row):
+    log(f"[K3b] {row['dtype']} {row['shape']} calls={row['calls']}: {row['route']}"
+        + (f", {row['warps_per_row']} warps a row, {row['rows_per_block']} rows a block"
+           if row["warps_per_row"] else "")
+        + f", {row['ms']:.5f} ms cold, {row['warm_ms']:.5f} warm; autograd of "
+        f"F.layer_norm {row['library_ms']}; bound {row['bound_ms']:.5f} ({row['bound_by']}); "
+        f"max err {row['max_abs_err']:.2e}")
+
+
 def check_residual_ln_bwd(lns, dtype_name, details):
+    """K3b at every row shape of one update, on the route, warps a row and
+    rows a block it takes, cold and warm."""
     import torch
     import torch.nn.functional as F
 
@@ -1083,7 +1123,7 @@ def check_residual_ln_bwd(lns, dtype_name, details):
         b = torch.tensor([-0.2], device="cuda")
         _, mu, rsig = kernels.residual_ln(x, y, w, b)
         args = (dout, x, y, mu, rsig, w)
-        dz, row_g, row_gz = kernels.residual_ln_bwd(*args)
+        (dz, row_g, row_gz), (way, wpr, per_block) = _ln_bwd_taken(args)
         torch.cuda.synchronize()
         want = kernels.residual_ln_bwd_plain(*args)
         err, rel, ok = compare("residual_ln_bwd", dtype_name, dz, want[0])
@@ -1102,9 +1142,10 @@ def check_residual_ln_bwd(lns, dtype_name, details):
         row = dict(name="residual_ln_bwd", dtype=dtype_name, shape=[R, D], max_abs_err=err,
                    max_rel_err=rel, tol=TOL[("residual_ln_bwd", dtype_name)],
                    ms=device_ms(kernels.residual_ln_bwd, args),
-                   warm_ms=None,
+                   warm_ms=device_ms(kernels.residual_ln_bwd, args, cold=False),
                    plain_ms=device_ms(kernels.residual_ln_bwd_plain, args),
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=lns.count(key))
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, calls=lns.count(key),
+                   route=way, warps_per_row=wpr, rows_per_block=per_block)
         # the whole function against autograd of the plain forward
         grads = {}
         for side, fn in (("kernel", kernels.residual_ln), ("plain", kernels.residual_ln_plain)):
@@ -1121,9 +1162,52 @@ def check_residual_ln_bwd(lns, dtype_name, details):
         row["function_scalar_err"] = scalars  # dw, db over sqrt(R*D)
         row["ok"] = bool(ok) and all(e[0] <= FN_TOL[dtype_name][2] for e in errs) \
             and all(e <= scalar_tol for e in scalars)
+        _ln_bwd_log(row)
         rows.append(row)
         details.append(row)
     return rows
+
+
+def check_residual_ln_bwd_edges(dtype_name, details):
+    """K3b's shared-memory kernel, which no row of the paths reaches: a D
+    that is not a multiple of the 16-byte vector (100 bf16, 98 fp32), D one
+    vector past the register route (8200 bf16, 4100 fp32) and a view one
+    element past an aligned start (50 x 1280). Each is held to its plain
+    version at the paths' tolerances and must take the shared-memory route;
+    checked, timed warm, counted 0 times."""
+    import torch
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.layernorm import SHARED_MEMORY
+
+    dtype = getattr(torch, dtype_name)
+    bf16 = dtype_name == "bfloat16"
+    for R, D in ((64, 100 if bf16 else 98), (64, 8200 if bf16 else 4100), ("unaligned", 1280)):
+        unaligned = R == "unaligned"
+        R = 50 if unaligned else R
+        g = torch.Generator(device="cuda").manual_seed(R + D + 2)
+        x, y, dout = (torch.randn((R * D + 1,), device="cuda", generator=g).to(dtype)
+                      [int(unaligned):][:R * D].view(R, D) for _ in range(3))
+        w = torch.tensor([1.3], device="cuda")
+        _, mu, rsig = kernels.residual_ln_plain(x, y, w, torch.tensor([-0.2], device="cuda"))
+        args = (dout, x, y, mu, rsig, w)
+        (dz, row_g, row_gz), (way, wpr, per_block) = _ln_bwd_taken(args)
+        torch.cuda.synchronize()
+        want = kernels.residual_ln_bwd_plain(*args)
+        err, rel, ok = compare("residual_ln_bwd", dtype_name, dz, want[0])
+        # fp32 row sums of <= 8200 O(1) terms
+        ok = ok and torch.allclose(row_g, want[1], rtol=1e-4, atol=1e-3) \
+            and torch.allclose(row_gz, want[2], rtol=1e-4, atol=1e-3)
+        ms = cuda_ms(lambda: kernels.residual_ln_bwd(*args))
+        b_ms, b_by = bound(4 * R * D * x.element_size() + 16 * R + 4, 12 * R * D, "float32")
+        row = dict(name="residual_ln_bwd", dtype=dtype_name, shape=[R, D], max_abs_err=err,
+                   max_rel_err=rel, tol=TOL[("residual_ln_bwd", dtype_name)],
+                   ok=bool(ok) and way == SHARED_MEMORY, ms=ms, warm_ms=ms, plain_ms=None,
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by, calls=0, edge=True,
+                   aligned=x.data_ptr() % 16 == 0, route=way, warps_per_row=wpr,
+                   rows_per_block=per_block)
+        _ln_bwd_log(row)
+        details.append(row)
 
 
 def _attention_inputs(B, T, H, Dh, masked, dtype):
@@ -1342,8 +1426,12 @@ def k4b_edges(dtype_name):
 
 
 def per_forward(rows):
-    """Sum a kernel's rows over one forward, weighting each shape by its calls."""
-    out = {k: 0.0 for k in ("ms", "plain_ms", "bound_ms")}
+    """Sum a kernel's rows over one forward, weighting each shape by its calls
+    (the warm time too where every row has one)."""
+    keys = ("ms", "plain_ms", "bound_ms")
+    if all(r.get("warm_ms") is not None for r in rows):
+        keys += ("warm_ms",)
+    out = {k: 0.0 for k in keys}
     lib = 0.0 if all(r["library_ms"] is not None for r in rows) else None
     for r in rows:
         for k in out:
@@ -6240,6 +6328,7 @@ def main() -> None:
             rows[("time_conv_wgrad", dt)] = back["time_conv_wgrad"]
             stamp(f"dgrad, K2b {dt}")
             rows[("residual_ln_bwd", dt)] = check_residual_ln_bwd(tlns, dt, details)
+            check_residual_ln_bwd_edges(dt, details)
             rows[("residual_ln@transformer", dt)] = check_residual_ln(tr_lns, dt, details)
             rows[("residual_ln_bwd@transformer", dt)] = check_residual_ln_bwd(
                 tr_tlns, dt, details)
@@ -6411,7 +6500,7 @@ def main() -> None:
             plain_ms=agg["plain_ms"],
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
             library_ms=agg["library_ms"], per=per)
-        if name in ("mfsc", "residual_ln"):  # which of the kernel's two routes ran
+        if name in ("mfsc", "residual_ln", "residual_ln_bwd"):  # which routes ran
             krows = rows["mfsc" if name == "mfsc" else (name, dt)]
             entry["kernel_route"] = sorted({r["route"] for r in krows})
         if name == "residual_ln":  # F.layer_norm of a precomputed sum, the old yardstick

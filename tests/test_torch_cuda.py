@@ -213,14 +213,16 @@ def test_residual_ln_kernel_unaligned_view(cuda, dtype):
 
 
 def test_residual_ln_layout_twins_match(cuda):
-    """The C twin of K3's register layout against the Python helper."""
+    """The C twin of K3's and K3b's register layout against the Python
+    helper."""
     from wav2letter_tpu_torch.kernels import _build
     from wav2letter_tpu_torch.kernels.layernorm import warps_per_row
 
     lib = kernels.library()
     for dtype, code in _build.DTYPE_CODES.items():
         item = torch.tensor([], dtype=dtype).element_size()
-        for D in list(range(1, 8400, 3)) + [768, 1280, 1600, 1920, 2240, 4096, 8192, 8200]:
+        for D in list(range(1, 8400, 3)) + [96, 256, 768, 1280, 1600, 1920, 2240, 3072, 4096,
+                                            4100, 8192, 8200]:
             assert lib.w2l_residual_ln_warps(D, code) == warps_per_row(D, item), (D, dtype)
 
 
@@ -295,25 +297,56 @@ def test_time_conv_wgrad_kernel(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
     assert torch.equal(got, again)  # two ordered passes, no atomics
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("R,D", [(3000, 1280), (187, 2240), (70, 96)])
-def test_residual_ln_bwd_kernel(cuda, dtype, R, D):
-    x = _randn((R, D), R, cuda, dtype)
+# K3b's shapes, (dtype, R, D, unaligned): the flagship's rows, a short row,
+# mls (256), the transformer (768), the flagship's B = 16 row, the register
+# route's widest rows (8192 bf16, 4096 fp32), a D of 100 (bf16: no 16-byte
+# vectors), and a view one element past an aligned start (shared memory)
+K3B_CASES = [(dt, R, D, False) for dt in ("float32", "bfloat16")
+             for R, D in ((3000, 1280), (187, 2240), (70, 96), (3072, 256), (1536, 768),
+                          (12288, 1280), (64, 100))] + [
+    ("bfloat16", 64, 8192, False), ("float32", 64, 4096, False),
+    ("float32", 50, 1280, True), ("bfloat16", 50, 1280, True)]
+
+
+@pytest.mark.parametrize("dtype,R,D,unaligned", K3B_CASES)
+def test_residual_ln_bwd_kernel(cuda, monkeypatch, dtype, R, D, unaligned):
+    from wav2letter_tpu_torch.kernels import layernorm
+
+    dtype = getattr(torch, dtype)
+    if unaligned:
+        x = _randn((R * D + 1,), R, cuda, dtype)[1:].view(R, D)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    else:
+        x = _randn((R, D), R, cuda, dtype)
     y = _randn((R, D), D, cuda, dtype)
     g = _randn((R, D), R + D, cuda, dtype)
     w = torch.tensor([1.3], device=cuda)
     b = torch.tensor([-0.2], device=cuda)
     _, mu, rsig = kernels.residual_ln(x, y, w, b)
+    taken, launch = [], layernorm._launch_bwd
+
+    def spy(*a):
+        taken.append(a[-1])  # warps a row
+        return launch(*a)
+
+    monkeypatch.setattr(layernorm, "_launch_bwd", spy)
     before = kernels.LAUNCHES["residual_ln_bwd"]
     dz, row_g, row_gz = kernels.residual_ln_bwd(g, x, y, mu, rsig, w)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["residual_ln_bwd"] == before + 1
+    way, wpr = layernorm.bwd_layout(D, x.element_size(), not unaligned)
+    assert taken == [wpr]
+    n = 16 // x.element_size()
+    assert (way == "registers") == (not unaligned and D % n == 0 and D <= 1024 * n)
     wdz, wg, wgz = kernels.residual_ln_bwd_plain(g, x, y, mu, rsig, w)
     tol = 1e-5 if dtype == torch.float32 else 2e-2  # bf16 output rounding
     torch.testing.assert_close(dz.float(), wdz.float(), rtol=tol, atol=tol)
-    # fp32 row sums of <= 2240 O(1) terms
+    # fp32 row sums of <= 8192 O(1) terms
     torch.testing.assert_close(row_g, wg, rtol=1e-4, atol=1e-3)
     torch.testing.assert_close(row_gz, wgz, rtol=1e-4, atol=1e-3)
+    # sums in a fixed order: a second call gives the same bits
+    for got, again in zip((dz, row_g, row_gz), kernels.residual_ln_bwd(g, x, y, mu, rsig, w)):
+        assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -635,6 +635,94 @@ def test_residual_ln_routes():
     assert K3.route(1280, 2, aligned=False) == K3.SHARED_MEMORY
 
 
+# (D, itemsize, route, warps a row) of K3b: mls (256), the transformer and
+# transformer_s2s (768), the flagship (1280-2240), 3072, the register
+# route's widest rows and one vector past them, a D that is not a multiple
+# of the 16-byte vector
+_R, _S = "registers", "shared memory"
+K3B_LAYOUTS = [
+    (96, 2, _R, 1), (256, 2, _R, 1), (768, 2, _R, 1), (1280, 2, _R, 2), (1600, 2, _R, 2),
+    (1920, 2, _R, 2), (2240, 2, _R, 4), (3072, 2, _R, 4), (8192, 2, _R, 8), (8200, 2, _S, 0),
+    (100, 2, _S, 0),
+    (96, 4, _R, 1), (256, 4, _R, 1), (768, 4, _R, 2), (1280, 4, _R, 4), (1600, 4, _R, 4),
+    (1920, 4, _R, 4), (2240, 4, _R, 8), (3072, 4, _R, 8), (4096, 4, _R, 8), (4100, 4, _S, 0),
+    (98, 4, _S, 0),
+]
+
+
+@pytest.mark.parametrize("D,itemsize,way,wpr", K3B_LAYOUTS)
+def test_residual_ln_bwd_layout(D, itemsize, way, wpr):
+    """K3b's route, warps a row and rows a block: K3's register widths, one
+    row a block of 2-8 warps, csrc's ``LN_BWD_ROWS`` one-warp rows a block
+    (read from the source the launch is built from); a view that is not
+    16-byte aligned goes through shared memory, a block of 256 threads a
+    row."""
+    from wav2letter_tpu_torch.kernels import layernorm as K3
+    from wav2letter_tpu_torch.kernels.trace_k3b import bwd_rows
+
+    rows = bwd_rows() if wpr == 1 else 1
+    assert K3.bwd_layout(D, itemsize) == (way, wpr)
+    assert K3.route(D, itemsize) == way and K3.warps_per_row(D, itemsize) == wpr
+    assert K3.bwd_layout(D, itemsize, aligned=False) == (_S, 0)
+    assert wpr * rows <= K3.LN_MAX_WARPS  # a block's warps
+
+
+def test_residual_ln_bwd_constants_and_signature():
+    """The constants the C rule of warps a row (``w2l_residual_ln_warps``)
+    reads are the Python rule's (the functions themselves are held to each
+    other on the card); K3b's one-warp rows a block is one a block can hold;
+    and the launch's ctypes signature has one int per C parameter: dtype, R,
+    D and warps a row."""
+    import re
+
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels import layernorm as K3
+    from wav2letter_tpu_torch.kernels.trace_k3b import bwd_rows
+
+    src = (_build.CSRC / "layernorm.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("LN_VECTORS") == K3.LN_VECTORS
+    assert const("LN_MAX_WARPS") == K3.LN_MAX_WARPS
+    assert bwd_rows(src) == const("LN_BWD_ROWS") and bwd_rows() in (1, 2, 4, 8)
+    assert _build.SIGNATURES["w2l_residual_ln_bwd"] == \
+        [_build._P] * 9 + [_build._I] * 4 + [_build._P]
+    decl = re.search(r'extern "C" int w2l_residual_ln_bwd\((.*?)\)', src, re.S).group(1)
+    assert len(decl.split(",")) == len(_build.SIGNATURES["w2l_residual_ln_bwd"])
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8])
+def test_k3b_rows_sweep_changes_one_constant(rows):
+    """``time_k1k3.py --k3b-rows`` times copies of ``csrc/layernorm.cu`` that
+    differ from it by ``LN_BWD_ROWS`` alone."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k3b import bwd_rows, with_bwd_rows
+
+    src = (_build.CSRC / "layernorm.cu").read_text()
+    copy = with_bwd_rows(src, rows)
+    assert bwd_rows(copy) == rows
+    diff = [(a, b) for a, b in zip(src.splitlines(), copy.splitlines()) if a != b]
+    assert len(src.splitlines()) == len(copy.splitlines())
+    assert len(diff) == (rows != bwd_rows(src))
+    assert all("LN_BWD_ROWS" in a for a, _ in diff)
+
+
+def test_k3b_trace_instruments_the_kernel():
+    """``kernels/trace_k3b.py`` finds each of its anchors once in K3b's
+    register kernel, and the copy it builds differs from the source only by
+    the stamps: the kernel's own lines are all there, in order."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_k3b import _instrument
+
+    src = (_build.CSRC / "layernorm.cu").read_text()
+    traced = _instrument(src)
+    assert traced.count("g_k3b_stamps") == 3 and "w2l_k3b_stamps" in traced
+    kept = iter(traced.splitlines())
+    assert all(line in kept for line in src.splitlines())
+
+
 def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     """An edit to a header the kernels share (``mma.cuh``: K1's and K4's
     3xTF32 pieces) rebuilds the library."""

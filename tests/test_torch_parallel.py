@@ -23,6 +23,9 @@ takes rows ``d::2`` of each global batch.
   while the ranks' dropout masks and K4 seeds differ;
 * BatchNorm at dp2: the global batch's statistics, against one process;
 * slimIPL with soft labels over a fixed cache: 2 ranks against one process;
+* local prior match (``tests/test_torch_semi.py``'s seq2seq arch and
+  2-gram): 2 ranks against one process, through a batch where one rank has
+  no hypothesis and a batch where no rank has one (skipped alike);
 * CPC (``tests/test_torch_cpc.py``'s narrow archs over raw audio): one
   unsupervised and one supervised update on 2 ranks against one process at
   the global batch, bit-identical replicas, and 1 + ``continue`` for 1
@@ -51,8 +54,9 @@ import torch
 from tests.test_parallel_equivalence import BIG_ARCH, SMALL_ARCH
 from tests.test_torch_asg import asg_dataset, asg_flags
 from tests.test_torch_cpc import CPC_FLAGS, CTX, ENC, PRD
+from tests.test_torch_semi import ARPA, S2S_ARCH
 from tests.util_synth import make_dataset
-from tests.util_torch_parallel import spy_cpc_losses, spy_losses
+from tests.util_torch_parallel import blank_lpm_proposals, spy_cpc_losses, spy_losses
 from wav2letter_tpu.config import Config as JaxConfig
 from wav2letter_tpu.parallel.mesh import MeshSpec as JaxMeshSpec
 from wav2letter_tpu.parallel.mesh import make_mesh as jax_make_mesh
@@ -64,6 +68,7 @@ from wav2letter_tpu_torch.parallel.mesh import MeshSpec, mesh_coords
 from wav2letter_tpu_torch.runtime.checkpoint import load_checkpoint, params_to_jax_tree
 from wav2letter_tpu_torch.runtime.train import Trainer
 from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
+from wav2letter_tpu_torch.runtime.train_lpm import LPMTrainer
 from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +92,7 @@ BN_ARCH = "V -1 1 NFEAT 0\nC NFEAT 32 8 4 4\nBN 32 2\nRO 2 0 3 1\nL 32 NLABEL\n"
 GLU_ARCH = ("V -1 1 NFEAT 0\nWN 3 C NFEAT 64 8 2 4\nGLU 2\nWN 3 C 32 64 6 1 -1\nGLU 2\n"
             "RO 2 0 3 1\nWN 0 L 32 64\nGLU 0\nWN 0 L 32 NLABEL\n")
 ARCHS = dict(small=SMALL_ARCH, big=BIG_ARCH, tds=TDS_ARCH, tr4=TR4_ARCH, tr1=TR1_ARCH,
-             noisy=NOISY_ARCH, bn=BN_ARCH, glu=GLU_ARCH)
+             noisy=NOISY_ARCH, bn=BN_ARCH, glu=GLU_ARCH, s2s=S2S_ARCH)
 
 # name -> (arch, flags of both sides, flags of the ranks alone); the name's
 # part before its mesh names the one-process run it is held to, and a
@@ -146,7 +151,8 @@ def _wait(procs):
     return outs
 
 
-def _one_process(flags, mode="train", init="", threads=None, ipl=None):
+def _one_process(flags, mode="train", init="", threads=None, ipl=None, lpm=None,
+                 lpm_blanks=None):
     """A run in this process; with ``threads``, on as many CPU threads. The
     ranks run on one (``OMP_NUM_THREADS=1``). The CPU GEMMs round by their
     thread count: on the big arch one bias entry's second gradient moves by
@@ -154,22 +160,31 @@ def _one_process(flags, mode="train", init="", threads=None, ipl=None):
     within rounding of a ReLU's kink, by all appearances), and novograd,
     which divides a tensor's step by its gradient's norm, carries that into
     the parameters at 7.8e-5 after 3 updates. With ``ipl``, a
-    ``SlimIPLTrainer`` on those slimIPL flags."""
+    ``SlimIPLTrainer`` on those slimIPL flags; with ``lpm``, an
+    ``LPMTrainer`` on those LPM flags, its proposals emptied at
+    ``lpm_blanks``."""
     cfg = Config()
     cfg.update(flags)
     kw = dict(mode=mode, init_model_path=init, device="cpu")
-    tr = SlimIPLTrainer(cfg, ipl_flags=ipl, **kw) if ipl else Trainer(cfg, **kw)
+    if ipl:
+        tr = SlimIPLTrainer(cfg, ipl_flags=ipl, **kw)
+    elif lpm:
+        tr = LPMTrainer(cfg, lpm_flags=lpm, **kw)
+        blank_lpm_proposals(tr, lpm_blanks or [])
+    else:
+        tr = Trainer(cfg, **kw)
     losses = []
     spy_losses(tr, losses)
     before = torch.get_num_threads()
     if threads:
         torch.set_num_threads(threads)
     try:
-        tr.run()
+        stats = tr.run()
     finally:
         torch.set_num_threads(before)
     return dict(losses=losses, params=tr.model.state_dict(),
                 crit_params=tr.criterion.state_dict(), updates=tr.updates,
+                lpm=dict(stats=stats, refreshed_at=tr.refreshed_at) if lpm else None,
                 valid={t: m.tkn_edit.state() + m.wrd_edit.state() + m.loss.state()
                        for t, m in tr.meters.valid.items()})
 
@@ -249,6 +264,25 @@ def world(tmp_path_factory):
                     slimIPL_type="fixed-pre-cache", slimIPL_use_soft=True,
                     slimIPL_fixed_cache_updates=2, slimIPL_fixed_cache_update_prob=0.5,
                     slimIPL_ema=True, slimIPL_ema_decay=0.9)
+    # LPM: paired, unpaired, paired, unpaired (skipped), paired, unpaired
+    # (the proposal refreshed after 2 and 4), from one seq2seq init whose
+    # decoder's eos and pad outputs are pushed down, so that its greedy
+    # proposals are not empty; then emptied for the first unpaired batch's
+    # even rows (all of rank 0's, none of rank 1's) and for all of the
+    # second's, which no rank then trains on
+    with open(rd("lm.arpa"), "w") as f:
+        f.write(ARPA)
+    lpm = _base(data, archs, "s2s", rd("lpm"), batchsize=4, iter=5, train2=unsup,
+                criterion="seq2seq", encoderdim=16, maxdecoderoutputlen=8, onorm="none",
+                netoptim="adam", critoptim="adam", lr=0.01, lrcrit=0.01, maxgradnorm=5.0,
+                lm=rd("lm.arpa"))
+    lpm_fl = dict(propupdate=2)
+    lpm_blanks = [[0, 2, 4, 6], list(range(8))]
+    seed = Trainer(Config(**dict(lpm, rundir=rd("lpm_init"))), device="cpu")
+    with torch.no_grad():
+        seed.criterion.out.bias[-2:] = -30.0
+    seed.save()
+    lpm_init = os.path.join(rd("lpm_init"), "run", "model_last.bin")
     two = [
         dict(flags=dp, mode="fork", init=init, out=rd("out/dp")),
         # update 2's checkpoint, continued to 4 (compared with update 4's)
@@ -262,6 +296,8 @@ def world(tmp_path_factory):
              spy_dropout=True, out=rd("out/noisy")),
         dict(flags=dict(bn, batchsize=4), out=rd("out/bn")),
         dict(flags=slim, ipl=slim_ipl, out=rd("out/slim")),
+        dict(flags=lpm, lpm=lpm_fl, lpm_blanks=lpm_blanks, mode="fork", init=lpm_init,
+             out=rd("out/lpm")),
         dict(flags=_cpc_base(data, cpc_arch, rd("cpc")), cpc=CPC_FL, out=rd("out/cpc")),
         # CPC: 1 update, then continue for 1 (compared with the 2 above)
         dict(flags=_cpc_base(data, cpc_arch, rd("cpc_cont"), iter=1), cpc=CPC_FL,
@@ -289,6 +325,8 @@ def world(tmp_path_factory):
             "bn": _one_process(dict(bn, rundir=rd("one_bn"))),
             "slim": _one_process(dict(slim, batchsize=8, rundir=rd("one_slim")),
                                  ipl=slim_ipl),
+            "lpm": _one_process(dict(lpm, batchsize=8, rundir=rd("one_lpm")), "fork",
+                                lpm_init, lpm=lpm_fl, lpm_blanks=lpm_blanks),
             "cpc": _one_cpc(_cpc_base(data, cpc_arch, rd("one_cpc"), batchsize=8)),
         }
         for name, (arch, kw, _) in TP_CASES.items():
@@ -382,6 +420,28 @@ def test_two_ranks_with_slimipl_soft_labels_equal_one_process(world):
     _close(r0["params"], one["params"], rtol=1e-3, atol=1e-5)
     with np.load(os.path.join(world["rd"]("slim"), "run", "pl_cache_soft.npz")) as z:
         assert len(z.files) == 16
+
+
+def test_two_ranks_with_lpm_equal_one_process(world):
+    """Local prior match on 2 ranks: each rank proposes for its own rows and
+    a batch is skipped only where no rank has a hypothesis, so both ranks
+    take the same updates and skips as one process at twice the rows. A
+    rank with no hypothesis in a batch another rank has one in still takes
+    the update (its rows empty targets, in the global loss's divisor); a
+    batch no rank has a hypothesis in is skipped by all. The losses are the
+    global batch's, the replicas equal in bits."""
+    r0, r1 = world["ranks"]("lpm", 2)
+    one = world["one"]["lpm"]
+    assert r0["updates"] == r1["updates"] == one["updates"] == 5
+    assert r0["lpm"] == r1["lpm"] == one["lpm"]
+    assert one["lpm"] == dict(stats={"paired": 3, "unpaired": 2, "skipped": 1},
+                              refreshed_at=[2, 4])
+    assert r0["losses"] == r1["losses"] and len(r0["losses"]) == 5
+    np.testing.assert_allclose(r0["losses"], one["losses"], rtol=1e-4, atol=1e-5)
+    for key in ("params", "crit_params"):
+        for k, v in r0[key].items():
+            assert torch.equal(v, r1[key][k]), k
+        _close(r0[key], one[key], rtol=1e-3, atol=1e-5)
 
 
 def test_two_ranks_with_asg_equal_one_process(world):

@@ -5,8 +5,9 @@
 Joins a gloo group through a ``file://`` rendezvous (no port to race for),
 then runs each job of the JSON list in turn: a ``Trainer`` (a
 ``SlimIPLTrainer`` where the job gives ``ipl`` flags, a ``CPCTrainer``
-where it gives ``cpc`` flags) on the CPU on the job's
-flags, in its mode, with the spies the job asks for (and JAX's
+where it gives ``cpc`` flags, an ``LPMTrainer`` where it gives ``lpm``
+flags, its proposals emptied where the job's ``lpm_blanks`` say) on the
+CPU on the job's flags, in its mode, with the spies the job asks for (and JAX's
 2^20-element split threshold lowered where the job names a
 ``min_shard_size``). What the test
 compares goes to ``<job out>/rank<R>.pt``. Imports neither JAX nor the JAX
@@ -30,6 +31,7 @@ from wav2letter_tpu_torch.models.transformer import MultiHeadSelfAttention
 from wav2letter_tpu_torch.parallel import sharding
 from wav2letter_tpu_torch.runtime.train import Trainer
 from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
+from wav2letter_tpu_torch.runtime.train_lpm import LPMTrainer
 from wav2letter_tpu_torch.runtime.train_slimipl import SlimIPLTrainer
 
 
@@ -68,7 +70,18 @@ def _spy_dropout(masks):
 
 def spy_losses(tr, losses):
     """Record every loss the trainer meters, in order: ``("sup", v)`` and,
-    for slimIPL, ``("unsup", v)``; a plain ``Trainer``'s as floats."""
+    for slimIPL, ``("unsup", v)``; a plain ``Trainer``'s as floats. An
+    ``LPMTrainer`` meters none (as JAX's does not): its updates' losses,
+    as floats."""
+    if isinstance(tr, LPMTrainer):
+        step = tr.train_step
+
+        def train_step(*a, **kw):
+            out = step(*a, **kw)
+            losses.append(float(out[0]))
+            return out
+        tr.train_step = train_step
+        return
     meters = [("sup", tr.meters.train)]
     if hasattr(tr, "meters_unsup"):
         meters.append(("unsup", tr.meters_unsup))
@@ -77,6 +90,26 @@ def spy_losses(tr, losses):
             losses.append((kind, float(v)) if len(meters) > 1 else float(v))
             orig(v, n)
         m.loss.add = add
+
+
+def blank_lpm_proposals(tr, blanks):
+    """Empty an ``LPMTrainer``'s proposals for the rows ``blanks[k]`` of the
+    global batch of its k-th unpaired batch, as if its proposal model had no
+    hypothesis there: the data rank r of w takes global row ``j * w + r`` as
+    its row j (``data/batching.py``), so one process and every rank empty
+    the same rows."""
+    from wav2letter_tpu_torch.parallel.sharding import dataset_shard
+
+    rank, world = dataset_shard(tr.mesh)
+    propose, seen = tr._propose, []
+
+    def _propose(batch):
+        out = propose(batch)
+        drop = set(blanks[len(seen)]) if len(seen) < len(blanks) else set()
+        seen.append(len(seen))
+        return [([], []) if j * world + rank in drop else p for j, p in enumerate(out)]
+
+    tr._propose = _propose
 
 
 def spy_cpc_losses(tr, losses):
@@ -123,13 +156,20 @@ def run_job(job, rank):
     sharding.MIN_SHARD_SIZE = job.get("min_shard_size") or 2**20
     kw = dict(mode=job.get("mode", "train"), init_model_path=job.get("init", ""),
               device="cpu")
-    tr = SlimIPLTrainer(cfg, ipl_flags=job["ipl"], **kw) if job.get("ipl") else Trainer(cfg, **kw)
+    if job.get("ipl"):
+        tr = SlimIPLTrainer(cfg, ipl_flags=job["ipl"], **kw)
+    elif job.get("lpm"):
+        tr = LPMTrainer(cfg, lpm_flags=job["lpm"], **kw)
+    else:
+        tr = Trainer(cfg, **kw)
+    if job.get("lpm_blanks"):
+        blank_lpm_proposals(tr, job["lpm_blanks"])
     losses, attn, masks = [], [], []
     spy_losses(tr, losses)
     _spy_attention(tr, attn)
     orig = _spy_dropout(masks) if job.get("spy_dropout") else None
     try:
-        tr.run()
+        stats = tr.run()
     finally:
         if orig is not None:
             F.dropout = orig
@@ -143,6 +183,7 @@ def run_job(job, rank):
         "attention": attn,
         "first_mask": masks[0] if masks else None,
         "updates": tr.updates,
+        "lpm": dict(stats=stats, refreshed_at=tr.refreshed_at) if job.get("lpm") else None,
     }, os.path.join(job["out"], f"rank{rank}.pt"))
 
 

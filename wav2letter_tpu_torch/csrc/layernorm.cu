@@ -34,15 +34,44 @@
 // K3b: its backward. Replaces layernorm.py::_bwd (_bwd_kernel):
 //   zhat = (z - mu) * rsig;  ghat = g * w
 //   dz = rsig * (ghat - mean(ghat) - zhat * mean(ghat * zhat))   (fp32, per row)
-// dz is the gradient of both x and y. Bytes bind it as they do the forward.
-// The TPU forward writes z = x + y for its backward; this forward writes
-// nothing more than it did, and the backward takes x and y and forms z in
-// fp32 again: g, x, y in and dz out are four row passes, as many as writing
-// z in the forward (one) and reading g and z and writing dz here (three),
-// with z exact instead of rounded to bf16 and serving untouched. The two row
-// sums it needs anyway, sum(g) and sum(g * zhat), are written per row: their
-// totals are the gradients of the scalar bias and weight, which the TPU code
-// computes with a second pass over g and z outside its kernel.
+// dz is the gradient of both x and y. The TPU forward writes z = x + y for
+// its backward; this forward writes nothing more than it did, and the
+// backward takes x and y and forms z in fp32 again: g, x, y in and dz out
+// are four row passes, as many as writing z in the forward (one) and reading
+// g and z and writing dz here (three), with z exact instead of rounded to
+// bf16 and serving untouched. The two row sums it needs anyway, sum(g) and
+// sum(g * zhat), are written per row: their totals are the gradients of the
+// scalar bias and weight, which the TPU code computes with a second pass
+// over g and z outside its kernel.
+//
+// Bound on the H100: bytes, as the forward. A row element costs ~12 FLOP
+// against 8 (bf16) or 16 (fp32) bytes moved, and the rows of the main paths
+// (R x D = 768..12312 x 256..2240) are 1.4-75 us of bytes: a call is bound
+// by HBM and, at the narrow widths, by its ramp and tail.
+//
+// Design, two routes (kernels/layernorm.py::bwd_layout, C twin
+// w2l_residual_ln_warps). Registers
+// (residual_ln_bwd_reg_kernel; K3's register route's widths, g, x, y and dz
+// 16-byte aligned): a row is held by the warps K3 gives it, a lane at most
+// four 16-byte vectors of each input, and the kernel is compiled for the
+// vectors a lane has (1-4), so a narrow row holds no registers it does not
+// use and more of its warps are resident at once. Each lane reads its
+// vectors of g, x and y once, keeps g and zhat in fp32 registers, forms
+// sum(g) and sum(g * zhat) in the same loop, and writes dz as 16-byte
+// vectors (bf16 rounded to nearest even): the row's bytes move once and
+// nothing but the warps' partial sums goes through shared memory. The two sums are reduced
+// as a pair: warp shuffles on both, then, in a row of several warps, one
+// barrier and the warps' pairs added in order, so two calls give the same
+// bits. A row of 2-8 warps (bf16 D > 1024, fp32 D > 512: the flagship's
+// rows) gets a block of its own, as the forward found fastest there. A row
+// of one warp (the transformer's, transformer_s2s's and mls's) has no
+// barrier at all, and LN_BWD_ROWS of them share a block: a one-warp block
+// would leave an SM at 32 resident blocks, half its 64 warps. The launch
+// sets the rows a block from the warps a row; LN_BWD_ROWS was chosen by
+// timing 1, 2, 4 and 8 (kernels/time_k1k3.py --k3b-rows, which builds a copy
+// of this file for each; PERF.md). Shared memory
+// (residual_ln_bwd_kernel; any D, any alignment): one block of 256 threads
+// a row, g and zhat staged in shared memory for the second pass.
 #include "common.cuh"
 
 namespace {
@@ -307,15 +336,144 @@ int launch_bwd(const void* g, const void* x, const void* y, const void* mu,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K3b, registers
+// ---------------------------------------------------------------------------
+constexpr int LN_BWD_ROWS = 4;  // one-warp rows a block
+
+// wpr warps a row, V 16-byte vectors of each input a lane at most (V is a
+// template parameter so that a narrow row holds no registers for vectors it
+// never has). wpr = 1: a row a warp, blockDim.x / 32 rows a block, no
+// barrier; wpr > 1: one row a block of wpr warps.
+template <typename T, int V>
+__global__ void __launch_bounds__(32 * LN_MAX_WARPS)
+residual_ln_bwd_reg_kernel(const T* __restrict__ g, const T* __restrict__ x,
+                           const T* __restrict__ y, const float* __restrict__ mu,
+                           const float* __restrict__ rsig, const float* __restrict__ w,
+                           T* __restrict__ dz, float* __restrict__ row_g,
+                           float* __restrict__ row_gz, int R, int D, int wpr) {
+  constexpr int N = Vec16<T>::N;
+  __shared__ float red[2][LN_MAX_WARPS];  // the warps' sum(g), then sum(g * zhat)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row = wpr == 1 ? blockIdx.x * (blockDim.x >> 5) + warp : blockIdx.x;
+  if (row >= R) return;  // only a one-warp row past the last: no barrier follows
+  const int t = wpr == 1 ? lane : threadIdx.x;
+  const int step = 32 * wpr;
+  const size_t base = static_cast<size_t>(row) * D;
+  const int nvec = D / N;
+  const float m = mu[row];
+  const float rs = rsig[row];
+
+  float gv[V][N], zh[V][N];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int v = t + k * step;
+    if (v < nvec) {
+      const size_t off = base + static_cast<size_t>(v) * N;
+      float a[N], c[N];
+      Vec16<T>::load(g + off, gv[k]);
+      Vec16<T>::load(x + off, a);
+      Vec16<T>::load(y + off, c);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        zh[k][e] = (a[e] + c[e] - m) * rs;
+        s1 += gv[k][e];
+        s2 = fmaf(gv[k][e], zh[k][e], s2);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
+  }
+  if (wpr > 1) {
+    if (lane == 0) {
+      red[0][warp] = s1;
+      red[1][warp] = s2;
+    }
+    __syncthreads();
+    s1 = 0.f;
+    s2 = 0.f;
+    for (int i = 0; i < wpr; ++i) {
+      s1 += red[0][i];
+      s2 += red[1][i];
+    }
+  }
+  const float wv = w[0];
+  const float m1 = wv * s1 / D;
+  const float m2 = wv * s2 / D;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    const int v = t + k * step;
+    if (v < nvec) {
+      float o[N];
+#pragma unroll
+      for (int e = 0; e < N; ++e) o[e] = rs * (wv * gv[k][e] - m1 - zh[k][e] * m2);
+      Vec16<T>::store(dz + base + static_cast<size_t>(v) * N, o);
+    }
+  }
+  if (t == 0) {
+    row_g[row] = s1;
+    row_gz[row] = s2;
+  }
+}
+
+template <typename T, int V>
+void launch_bwd_reg_v(const void* g, const void* x, const void* y, const void* mu,
+                      const void* rsig, const void* w, void* dz, void* row_g, void* row_gz,
+                      int R, int D, int wpr, int rows, cudaStream_t stream) {
+  residual_ln_bwd_reg_kernel<T, V><<<(R + rows - 1) / rows, 32 * wpr * rows, 0, stream>>>(
+      static_cast<const T*>(g), static_cast<const T*>(x), static_cast<const T*>(y),
+      static_cast<const float*>(mu), static_cast<const float*>(rsig),
+      static_cast<const float*>(w), static_cast<T*>(dz), static_cast<float*>(row_g),
+      static_cast<float*>(row_gz), R, D, wpr);
+}
+
+template <typename T>
+int launch_bwd_reg(const void* g, const void* x, const void* y, const void* mu,
+                   const void* rsig, const void* w, void* dz, void* row_g, void* row_gz,
+                   int R, int D, int wpr, cudaStream_t stream) {
+  const int n = Vec16<T>::N;
+  if (wpr < 1 || wpr > LN_MAX_WARPS || D % n != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = wpr == 1 ? LN_BWD_ROWS : 1;  // a block's rows
+  const int vecs = (D / n + 32 * wpr - 1) / (32 * wpr);  // a lane's vectors
+  switch (vecs) {
+    case 1: launch_bwd_reg_v<T, 1>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr, rows,
+                                   stream); break;
+    case 2: launch_bwd_reg_v<T, 2>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr, rows,
+                                   stream); break;
+    case 3: launch_bwd_reg_v<T, 3>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr, rows,
+                                   stream); break;
+    case 4: launch_bwd_reg_v<T, 4>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr, rows,
+                                   stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);  // more than LN_VECTORS
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // g, x, y, dz (R, D) of one dtype; mu, rsig, row_g, row_gz (R,) and w (1,)
 // float32. row_g[r] = sum_i g[r, i]; row_gz[r] = sum_i g[r, i] * zhat[r, i].
+// wpr > 0: the register route, wpr warps a row (g, x, y and dz 16-byte
+// aligned, D * itemsize a multiple of 16), LN_BWD_ROWS rows a block of one
+// warp, one row a block of more; wpr = 0: the shared-memory route.
 extern "C" int w2l_residual_ln_bwd(const void* g, const void* x, const void* y,
                                    const void* mu, const void* rsig, const void* w,
                                    void* dz, void* row_g, void* row_gz, int dtype, int R,
-                                   int D, void* stream) {
+                                   int D, int wpr, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wpr > 0) {
+    if (dtype == w2l::kFloat32)
+      return launch_bwd_reg<float>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr, s);
+    if (dtype == w2l::kBFloat16)
+      return launch_bwd_reg<__nv_bfloat16>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, wpr,
+                                           s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == w2l::kFloat32)
     return launch_bwd<float>(g, x, y, mu, rsig, w, dz, row_g, row_gz, R, D, s);
   if (dtype == w2l::kBFloat16)

@@ -67,7 +67,7 @@ SIGNATURES = {
     "w2l_time_conv_wgrad_window": [_I, _I, _I, _I],
     "w2l_residual_ln": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "w2l_residual_ln_warps": [_I, _I],
-    "w2l_residual_ln_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "w2l_residual_ln_bwd": [_P] * 9 + [_I] * 4 + [_P],
     "w2l_mhsa_fwd": [_P] * 6 + [_I] * 7 + [_F, _U, _F, _I, _P],
     "w2l_mhsa_bwd": [_P] * 13 + [_I] * 7 + [_F, _U, _F, _I, _I, _P],
     "w2l_mhsa_fwd_smem_bytes": [_I, _I, _I, _I],

@@ -15,7 +15,10 @@ K3 has two routes (``route``; C twin ``w2l_residual_ln_warps``): rows held
 in registers, a block of 1, 2, 4 or 8 warps a row, read and written as
 16-byte vectors, where D * itemsize is a multiple of 16, a lane holds at most
 four vectors of each input and x and y start 16-byte aligned; one block a
-row through shared memory elsewhere."""
+row through shared memory elsewhere. K3b takes the same two routes at the
+same widths (``bwd_layout``; C twin ``w2l_residual_ln_warps``), with g and
+dz aligned too; its launch packs rows of one warp several to a block
+(``csrc/layernorm.cu``: ``LN_BWD_ROWS``)."""
 
 from __future__ import annotations
 
@@ -52,6 +55,16 @@ def route(D: int, itemsize: int, aligned: bool = True) -> str:
     ``warps_per_row`` takes D and x, y start 16-byte aligned (``aligned``),
     else through shared memory."""
     return REGISTERS if aligned and warps_per_row(D, itemsize) else SHARED_MEMORY
+
+
+def bwd_layout(D: int, itemsize: int, aligned: bool = True) -> Tuple[str, int]:
+    """K3b's route for rows of D elements and its warps a row: registers
+    where ``route`` takes D and g, x, y and dz start 16-byte aligned
+    (``aligned``); else shared memory, one block of 256 threads a row (warps a
+    row 0, as the C interface names that route)."""
+    if route(D, itemsize, aligned) == REGISTERS:
+        return REGISTERS, warps_per_row(D, itemsize)
+    return SHARED_MEMORY, 0
 
 
 def residual_ln_plain(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
@@ -101,8 +114,17 @@ def residual_ln_bwd(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mu: torch
     if mu.shape != (R,) or rsig.shape != (R,) or mu.dtype != torch.float32 \
             or rsig.dtype != torch.float32:
         raise ValueError("residual_ln_bwd: mu and rsig must be float32 (R,)")
-    w32 = w.reshape(1).float()
     dz = torch.empty_like(g)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (g, x, y, dz))
+    _, wpr = bwd_layout(D, g.element_size(), aligned)
+    return _launch_bwd(g, x, y, mu, rsig, w, dz, wpr)
+
+
+def _launch_bwd(g, x, y, mu, rsig, w, dz, wpr):
+    """K3b on checked CUDA tensors: the register route at ``wpr`` warps a
+    row, or the shared-memory route (``wpr`` 0)."""
+    R, D = g.shape
+    w32 = w.reshape(1).float()
     row_g = torch.empty((R,), dtype=torch.float32, device=g.device)
     row_gz = torch.empty((R,), dtype=torch.float32, device=g.device)
     if R == 0:
@@ -111,7 +133,7 @@ def residual_ln_bwd(g: torch.Tensor, x: torch.Tensor, y: torch.Tensor, mu: torch
     rc = lib.w2l_residual_ln_bwd(
         g.data_ptr(), x.data_ptr(), y.data_ptr(), mu.data_ptr(), rsig.data_ptr(),
         w32.data_ptr(), dz.data_ptr(), row_g.data_ptr(), row_gz.data_ptr(),
-        _build.DTYPE_CODES[g.dtype], R, D, _build.stream_ptr(g))
+        _build.DTYPE_CODES[g.dtype], R, D, wpr, _build.stream_ptr(g))
     _build.check(rc, "residual_ln_bwd")
     _build.LAUNCHES["residual_ln_bwd"] += 1
     return dz, row_g, row_gz

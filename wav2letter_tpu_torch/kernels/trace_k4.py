@@ -25,6 +25,7 @@ import ctypes
 import json
 import subprocess
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -71,13 +72,14 @@ def _instrument(src: str) -> str:
     return head + tail
 
 
-def build_traced(source: str, stem: str, entry: str, stamps: str) -> ctypes.CDLL:
-    """Compile an instrumented copy of ``csrc/attention.cu`` into
-    ``build/torch_kernels/<stem>/`` and bind its ``entry`` and ``stamps``
-    (which copies the stamps to the host)."""
+def build_traced(source: str, stem: str, entry: str,
+                 stamps: Optional[str] = None) -> ctypes.CDLL:
+    """Compile an altered copy of a source of ``csrc/`` into
+    ``build/torch_kernels/<stem>/<stem>.cu`` and bind its ``entry`` and, where
+    given, ``stamps`` (which copies the stamps to the host)."""
     work = _build.BUILD_DIR / stem
     work.mkdir(parents=True, exist_ok=True)
-    src = work / "attention_traced.cu"
+    src = work / f"{stem}.cu"
     src.write_text(source)
     lib = work / f"lib{stem}.so"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
@@ -88,7 +90,8 @@ def build_traced(source: str, stem: str, entry: str, stamps: str) -> ctypes.CDLL
     cdll = ctypes.CDLL(str(lib))
     getattr(cdll, entry).argtypes = _build.SIGNATURES[entry]
     getattr(cdll, entry).restype = ctypes.c_int
-    getattr(cdll, stamps).argtypes = [ctypes.c_void_p, ctypes.c_int]
+    if stamps:
+        getattr(cdll, stamps).argtypes = [ctypes.c_void_p, ctypes.c_int]
     return cdll
 
 
