@@ -308,9 +308,13 @@ CFR_LAYERS = 4  # of the conformer recipe's 16
 # stride, pads), beside the path's shapes: C = 1 with 20 taps (two 16-tap
 # steps); stride 2 with a ragged last tile (Tout = 50); F = 40, not a
 # multiple of a block's 16 positions; the largest weight the route admits
-# (12 x 36 x 36, 62 KB in fp32)
+# (12 x 36 x 36, 62 KB in fp32); then the wide route: CPC's first conv (C 1
+# -> 512, K 10, stride 5) at T = 8000, CO = 68 (bf16: 8-byte rows), and CO =
+# 520 at B = 1 with a ragged last tile (Tout = 1555)
 CONV_EDGES = [(4, 400, 24, 1, 8, 20, 1, (10, 9)), (4, 101, 80, 16, 20, 11, 2, (8, 1)),
-              (4, 300, 40, 20, 24, 11, 1, (5, 5)), (4, 300, 80, 36, 36, 12, 1, (6, 5))]
+              (4, 300, 40, 20, 24, 11, 1, (5, 5)), (4, 300, 80, 36, 36, 12, 1, (6, 5)),
+              (2, 8000, 1, 1, 512, 10, 5, (3, 3)), (2, 3000, 1, 1, 68, 10, 5, (3, 3)),
+              (1, 7777, 1, 1, 520, 10, 5, (3, 3))]
 # the long-context transformer: a table of 2000 positions, T = 1712 after the pools
 LONG_LAYERS, LONG_BPTT = 2, 2000
 # The two model families driven at full width. ``per_forward``: launches of
@@ -768,8 +772,8 @@ def _conv_log(row, tag):
     share."""
     log(f"[{tag}] {row['name']} {row['dtype']} {row['shape']} calls={row['calls']}: "
         f"{row['route']} {json.dumps(row['schedule'])}, {row['ms']:.4f} ms (library "
-        f"{row['library_ms']}), {row['tflops']:.1f} TFLOP/s, "
-        f"{row['bound_ms'] / row['ms']:.3f} of the bound")
+        f"{row['library_ms']}), {row['tflops']:.1f} TFLOP/s, bound {row['bound_ms']:.4f} "
+        f"({row['bound_by']}), {row['bound_ms'] / row['ms']:.3f} of it")
 
 
 def _conv_layout(dtype, key, kind, Tout):
@@ -5239,7 +5243,8 @@ def cpc_semi(root, corpus, smi_line):
     out = dict(n_params=n_params, audio_s=secs, first_batch=first, training=train,
                kernel_rows={k: [{kk: r[kk] for kk in ("name", "dtype", "shape", "calls", "ms",
                                                         "plain_ms", "library_ms", "bound_ms",
-                                                        "bound_by", "max_abs_err")}
+                                                        "bound_by", "max_abs_err", "route",
+                                                        "schedule") if kk in r}
                                 for r in v] for k, v in rows.items()},
                laps_s=laps, nvidia_smi=smi_line)
     log(f"[cpc] {json.dumps(dict(training=train, laps=laps))} | {smi_line}")
@@ -6555,9 +6560,11 @@ def main() -> None:
     # its 4 updates
     cpc = semi["cpc"]
     for name in ("time_conv", "time_conv_wgrad", "residual_ln", "residual_ln_bwd"):
-        agg = per_forward(cpc["kernel_rows"][name])
+        krows = cpc["kernel_rows"][name]
+        agg = per_forward(krows)
         replaces, source = TPU_KERNELS[name]
         kernels_line.append(dict(
+            kernel_route=sorted({r["route"] for r in krows}),
             name=name, route="cuda", source=source, replaces=replaces, model="cpc",
             launches=cpc["training"]["launches"][name],
             launches_per_update=expected_launches(CPC_SPEC, 1, 0)[name], dtype="float32",

@@ -434,12 +434,123 @@ def test_time_conv_wgrad_first_conv_equal_bits(cuda, dtype):
                                rtol=1e-4, atol=2e-2)
 
 
+# The wide route, (B, T, F, C, CO, K, stride, lp, rp): CPC's first conv at T =
+# 8000 (Tout = 1600, whole tiles); a ragged T (Tout = 1555); B = 1; CO = 68
+# (bf16: 8-byte rows) and 520 (one row group of 130 threads); 3 positions of
+# 2 channels (10 taps); 4 taps with both pads; 16 taps with the right pad only
+WIDE_CASES = [
+    (2, 8000, 1, 1, 512, 10, 5, 3, 3),
+    (2, 7777, 1, 1, 512, 10, 5, 3, 3),
+    (1, 8000, 1, 1, 512, 10, 5, 3, 3),
+    (2, 3000, 1, 1, 68, 10, 5, 3, 3),
+    (2, 3000, 1, 1, 520, 10, 5, 3, 3),
+    (2, 200, 3, 2, 128, 5, 2, 2, 1),
+    (2, 500, 2, 1, 256, 4, 1, 1, 2),
+    (1, 400, 1, 2, 132, 8, 4, 0, 7),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,F,C,CO,K,s,lp,rp", WIDE_CASES)
+def test_time_conv_wide_kernels(cuda, dtype, B, T, F, C, CO, K, s, lp, rp):
+    """K2 and K2b on the wide route against their plain versions, one launch
+    each; K2b twice for equal bits."""
+    from wav2letter_tpu_torch.kernels import tconv
+
+    assert tconv.route(dtype, C, CO, K, s, F, "conv") == "wide"
+    assert tconv.route(dtype, C, CO, K, s, F, "wgrad") == "wide"
+    x, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    bias = _randn((CO,), CO, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.time_conv(x, w, F, s, (lp, rp), bias, relu=True)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 1
+    want = kernels.time_conv_plain(x, w, F, s, (lp, rp), bias, relu=True)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2  # fp32 sums; one bf16 output rounding
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["time_conv_wgrad"] == before["time_conv_wgrad"] + 1
+    # as test_time_conv_wgrad_kernel: fp32 sums of exact products, another order
+    torch.testing.assert_close(got, kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp)),
+                               rtol=1e-4, atol=2e-3)
+    assert torch.equal(got, kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_conv_wide_function_grads(cuda, dtype):
+    """The autograd function at CPC's first conv: K2 and K2b on the wide
+    route, dgrad on its own, against autograd of the plain forward, with
+    bias and ReLU."""
+    B, T, F, C, CO, K, s, lp, rp = 2, 4000, 1, 1, 512, 10, 5, 3, 3
+    x, w, dy = _conv_case(cuda, dtype, B, T, F, C, CO, K, s, lp, rp)
+    bias = _randn((CO,), CO, cuda)
+    grads = {}
+    for name, fn in (("kernel", kernels.time_conv), ("plain", kernels.time_conv_plain)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        out = fn(leaves[0], leaves[1], F, s, (lp, rp), leaves[2], relu=True)
+        grads[name] = torch.autograd.grad(out, leaves, dy)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, want, scale in zip(grads["kernel"], grads["plain"], (1, 100, 100)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        # as test_time_conv_function_grads: dw and dbias sum up to 1600 terms
+        err = (got.float() - want.float()).abs()
+        bad = err > tol * scale + 10 * tol * want.float().abs()
+        if dtype == torch.float32:
+            assert not bad.any(), err.max().item()
+        else:  # ReLU masks of y ~ 0 rounded to either side in bf16
+            assert bad.float().mean().item() <= 1e-3 and err.max().item() < 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_conv_wide_unaligned_view_takes_the_cuda_cores(cuda, dtype):
+    """CPC's conv on views one element past an aligned start: the wide
+    kernels need 16-byte aligned x and dy, so both calls take the CUDA
+    cores, and agree with the plain versions."""
+    B, T, F, C, CO, K, s, lp, rp = 2, 1000, 1, 1, 512, 10, 5, 3, 3
+    x = _randn((B * T + 1,), 1, cuda, dtype)[1:].view(B, T, 1)
+    w = _randn((K, C, CO), K, cuda, dtype, scale=0.1)
+    Tout = (lp + T + rp - K) // s + 1
+    dy = _randn((B * Tout * CO + 1,), 2, cuda, dtype)[1:].view(B, Tout, CO)
+    assert x.data_ptr() % 16 and dy.data_ptr() % 16
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    got = kernels.time_conv(x, w, F, s, (lp, rp))
+    torch.testing.assert_close(got.float(), kernels.time_conv_plain(x, w, F, s, (lp, rp)).float(),
+                               rtol=tol, atol=tol)
+    got = kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp))
+    torch.testing.assert_close(got, kernels.time_conv_wgrad_plain(x, dy, K, F, s, (lp, rp)),
+                               rtol=1e-4, atol=2e-3)
+    assert torch.equal(got, kernels.time_conv_wgrad(x, dy, K, F, s, (lp, rp)))
+
+
 def test_time_conv_smem_formulas_match_the_kernels(cuda):
     """The Python mirrors the route and the wrappers evaluate without a card
-    against the C layouts of the tensor-core K2 and K2b."""
+    against the C layouts of the tensor-core K2 and K2b, and of the wide
+    route: its shared memory, what it takes and its plan."""
+    import ctypes
+
     from wav2letter_tpu_torch.kernels import tconv
 
     lib = kernels.library()
+    for F, C, CO, K, s in ((1, 1, 512, 10, 5), (1, 1, 68, 10, 5), (1, 1, 520, 10, 5),
+                           (3, 2, 128, 5, 2), (2, 1, 256, 4, 1), (1, 2, 132, 8, 4),
+                           (1, 1, 1024, 16, 1), (80, 1, 128, 9, 2), (1, 1, 64, 10, 5),
+                           (1, 1, 1028, 10, 5), (1, 17, 128, 1, 1), (1, 1, 130, 3, 1),
+                           (80, 16, 96, 1, 1), (1000, 16, 1024, 1, 1)):
+        for item, dtype in ((4, torch.float32), (2, torch.bfloat16)):
+            for kind, wg in (("conv", 0), ("wgrad", 1)):
+                assert lib.w2l_time_conv_wide_smem_bytes(F, C, CO, K, s, item, wg) == \
+                    tconv.wide_layout(F, C, CO, K, s, item, kind)[1]
+                assert bool(lib.w2l_time_conv_wide_takes(F, C, CO, K, s, item, wg)) == \
+                    tconv.wide_takes(C, CO, K, s, F, dtype, kind)
+                for B, Tout in ((8, 25000), (1, 7), (2, 1555), (16, 300)):
+                    for sms in (132, 114):
+                        plan = (ctypes.c_int * 3)()
+                        assert lib.w2l_time_conv_wide_plan(B, Tout, F, C, CO, K, s, item, wg,
+                                                           sms, plan) == 0
+                        assert tuple(plan) == tconv.wide_plan(B, Tout, F, C, CO, K, s, item, sms,
+                                                              kind)
     for C, CO, K, s in ((1, 16, 9, 2), (16, 20, 11, 2), (20, 24, 11, 2), (24, 28, 12, 1),
                         (28, 28, 11, 1), (36, 36, 12, 1), (2, 6, 5, 1), (1, 8, 20, 1),
                         (4, 7, 10, 2)):

@@ -65,7 +65,9 @@ def _interpret(monkeypatch):
         pl, "pallas_call", lambda *a, **k: orig(*a, **{**k, "interpret": True}))
 
 
-# (B, T, F, C, CO, K, stride, lp, rp): strides 1/2, asymmetric pads, C=1
+# (B, T, F, C, CO, K, stride, lp, rp): strides 1/2, asymmetric pads, C=1;
+# the last is CPC's first conv on raw audio (stride 5, 10 taps) at 128
+# channels, a shape of the wide route
 TCONV_CASES = [
     (2, 37, 8, 5, 7, 9, 1, 4, 4),
     (1, 41, 4, 3, 3, 5, 1, 0, 4),
@@ -73,6 +75,7 @@ TCONV_CASES = [
     (1, 33, 4, 3, 5, 10, 2, 7, 1),
     (2, 40, 6, 1, 4, 9, 2, 6, 2),
     (1, 29, 3, 4, 4, 11, 1, 10, 0),
+    (1, 400, 1, 1, 128, 10, 5, 3, 3),
 ]
 
 
@@ -86,6 +89,7 @@ def test_time_conv_plain_matches_pallas(_interpret, B, T, F, C, CO, K, s, lp, rp
     assert got.shape == want.shape
     # fp32 sums of K*C <= 60 products of O(1) values: 1e-4 as the JAX test
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    assert (kernels.tconv.route(torch.float32, C, CO, K, s, F) == "wide") == (CO > 64)
 
 
 def test_time_conv_plain_bias_relu_epilogue():
@@ -154,7 +158,8 @@ def test_time_conv_backward_plain_matches_pallas(_interpret, B, T, F, C, CO, K, 
     got_dw = kernels.time_conv_wgrad(torch.from_numpy(x), tdy, K, F, s, (lp, rp))
     assert got_dx.shape == want_dx.shape and got_dw.shape == want_dw.shape
     assert got_dw.dtype == torch.float32
-    # dx: fp32 sums of K*CO <= 70 products; dw: of B*Tout*F <= 600, O(10) entries
+    # dx: fp32 sums of K*CO <= 1280 products, O(10); dw: of B*Tout*F <= 600,
+    # O(10) entries
     np.testing.assert_allclose(got_dx.numpy(), want_dx, atol=1e-4)
     np.testing.assert_allclose(got_dw.numpy(), want_dw, atol=1e-4, rtol=1e-5)
     # autograd through the plain forward is the same function
@@ -332,6 +337,114 @@ def test_tensor_core_layouts_and_picks():
     assert T.tc_schedule(16, 190, 80, T.tc_wgrad_smem_bytes(28, 28, 11, 1), 132) == (4, 240)
 
 
+# the time-only convs of the recipes a route test covers, as (path or
+# "mls", features): a frequency axis of 80 filterbanks, or CPC's raw audio
+RECIPE_ARCHS = [("recipes/streaming_convnets/network.arch", 80),
+                ("recipes/transformer_ctc/network.arch", 80),
+                ("recipes/seq2seq_tds/network.arch", 80), ("mls", 80),
+                ("recipes/cpc/encoder.arch", 1)]
+
+
+def _time_convs(arch, nfeat):
+    """(C, CO, K, stride, F) of every K2 conv of a recipe's model: the
+    time-only ``Conv2D`` layers (at the F their input has) and the TDS
+    blocks' convs."""
+    import os
+
+    from wav2letter_tpu_torch.models import build_arch_from_lines, build_arch_module
+    from wav2letter_tpu_torch.models.layers import Conv2D, TDSBlock
+    from wav2letter_tpu_torch.plugins.mling import ENCODER_LINES
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with torch.device("meta"):
+        if arch == "mls":
+            model = build_arch_from_lines([l.format(nfeat=nfeat) for l in ENCODER_LINES], 30)
+        else:
+            model = build_arch_module(os.path.join(repo, arch), nfeat, 30)
+    out = set()
+    for m in model.modules():
+        if isinstance(m, Conv2D) and m.time_only:
+            out.add((m.in_ch, m.out_ch, m.wx, m.sx, nfeat))
+        elif isinstance(m, TDSBlock):
+            out.add((m.c, m.c, m.w, 1, m.f))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("arch,nfeat", RECIPE_ARCHS)
+def test_recipe_conv_routes(arch, nfeat):
+    """The flagship's and seq2seq_tds's K2 convs keep the tensor cores in both
+    types, forward, dgrad and K2b; the transformer's and mls's have none
+    (weight-normed convs through ``F.conv2d``); CPC's first conv, C 1 -> 512,
+    takes the wide route forward and for K2b in both types (its dgrad, never
+    launched on raw audio, the CUDA cores)."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    convs = _time_convs(arch, nfeat)
+    if "transformer" in arch or arch == "mls":
+        assert convs == []
+    elif "cpc" in arch:
+        assert convs == [(1, 512, 10, 5, 1)]
+    else:
+        assert convs and all(CO <= T.TC_MAX_CO for _, CO, _, _, _ in convs)
+    for C, CO, K, s, F in convs:
+        for dt in (torch.float32, torch.bfloat16):
+            want = "wide" if "cpc" in arch else "tensor cores"
+            assert T.route(dt, C, CO, K, s, F, "conv") == want
+            assert T.route(dt, C, CO, K, s, F, "wgrad") == want
+            assert T.route(dt, C, CO, K, s, F, "dgrad") == \
+                ("CUDA cores" if "cpc" in arch else "tensor cores")
+
+
+def test_wide_route_takes_what_the_tensor_cores_refuse_for_width():
+    """``route`` gives "wide" for CPC's conv and for CO = 68 and 128 at C = 1,
+    forward and K2b, never for dgrad; it refuses CO up to 64 (the tensor
+    cores), CO not a whole number of 4-channel vectors or past 1024, and more
+    than 16 (tap, channel) pairs."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    for dt in (torch.float32, torch.bfloat16):
+        for C, CO, K, s, F in ((1, 512, 10, 5, 1), (1, 68, 10, 5, 1), (1, 128, 10, 5, 1),
+                               (1, 128, 9, 2, 80), (2, 520, 8, 4, 3), (1, 1024, 16, 1, 1)):
+            for kind in ("conv", "wgrad"):
+                assert T.route(dt, C, CO, K, s, F, kind) == "wide", (dt, C, CO, K, s, F, kind)
+            assert T.route(dt, C, CO, K, s, F, "dgrad") != "wide"
+        for C, CO, K in ((1, 64, 10), (1, 130, 10), (1, 1028, 10), (1, 512, 17), (2, 512, 9),
+                         (17, 128, 1)):
+            assert not T.wide_takes(C, CO, K, 5, 1, dt) and \
+                not T.wide_takes(C, CO, K, 5, 1, dt, "wgrad")
+        assert T.route(dt, 1, 64, 9, 2, 80) == "tensor cores"
+    # too wide a window for a block: 1000 positions of 16 channels, K2b's
+    # stage of one frame is 4 MB of dy
+    assert not T.wide_takes(16, 1024, 1, 1, 1000, torch.float32, "wgrad")
+
+
+def test_wide_layouts_and_plans():
+    """The Python mirrors of the wide kernels' shared memory and plan
+    (``csrc/tconv_wide.cu``; the ``cuda`` tests hold them to the C twins), by
+    hand at CPC's conv, B = 8 and 200,000 output frames, on 132 SMs."""
+    from wav2letter_tpu_torch.kernels import tconv as T
+
+    assert [T.wide_groups(CO) for CO in (68, 128, 512, 520, 1024)] == [15, 8, 2, 1, 1]
+    # K2: 16 rows a thread, 2 row groups: 32 frames a tile, a window of 31 * 5
+    # + 10 = 165 floats (660 bytes, padded to 672, + 32) twice, and the head
+    assert T.wide_layout(1, 1, 512, 10, 5, 4) == (32, 128 + 2 * (672 + 32))
+    # K2b: 16 KB of dy a stage (8 frames of 512 floats) + 32, a window of 7 * 5
+    # + 10 = 45 floats (180 -> 192, + 32), four stages, the head; the row
+    # groups' sums (2 x 10 x 512 floats) fit in the ring
+    assert T.wide_layout(1, 1, 512, 10, 5, 4, "wgrad") == (8, 128 + 4 * (16416 + 224))
+    assert T.wide_layout(1, 1, 512, 10, 5, 2, "wgrad") == (16, 128 + 4 * (16416 + 208))
+    # (frames a tile, tiles a block, blocks): 2 blocks an SM; 782 tiles a row
+    assert T.wide_plan(8, 25000, 1, 1, 512, 10, 5, 4, 132) == (32, 24, 261)
+    assert T.wide_plan(8, 25000, 1, 1, 512, 10, 5, 4, 132, "wgrad") == (8, 95, 264)
+    assert T.wide_plan(1, 7, 1, 1, 512, 10, 5, 4, 132, "wgrad") == (8, 1, 1)
+    # one block an SM where two do not fit: a stage of one frame of 20
+    # positions of 520 channels (41.6 KB of dy), four of them 166 KB
+    assert T.wide_layout(20, 1, 520, 10, 5, 4, "wgrad")[0] == 1
+    assert T.tc_blocks_per_sm(T.wide_layout(20, 1, 520, 10, 5, 4, "wgrad")[1]) == 1
+    sched = T.schedule(torch.float32, 8, 25000, 1, 512, 10, 5, 1, 132, "wgrad")
+    assert (sched["blocks"], sched["warps"], sched["row_groups"]) == (264, 9, 2)
+
+
 def test_fp32_tensor_core_layouts():
     """The Python mirrors of the fp32 (3xTF32) K2 and K2b shapes: copy
     granule, shared memory by hand, the takes and the routes."""
@@ -455,6 +568,34 @@ def test_k2_trace_stamps_the_fp32_kernels():
         assert first.startswith("#define W2L_STAMP(i) ") and "clock64()" in first
         for point in ("0", "1", "2 + 4 * it", "3 + 4 * it", "4 + 4 * it", "5 + 4 * it"):
             assert f"W2L_STAMP({point});" in src, (name, point)
+    assert "#define W2L_STAMP(i)\n" in (_build.CSRC / "tconv_wide.cu").read_text()
+
+
+def test_k2_trace_stamps_the_wide_kernels():
+    """The wide K2 stamps three points a tile and K2b two a stage, within
+    ``_STAMPS`` a block, as ``trace_k2._median_wide`` reads them, into the
+    symbol the traced copy declares; it sums a block's steps from the
+    stamps."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels import trace_k2 as TK
+
+    src = (_build.CSRC / "tconv_wide.cu").read_text()
+    traced = TK._stamped_wide(src, "g_k2w_stamps")
+    assert traced.startswith("#define W2L_STAMP(i) ") and "g_k2w_stamps_read" in traced
+    assert "__device__ long long g_k2w_stamps[1 << 20];" in traced
+    for kind in ("conv", "wgrad"):
+        per, cap = TK.WIDE_STAMPED[kind]
+        for j in range(per):
+            assert f"if (it < {cap}) {{ W2L_STAMP({2 + j} + {per} * it); }}" in src, (kind, j)
+        assert 2 + per * cap <= TK._STAMPS
+    # two blocks of two tiles: stamps 0, 1, then (load, compute, barrier) a tile
+    st = np.zeros((2, TK._STAMPS), np.int64)
+    st[0, :8] = [0, 10, 15, 40, 41, 50, 90, 92]
+    st[1, :8] = [0, 10, 12, 30, 31, 33, 60, 61]
+    got = TK._median_wide(st, np.array([2, 2]), "conv")
+    assert got["block_cycles"] == dict(min=61, median=76, max=92)
+    assert got["median_block"] == dict(setup=10, wait=5 + 9, compute=25 + 40, barrier=1 + 2,
+                                       tiles=2)
 
 
 # ---------------------------------------------------------------------------

@@ -18,11 +18,13 @@
 // input and one output element). In float32, counted at the card's fastest
 // fp32-accurate rate (3xTF32 on the tensor cores, 495 / 3 TFLOP/s), that is
 // about where operations and HBM's 3.35 TB/s meet; in bfloat16, held against
-// the tensor cores' 989 TFLOP/s, the bytes bound it. Three routes, by shape
+// the tensor cores' 989 TFLOP/s, the bytes bound it. Four routes, by shape
 // (kernels/tconv.py::route): fp32 on the tensor cores in 3xTF32
 // (tconv_tf32_kernel) and bf16 on the tensor cores (tconv_tc_kernel), where
-// their shared memory and widths allow (tc_takes); the CUDA cores
-// (tconv_kernel) for the shapes neither takes.
+// their shared memory and widths allow (tc_takes); the wide route
+// (tconv_wide.cu) for CO past 64 over at most 16 (tap, channel) pairs, CPC's
+// first conv (bound by the bytes of y); the CUDA cores (tconv_kernel) for the
+// shapes none of them takes.
 //
 // CUDA cores: one block per (batch row, tile of TT output frames, block of Fb
 // frequency positions). The K*C*CO weights (at most 12*28*28 fp32 = 37.6 KB)

@@ -9,10 +9,12 @@
 //
 // Bound on the H100: the same operations as the forward conv (2*K*C FLOP per
 // element of dy), so operations in float32; in bfloat16, held against the
-// tensor cores, the bytes of x and dy. Two routes: bf16 runs on the tensor
-// cores (wgrad_tc_kernel, below) where the shape allows
-// (kernels/tconv.py::tc_wgrad_takes); float32, and bf16 shapes that route
-// does not take, run on the CUDA cores (wgrad_partial_kernel).
+// tensor cores, the bytes of x and dy. Four routes (kernels/tconv.py::route):
+// bf16 (wgrad_tc_kernel, below) and fp32 in 3xTF32 (wgrad_tf32_kernel) on the
+// tensor cores where the shape allows (tc_wgrad_takes); the wide route
+// (tconv_wide.cu) for CO past 64 over at most 16 (tap, channel) pairs, CPC's
+// first conv, bound by the bytes of dy; the CUDA cores (wgrad_partial_kernel)
+// for the shapes none of them takes.
 //
 // Design. The TPU kernel carries one accumulator through its sequential
 // grid; here blocks run in parallel, so the sum over (b, t, f) is split in
@@ -773,3 +775,14 @@ extern "C" int w2l_time_conv_wgrad(const void* x, const void* dy, void* partial,
                                  Fb, nb, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+namespace w2l {
+// Pass 2 of every K2b route: dw = the blocks' partial rows added in block
+// order (tconv_wide.cu launches it after its own pass 1).
+int launch_wgrad_reduce(const float* partial, float* dw, int nb, int wsize,
+                        cudaStream_t stream) {
+  wgrad_reduce_kernel<<<(wsize + THREADS - 1) / THREADS, THREADS, 0, stream>>>(partial, dw, nb,
+                                                                              wsize);
+  return static_cast<int>(cudaGetLastError());
+}
+}  // namespace w2l

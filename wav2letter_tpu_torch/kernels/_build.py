@@ -64,6 +64,11 @@ SIGNATURES = {
     "w2l_time_conv_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
     "w2l_time_conv_wgrad_tile": [],
+    "w2l_time_conv_wide": [_P] * 4 + [_I] * 12 + [_P],
+    "w2l_time_conv_wide_smem_bytes": [_I] * 7,
+    "w2l_time_conv_wide_takes": [_I] * 7,
+    "w2l_time_conv_wide_plan": [_I] * 10 + [_P],
+    "w2l_time_conv_wgrad_wide": [_P] * 4 + [_I] * 11 + [_P],
     "w2l_time_conv_wgrad_window": [_I, _I, _I, _I],
     "w2l_residual_ln": [_P] * 7 + [_I, _I, _I, _F, _I, _P],
     "w2l_residual_ln_warps": [_I, _I],

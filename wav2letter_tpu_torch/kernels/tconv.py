@@ -7,6 +7,11 @@ with respect to x (dgrad) is the same kernel on the tap-flipped, transposed
 weight, as ``tconv.py::_time_conv_bwd_rule`` does it; the gradient with
 respect to w is K2b, ``csrc/tconv_wgrad.cu``, which replaces ``_wgrad``.
 
+Each call takes one of four routes (:func:`route`): the tensor cores in
+bf16 or in fp32 (3xTF32), the wide route for convs past 64 output channels
+over at most 16 (tap, channel) pairs (CPC's first conv; forward and K2b,
+never dgrad), or the CUDA-core kernels for what none of them takes.
+
 On a CPU tensor every wrapper takes its plain version, which is
 differentiable PyTorch code. On a CUDA tensor ``time_conv`` launches K2 and,
 where a gradient is wanted, records :class:`_TimeConvFn`, whose backward
@@ -37,6 +42,14 @@ TC_MAX_CO = 64  # eight n-tiles of 8
 # and in K2b's ring
 TF32_WARPS, TF32_WG_TT, TF32_TAP_PITCH, TF32_WG_TAP_PITCH = 8, 8, 24, 20
 TF32_BLOCK_TILES = 1  # a block's fixed cost (weight, first window) in tiles' worth
+# the wide route (csrc/tconv_wide.cu): CO past TC_MAX_CO over at most 16 (tap,
+# channel) pairs, CPC's first conv. Threads a block (K2b: its consumers),
+# channels a thread, rows a thread a K2 tile; K2b's ring of stages of at most
+# 16 KB of dy and 64 frames; bytes a staged span takes past its elements; the
+# mbarriers' head
+WIDE_THREADS, WIDE_V, WIDE_MAX_TAPS, WIDE_FWD_ROWS = 256, 4, 16, 16
+WIDE_WG_STAGES, WIDE_WG_STAGE_BYTES, WIDE_WG_MAX_TT = 4, 16384, 64
+WIDE_SLOT, WIDE_HEAD = 32, 128
 
 
 def _pad(n: int, m: int) -> int:
@@ -228,6 +241,57 @@ def tc_wgrad_takes(C: int, CO: int, K: int, stride: int, F: int,
             and tc_wgrad_smem_bytes(C, CO, K, stride) <= _build.MAX_SMEM_BYTES)
 
 
+def wide_groups(CO: int) -> int:
+    """Row groups of the wide kernels: a row takes CO / 4 threads."""
+    return max(1, WIDE_THREADS // (CO // WIDE_V))
+
+
+def _span(elems: int, item: int) -> int:
+    return _pad(elems * item, 16) + WIDE_SLOT
+
+
+def wide_layout(F: int, C: int, CO: int, K: int, stride: int, item: int,
+                kind: str = "conv") -> Tuple[int, int]:
+    """(frames a tile, dynamic shared memory) of the wide K2 (``csrc/
+    tconv_wide.cu::fwd_layout``: two window buffers) or K2b (``kind``
+    "wgrad", ``wg_layout``: a ring of stages of dy's rows and x's window, or
+    the row groups' sums where they are larger), at ``item`` bytes an
+    element."""
+    if kind == "wgrad":
+        tt = min(WIDE_WG_MAX_TT, max(1, WIDE_WG_STAGE_BYTES // (F * CO * item)))
+        w = (tt - 1) * stride + K
+        stage = _span(tt * F * CO, item) + _span(w * F * C, item)
+        return tt, WIDE_HEAD + max(WIDE_WG_STAGES * stage, wide_groups(CO) * K * C * CO * 4)
+    tt = max(1, WIDE_FWD_ROWS * wide_groups(CO) // F)
+    w = (tt - 1) * stride + K
+    return tt, WIDE_HEAD + 2 * _span(w * F * C, item)
+
+
+def wide_takes(C: int, CO: int, K: int, stride: int, F: int,
+               dtype: torch.dtype = torch.bfloat16, kind: str = "conv") -> bool:
+    """Whether the wide K2 (``kind`` "conv") or K2b ("wgrad") takes the conv
+    (C twin ``w2l_time_conv_wide_takes``): 64 < CO <= 1024 in whole 4-channel
+    vectors, K*C <= 16, the shared memory within a block's. dgrad never."""
+    if kind == "dgrad" or min(C, K, stride, F) < 1 or CO <= TC_MAX_CO or CO % WIDE_V \
+            or CO > WIDE_THREADS * WIDE_V or K * C > WIDE_MAX_TAPS:
+        return False
+    item = 4 if dtype == torch.float32 else 2
+    return wide_layout(F, C, CO, K, stride, item, kind)[1] <= _build.MAX_SMEM_BYTES
+
+
+def wide_plan(B: int, Tout: int, F: int, C: int, CO: int, K: int, stride: int, item: int,
+              sms: int, kind: str = "conv") -> Tuple[int, int, int]:
+    """(frames a tile, tiles a block, blocks) of a wide launch (C twin
+    ``w2l_time_conv_wide_plan``): the tiles of every batch row in order, cut
+    into one contiguous run a block for as many blocks as the card holds at
+    once (one or two an SM)."""
+    tt, smem = wide_layout(F, C, CO, K, stride, item, kind)
+    tiles = B * -(-Tout // tt)
+    nb = min(tiles, sms * tc_blocks_per_sm(smem))
+    ch = -(-tiles // nb)
+    return tt, ch, -(-tiles // ch)
+
+
 def cc_fb(C: int, K: int, stride: int, F: int) -> int:
     """Frequencies a block of the CUDA-core K2 takes: its window within
     ``_WINDOW_BYTES``, at least one."""
@@ -295,9 +359,11 @@ def tc_schedule(B: int, Tout: int, F: int, smem_bytes: int, sms: int) -> Tuple[i
 
 def route(dtype: torch.dtype, C: int, CO: int, K: int, stride: int, F: int,
           kind: str = "conv") -> str:
-    """"tensor cores" or "CUDA cores": where a call of K2 (``kind`` "conv",
-    or "dgrad" for the gradient of a conv from C to CO channels) or of K2b
-    ("wgrad") in ``dtype`` runs, inputs aligned to 16 bytes."""
+    """"tensor cores", "wide" or "CUDA cores": where a call of K2 (``kind``
+    "conv", or "dgrad" for the gradient of a conv from C to CO channels) or of
+    K2b ("wgrad") in ``dtype`` runs, inputs aligned to 16 bytes."""
+    if wide_takes(C, CO, K, stride, F, dtype, kind):
+        return "wide"
     if kind == "wgrad":
         takes = tc_wgrad_takes(C, CO, K, stride, F, dtype)
     elif kind == "dgrad":
@@ -309,10 +375,16 @@ def route(dtype: torch.dtype, C: int, CO: int, K: int, stride: int, F: int,
 
 def schedule(dtype: torch.dtype, B: int, Tout: int, C: int, CO: int, K: int, stride: int,
              F: int, sms: int, kind: str = "conv") -> dict:
-    """What a tensor-core launch of K2 (``kind`` "conv" or "dgrad", Tout
-    the frames it writes) or K2b ("wgrad") runs: its tiles, warps and
+    """What a tensor-core or wide launch of K2 (``kind`` "conv" or "dgrad",
+    Tout the frames it writes) or K2b ("wgrad") runs: its tiles, warps and
     blocks; {} on the CUDA cores."""
-    if route(dtype, C, CO, K, stride, F, kind) != "tensor cores":
+    way = route(dtype, C, CO, K, stride, F, kind)
+    if way == "wide":
+        item = 4 if dtype == torch.float32 else 2
+        tt, ch, blocks = wide_plan(B, Tout, F, C, CO, K, stride, item, sms, kind)
+        return dict(frames_a_tile=tt, tiles_a_block=ch, blocks=blocks,
+                    warps=WIDE_THREADS // 32 + (kind == "wgrad"), row_groups=wide_groups(CO))
+    if way != "tensor cores":
         return {}
     if kind == "dgrad":
         C, CO, stride = CO, C, 1
@@ -404,9 +476,10 @@ def _check(name: str, x: torch.Tensor, w_shape, F: int, stride: int) -> None:
                          f"F={F}, stride={stride}")
 
 
-def _launch_conv(x, w, bias, F, stride, lp, Tout, relu, dil) -> torch.Tensor:
+def _launch_conv(x, w, bias, F, stride, lp, Tout, relu, dil, wide=False) -> torch.Tensor:
     """K2 on checked CUDA tensors: output frame t reads the frames
-    t*stride - lp + k of x dilated by ``dil``; frames outside are zero."""
+    t*stride - lp + k of x dilated by ``dil``; frames outside are zero.
+    ``wide``: a forward conv, which the wide route may take (dgrad never)."""
     B, T, _ = x.shape
     K, C, CO = w.shape
     lib = _build.library()
@@ -415,7 +488,13 @@ def _launch_conv(x, w, bias, F, stride, lp, Tout, relu, dil) -> torch.Tensor:
         return y
     bias_ptr = None if bias is None else bias.data_ptr()
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    if x.dtype == torch.float32 and aligned and tc_takes(C, CO, K, stride, F, x.dtype):
+    if wide and aligned and wide_takes(C, CO, K, stride, F, x.dtype):
+        _, ch, _ = wide_plan(B, Tout, F, C, CO, K, stride, x.element_size(),
+                             _build.sm_count(x.device))
+        rc = lib.w2l_time_conv_wide(
+            x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), _build.DTYPE_CODES[x.dtype],
+            B, T, F, C, CO, K, stride, lp, Tout, int(relu), ch, _build.stream_ptr(x))
+    elif x.dtype == torch.float32 and aligned and tc_takes(C, CO, K, stride, F, x.dtype):
         mw, mt, ks, ch, _ = tf32_plan(B, Tout, F, C, CO, K, stride, _build.sm_count(x.device))
         rc = lib.w2l_time_conv_tf32(
             x.data_ptr(), w.data_ptr(), bias_ptr, y.data_ptr(), B, T, F, C, CO, K, stride, lp,
@@ -484,7 +563,14 @@ def time_conv_wgrad(x: torch.Tensor, dy: torch.Tensor, K: int, F: int, stride: i
     lib = _build.library()
     sms = _build.sm_count(x.device)
     aligned = x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0
-    if x.dtype == torch.float32 and aligned and tc_wgrad_takes(C, CO, K, stride, F, x.dtype):
+    if aligned and wide_takes(C, CO, K, stride, F, x.dtype, "wgrad"):
+        _, ch, blocks = wide_plan(B, Tout, F, C, CO, K, stride, x.element_size(), sms, "wgrad")
+        partial = torch.empty((blocks, K * C * CO), dtype=torch.float32, device=x.device)
+        rc = lib.w2l_time_conv_wgrad_wide(
+            x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            _build.DTYPE_CODES[x.dtype], B, T, F, C, CO, K, stride, pads[0], Tout, ch,
+            _build.stream_ptr(x))
+    elif x.dtype == torch.float32 and aligned and tc_wgrad_takes(C, CO, K, stride, F, x.dtype):
         ch, blocks = tf32_wgrad_schedule(B, Tout, F, C, CO, K, stride, sms)
         partial = torch.empty((blocks * tc_wgrad_units(C, K)[1], K * C * CO),
                               dtype=torch.float32, device=x.device)
@@ -521,7 +607,7 @@ class _TimeConvFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, bias, F, stride, pads, relu):
         Tout = out_frames(x.shape[1], w.shape[0], stride, pads)
-        y = _launch_conv(x, w, bias, F, stride, pads[0], Tout, relu, 1)
+        y = _launch_conv(x, w, bias, F, stride, pads[0], Tout, relu, 1, wide=True)
         ctx.save_for_backward(x, w, y if relu else None)
         ctx.conv = (F, stride, pads, bias is not None)
         return y
@@ -579,4 +665,4 @@ def time_conv(x: torch.Tensor, w: torch.Tensor, F: int, stride: int = 1,
         raise ValueError(f"time_conv: no output frames for T={T}, K={K}, pads={pads}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         return _TimeConvFn.apply(x, w, bias, F, stride, pads, relu)
-    return _launch_conv(x, w, bias, F, stride, lp, Tout, relu, 1)
+    return _launch_conv(x, w, bias, F, stride, lp, Tout, relu, 1, wide=True)

@@ -1,7 +1,8 @@
-"""Where the tensor-core K2 and K2b spend a block's cycles: a clock64 trace
-of their tile loop, in bf16 and in fp32 (3xTF32).
+"""Where the tensor-core and wide K2 and K2b spend a block's cycles: a
+clock64 trace of their tile loop, in bf16 and in fp32 (3xTF32), and of the
+wide route at CPC's first conv.
 
-    python -m wav2letter_tpu_torch.kernels.trace_k2 [--out FILE]
+    python -m wav2letter_tpu_torch.kernels.trace_k2 [--out FILE] [--wide]
 
 Needs a card and ``nvcc``. Builds copies of ``csrc/tconv.cu`` and
 ``csrc/tconv_wgrad.cu`` with ``clock64()`` stamps added by thread 0 of each
@@ -21,6 +22,13 @@ the median block the SM cycles of:
 - ``compute``: the products and the epilogue, with the closing barrier
   (fp32 with split taps: and the ordered sum of the splits).
 
+The wide kernels (``--wide`` traces only them, at CPC's first conv) stamp,
+for the median block, ``setup`` (the barriers, the first window's bulk copy
+issued, the weights into registers), ``wait`` (the tile's bulk copy landing:
+the load step), ``compute`` (the products, and K2's 16-byte stores) and, in
+K2, ``barrier`` (the block barrier after a tile). K2b's stamps are its first
+consumer thread's; its producer warp is not stamped.
+
 Nothing of the port imports this module.
 """
 
@@ -38,7 +46,7 @@ import torch
 from . import _build
 from .tconv import (TC_TT, TF32_WG_TT, out_frames, tc_granule, tc_schedule, tc_smem_bytes,
                     tc_wgrad_smem_bytes, tc_wgrad_units, tf32_granule, tf32_plan,
-                    tf32_wgrad_schedule)
+                    tf32_wgrad_schedule, wide_plan)
 
 _STAMPS = 256  # per block: 2 + 4 per tile
 _LOOP = ("    cp_async_commit();\n    cp_async_wait<1>();\n    __syncthreads();\n")
@@ -71,9 +79,21 @@ def _instrument(src: str, prologue: str, sym: str) -> str:
         tail = tail.replace(old, new)
     head = head.replace('#include "tc_tile.cuh"\n',
                         f'#include "tc_tile.cuh"\n__device__ long long {sym}[1 << 20];\n', 1)
-    return (head + tail + f'\nextern "C" int {sym}_read(long long* host, int n) {{\n'
+    return head + tail + _reader(sym)
+
+
+def _reader(sym: str) -> str:
+    return (f'\nextern "C" int {sym}_read(long long* host, int n) {{\n'
             f"  return static_cast<int>(cudaMemcpyFromSymbol(host, {sym},"
             " n * sizeof(long long)));\n}\n")
+
+
+def _stamped_wide(src: str, sym: str) -> str:
+    """``csrc/tconv_wide.cu`` with its ``W2L_STAMP`` points stamping into
+    ``sym``, declared and read here."""
+    src = src.replace('#include "common.cuh"\n',
+                      f'#include "common.cuh"\n__device__ long long {sym}[1 << 20];\n', 1)
+    return _stamp_points(src, sym) + _reader(sym)
 
 
 def _stamp_points(src: str, sym: str) -> str:
@@ -94,6 +114,9 @@ def _build_traced() -> ctypes.CDLL:
         src.write_text(_stamp_points(
             _instrument((_build.CSRC / name).read_text(), prologue, sym), sym))
         srcs.append(str(src))
+    src = work / "tconv_wide_traced.cu"
+    src.write_text(_stamped_wide((_build.CSRC / "tconv_wide.cu").read_text(), "g_k2w_stamps"))
+    srcs.append(str(src))
     lib = work / "libk2trace.so"
     flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
     res = subprocess.run([_build.nvcc(), *flags, "-shared", f"-I{_build.CSRC}", *srcs, "-o",
@@ -102,10 +125,10 @@ def _build_traced() -> ctypes.CDLL:
         raise RuntimeError(f"trace_k2: nvcc failed:\n{res.stdout}\n{res.stderr}")
     cdll = ctypes.CDLL(str(lib))
     for name in ("w2l_time_conv_tc", "w2l_time_conv_wgrad_tc", "w2l_time_conv_tf32",
-                 "w2l_time_conv_wgrad_tf32"):
+                 "w2l_time_conv_wgrad_tf32", "w2l_time_conv_wide", "w2l_time_conv_wgrad_wide"):
         getattr(cdll, name).argtypes = _build.SIGNATURES[name]
         getattr(cdll, name).restype = ctypes.c_int
-    for name in ("g_k2_stamps_read", "g_k2b_stamps_read"):
+    for name in ("g_k2_stamps_read", "g_k2b_stamps_read", "g_k2w_stamps_read"):
         getattr(cdll, name).argtypes = [ctypes.c_void_p, ctypes.c_int]
     return cdll
 
@@ -197,6 +220,80 @@ def trace(lib, dtype: str, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
                 **_median_block(st, ntiles))
 
 
+# stamps of the wide kernels: K2 three a tile (84 tiles at most), K2b two a
+# stage (126 at most), after the two of the set-up
+WIDE_STAMPED = {"conv": (3, 84), "wgrad": (2, 126)}
+
+
+def _median_wide(st: np.ndarray, ntiles: np.ndarray, kind: str) -> dict:
+    """The median block's cycles by step, from the wide kernels' stamps."""
+    per, cap = WIDE_STAMPED[kind]
+    n = np.minimum(ntiles, cap)
+    total = np.array([row[1 + per * k] - row[0] for row, k in zip(st, n)])
+    blk = int(np.argsort(total)[len(total) // 2])
+    row, k = st[blk], int(n[blk])
+    out = dict(setup=int(row[1] - row[0]), wait=0, compute=0, tiles=k)
+    if per == 3:
+        out["barrier"] = 0
+    prev = row[1]
+    for it in range(k):
+        t = row[2 + per * it: 2 + per * (it + 1)]
+        out["wait"] += int(t[0] - prev)
+        out["compute"] += int(t[1] - t[0])
+        if per == 3:
+            out["barrier"] += int(t[2] - t[1])
+        prev = t[-1]
+    return dict(block_cycles=dict(min=int(total.min()), median=int(np.median(total)),
+                                  max=int(total.max())), median_block=out)
+
+
+def trace_wide(lib, dtype: str, kind: str, B, T, F, C, CO, K, stride, pads) -> dict:
+    """One call of the wide K2 (``kind`` "conv") or K2b ("wgrad") at the
+    conv's shape, the plan as the wrapper picks it."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dt = getattr(torch, dtype)
+    Tout = out_frames(T, K, stride, pads)
+    x = torch.randn((B, T, F * C), device="cuda", generator=g).to(dt)
+    w = (0.1 * torch.randn((K, C, CO), device="cuda", generator=g)).to(dt)
+    dy = torch.randn((B, Tout, F * CO), device="cuda", generator=g).to(dt)
+    bias = torch.randn((CO,), device="cuda", generator=g)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+    code = _build.DTYPE_CODES[dt]
+    tt, ch, nb = wide_plan(B, Tout, F, C, CO, K, stride, x.element_size(), sms, kind)
+    if kind == "wgrad":
+        partial = torch.empty((nb, K * C * CO), device="cuda")
+        dw = torch.empty((K, C, CO), device="cuda")
+
+        def run():
+            return lib.w2l_time_conv_wgrad_wide(x.data_ptr(), dy.data_ptr(), partial.data_ptr(),
+                                                dw.data_ptr(), code, B, T, F, C, CO, K, stride,
+                                                pads[0], Tout, ch, stream)
+    else:
+        y = torch.empty((B, Tout, F * CO), device="cuda", dtype=dt)
+
+        def run():
+            return lib.w2l_time_conv_wide(x.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                                          y.data_ptr(), code, B, T, F, C, CO, K, stride, pads[0],
+                                          Tout, 1, ch, stream)
+    for _ in range(3):  # the last run's stamps are read
+        _build.check(run(), "trace_k2")
+    torch.cuda.synchronize()
+    st = np.zeros(nb * _STAMPS, np.int64)
+    _build.check(lib.g_k2w_stamps_read(st.ctypes.data, st.size), "trace_k2")
+    st = st.reshape(nb, _STAMPS)
+    tiles = B * -(-Tout // tt)
+    ntiles = np.array([min(ch, tiles - i * ch) for i in range(nb)])
+    return dict(dtype=dtype, kind=kind, route="wide",
+                shape=[B, T, F, C, CO, K, stride, list(pads)], frames_a_tile=tt,
+                tiles_per_block=ch, blocks=nb, **_median_wide(st, ntiles, kind))
+
+
+# CPC's first conv (B = 8 rows of 125,000 samples), K2 and K2b
+WIDE_SHAPES = [("float32", "conv", 8, 125000, 1, 1, 512, 10, 5, (3, 3)),
+               ("float32", "wgrad", 8, 125000, 1, 1, 512, 10, 5, (3, 3))]
+
+
 # (dtype, kind, B, T, F, C, CO, K, stride, pads): a serving TDS conv of the
 # flagship, its strided C2, the last TDS conv, the dgrad and K2b of
 # training's largest shapes; fp32 also at the stream's first and last TDS
@@ -220,6 +317,7 @@ SHAPES = [("bfloat16", "conv", 4, 768, 80, 16, 16, 9, 1, (7, 1)),
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="", help="also write the readings here as JSON")
+    ap.add_argument("--wide", action="store_true", help="only the wide kernels at CPC's conv")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("trace_k2: needs a CUDA device", file=sys.stderr)
@@ -228,8 +326,11 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     rows = []
-    for shape in SHAPES:
+    for shape in [] if args.wide else SHAPES:
         rows.append(trace(lib, *shape))
+        print(json.dumps(rows[-1]), flush=True)
+    for shape in WIDE_SHAPES:
+        rows.append(trace_wide(lib, *shape))
         print(json.dumps(rows[-1]), flush=True)
     print(smi)
     if args.out:
