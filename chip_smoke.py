@@ -39,13 +39,20 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    block, warps, blocks; fp32's split taps), TFLOP/s and share of the
    bound; times are device times with the inputs in HBM (cold L2), the
    kernel's also with L2-warm inputs; fp32 bounds count operations at
-   3xTF32's 165 TFLOP/s (``PEAK_FLOPS``);
+   3xTF32's 165 TFLOP/s (``PEAK_FLOPS``); K5 and K5b (the CTC loss and its
+   gradient; no pallas_call: they port the JAX loss's scan and custom VJP) at
+   the flagship's and the transformer's largest training batch, in fp32 and
+   bf16, each twice for equal bits, beside the library (``log_softmax`` and
+   ``F.ctc_loss``: forward, and its backward alone) and at ``CTC_EDGES`` (no
+   label, one frame, no frame, token runs, no alignment, the block route in
+   shared and in global memory and at the last L whose work fits in shared
+   memory and the next, an unaligned view);
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
    utterances of 4-15 s through the port's ``run_test`` (``Evaluator`` set-up,
    then ``evaluate``, timed apart) at batch 4, in bf16 and then fp32, with
-   the launch counts of each run checked (1 K1, 15 K2, 22 K3 per batch) and
+   the launch counts of each run checked (1 K1, 15 K2, 22 K3, 1 K5 per batch) and
    its emissions held against the plain-version forward on the card; then
    ``PASSES`` more passes of the loaded model give the steady-state rate;
 5. one profiled bf16 forward: device time by kernel;
@@ -54,9 +61,12 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    ``Trainer`` on 32 synthesized utterances at batch 16 (SGD momentum 0.9,
    gradient clipping, dropout and SpecAugment as the arch says, one validation
    pass and checkpoints), with the launch counts of every update checked
-   (1 K1, 15 K2 + 14 dgrad, 15 K2b, 22 K3, 22 K3b), every loss finite, and
-   with dropout and SpecAugment off the first batch's loss and every
-   parameter's gradient held against the plain path on the card; then
+   (1 K1, 15 K2 + 14 dgrad, 15 K2b, 22 K3, 22 K3b, 1 K5, 1 K5b), every loss
+   finite, and with dropout and SpecAugment off the first batch's loss and
+   every parameter's gradient held against the plain path on the card; one
+   update on the largest batch, dropout and SpecAugment on and seeded, run
+   twice from one saved state (``replay_update``) must give every parameter
+   equal in bits; then
    ``cli.train continue`` takes 2 more updates from ``model_last.bin``, and
    ``run_test`` serves the result; one profiled update of each type gives
    the split into forward, backward and optimizer, the idle share and the
@@ -326,12 +336,17 @@ LONG_LAYERS, LONG_BPTT = 2, 2000
 # flags, but the learning rate and warm-up (0.03 after 32000 updates) are cut
 # to what a few updates can show; SpecAugment starts at update 10000 there.
 # ``updates``: the spec's own depth where it is not ``TRAIN_UPDATES``.
+# ``loss``, ``loss_backward``: what a forward scored by the loss (an update's,
+# a validation or ``run_test`` batch's) launches on top, and what an update's
+# backward of it adds (CTC: K5, K5b); decode and pseudo-label forwards score
+# nothing (``expected_launches(..., scored=False)``).
+CTC_LOSS = dict(loss={"ctc": 1}, loss_backward={"ctc_bwd": 1})
 FLAGSHIP = dict(
     name="flagship", arch=ARCH, n_params=96_660_482, flags=dict(localnrmlleftctx=300),
     per_forward={"mfsc": 1, "time_conv": 15, "residual_ln": 22},
     per_backward={"time_conv": 14, "time_conv_wgrad": 15, "residual_ln_bwd": 22},
     train=dict(batchsize=16, netoptim="sgd", lr=0.05, momentum=0.9, maxgradnorm=0.5),
-    opt_slot="trace")
+    opt_slot="trace", replay=True, **CTC_LOSS)
 TRANSFORMER = dict(
     name="transformer", arch=TR_ARCH, n_params=97_670_462, flags={},
     per_forward={"mfsc": 1, "mhsa": 12, "residual_ln": 24},
@@ -339,7 +354,7 @@ TRANSFORMER = dict(
     train=dict(batchsize=8, netoptim="adam", adambeta1=0.9, adambeta2=0.98, lr=5e-4,
                warmup=2, lr_sched="inv_sqrt", lr_step_decay=50000, maxgradnorm=0.1,
                saug_start_update=10000),
-    opt_slot="mu", loss_falls=True, updates={"bfloat16": 2, "float32": 2})
+    opt_slot="mu", loss_falls=True, updates={"bfloat16": 2, "float32": 2}, **CTC_LOSS)
 HBM_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 PASSES = 1  # steady-state passes over the served list per type
@@ -362,6 +377,10 @@ TPU_KERNELS = {
              "wav2letter_tpu_torch/csrc/attention.cu"),
     "mhsa_bwd": ("wav2letter_tpu/ops/pallas/attention.py:267",
                  "wav2letter_tpu_torch/csrc/attention.cu"),
+    # not pallas_calls: the JAX loss is plain jnp (a lax.scan and its
+    # analytic custom_vjp); K5 and K5b port those functions
+    "ctc": ("wav2letter_tpu/ops/ctc.py:165", "wav2letter_tpu_torch/csrc/ctc.cu"),
+    "ctc_bwd": ("wav2letter_tpu/ops/ctc.py:186", "wav2letter_tpu_torch/csrc/ctc.cu"),
 }
 # kernel vs plain version, |got - want| <= atol + rtol * |want|
 TOL = {
@@ -642,17 +661,23 @@ def save_model(spec, root, seed, tokens, lexicon):
     return paths, n_params
 
 
-def batch_shapes(lst, tokens, lexicon, batch=BATCH):
-    """(number of batches, feature frames T and audio samples S of the
-    largest batch) of the batches ``run_test`` or the trainer builds from
-    ``lst`` at batch size ``batch``."""
+def list_dataset(lst, tokens, lexicon, batch):
+    """The dataset ``run_test`` or the trainer builds from ``lst`` at batch
+    size ``batch``."""
     from wav2letter_tpu_torch.config import Config
     from wav2letter_tpu_torch.data import AsrDataset, Lexicon, make_token_dict
 
     cfg = Config(arch=ARCH, tokens=tokens, lexicon=lexicon, criterion="ctc",
                  mfsc=True, filterbanks=N_FEAT, batchsize=batch)
-    ds = AsrDataset(lst, make_token_dict(tokens, "ctc", 0, False),
-                    Lexicon.from_file(lexicon), cfg, batch_size=batch)
+    return AsrDataset(lst, make_token_dict(tokens, "ctc", 0, False),
+                      Lexicon.from_file(lexicon), cfg, batch_size=batch)
+
+
+def batch_shapes(lst, tokens, lexicon, batch=BATCH):
+    """(number of batches, feature frames T and audio samples S of the
+    largest batch) of the batches ``run_test`` or the trainer builds from
+    ``lst`` at batch size ``batch``."""
+    ds = list_dataset(lst, tokens, lexicon, batch)
     specs = ds.batch_specs()
     T = max(s.max_input_frames for s in specs)
     return len(specs), T, ds.audio_samples_for_frames(T)
@@ -1214,6 +1239,221 @@ def check_residual_ln_bwd_edges(dtype_name, details):
         details.append(row)
 
 
+# ---------------------------------------------------------------------------
+# K5 and K5b: the CTC loss and its gradient
+# ---------------------------------------------------------------------------
+# K5 against its plain version: the loss (and logZ) as the CPU tests hold
+# them. K5b against its plain version on the same saved alpha, lse, lp and
+# logZ: both form each dx element by the same operations in the same order,
+# and in fp32 agree within 2.4e-7 (every reading, PERF.md); the limit is
+# 1e-6 + 1e-5 of the value: a softmax held to bf16 precision or an lse off
+# by 1e-3 is past it. In bf16 each side rounds its own fp32 dx once, and two
+# values a hair apart can round to neighbours: one bf16 ulp, up to 2^-7 of
+# the value (an error under bf16's own rounding is not seen there)
+CTC_LOSS_TOL = (1e-5, 1e-4)
+# beside the paths' rows, checked, each twice for equal bits, timed warm,
+# counted 0 times: ``edges`` (a row each with no label, one frame, no frame,
+# runs of one token, logit_len = T, no valid alignment; N = 37: rows off a
+# 16-byte boundary), ``block`` (L = 301: the block route in shared memory),
+# ``global`` (L = 12001: its work in global memory, rows without an
+# alignment), ``smem_last`` and ``smem_past`` (L = 11609, the last L whose
+# work fits in shared memory beside the beta kernel's static bytes, and L =
+# 11621, past it), ``unaligned`` (x a view past an aligned start)
+CTC_EDGES = ("edges", "block", "global", "smem_last", "smem_past", "unaligned")
+
+
+def ctc_dx_tol(dtype_name):
+    """(rtol, atol) of K5b's dx against its plain version on the same saved
+    forward (see ``CTC_LOSS_TOL``'s comment)."""
+    return (2.0 ** -7 if dtype_name == "bfloat16" else 1e-5), 1e-6
+
+
+def ctc_path_case(lst, tokens, lexicon, batch, em_frames, seed):
+    """The CTC inputs of the largest batch the trainer builds from ``lst`` at
+    ``batch`` rows: its targets and their lengths, ``em_frames`` emission
+    frames, each row's in proportion to its audio; seeded logits come later."""
+    import numpy as np
+
+    ds = list_dataset(lst, tokens, lexicon, batch)
+    b = ds.materialize(max(ds.batch_specs(), key=lambda s: s.max_input_frames))
+    audio = np.asarray(b["audio_len"], np.float64)
+    ll = np.maximum(1, np.round(em_frames * audio / audio.max())).astype(np.int64)
+    return dict(targets=np.asarray(b["target"]), target_len=np.asarray(b["target_len"]),
+                logit_len=ll, T=em_frames, N=N_TOKENS + 1, seed=seed)
+
+
+def ctc_edge_case(kind, seed=0):
+    """The inputs of one of ``CTC_EDGES`` (the ``cuda`` tests take them
+    too), targets seeded."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    B, T, N, U, ll, tl = {
+        "edges": (7, 20, 37, 12, [20, 1, 0, 20, 20, 9, 14], [0, 1, 3, 9, 12, 9, 5]),
+        "block": (3, 320, 45, 150, [320, 300, 250], [150, 140, 120]),
+        "global": (2, 40, 30, 6000, [40, 33], [6000, 5000]),
+        "smem_last": (2, 24, 30, 5804, [24, 20], [5804, 10]),
+        "smem_past": (2, 24, 30, 5810, [24, 20], [5810, 10]),
+        "unaligned": (3, 30, 103, 6, [30, 25, 17], [6, 4, 2])}[kind]
+    targets = np.full((B, U), -1, np.int64)
+    for i in range(B):
+        targets[i, :tl[i]] = rng.randint(0, N - 1, size=tl[i])
+    if kind == "edges":
+        targets[3, :9] = [4, 4, 4, 4, 2, 2, 4, 4, 4]
+        targets[5, :9] = 7
+    return dict(targets=targets, target_len=np.array(tl), logit_len=np.array(ll), T=T, N=N,
+                seed=seed + 1, unaligned=kind == "unaligned")
+
+
+def ctc_args(case, dtype, device="cuda"):
+    """(x, targets, logit_len, target_len) on ``device``, as ``prepare`` gives
+    them; x seeded, 2 * N(0, 1)."""
+    import torch
+
+    from wav2letter_tpu_torch.kernels.ctc import prepare
+
+    B = len(case["targets"])
+    g = torch.Generator(device=device).manual_seed(case["seed"])
+    n = B * case["T"] * case["N"]
+    off = 1 if case.get("unaligned") else 0
+    x = (2.0 * torch.randn((n + off,), device=device, generator=g)).to(dtype)
+    x = x[off:].view(B, case["T"], case["N"])
+    return (x, *prepare(x, torch.from_numpy(case["targets"]),
+                        torch.from_numpy(case["logit_len"]),
+                        torch.from_numpy(case["target_len"])))
+
+
+def _ctc_bytes(args, with_dx):
+    """Bytes K5 (or, ``with_dx``, K5b) must move: x's frames below
+    max(logit_len, 1) once; lse, lp and alpha of those frames; the integers;
+    K5b also dx once, whole, and g, logZ."""
+    x, tg, ll, tl = args
+    B, T, N = x.shape
+    L = 2 * tg.shape[1] + 1
+    frames = int(ll.clamp(min=1).sum())
+    item = x.element_size()
+    n = frames * N * item + frames * 4 * (1 + 2 * L) + (tg.numel() + 2 * B) * 4
+    n += 8 * B  # loss and logZ (or g and logZ)
+    return n + (B * T * N * item if with_dx else 0)
+
+
+def _ctc_check(args, dtype_name, timed, tag, calls):
+    """K5 and K5b on ``args`` against their plain versions (K5b on the plain
+    forward's alpha, lse, lp, logZ), each run twice for equal bits; times:
+    cold by the profiler with the plain versions and the library (log_softmax
+    and F.ctc_loss, forward; its backward alone) where ``timed``, else warm by
+    events. Returns the two rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from wav2letter_tpu_torch import kernels
+    from wav2letter_tpu_torch.kernels.ctc import NEG_INF, scan_route
+
+    x, tg, ll, tl = args
+    B, T, N = x.shape
+    L = 2 * tg.shape[1] + 1
+    got = [kernels.ctc_fwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    want = kernels.ctc_fwd_plain(*args)
+    frames = (torch.arange(T, device=x.device)[None, :] < ll.clamp(min=1)[:, None]).T  # (T, B)
+    same_fwd = torch.equal(got[0][0], got[1][0]) and torch.equal(got[0][4], got[1][4]) \
+        and torch.equal(got[0][1][frames], got[1][1][frames])
+    rtol, atol = CTC_LOSS_TOL
+    lerr = (got[0][0] - want[0]).abs()
+    ok_fwd = bool(torch.all(lerr <= atol + rtol * want[0].abs())) and same_fwd
+    live = frames[:, :, None] & (want[1] > NEG_INF / 2)
+    alpha_err = (got[0][1][live] - want[1][live]).abs().max().item() if live.any() else 0.0
+    g = torch.rand((B,), device=x.device,
+                   generator=torch.Generator(device=x.device).manual_seed(5)) + 0.5
+    b_args = (g, *args, *want[1:])
+    dx = [kernels.ctc_bwd(*b_args) for _ in range(2)]
+    torch.cuda.synchronize()
+    ref = kernels.ctc_bwd_plain(*b_args)
+    drtol, datol = ctc_dx_tol(dtype_name)
+    derr = (dx[0].float() - ref.float()).abs()
+    ok_bwd = bool(torch.all(derr <= datol + drtol * ref.float().abs())) \
+        and torch.equal(dx[0], dx[1]) and bool(torch.isfinite(dx[0]).all())
+    route, width, in_smem = scan_route(L)
+    f_bound = bound(_ctc_bytes(args, False), 4 * B * T * N, "float32")
+    b_bound = bound(_ctc_bytes(args, True), 5 * B * T * N, "float32")
+    common = dict(dtype=dtype_name, tag=tag, shape=[B, T, N, tg.shape[1]], calls=calls,
+                  route=route, lanes_states_or_threads=width, work_in_smem=in_smem)
+    fwd = dict(name="ctc", max_abs_err=lerr.max().item(), alpha_max_abs_err=alpha_err,
+               tol=list(CTC_LOSS_TOL), equal_bits=same_fwd, ok=ok_fwd,
+               bound_ms=f_bound[0], bound_by=f_bound[1], **common)
+    bwd = dict(name="ctc_bwd", max_abs_err=derr.max().item(), tol=[drtol, datol],
+               equal_bits=torch.equal(dx[0], dx[1]), ok=ok_bwd, bound_ms=b_bound[0],
+               bound_by=b_bound[1], **common)
+    if timed:
+        for row, fn, plain, a in ((fwd, kernels.ctc_fwd, kernels.ctc_fwd_plain, args),
+                                  (bwd, kernels.ctc_bwd, kernels.ctc_bwd_plain, b_args)):
+            split = device_split(fn, a)
+            # (the plain versions launch ~4000 kernels a call: two calls, warm)
+            row.update(ms=sum(split.values()), warm_ms=device_ms(fn, a, cold=False),
+                       plain_ms=device_ms(plain, a, cold=False, iters=2),
+                       split_ms={_ctc_launch(k): v for k, v in split.items()})
+
+        def lib_fwd(x_, tg_, ll_, tl_):
+            lp = F.log_softmax(x_.float(), dim=-1).transpose(0, 1)
+            return F.ctc_loss(lp, tg_.long().clamp(min=0), ll_.long(), tl_.long(),
+                              blank=N - 1, reduction="none", zero_infinity=True)
+
+        def lib_fwd_bwd(x_, tg_, ll_, tl_):
+            xl = x_.detach().requires_grad_(True)
+            return torch.autograd.grad(lib_fwd(xl, tg_, ll_, tl_), xl, g)
+
+        # the library's backward alone: its forward and backward together, cold,
+        # less its forward, cold (device times are sums of kernel times)
+        fwd["library_ms"] = device_ms(lib_fwd, args)
+        bwd["library_fwd_bwd_ms"] = device_ms(lib_fwd_bwd, args)
+        bwd["library_ms"] = bwd["library_fwd_bwd_ms"] - fwd["library_ms"]
+    else:
+        for row, fn, a in ((fwd, kernels.ctc_fwd, args), (bwd, kernels.ctc_bwd, b_args)):
+            row["ms"] = row["warm_ms"] = cuda_ms(lambda: fn(*a))
+            row.update(plain_ms=None, library_ms=None, edge=True,
+                       aligned=x.data_ptr() % 16 == 0)
+    for row in (fwd, bwd):
+        log(f"[K5{'b' if row['name'] == 'ctc_bwd' else ''}] {dtype_name} {tag} "
+            f"{row['shape']} {route} ({width}{'' if in_smem else ', work in global memory'}): "
+            f"{row['ms']:.4f} ms {row.get('split_ms', '')}, library {row['library_ms']}, "
+            f"plain {row['plain_ms']}, bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']}); max err {row['max_abs_err']:.2e}, "
+            f"equal bits {row['equal_bits']}")
+    return fwd, bwd
+
+
+def _ctc_launch(key):
+    """K5's and K5b's launches by a piece of the kernel's name."""
+    for piece, name in (("ctc_rows", "rows"), ("alpha", "alpha"), ("beta", "beta"),
+                        ("ctc_grad", "dx")):
+        if piece in key:
+            return name
+    return key[:40]
+
+
+def check_ctc(cases, dtype_name, details):
+    """K5 and K5b at the training paths' CTC inputs (``ctc_path_case``),
+    ``cases`` {tag: case}; returns {"ctc": rows, "ctc_bwd": rows}."""
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    rows = {"ctc": [], "ctc_bwd": []}
+    for tag, case in cases.items():
+        for row in _ctc_check(ctc_args(case, dtype), dtype_name, True, tag, 1):
+            rows[row["name"]].append(row)
+            details.append(row)
+    return rows
+
+
+def check_ctc_edges(dtype_name, details):
+    import torch
+
+    dtype = getattr(torch, dtype_name)
+    for kind in CTC_EDGES:
+        details.extend(_ctc_check(ctc_args(ctc_edge_case(kind), dtype), dtype_name, False,
+                                  kind, 0))
+
+
 def _attention_inputs(B, T, H, Dh, masked, dtype):
     """q (scaled as the model scales it), k, v, g (B, T, H*Dh), the window of
     the relative-position table and a ragged key mask, seeded by the shape."""
@@ -1599,15 +1839,21 @@ def train_flags(spec, lst, valid_lst, tokens, lexicon, rundir, dtype_name, n_upd
         **spec["flags"], **spec["train"])
 
 
-def expected_launches(spec, updates, valid_batches):
+def expected_launches(spec, updates, valid_batches, scored=True):
     """Launches of ``updates`` updates and ``valid_batches`` validation or
     serving forwards, as ``spec``'s arch implies them (flagship: per update 1
-    K1, 15 K2 forward + 14 as dgrad, 15 K2b, 22 K3, 22 K3b; transformer: 1 K1,
-    12 K4, 12 K4b, 24 K3, 24 K3b). Viterbi launches no kernel of ours."""
+    K1, 15 K2 forward + 14 as dgrad, 15 K2b, 22 K3, 22 K3b, 1 K5, 1 K5b;
+    transformer: 1 K1, 12 K4, 12 K4b, 24 K3, 24 K3b, 1 K5, 1 K5b), with the
+    loss (``spec["loss"]``) on every forward where ``scored``, and on none
+    where not (a decode, pseudo labels, an update on another loss). Viterbi
+    launches no kernel of ours."""
     from wav2letter_tpu_torch.kernels import LAUNCHES
 
-    return {k: spec["per_forward"].get(k, 0) * (updates + valid_batches)
-            + spec["per_backward"].get(k, 0) * updates for k in LAUNCHES}
+    loss, loss_bwd = ((spec.get("loss", {}), spec.get("loss_backward", {})) if scored
+                      else ({}, {}))
+    return {k: (spec["per_forward"].get(k, 0) + loss.get(k, 0)) * (updates + valid_batches)
+            + (spec["per_backward"].get(k, 0) + loss_bwd.get(k, 0)) * updates
+            for k in LAUNCHES}
 
 
 def first_batch_gradients(spec, cfg_flags, dtype_name):
@@ -1643,6 +1889,7 @@ def first_batch_gradients(spec, cfg_flags, dtype_name):
     }
     out = {}
     for side, (tr.model, tr.featurizer) in sides.items():
+        tr.criterion.ops = kernels.KERNELS if side == "kernel" else kernels.PLAIN
         tr.model.eval()
         for p in tr.model.parameters():
             p.grad = None
@@ -1652,6 +1899,7 @@ def first_batch_gradients(spec, cfg_flags, dtype_name):
         torch.cuda.synchronize()
         out[side] = (loss.item(), {k: p.grad for k, p in tr.model.named_parameters()},
                      dict(kernels.LAUNCHES))
+    tr.criterion.ops = kernels.KERNELS
     kl, kg, klaunch = out["kernel"]
     want = expected_launches(spec, 1, 0)
     if klaunch != want or any(out["plain_path"][2].values()):
@@ -1747,6 +1995,49 @@ def profile_update(tr, batch):
                 top=[dict(ms=round(ms, 4), kernel=k[:90], count=c) for ms, k, c in rows[:16]])
 
 
+def replay_update(tr, batch, what):
+    """One update of ``tr`` on ``batch`` (dropout and SpecAugment on, drawn
+    from one seed, the spec's learning rate) run twice from one saved state:
+    the parameters, the buffers, both optimizers' slots and counts. Fails
+    unless the loss and every parameter come out equal in bits; the state is
+    put back after."""
+    import copy
+
+    import torch
+
+    named = list(tr.model.named_parameters()) + [
+        ("criterion." + n, p) for n, p in tr.criterion.named_parameters()]
+    params = [p.detach().clone() for _, p in named]
+    bufs = [b.clone() for b in tr.model.buffers()]
+    opts = [(o, copy.deepcopy(o.state_dict())) for o in (tr.net_opt, tr.crit_opt)]
+
+    def restore():
+        with torch.no_grad():
+            for (_, p), v in zip(named, params):
+                p.copy_(v)
+            for b, v in zip(tr.model.buffers(), bufs):
+                b.copy_(v)
+        for o, sd in opts:
+            o.load_state_dict(sd)
+
+    runs = []
+    for _ in range(2):
+        restore()
+        loss, finite, _, _ = tr.train_step(batch, tr.cfg.lr, tr.cfg.lr, True, 24680)
+        torch.cuda.synchronize()
+        runs.append((loss, finite, [p.detach().clone() for _, p in named]))
+    differ = [n for (n, _), a, b in zip(named, runs[0][2], runs[1][2]) if not torch.equal(a, b)]
+    moved = sum(not torch.equal(a, v) for a, v in zip(runs[0][2], params))
+    restore()
+    res = dict(batch=list(batch["audio"].shape), losses=[runs[0][0], runs[1][0]],
+               finite=[runs[0][1], runs[1][1]], params=len(named), params_moved=moved,
+               params_differ=differ)
+    log(f"[{what}] {json.dumps(res)}")
+    if differ or runs[0][0] != runs[1][0] or not (runs[0][1] and runs[1][1]) or not moved:
+        fail(f"{what}: one update from one state twice is not equal in bits: {json.dumps(res)}")
+    return res
+
+
 def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batches):
     """The trainer at full width on ``spec``'s arch, bf16 then fp32;
     ``continue``; ``run_test``."""
@@ -1807,6 +2098,8 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
         # (not gated for the flagship, whose SAUG line blanks nearly every cell)
         if spec.get("loss_falls") and not steps[-1]["loss"] < steps[0]["loss"]:
             fail(f"{runname}: the loss did not fall: {[s['loss'] for s in steps]}")
+        largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
+        big = pad_batch_rows(tr.train_ds.materialize(largest), 1)
         last = os.path.join(rundir, runname, "model_last.bin")
         ckpt = load_checkpoint(last)
         if ckpt.updates != n_updates or not ckpt.opt_state["state"][spec["opt_slot"]]:
@@ -1821,10 +2114,10 @@ def training_path(spec, tmp, train_lst, serve_lst, tokens, lexicon, valid_batche
             s_per_update=span / (n_updates - 1), peak_mem_gib=peak / 2**30,
             launches=launches, launches_per_update=per_update, first_batch=grads)
         tr.train_step = step
+        if spec.get("replay"):  # the update replayed in bits
+            res["replay"] = replay_update(tr, big, f"{runname} replay")
         if dtype_name == "bfloat16":  # the split of an update, in the type served at scale
-            largest = max(tr.train_ds.batch_specs(), key=lambda s: s.max_input_frames)
-            res["profile"] = profile_update(
-                tr, pad_batch_rows(tr.train_ds.materialize(largest), 1))
+            res["profile"] = profile_update(tr, big)
         results[dtype_name] = res
         log(f"[train {runname}] {json.dumps(res)}")
         del tr
@@ -1895,7 +2188,7 @@ def conformer_path(tmp, tokens, lexicon, seed):
                                       (14.9, 15.0))
     spec = dict(name="conformer", arch=arch, flags={},
                 per_forward={"mfsc": 1, "mhsa": CFR_LAYERS},
-                per_backward={"mhsa_bwd": CFR_LAYERS},
+                per_backward={"mhsa_bwd": CFR_LAYERS}, **CTC_LOSS,
                 train=dict(batchsize=8, netoptim="adam", lr=5e-4, warmup=2,
                            lr_sched="inv_sqrt", lr_step_decay=20000, maxgradnorm=0.5))
     cfg = Config()
@@ -1990,6 +2283,7 @@ def long_context_path(tmp, tokens, lexicon, seed):
     spec = dict(name="long_context", arch=arch, flags={},
                 per_forward={"mfsc": 1, "mhsa": LONG_LAYERS, "residual_ln": 2 * LONG_LAYERS},
                 per_backward={"mhsa_bwd": LONG_LAYERS, "residual_ln_bwd": 2 * LONG_LAYERS},
+                **CTC_LOSS,
                 train=dict(batchsize=2, netoptim="adam", lr=5e-4, warmup=2,
                            lr_sched="inv_sqrt", lr_step_decay=20000, maxgradnorm=0.1))
     cfg = Config()
@@ -2091,7 +2385,7 @@ def decode_path(paths, lst, secs, tmp, n_batches, smi_line):
     train_ngram_lm(corpus, arpa, order=3)
     lm_bin = build_binary(arpa, os.path.join(root, "lm.bin"))  # builds decoder.cpp
     prep_s = time.perf_counter() - t0
-    serve = expected_launches(FLAGSHIP, 0, n_batches)
+    serve = expected_launches(FLAGSHIP, 0, n_batches, scored=False)
     results = {}
     for dt in ("bfloat16", "float32"):
         d = os.path.join(root, dt)
@@ -2748,8 +3042,9 @@ TP_LAYERS = 2  # of the transformer's 12, at dp1 x mp2
 # same global batch after the run's updates: the largest relative difference
 # of a loss, and of the distance the parameters moved (|P - Q| / |Q - P0| over
 # the whole model, P0 the seeded start). Both sides compute the same sums with
-# the rows in other batches, so cuBLAS and cuDNN take other algorithms, and
-# CTC's backward adds with atomics. The seeded flagship amplifies rounding
+# the rows in other batches, so cuBLAS and cuDNN take other algorithms and
+# every reduction over the batch (K2b's, K3b's and K4b's weight sums, the
+# clip norm) adds in another order. The seeded flagship amplifies rounding
 # ~1e4-fold on the way back (GRAD_TOL: 1e-2 of a gradient in fp32, 0.25 in
 # bf16); over a few updates that is 2e-2 of the distance moved in fp32.
 DP_TOL = {"float32": (1e-3, 2e-2), "bfloat16": (2e-2, 0.25)}
@@ -3298,9 +3593,11 @@ def soak_path(tmp, smi_line):
     if update_launches != expected_launches(FLAGSHIP, 1, 0):
         fail(f"soak: one update launched {update_launches}, expected "
              f"{expected_launches(FLAGSHIP, 1, 0)}")
-    if not all(launches[k] for k in ("mfsc", "time_conv", "residual_ln")) or any(
-            launches[k] for k in ("time_conv_wgrad", "residual_ln_bwd", "mhsa", "mhsa_bwd")):
-        fail(f"soak: the chain's launches {launches} (forwards only: K1, K2, K3)")
+    if not all(launches[k] for k in ("mfsc", "time_conv", "residual_ln", "ctc")) or any(
+            launches[k] for k in ("time_conv_wgrad", "residual_ln_bwd", "mhsa", "mhsa_bwd",
+                                  "ctc_bwd")):
+        fail(f"soak: the chain's launches {launches} (forwards only: K1, K2, K3, and K5 "
+             "for cli.test's loss)")
     out = dict(results=r, launches=launches, update_launches=update_launches, wall_s=wall,
                budget_s=SOAK_WALL_S, corpus=dict(s.paths, lm=os.path.join(s.root, "lm3.arpa")))
     for step, sec in r["timing"].items():
@@ -3339,11 +3636,13 @@ def shortest(src, dst, n):
     return dst, sum(d for d, _ in rows) / 1000.0
 
 
-def card_launches(what, expect=None):
+def card_launches(what, expect=None, loss=None):
     """Fails unless the last run launched ``expect`` ({kernel: launches}, the
     rest 0) or, by default, K1 and no other kernel: the ASG and ResNet
     recipes' convs are weight-normed or wider than K2 takes (``F.conv2d``),
-    their LayerNorms plain and they hold no attention."""
+    their LayerNorms plain and they hold no attention. A CTC model's runs
+    (``loss``) add a K5 a batch (a K1 launch) where it is ``"forward"``, and a
+    K5b too where it is ``"update"``."""
     from wav2letter_tpu_torch import kernels
 
     launches = dict(kernels.LAUNCHES)
@@ -3351,8 +3650,13 @@ def card_launches(what, expect=None):
         want = {k: expect.get(k, 0) for k in launches}
         if launches != want:
             fail(f"{what}: launches {launches}, expected {want}")
-    elif not launches["mfsc"] or any(v for k, v in launches.items() if k != "mfsc"):
-        fail(f"{what}: launches {launches}, expected K1 alone")
+        return launches
+    n = launches["mfsc"]
+    want = {k: 0 for k in launches}
+    want.update(mfsc=n, ctc=n if loss else 0, ctc_bwd=n if loss == "update" else 0)
+    if not n or launches != want:
+        fail(f"{what}: launches {launches}, expected K1 alone"
+             + (f" and the loss ({loss})" if loss else ""))
     return launches
 
 
@@ -3647,9 +3951,10 @@ def criterion_share(tr, batch):
     return out
 
 
-def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
+def trained_runs(name, flags, updates, smi_line, share=False, expect=None, loss=None):
     """``cli.train`` at each type for ``updates[type]`` updates (K1 alone on
-    the card, or ``expect`` an update, every loss finite), a checkpoint each;
+    the card, with ``loss`` as ``card_launches`` takes it, or ``expect`` an
+    update, every loss finite), a checkpoint each;
     in the first type, numbers of one more update and, with ``share``, of the
     criterion's part of it (the criterion runs in fp32 whatever the type)."""
     import torch
@@ -3671,7 +3976,8 @@ def trained_runs(name, flags, updates, smi_line, share=False, expect=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = card_launches(f"{name} {dt} training",
-                                 None if expect is None else {k: v * n for k, v in expect.items()})
+                                 None if expect is None else {k: v * n for k, v in expect.items()},
+                                 loss)
         steps = rec.calls
         if len(steps) != n or not all(s["finite"] and math.isfinite(s["loss"]) for s in steps):
             fail(f"{name} {dt}: {len(steps)} updates, {[(s['loss'], s['finite']) for s in steps]}")
@@ -3777,10 +4083,11 @@ def asg_functions_card_vs_cpu(am, lst):
     return out
 
 
-def serve_align(name, am, lst, secs, tmp, extra=(), decode_flags=None):
+def serve_align(name, am, lst, secs, tmp, extra=(), decode_flags=None, ctc=False):
     """``cli.test``, ``cli.decode`` (when ``decode_flags``) and ``cli.align``
-    on checkpoint ``am`` over ``lst``: each launches K1 alone; rates in audio
-    s per wall s, align utterances per s; the align file's words in order."""
+    on checkpoint ``am`` over ``lst``: each launches K1 alone, and ``cli.test``
+    of a CTC model (``ctc``) K5 a batch for its loss; rates in audio s per
+    wall s, align utterances per s; the align file's words in order."""
     import torch
 
     from wav2letter_tpu_torch import kernels
@@ -3797,7 +4104,8 @@ def serve_align(name, am, lst, secs, tmp, extra=(), decode_flags=None):
     if not math.isfinite(res["loss"]):
         fail(f"{name} cli.test: {res}")
     out["test"] = dict(res, wall_s=wall, audio_s_per_s=secs / wall,
-                       launches=card_launches(f"{name} cli.test"))
+                       launches=card_launches(f"{name} cli.test",
+                                              loss="forward" if ctc else None))
     if decode_flags is not None:
         kernels.reset_launches()
         dres = decode_main([f"--am={am}", f"--test={lst}", "--batchsize=4",
@@ -3904,12 +4212,13 @@ def resnet_path(tmp, corpus, smi_line):
         n_params = sum(p.numel() for p in build_arch_module(RES_ARCH, 80, n_classes).parameters())
     log(f"[resnet_ctc] {n_params} parameters | {smi_line}")
     laps = {}
-    first = card_vs_cpu_first_batch("resnet_ctc", flags)
+    first = card_vs_cpu_first_batch("resnet_ctc", flags,
+                                    expect={"mfsc": 1, "ctc": 1, "ctc_bwd": 1})
     laps["first_batch"] = time.perf_counter() - t_phase
-    runs = trained_runs("resnet_ctc", flags, RES_UPDATES, smi_line)
+    runs = trained_runs("resnet_ctc", flags, RES_UPDATES, smi_line, loss="update")
     laps["train"] = time.perf_counter() - t_phase
     last = os.path.join(flags["rundir"], "resnet_ctc_float32", "model_last.bin")
-    served = serve_align("resnet_ctc", last, test_lst, test_secs, root)
+    served = serve_align("resnet_ctc", last, test_lst, test_secs, root, ctc=True)
     out = dict(n_params=n_params, first_batch=first, training=runs, served=served,
                phase_s=time.perf_counter() - t_phase, laps_s=laps, nvidia_smi=smi_line)
     log(f"[resnet_ctc] phase 15 in {out['phase_s']:.1f} s (laps {json.dumps(laps)}) | "
@@ -4515,7 +4824,8 @@ def lm_decode(name, am, lst, secs, tmp, lm_dir, smi_line):
     res = decode_main([f"--{k}={v}" for k, v in flags.items()])
     torch.cuda.synchronize()
     launches = card_launches(f"{name} decode with the ConvLM",
-                             None if spec is None else expected_launches(spec, 0, n_batches))
+                             None if spec is None
+                             else expected_launches(spec, 0, n_batches, scored=False))
     lm = res.get("convlm", {})
     if not (math.isfinite(res["WER"]) and res["decoder"].startswith("Native")
             and lm.get("device_calls", 0) > 0):
@@ -4580,7 +4890,7 @@ def layers_train_continue(root, corpus, smi_line):
     """``cli.train`` 2 updates then ``continue`` 2 (the ``Trainer`` that
     ``cli.train continue`` runs) on ``LAYERS_ARCH`` (BN, GRU, POSEMB, PC):
     the BN buffers reloaded in equal bits, moved by training, every loss
-    finite, K1 alone launched."""
+    finite, K1 and the CTC loss (K5, K5b) alone launched."""
     import torch
 
     from wav2letter_tpu_torch import kernels
@@ -4609,7 +4919,7 @@ def layers_train_continue(root, corpus, smi_line):
         reloaded = all(torch.equal(bufs[k], saved[k]) for k in bufs) and len(bufs) == 2
         tr.run()
     end = load_checkpoint(last)
-    launches = card_launches("layers arch training")
+    launches = card_launches("layers arch training", loss="update")
     losses = [s["loss"] for s in rec.calls]
     moved = (end.state_dict["seq.01_BN.var"] - saved["seq.01_BN.var"]).abs().max().item()
     out = dict(updates=end.updates, losses=losses, buffers_reloaded_equal=reloaded,
@@ -4684,7 +4994,7 @@ MLS_BPTT = 240  # the plugin's TR layers: K4's gate is T <= bptt after the pool
 # the plugin's encoder: 4 TR layers of H = 4, Dh = 64 over 256 after one
 # stride-2 pool of a weight-normed conv (F.conv2d); layerdrop scales, not skips
 MLS_SPEC = dict(name="mls", per_forward={"mfsc": 1, "mhsa": 4, "residual_ln": 8},
-                per_backward={"mhsa_bwd": 4, "residual_ln_bwd": 8})
+                per_backward={"mhsa_bwd": 4, "residual_ln_bwd": 8}, **CTC_LOSS)
 HOOK_UTTS, HOOK_UPDATES = 32, 2  # the flagship's hooks: 2 updates at B = 16 each
 NOISE_CLIPS = 4  # synthesized noise files of the sfx chain's AdditiveNoise
 HOOK_RANKS = 2
@@ -4947,13 +5257,14 @@ def hook_parallel_jobs(root, data):
         f.update(kw)
         return f
 
+    ctc_update = {"mfsc": 1, "ctc": 1, "ctc_bwd": 1}  # K1 and the loss, no other kernel
     cases = {
-        "bn_dp2": (layers, flags(layers, batchsize=4), {"mfsc": 1}, []),
+        "bn_dp2": (layers, flags(layers, batchsize=4), ctc_update, []),
         "novograd_mp2": (fl_arch, flags(fl_arch, netoptim="novograd", lr=0.01, mp_axis=2,
                                         localnrmlleftctx=300),
                          expected_launches(FLAGSHIP, 1, 0), None),
         "conv_glu_mp2": (glu_arch, flags(glu_arch, mp_axis=2, filterbanks=40),
-                         {"mfsc": 1}, ["seq.07_C.v", "seq.13_C.v", "seq.19_C.v",
+                         ctc_update, ["seq.07_C.v", "seq.13_C.v", "seq.19_C.v",
                                        "seq.26_WNL.v"]),
     }
     jobs = [dict(name=k, flags=f, dump=os.path.join(root, f"{k}.pt"), needs="all_gather")
@@ -5066,7 +5377,7 @@ IPL_TRAIN_UTTS, IPL_UNSUP_UTTS = 16, 8
 # 80 samples, far below phase 13's utterances (unfused attention). No K1: raw
 # features.
 CPC_SPEC = dict(name="cpc", per_forward={"time_conv": 1, "residual_ln": 12},
-                per_backward={"time_conv_wgrad": 1, "residual_ln_bwd": 12})
+                per_backward={"time_conv_wgrad": 1, "residual_ln_bwd": 12}, **CTC_LOSS)
 # an LPM proposal: one forward of seq2seq_tds's encoder (its greedy decode runs
 # no kernel of ours)
 LPM_SPEC = S2S_RECIPES["seq2seq_tds"]
@@ -5139,7 +5450,9 @@ def cpc_semi(root, corpus, smi_line):
                  tokens=corpus["tokens"], lexicon=corpus["lexicon"],
                  rundir=os.path.join(root, "runs"), runname="cpc", nthread=2, seed=0)
     alternate = dict(unsupdates=1, supdates=1)  # CPC flags: one update of each in turn
-    per_update = expected_launches(CPC_SPEC, 1, 0)
+    # an unsupervised update, and a supervised one (which adds the CTC loss)
+    per_update = expected_launches(CPC_SPEC, 1, 0, scored=False)
+    steps = {"unsup_step": per_update, "sup_step": expected_launches(CPC_SPEC, 1, 0)}
     laps = {}
 
     # the first batch, card against CPU: the same seeded weights on both
@@ -5184,8 +5497,7 @@ def cpc_semi(root, corpus, smi_line):
     torch.cuda.reset_peak_memory_stats()
     with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
         tr = cpc_main(["train"] + _argv(dict(flags, **alternate)) + ["--iter=4"])
-    launches, names = rec.held("cpc training", {"unsup_step": per_update,
-                                                "sup_step": per_update})
+    launches, names = rec.held("cpc training", steps)
     phases = [c["name"] for c in rec.calls]
     if phases != ["unsup_step", "sup_step"] * 2 or tr.updates != 4:
         fail(f"cpc: updates {tr.updates}, phases {phases}")
@@ -5207,7 +5519,7 @@ def cpc_semi(root, corpus, smi_line):
     laps["train"] = time.perf_counter() - t_phase
     with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
         tr = cpc_main(["continue"] + _argv(dict(flags, **alternate)) + ["--iter=5"])
-    rec.held("cpc continue", {"unsup_step": per_update, "sup_step": per_update})
+    rec.held("cpc continue", steps)
     last = os.path.join(flags["rundir"], "cpc", "model_last.bin")
     ckpt = load_checkpoint(last)
     if tr.updates != 5 or ckpt.updates != 5 or [c["name"] for c in rec.calls] != ["unsup_step"]:
@@ -5219,7 +5531,7 @@ def cpc_semi(root, corpus, smi_line):
     same = all(torch.equal(v.cpu(), ckpt.state_dict[k]) for k, v in tr.net.state_dict().items())
     with _Calls((CPCTrainer, "unsup_step"), (CPCTrainer, "sup_step")) as rec:
         tr.run()
-    rec.held("cpc pretrained", {"unsup_step": per_update, "sup_step": per_update})
+    rec.held("cpc pretrained", steps)
     if not same or tr.updates != 1:
         fail(f"cpc --pretrainmodel: weights loaded {same}, updates {tr.updates}")
     del tr
@@ -5280,8 +5592,8 @@ def slimipl_semi(root, corpus, smi_line):
                  rundir=os.path.join(root, "runs"), nthread=2, seed=0,
                  iter=SLIM_UPDATES, reportiters=0, slimIPL_start=2, **FLAGSHIP["flags"])
     expect = {"train_step": expected_launches(FLAGSHIP, 1, 0),
-              "soft_step": expected_launches(FLAGSHIP, 1, 0),
-              "_pl_forward": expected_launches(FLAGSHIP, 0, 1)}
+              "soft_step": expected_launches(FLAGSHIP, 1, 0, scored=False),
+              "_pl_forward": expected_launches(FLAGSHIP, 0, 1, scored=False)}
     targets = ((Trainer, "train_step"), (SlimIPLTrainer, "soft_step"),
                (SlimIPLTrainer, "_pl_forward"))
     out, laps = {}, {}
@@ -5491,7 +5803,7 @@ def ipl_semi(root, corpus, smi_line):
                            "--ipl_seed_iters=2", "--ipl_round_iters=2",
                            "--ipl_max_ngram_repeats=100"]
     expect = {"train_step": expected_launches(FLAGSHIP, 1, 0),
-              "emissions": expected_launches(FLAGSHIP, 0, 1)}
+              "emissions": expected_launches(FLAGSHIP, 0, 1, scored=False)}
     targets = ((Trainer, "train_step"), (Evaluator, "emissions"))
     write = ipl.write_pseudo_labeled_list
 
@@ -5717,7 +6029,8 @@ def flashlight_tools(root, paths, lst, secs, arpa, hyps10, n_batches, smi_line):
         res = decode_main([f"--am={am}", f"--test={lst}", f"--lm={arpa}", *DECODE_FLAGS,
                            f"--sclite={d}"])
         torch.cuda.synchronize()
-        card_launches(f"flashlight cli.decode {name}", serve)
+        card_launches(f"flashlight cli.decode {name}",
+                      expected_launches(FLAGSHIP, 0, n_batches, scored=False))
         runs[name] = dict(WER=res["WER"], wall_s=res["wall_s"], setup_s=res["setup_s"],
                           hyps=read_hyps(d, lst))
     want = hyps10 if hyps10 is not None else runs["own"]["hyps"]
@@ -5796,7 +6109,7 @@ def prod_scale_tools(root, corpus, am, smi_line):
     secs = sum(float(r.split()[2]) for r in rows) / 1000.0
     os.environ["W2L_REQUIRE_NATIVE"] = "1"
     n_batches = -(-len(rows) // 4)
-    serve = expected_launches(FLAGSHIP, 0, n_batches)
+    serve = expected_launches(FLAGSHIP, 0, n_batches, scored=False)
     setups, build = [], decode_module.build_decoder
 
     def timed_build(*a, **kw):
@@ -6017,11 +6330,13 @@ def cpc_ranks_held(root, corpus, ranks, smi_line):
     from wav2letter_tpu_torch.runtime.train_cpc import CPCTrainer
 
     flags, cpc = cpc_rank_flags(root, corpus)
-    per_update = expected_launches(CPC_SPEC, 1, 0)
+    per_update = {"unsup_step": expected_launches(CPC_SPEC, 1, 0, scored=False),
+                  "sup_step": expected_launches(CPC_SPEC, 1, 0)}
     runs = [r["runs"] for r in ranks]
     for name, phases in (("cpc", ["unsup_step", "sup_step"]), ("cpc_continue", ["unsup_step"])):
         for r in runs:
-            if r[name]["phases"] != phases or any(l != per_update for l in r[name]["launches"]):
+            if r[name]["phases"] != phases or any(
+                    l != per_update[p] for p, l in zip(phases, r[name]["launches"])):
                 fail(f"cpc on {CPC_DP_RANKS} ranks, {name}: phases {r[name]['phases']}, "
                      f"launches {r[name]['launches']} (expected {per_update} an update)")
         if runs[0][name]["digest"] != runs[1][name]["digest"] or \
@@ -6312,6 +6627,17 @@ def main() -> None:
         tr_lns, tr_tlns = [(BATCH * Ta, 768)] * 24, [(tr_batch * Ta_train, 768)] * 24
         log(f"[shapes] transformer: attention over T={Ta} (serving, B={BATCH}) and "
             f"T={Ta_train} (training, B={tr_batch}); 12 K4 and 24 K3 calls per forward")
+        # the CTC loss of the two largest training batches: the flagship's
+        # emission frames from a forward of the plain model on the meta device
+        with torch.device("meta"):
+            em_T = build_arch_module(ARCH, N_FEAT, N_TOKENS + 1, ops=kernels.PLAIN).eval()(
+                torch.zeros(1, T_train, N_FEAT))[0].shape[1]
+        ctc_cases = {"flagship": ctc_path_case(train_lst, tokens, lexicon, fl_batch, em_T, 11),
+                     "transformer": ctc_path_case(train_lst, tokens, lexicon, tr_batch,
+                                                  Ta_train, 12)}
+        log(f"[shapes] CTC: flagship B={fl_batch} T={em_T} U="
+            f"{ctc_cases['flagship']['targets'].shape[1]}, transformer B={tr_batch} "
+            f"T={Ta_train} U={ctc_cases['transformer']['targets'].shape[1]}, N={N_TOKENS + 1}")
 
         log(f"[time] phase 3 starts at {time.perf_counter() - t_start:.1f} s")
         # 3. kernels against their plain versions
@@ -6344,6 +6670,13 @@ def main() -> None:
             stamp(f"K4b edges {dt}")
             rows[("mhsa", dt)] = [r for r in att["mhsa"] if r["tag"] == "serve"]
             rows[("mhsa_bwd", dt)] = [r for r in att["mhsa_bwd"] if r["tag"] == "train"]
+            ctc = check_ctc(ctc_cases, dt, details)
+            for name in ("ctc", "ctc_bwd"):
+                rows[(name, dt)] = [r for r in ctc[name] if r["tag"] == "flagship"]
+                rows[(f"{name}@transformer", dt)] = [r for r in ctc[name]
+                                                     if r["tag"] == "transformer"]
+            check_ctc_edges(dt, details)
+            stamp(f"K5, K5b {dt}")
             torch.cuda.empty_cache()
         for r in details:
             r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -6353,7 +6686,8 @@ def main() -> None:
         for key, krows in rows.items():
             name, dt = ("mfsc", "float32") if key == "mfsc" else key
             sums.append(dict(name=name, dtype=dt, calls=sum(r["calls"] for r in krows),
-                             per=("update" if "bwd" in name or "grad" in name else "forward"),
+                             per=("update" if "bwd" in name or "grad" in name
+                                  or name.startswith("ctc") else "forward"),
                              **per_forward(krows)))
             log(f"[kernel sum] {json.dumps(sums[-1])}")
         bad = [r for r in details if not r["ok"]]
@@ -6488,7 +6822,8 @@ def main() -> None:
             ("mfsc", fwd, "flagship"), ("time_conv", fwd, "flagship"),
             ("time_conv_wgrad", upd, "flagship"), ("residual_ln", fwd, "flagship"),
             ("residual_ln_bwd", upd, "flagship"), ("mhsa", fwd, "transformer"),
-            ("mhsa_bwd", upd, "transformer")):
+            ("mhsa_bwd", upd, "transformer"), ("ctc", upd, "flagship"),
+            ("ctc_bwd", upd, "flagship")):
         dt = "float32" if name == "mfsc" else "bfloat16"
         agg = per_forward(rows["mfsc" if name == "mfsc" else (name, dt)])
         replaces, source = TPU_KERNELS[name]
@@ -6505,9 +6840,11 @@ def main() -> None:
             plain_ms=agg["plain_ms"],
             bound_ms=agg["bound_ms"], bound_by=agg["bound_by"],
             library_ms=agg["library_ms"], per=per)
-        if name in ("mfsc", "residual_ln", "residual_ln_bwd"):  # which routes ran
+        if name in ("mfsc", "residual_ln", "residual_ln_bwd", "ctc", "ctc_bwd"):  # routes
             krows = rows["mfsc" if name == "mfsc" else (name, dt)]
             entry["kernel_route"] = sorted({r["route"] for r in krows})
+        if name == "ctc_bwd":  # the library's forward and backward together
+            entry["library_fwd_bwd_ms"] = sum(r["library_fwd_bwd_ms"] for r in krows)
         if name == "residual_ln":  # F.layer_norm of a precomputed sum, the old yardstick
             entry["layer_norm_ms"] = sum(r["layer_norm_ms"] * r["calls"] for r in krows)
         if name == "time_conv":  # the same kernel as dgrad, per update

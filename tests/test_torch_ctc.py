@@ -1,7 +1,10 @@
-"""The port's CTC loss and its gradient with respect to the raw logits
-(``F.ctc_loss`` behind ``log_softmax``) against ``wav2letter_tpu/ops/ctc.py``
-(a ``lax.scan`` with an analytic VJP) on padded batches: ``logit_len < T``,
-targets padded with -1, blank last. Inputs from a numpy seed."""
+"""The port's CTC loss and its gradient with respect to the raw logits (on
+the CPU the plain version of K5/K5b, ``kernels/ctc.py::ctc_loss_plain``)
+against ``wav2letter_tpu/ops/ctc.py`` (a ``lax.scan`` with an analytic VJP)
+on padded batches: ``logit_len < T``, targets padded with -1, blank last; and
+at the edges the kernels must take: no label, one frame, runs of one token,
+bf16 logits, L past the warp route, 9998 classes. Inputs from a numpy
+seed."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +17,9 @@ from wav2letter_tpu.criterions import get_scale_mode as jax_scale_mode
 from wav2letter_tpu.ops.ctc import ctc_loss as jax_ctc_loss
 from wav2letter_tpu_torch.criterions import CTCCriterion, get_scale_mode, make_criterion
 from wav2letter_tpu_torch.config import Config
-from wav2letter_tpu_torch.ops.ctc import INFEASIBLE_LOSS, ctc_feasible, ctc_loss
+from wav2letter_tpu_torch.kernels import KERNELS, PLAIN
+from wav2letter_tpu_torch.kernels import ctc as K5
+from wav2letter_tpu_torch.ops.ctc import ctc_loss
 
 
 def _batch(seed, B=5, T=23, N=9, U=6):
@@ -54,11 +59,22 @@ def test_ctc_loss_and_gradient_match_jax(seed):
         assert not tg[i, n:].any() and not jg[i, n:].any()
 
 
+def _feasible(targets, logit_len, target_len):
+    """A row has a valid alignment: at least as many frames as labels plus
+    one blank between each pair of equal neighbours."""
+    out = []
+    for tgt, n, u in zip(targets, logit_len, target_len):
+        repeats = sum(int(tgt[i] == tgt[i - 1]) for i in range(1, u))
+        out.append(u + repeats <= n)
+    return np.array(out)
+
+
 def test_infeasible_rows_are_finite_as_in_jax():
     """More labels (with the blanks that repeats need) than frames: JAX's
-    finite -1e30 makes the loss 1e30, not inf, and keeps the gradient finite;
-    the port gives the same loss and a zero gradient for such a row, and the
-    other rows of the batch are untouched."""
+    finite -1e30 makes the loss 1e30, not inf, and keeps the gradient finite
+    (states reached by one scan only get a posterior of 1); the port computes
+    the same recursion and gives JAX's loss and gradient on those rows too,
+    and the other rows of the batch are untouched."""
     logits, targets, logit_len, target_len = _batch(4)
     targets[2] = [1, 1, 1, 1, 1, 1]
     target_len[2], logit_len[2] = 6, 9  # needs 11 frames
@@ -66,16 +82,136 @@ def test_infeasible_rows_are_finite_as_in_jax():
     targets[3] = [0, 1, 2, 3, 4, 5]
     weights = np.ones(len(logits), np.float32)
     jl, jg, tl, tg = _both(logits, targets, logit_len, target_len, weights)
-    feasible = ctc_feasible(*(torch.from_numpy(a).long()
-                              for a in (targets, logit_len, target_len))).numpy()
+    feasible = _feasible(targets, logit_len, target_len)
     assert list(feasible) == [True, True, False, False, True]
     assert np.isfinite(jl).all() and np.isfinite(jg).all()
     assert np.isfinite(tl).all() and np.isfinite(tg).all()
     np.testing.assert_allclose(tl[~feasible], jl[~feasible], rtol=1e-6)
-    assert tl[2] == np.float32(INFEASIBLE_LOSS)
-    assert not tg[~feasible].any()
+    assert tl[2] == np.float32(1e30)
+    assert np.abs(jg[~feasible]).max() > 1  # JAX's saturated posterior, not 0
+    np.testing.assert_allclose(tg[~feasible], jg[~feasible], atol=2e-5)
     np.testing.assert_allclose(tl[feasible], jl[feasible], rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(tg[feasible], jg[feasible], atol=2e-5)
+
+
+def _edge(case):
+    """(logits, targets, logit_len, target_len) of one edge of K5/K5b."""
+    rng = np.random.RandomState(11)
+    if case == "no_label":  # target_len = 0: L_eff = 1, aN1 = -1e30
+        logits = 2.0 * rng.randn(3, 9, 7)
+        targets = np.array([[-1, -1], [2, -1], [-1, -1]])
+        return logits, targets, np.array([9, 6, 1]), np.array([0, 1, 0])
+    if case == "one_frame":  # logit_len = 1: the beta reset at t = 0, alpha at t = 0
+        logits = 2.0 * rng.randn(4, 6, 8)
+        targets = np.array([[3, -1], [3, 4], [-1, -1], [5, 5]])
+        return logits, targets, np.array([1, 1, 1, 6]), np.array([1, 2, 0, 2])
+    if case == "token_runs":  # runs of one token: no skip, one token at many s
+        logits = 2.0 * rng.randn(3, 30, 6)
+        targets = np.array([[2, 2, 2, 2, 1, 1, 2, 2], [4, 4, 4, 4, 4, 4, 4, 4],
+                            [0, 1, 0, 1, 0, -1, -1, -1]])
+        return logits, targets, np.array([30, 26, 17]), np.array([8, 8, 5])
+    if case == "full_length":  # logit_len = T: the beta init at T - 1
+        logits = 2.0 * rng.randn(2, 12, 5)
+        targets = np.array([[0, 1, 2], [3, 3, -1]])
+        return logits, targets, np.array([12, 12]), np.array([3, 2])
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["no_label", "one_frame", "token_runs", "full_length"])
+def test_edges_match_jax(case):
+    logits, targets, logit_len, target_len = _edge(case)
+    args = (logits.astype(np.float32), targets.astype(np.int32), logit_len.astype(np.int32),
+            target_len.astype(np.int32))
+    weights = np.random.RandomState(3).rand(len(logits)).astype(np.float32) + 0.5
+    jl, jg, tl, tg = _both(*args, weights)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tg, jg, atol=2e-5)
+
+
+def test_bf16_logits_match_jax_on_their_fp32_values():
+    """bf16 logits are read as they are: the loss is JAX's on the same values
+    cast to fp32, and the gradient is JAX's rounded once to bf16."""
+    logits, targets, logit_len, target_len = _batch(5)
+    x16 = torch.from_numpy(logits).to(torch.bfloat16)
+    as32 = x16.float().numpy()
+    weights = np.random.RandomState(8).rand(len(logits)).astype(np.float32) + 0.5
+    jl, jg, _, _ = _both(as32, targets, logit_len, target_len, weights)
+    x = x16.clone().requires_grad_(True)
+    tl = ctc_loss(x, *(torch.from_numpy(a) for a in (targets, logit_len, target_len)))
+    assert tl.dtype == torch.float32
+    (tl * torch.from_numpy(weights)).sum().backward()
+    assert x.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(tl.detach().numpy(), jl, rtol=1e-5, atol=1e-4)
+    # one bf16 rounding (8 bits of mantissa) of the fp32 gradient
+    np.testing.assert_allclose(x.grad.float().numpy(), jg, rtol=2 ** -8, atol=2e-5)
+
+
+def test_long_target_takes_the_block_route_and_matches_jax():
+    """U = 130 (L = 261) is past the warp route's 160 states: the route twin
+    sends it to the block route, whose work fits in shared memory; the loss
+    and gradient there are JAX's."""
+    rng = np.random.RandomState(21)
+    B, T, N, U = 2, 300, 12, 130
+    logits = (2.0 * rng.randn(B, T, N)).astype(np.float32)
+    targets = rng.randint(0, N - 1, size=(B, U)).astype(np.int32)
+    target_len = np.array([U, U - 7], np.int32)
+    targets[1, U - 7:] = -1
+    logit_len = np.array([T, T - 20], np.int32)
+    assert K5.scan_route(2 * U + 1) == (K5.BLOCK, 288, True)
+    weights = np.ones(B, np.float32)
+    jl, jg, tl, tg = _both(logits, targets, logit_len, target_len, weights)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-4)
+    # the posterior is exp(alpha + beta - logZ) with logZ ~ -600, whose fp32
+    # ulp is 6e-5: both sides cancel it with a few ulps of their own
+    np.testing.assert_allclose(tg, jg, atol=2e-4)
+
+
+def test_flagship_vocabulary_matches_jax():
+    """N = 9998 (the flagship's 9997 word pieces and the blank) at B = 2,
+    T = 16."""
+    rng = np.random.RandomState(31)
+    B, T, N, U = 2, 16, 9998, 5
+    logits = (2.0 * rng.randn(B, T, N)).astype(np.float32)
+    targets = rng.randint(0, N - 1, size=(B, U)).astype(np.int32)
+    targets[1, 3:] = -1
+    weights = np.array([1.0, 0.5], np.float32)
+    jl, jg, tl, tg = _both(logits, targets, np.array([16, 11], np.int32),
+                           np.array([5, 3], np.int32), weights)
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(tg, jg, atol=2e-5)
+
+
+def test_route_twins_at_their_edges():
+    """The Python plans the wrappers and the tests read (their C twins are
+    held to them on the card): warp states, block threads, where the block
+    route's work goes, the dx kernel's class tile."""
+    assert [K5.warp_states(L) for L in (1, 32, 33, 141, 160, 161, 257)] == \
+        [1, 1, 2, 5, 5, 0, 0]
+    assert [K5.block_threads(L) for L in (161, 193, 257, 1000, 1024, 1025, 9001)] == \
+        [192, 224, 288, 1024, 1024, 1024, 1024]
+    assert K5.scan_route(141) == (K5.WARP, 5, True)
+    # the work fits in shared memory beside the beta kernel's 256 static bytes
+    assert K5.scan_route(11609)[2] and not K5.scan_route(11611)[2]
+    assert not K5.scan_route(11621)[2] and not K5.scan_route(11623)[2]
+    assert K5.WORK_BYTES_PER_STATE * 11609 + K5.BLOCK_STATIC_SMEM <= K5._build.MAX_SMEM_BYTES \
+        < K5.WORK_BYTES_PER_STATE * 11611 + K5.BLOCK_STATIC_SMEM
+    assert [K5.grad_tile(N) for N in (1, 31, 9998, 12288, 12289, 40000)] == \
+        [8, 32, 10000, 12288, 6152, 10000]
+
+
+def test_cpu_path_is_the_plain_version_and_repeats_in_bits():
+    """On the CPU ``ctc_loss`` is ``ctc_loss_plain`` (KERNELS and PLAIN give
+    the same bits), and two runs give the same loss and gradient bits."""
+    logits, targets, logit_len, target_len = _batch(6)
+    ints = [torch.from_numpy(a) for a in (targets, logit_len, target_len)]
+    runs = []
+    for ops in (KERNELS, PLAIN, KERNELS):
+        x = torch.from_numpy(logits).requires_grad_(True)
+        loss = ctc_loss(x, *ints, ops=ops)
+        loss.sum().backward()
+        runs.append((loss.detach(), x.grad))
+    for loss, grad in runs[1:]:
+        assert torch.equal(loss, runs[0][0]) and torch.equal(grad, runs[0][1])
 
 
 @pytest.mark.parametrize("onorm,sqnorm", [("none", False), ("target", False),

@@ -248,7 +248,7 @@ def test_model_kernels_match_plain(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 5, "time_conv_wgrad": 0,
                                 "residual_ln": 6, "residual_ln_bwd": 0, "mhsa": 0,
-                                "mhsa_bwd": 0}
+                                "mhsa_bwd": 0, "ctc": 0, "ctc_bwd": 0}
     assert torch.equal(glen, wlen)
     # fp32 end to end through 2 convs, 3 TDS blocks and per-frame LNs
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3)
@@ -679,7 +679,7 @@ def test_model_training_grads_match_plain(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 9, "time_conv_wgrad": 5,
                                 "residual_ln": 6, "residual_ln_bwd": 6, "mhsa": 0,
-                                "mhsa_bwd": 0}
+                                "mhsa_bwd": 0, "ctc": 0, "ctc_bwd": 0}
     assert losses[0] == pytest.approx(losses[1], rel=1e-4)
     for (name, p), q in zip(model.named_parameters(), plain.parameters()):
         assert p.grad is not None and torch.isfinite(p.grad).all(), name
@@ -915,7 +915,7 @@ def test_attention_model_kernels_match_plain(cuda, arch, k4, k3):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0,
                                 "residual_ln": k3, "residual_ln_bwd": k3, "mhsa": k4,
-                                "mhsa_bwd": k4}
+                                "mhsa_bwd": k4, "ctc": 0, "ctc_bwd": 0}
     assert losses[0] == pytest.approx(losses[1], rel=1e-4)
     top = max(q.grad.abs().max().item() for q in plain.parameters())
     for (name, p), q in zip(model.named_parameters(), plain.parameters()):
@@ -1735,3 +1735,165 @@ def test_flashlight_checkpoint_on_the_card(cuda, tmp_path):
         assert kernels.LAUNCHES["time_conv"] == before["time_conv"] + 2
         assert kernels.LAUNCHES["residual_ln"] > before["residual_ln"]
     assert torch.equal(ems[0], ems[1])
+
+
+# ---------------------------------------------------------------------------
+# K5 and K5b: the CTC loss and its gradient
+# ---------------------------------------------------------------------------
+def ctc_inputs(kind, device, dtype, seed=0):
+    """(x, targets, logit_len, target_len) of one K5/K5b case, the integers
+    as ``kernels.ctc.prepare`` gives them. ``flagship``: B = 16, T = 192, N =
+    9998, 55-72 random word pieces a row; the others are ``chip_smoke.py``'s
+    ``CTC_EDGES`` (``ctc_edge_case``): ``edges`` (a row each with no label,
+    one frame, no frame, runs of one token, logit_len = T, no valid
+    alignment; N = 37, rows off a 16-byte boundary), ``block`` (L = 301: the
+    block route in shared memory), ``global`` (L = 12001: its work in global
+    memory), ``smem_last`` and ``smem_past`` (L = 11609 and 11621: the last
+    work to fit in shared memory beside the beta kernel's static bytes, and
+    one past it), ``unaligned`` (x a view past an aligned address, dx
+    aligned)."""
+    import chip_smoke as cs
+
+    if kind != "flagship":
+        return cs.ctc_args(cs.ctc_edge_case(kind, seed), dtype, device)
+    rng = np.random.RandomState(seed)
+    B, T, N, U = 16, 192, 9998, 72
+    ll = rng.randint(150, T + 1, size=B)
+    ll[0] = T
+    tl = rng.randint(55, U + 1, size=B)
+    targets = np.full((B, U), -1, np.int64)
+    for i in range(B):
+        targets[i, :tl[i]] = rng.randint(0, N - 1, size=tl[i])
+    return cs.ctc_args(dict(targets=targets, target_len=tl, logit_len=ll, T=T, N=N,
+                            seed=seed + 1), dtype, device)
+
+
+def ctc_tolerances(dtype):
+    """(loss rtol, loss atol, dx atol, dx rtol) as ``chip_smoke.py`` holds
+    K5 and K5b (``CTC_LOSS_TOL``, ``ctc_dx_tol``): the loss as the CPU tests
+    hold it; dx, on the same saved forward, 1e-6 + 1e-5 of the value in
+    fp32 and one bf16 ulp (2^-7 relative) in bf16: each side rounds its fp32
+    dx once."""
+    import chip_smoke as cs
+
+    drtol, datol = cs.ctc_dx_tol(str(dtype).split(".")[1])
+    return (*cs.CTC_LOSS_TOL, datol, drtol)
+
+
+def ctc_chain_atol(logz, base):
+    """(B, 1, 1) dx atol of each row where K5's own forward feeds K5b: the
+    two forwards' alpha and logZ may differ by a few ulps of the row's |logZ|
+    (the loss check allows it), and gamma = exp(alpha + beta - logZ) carries
+    that as a relative error; 8 ulps of |logZ| on top of ``base``. A row
+    without an alignment (|logZ| = 1e30) saturates alike on both sides."""
+    mag = torch.where(logz.abs() < 1e29, logz.abs(), torch.zeros_like(logz))
+    return (base + 8 * mag * 2.0 ** -23)[:, None, None]
+
+
+CTC_KINDS = ["flagship", "edges", "block", "global", "smem_last", "smem_past", "unaligned"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", CTC_KINDS)
+def test_ctc_kernels_match_plain_and_repeat_in_bits(cuda, dtype, kind):
+    """K5 against ``ctc_fwd_plain`` (loss, lse, lp and alpha on the frames
+    and states they fill) and K5b against ``ctc_bwd_plain`` on the plain
+    forward's alpha, lse, lp and logZ; each run twice, with equal bits."""
+    from wav2letter_tpu_torch.kernels.ctc import NEG_INF, scan_route
+
+    x, tg, ll, tl = ctc_inputs(kind, cuda, dtype)
+    B, T, N = x.shape
+    L = 2 * tg.shape[1] + 1
+    assert (x.data_ptr() % 16 != 0) == (kind == "unaligned")
+    route = scan_route(L)
+    assert route[0] == ("warp" if kind in ("flagship", "edges", "unaligned") else "block")
+    assert route[2] == (kind not in ("global", "smem_past"))
+    assert L == {"smem_last": 11609, "smem_past": 11621}.get(kind, L)
+    before = dict(kernels.LAUNCHES)
+    got = [kernels.ctc_fwd(x, tg, ll, tl) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc"] == before["ctc"] + 2
+    want = kernels.ctc_fwd_plain(x, tg, ll, tl)
+    rtol, atol, dx_atol, dx_rtol = ctc_tolerances(dtype)
+    torch.testing.assert_close(got[0][0], want[0], rtol=rtol, atol=atol)
+    torch.testing.assert_close(got[0][4], want[4], rtol=rtol, atol=atol)
+    frames = torch.arange(T, device=cuda)[None, :] < ll.clamp(min=1)[:, None]  # (B, T)
+    torch.testing.assert_close(got[0][2][frames], want[2][frames], rtol=1e-6, atol=1e-5)
+    fr = frames.T  # (T, B)
+    torch.testing.assert_close(got[0][3][fr], want[3][fr], rtol=1e-6, atol=1e-5)
+    live = fr[:, :, None] & (want[1] > NEG_INF / 2)  # states some path reaches
+    torch.testing.assert_close(got[0][1][live], want[1][live], rtol=rtol, atol=1e-3)
+    assert torch.equal(got[0][1][fr], got[1][1][fr])
+    for k in (0, 2, 4):
+        a, b = got[0][k], got[1][k]
+        assert torch.equal(a[frames] if k == 2 else a, b[frames] if k == 2 else b)
+    g = torch.from_numpy(np.random.RandomState(1).rand(B).astype(np.float32) + 0.5).to(cuda)
+    saved = want[1:]
+    dx = [kernels.ctc_bwd(g, x, tg, ll, tl, *saved) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["ctc_bwd"] == before["ctc_bwd"] + 2
+    assert dx[0].dtype == dtype and torch.equal(dx[0], dx[1])
+    ref = kernels.ctc_bwd_plain(g, x, tg, ll, tl, *saved)
+    assert torch.isfinite(dx[0]).all()
+    torch.testing.assert_close(dx[0].float(), ref.float(), rtol=dx_rtol, atol=dx_atol)
+    past = ~frames
+    assert not dx[0][past].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["flagship", "edges"])
+def test_ctc_function_matches_plain_autograd(cuda, dtype, kind):
+    """``ctc_loss`` (K5, then K5b through ``_CTCFn``: one launch each)
+    against ``ctc_loss_plain``'s autograd on the card; the kernels take
+    float32 and bfloat16, not float64, so there is no gradcheck here."""
+    x, tg, ll, tl = ctc_inputs(kind, cuda, dtype, seed=3)
+    w = torch.from_numpy(np.random.RandomState(2).rand(x.shape[0]).astype(np.float32)).to(cuda)
+    grads, losses = [], []
+    for fn in (kernels.ctc_loss, kernels.ctc_loss_plain):
+        xi = x.detach().clone().requires_grad_(True)
+        kernels.reset_launches()
+        loss = fn(xi, tg, ll, tl)
+        (loss * w).sum().backward()
+        torch.cuda.synchronize()
+        launches = (kernels.LAUNCHES["ctc"], kernels.LAUNCHES["ctc_bwd"])
+        assert launches == ((1, 1) if fn is kernels.ctc_loss else (0, 0))
+        grads.append(xi.grad)
+        losses.append(loss.detach())
+    rtol, atol, dx_atol, dx_rtol = ctc_tolerances(dtype)
+    torch.testing.assert_close(losses[0], losses[1], rtol=rtol, atol=atol)
+    assert grads[0].dtype == dtype
+    got, want = grads[0].float(), grads[1].float()
+    limit = ctc_chain_atol(-losses[1], dx_atol) + dx_rtol * want.abs()
+    worst = ((got - want).abs() - limit).max().item()
+    assert worst <= 0, f"dx past its limit by {worst:.3e}"
+    with torch.no_grad():  # no gradient wanted: K5 alone
+        kernels.reset_launches()
+        kernels.ctc_loss(x, tg, ll, tl)
+        assert (kernels.LAUNCHES["ctc"], kernels.LAUNCHES["ctc_bwd"]) == (1, 0)
+
+
+def test_ctc_plan_twins_match(cuda):
+    """The C twins of the scans' routes and the dx tile against the Python
+    plans the wrappers read."""
+    from wav2letter_tpu_torch.kernels import ctc as K5
+
+    lib = kernels.library()
+    for L in list(range(1, 1200, 7)) + [160, 161, 256, 257, 1023, 1024, 1025, 11609, 11610,
+                                        11611, 11621, 11622, 11623, 12001]:
+        assert lib.w2l_ctc_warp_states(L) == K5.warp_states(L), L
+        assert lib.w2l_ctc_block_threads(L) == K5.block_threads(L), L
+        assert lib.w2l_ctc_work_bytes(L) == K5.WORK_BYTES_PER_STATE * L, L
+        assert lib.w2l_ctc_work_in_smem(L, kernels._build.MAX_SMEM_BYTES) == \
+            K5.work_in_smem(L), L
+    for N in list(range(1, 40000, 97)) + [9998, 12288, 12289, 24577]:
+        assert lib.w2l_ctc_grad_tile(N) == K5.grad_tile(N), N
+
+
+def test_ctc_refuses_what_the_kernels_do_not_take(cuda):
+    x, tg, ll, tl = ctc_inputs("edges", cuda, torch.float32)
+    with pytest.raises(TypeError, match="int32"):
+        kernels.ctc_fwd(x, tg.long(), ll, tl)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernels.ctc_fwd(x.half(), tg, ll, tl)
+    with pytest.raises(ValueError, match="lengths"):
+        kernels.ctc_fwd(x, tg, ll[:-1], tl)

@@ -135,9 +135,15 @@ def test_kernel_wrappers_count_only_launches():
     pos, mask = torch.zeros(7, 8), torch.zeros(1, 4)
     kernels.mhsa(q, q, q, pos, mask, 2)
     kernels.mhsa_bwd(q, q, q, pos, mask, q, 2)
+    logits = torch.zeros(2, 5, 4, requires_grad=True)
+    ints = (torch.tensor([[0, 1], [2, -1]], dtype=torch.int32),
+            torch.tensor([5, 3], dtype=torch.int32), torch.tensor([2, 1], dtype=torch.int32))
+    kernels.ctc_loss(logits, *ints).sum().backward()
+    saved = kernels.ctc_fwd(logits.detach(), *ints)
+    kernels.ctc_bwd(torch.ones(2), logits.detach(), *ints, *saved[1:])
     assert kernels.LAUNCHES == {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0,
                                 "residual_ln": 0, "residual_ln_bwd": 0, "mhsa": 0,
-                                "mhsa_bwd": 0}
+                                "mhsa_bwd": 0, "ctc": 0, "ctc_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -889,3 +895,21 @@ def test_k1_trace_finds_its_anchors_in_the_kernel_source():
 
     traced = _instrument((_build.CSRC / "mfsc.cu").read_text())
     assert traced.count("clock64()") == 12 and "w2l_k1_stamps" in traced
+
+
+def test_ctc_probe_alters_only_the_dx_softmax_or_lse():
+    """``kernels/probe_ctc.py`` finds the dx kernel's softmax and lse in
+    ``ctc.cu``; its ``sm_bf16`` copy rounds each of the three softmax
+    expressions to bf16 and ``lse_1e-3`` moves lse alone; every other line is
+    the source's."""
+    from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.probe_ctc import mutant_sources
+
+    src = (_build.CSRC / "ctc.cu").read_text()
+    copies = mutant_sources(src)
+    assert copies["control"] == src
+    for name, n_lines, mark in (("sm_bf16", 3, "__float2bfloat16(expf("),
+                                ("lse_1e-3", 1, " + 1e-3f;")):
+        changed = [(a, b) for a, b in zip(src.splitlines(), copies[name].splitlines()) if a != b]
+        assert len(copies[name].splitlines()) == len(src.splitlines())
+        assert len(changed) == n_lines and all(mark in b for _, b in changed), name

@@ -78,12 +78,19 @@ SIGNATURES = {
     "w2l_mhsa_fwd_smem_bytes": [_I, _I, _I, _I],
     "w2l_mhsa_bwd_smem_bytes": [_I, _I, _I, _I],
     "w2l_mhsa_max_head_dim": [_I, _I],
+    "w2l_ctc_fwd": [_P] * 10 + [_I] * 6 + [_P],
+    "w2l_ctc_bwd": [_P] * 13 + [_I] * 6 + [_P],
+    "w2l_ctc_warp_states": [_I],
+    "w2l_ctc_block_threads": [_I],
+    "w2l_ctc_work_bytes": [_I],
+    "w2l_ctc_work_in_smem": [_I, _I],
+    "w2l_ctc_grad_tile": [_I],
 }
 
 # Launches per kernel since the last reset. A wrapper adds one where it
 # launches its kernel and nowhere else; its plain version never counts.
 LAUNCHES = {"mfsc": 0, "time_conv": 0, "time_conv_wgrad": 0, "residual_ln": 0,
-            "residual_ln_bwd": 0, "mhsa": 0, "mhsa_bwd": 0}
+            "residual_ln_bwd": 0, "mhsa": 0, "mhsa_bwd": 0, "ctc": 0, "ctc_bwd": 0}
 
 _lib = None
 _lock = threading.Lock()

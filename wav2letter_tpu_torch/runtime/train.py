@@ -11,7 +11,8 @@ TER/WER meters) and self-describing checkpoints.
 
 One update, eagerly on ``device``: featurize (K1) -> SpecAugment -> model
 forward (K2, K3, K4) in ``--compute_dtype`` with fp32 master parameters ->
-the criterion on fp32 emissions -> backward (K2 as dgrad, K2b, K3b, K4b) ->
+the criterion (CTC: K5 on the emissions in that dtype; the others on fp32
+emissions) -> backward (K5b, K2 as dgrad, K2b, K3b, K4b) ->
 viterbi of the train batch for the meters (ASG's with the transitions of
 before the update, as in JAX; the seq2seq criterions' greedy decode) -> clip
 -> optimizer. The criterion's parameters (ASG's transitions, a seq2seq
@@ -26,9 +27,9 @@ is not forced to the class count), and their attention window is on while
 Everything random in an update (dropout, SpecAugment) is a function of
 ``(seed + 7, update index, data index)``, not of a running stream, and the data
 order is a function of ``(seed, epoch)``; so ``continue`` replays exactly what
-the uninterrupted run would have drawn. On the CPU that makes a resumed run
-equal the uninterrupted one bit for bit. On a CUDA device PyTorch's CTC
-backward adds with atomics, so two runs agree only to rounding.
+the uninterrupted run would have drawn. That makes a resumed run equal the
+uninterrupted one bit for bit on the CPU; on the card the kernels' sums
+(K2b, K3b, K4b, K5b) have one order too, so an update replays in bits there.
 
 Several ranks (``--enable_distributed``, or a process group the caller has
 initialized) form a (data, model) mesh (``parallel/``). Each rank reads the
@@ -291,9 +292,13 @@ class Trainer:
     def _loss(self, b, train: bool, saug_on: bool = False,
               generator: Optional[torch.Generator] = None,
               rows: Optional[torch.Tensor] = None):
-        """Masked mean of the per-sample losses, the fp32 emissions and their
-        lengths; ``rows`` (default: the batch's) divides the masked sum."""
+        """Masked mean of the per-sample losses, the emissions and their
+        lengths; ``rows`` (default: the batch's) divides the masked sum. The
+        emissions are fp32 unless the criterion takes them in the compute
+        dtype (``fp32_emissions = False``: CTC)."""
         em, elen = self._emissions(b, train, saug_on, generator)
+        if getattr(self.criterion, "fp32_emissions", True):
+            em = em.float()
         with self._timed(self.meters.crit_fwd_timer, "w2l/criterion"):
             kw = dict(train=train, window=self._window_active()) if self.is_s2s else {}
             losses = self.criterion(em, b["target"], elen, b["target_len"], **kw)
@@ -303,9 +308,9 @@ class Trainer:
 
     def _emissions(self, b, train: bool, saug_on: bool = False,
                    generator: Optional[torch.Generator] = None):
-        """The fp32 emissions of a batch on the device and their lengths:
-        features (or the host's), SpecAugment, the model. No dither: the JAX
-        trainer passes no dither key either."""
+        """The emissions of a batch on the device, in the compute dtype, and
+        their lengths: features (or the host's), SpecAugment, the model. No
+        dither: the JAX trainer passes no dither key either."""
         with self._timed(self.meters.fwd_timer, "w2l/forward"):
             with torch.no_grad():
                 if "feats" in b:  # featurized in the data threads
@@ -319,7 +324,7 @@ class Trainer:
                 em, elen = self._remat_forward(feats, flen, generator)
             else:
                 em, elen = self.model(feats, flen, generator=generator)
-            return em.float(), elen
+            return em, elen
 
     def _remat_forward(self, feats, flen, generator):
         """The model's forward, recomputed in the backward as ``jax.checkpoint``

@@ -355,6 +355,7 @@ class SlimIPLTrainer(Trainer):
             p.grad = None
         stats = [x.clone() for x in self.model.buffers()]
         em, elen = self._emissions(b, True, saug_on, gen)
+        em = em.float()
         B, T, N = em.shape
         soft = np.zeros((B, T, N), np.float32)
         for r, e in enumerate(soft_rows):
