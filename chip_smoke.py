@@ -44,9 +44,9 @@ Run from the root of a checkout on a machine with a CUDA card. Phases:
    the flagship's and the transformer's largest training batch, in fp32 and
    bf16, each twice for equal bits, beside the library (``log_softmax`` and
    ``F.ctc_loss``: forward, and its backward alone) and at ``CTC_EDGES`` (no
-   label, one frame, no frame, token runs, no alignment, the block route in
-   shared and in global memory and at the last L whose work fits in shared
-   memory and the next, an unaligned view);
+   label, one frame, no frame, token runs, no alignment, the block route,
+   the wide route in global memory and at the last L whose work fits in
+   shared memory and the next, an unaligned view);
 4. the main path at full width: the streaming-convnets flagship
    (``recipes/streaming_convnets/network.arch``, 80 filterbanks, 9998
    classes, 96,660,482 parameters, seeded weights) serves ~8 synthesized
@@ -1254,11 +1254,11 @@ CTC_LOSS_TOL = (1e-5, 1e-4)
 # beside the paths' rows, checked, each twice for equal bits, timed warm,
 # counted 0 times: ``edges`` (a row each with no label, one frame, no frame,
 # runs of one token, logit_len = T, no valid alignment; N = 37: rows off a
-# 16-byte boundary), ``block`` (L = 301: the block route in shared memory),
-# ``global`` (L = 12001: its work in global memory, rows without an
-# alignment), ``smem_last`` and ``smem_past`` (L = 11609, the last L whose
-# work fits in shared memory beside the beta kernel's static bytes, and L =
-# 11621, past it), ``unaligned`` (x a view past an aligned start)
+# 16-byte boundary), ``block`` (L = 301: the block route), ``global`` (L =
+# 30001: the wide route, its work in global memory, rows without an
+# alignment), ``smem_last`` and ``smem_past`` (L = 29055, the last L whose
+# wide work fits in shared memory, and L = 29057, the first past it),
+# ``unaligned`` (x a view past an aligned start)
 CTC_EDGES = ("edges", "block", "global", "smem_last", "smem_past", "unaligned")
 
 
@@ -1291,9 +1291,9 @@ def ctc_edge_case(kind, seed=0):
     B, T, N, U, ll, tl = {
         "edges": (7, 20, 37, 12, [20, 1, 0, 20, 20, 9, 14], [0, 1, 3, 9, 12, 9, 5]),
         "block": (3, 320, 45, 150, [320, 300, 250], [150, 140, 120]),
-        "global": (2, 40, 30, 6000, [40, 33], [6000, 5000]),
-        "smem_last": (2, 24, 30, 5804, [24, 20], [5804, 10]),
-        "smem_past": (2, 24, 30, 5810, [24, 20], [5810, 10]),
+        "global": (2, 40, 30, 15000, [40, 33], [15000, 12500]),
+        "smem_last": (2, 24, 30, 14527, [24, 20], [14527, 10]),
+        "smem_past": (2, 24, 30, 14528, [24, 20], [14528, 10]),
         "unaligned": (3, 30, 103, 6, [30, 25, 17], [6, 4, 2])}[kind]
     targets = np.full((B, U), -1, np.int64)
     for i in range(B):
@@ -1377,7 +1377,7 @@ def _ctc_check(args, dtype_name, timed, tag, calls):
     f_bound = bound(_ctc_bytes(args, False), 4 * B * T * N, "float32")
     b_bound = bound(_ctc_bytes(args, True), 5 * B * T * N, "float32")
     common = dict(dtype=dtype_name, tag=tag, shape=[B, T, N, tg.shape[1]], calls=calls,
-                  route=route, lanes_states_or_threads=width, work_in_smem=in_smem)
+                  route=route, threads=width, work_in_smem=in_smem)
     fwd = dict(name="ctc", max_abs_err=lerr.max().item(), alpha_max_abs_err=alpha_err,
                tol=list(CTC_LOSS_TOL), equal_bits=same_fwd, ok=ok_fwd,
                bound_ms=f_bound[0], bound_by=f_bound[1], **common)

@@ -3,7 +3,7 @@ the CPU the plain version of K5/K5b, ``kernels/ctc.py::ctc_loss_plain``)
 against ``wav2letter_tpu/ops/ctc.py`` (a ``lax.scan`` with an analytic VJP)
 on padded batches: ``logit_len < T``, targets padded with -1, blank last; and
 at the edges the kernels must take: no label, one frame, runs of one token,
-bf16 logits, L past the warp route, 9998 classes. Inputs from a numpy
+bf16 logits, L on the block route at 261 states, 9998 classes. Inputs from a numpy
 seed."""
 
 import jax
@@ -147,9 +147,8 @@ def test_bf16_logits_match_jax_on_their_fp32_values():
 
 
 def test_long_target_takes_the_block_route_and_matches_jax():
-    """U = 130 (L = 261) is past the warp route's 160 states: the route twin
-    sends it to the block route, whose work fits in shared memory; the loss
-    and gradient there are JAX's."""
+    """U = 130 (L = 261): the route twin sends it to the block route, a
+    state a thread, 288 threads; the loss and gradient there are JAX's."""
     rng = np.random.RandomState(21)
     B, T, N, U = 2, 300, 12, 130
     logits = (2.0 * rng.randn(B, T, N)).astype(np.float32)
@@ -183,20 +182,50 @@ def test_flagship_vocabulary_matches_jax():
 
 def test_route_twins_at_their_edges():
     """The Python plans the wrappers and the tests read (their C twins are
-    held to them on the card): warp states, block threads, where the block
-    route's work goes, the dx kernel's class tile."""
-    assert [K5.warp_states(L) for L in (1, 32, 33, 141, 160, 161, 257)] == \
-        [1, 1, 2, 5, 5, 0, 0]
-    assert [K5.block_threads(L) for L in (161, 193, 257, 1000, 1024, 1025, 9001)] == \
-        [192, 224, 288, 1024, 1024, 1024, 1024]
-    assert K5.scan_route(141) == (K5.WARP, 5, True)
-    # the work fits in shared memory beside the beta kernel's 256 static bytes
-    assert K5.scan_route(11609)[2] and not K5.scan_route(11611)[2]
-    assert not K5.scan_route(11621)[2] and not K5.scan_route(11623)[2]
-    assert K5.WORK_BYTES_PER_STATE * 11609 + K5.BLOCK_STATIC_SMEM <= K5._build.MAX_SMEM_BYTES \
-        < K5.WORK_BYTES_PER_STATE * 11611 + K5.BLOCK_STATIC_SMEM
-    assert [K5.grad_tile(N) for N in (1, 31, 9998, 12288, 12289, 40000)] == \
-        [8, 32, 10000, 12288, 6152, 10000]
+    held to them on the card): the route and its threads, the ring's depth,
+    where the wide route's work goes."""
+    assert (K5.RING_DEPTH, K5.BLOCK_SCAN_MAX) == (16, 960)
+    assert [K5.route(L) for L in (1, 160, 161, 959, 960, 961, 29055, 29057)] == \
+        [K5.BLOCK] * 5 + [K5.WIDE] * 3
+    assert [K5.block_threads(L) for L in (1, 32, 33, 161, 193, 257, 960, 961, 9001)] == \
+        [32, 32, 64, 192, 224, 288, 960, 1024, 1024]
+    assert K5.scan_route(141) == (K5.BLOCK, 160, True)
+    assert K5.scan_route(193) == (K5.BLOCK, 224, True)
+    # the wide route's double buffer, 8 bytes a state, in shared memory up to
+    # L = 29,056, in a global scratch past it
+    assert K5.scan_route(29055) == (K5.WIDE, 1024, True)
+    assert K5.scan_route(29057) == (K5.WIDE, 1024, False)
+    assert K5.WORK_BYTES_PER_STATE * 29056 <= K5._build.MAX_SMEM_BYTES \
+        < K5.WORK_BYTES_PER_STATE * 29057
+
+
+def test_betas_plain_match_jax_on_the_edges():
+    """``ctc_betas_plain``, the oracle of K5b's beta scan, against JAX's
+    ``_backward_betas`` on ``chip_smoke.py``'s ``edges`` case (a row each with
+    no label, one frame, no frame, runs of one token, logit_len = T, no valid
+    alignment), on the same lp: the same recursion on every frame and
+    state, -1e30 where no path reaches."""
+    from chip_smoke import ctc_edge_case
+    from wav2letter_tpu.ops.ctc import _backward_betas, _ctc_masks, _extended_labels
+
+    case = ctc_edge_case("edges")
+    B, T, N = len(case["targets"]), case["T"], case["N"]
+    logits = (2.0 * np.random.RandomState(case["seed"]).randn(B, T, N)).astype(np.float32)
+    targets = case["targets"].astype(np.int32)
+    logit_len, target_len = case["logit_len"].astype(np.int32), case["target_len"].astype(np.int32)
+    x = torch.from_numpy(logits)
+    args = K5.prepare(x, *(torch.from_numpy(a) for a in (targets, logit_len, target_len)))
+    lp = K5.ctc_fwd_plain(x, *args)[3]
+    got = K5.ctc_betas_plain(lp, *args, N).numpy()
+    ext = _extended_labels(jnp.asarray(targets), N - 1)
+    allow_skip, valid = _ctc_masks(ext, jnp.asarray(target_len))
+    want = np.asarray(_backward_betas(jnp.asarray(lp.numpy()), allow_skip, valid,
+                                      jnp.asarray(logit_len), jnp.asarray(target_len)))
+    assert got.shape == want.shape == (T, B, 2 * targets.shape[1] + 1)
+    reached = want > K5.NEG_INF / 2
+    assert reached.any() and (~reached).any()
+    np.testing.assert_array_equal(got > K5.NEG_INF / 2, reached)
+    np.testing.assert_allclose(got[reached], want[reached], rtol=1e-5, atol=1e-4)
 
 
 def test_cpu_path_is_the_plain_version_and_repeats_in_bits():

@@ -1747,11 +1747,10 @@ def ctc_inputs(kind, device, dtype, seed=0):
     ``CTC_EDGES`` (``ctc_edge_case``): ``edges`` (a row each with no label,
     one frame, no frame, runs of one token, logit_len = T, no valid
     alignment; N = 37, rows off a 16-byte boundary), ``block`` (L = 301: the
-    block route in shared memory), ``global`` (L = 12001: its work in global
-    memory), ``smem_last`` and ``smem_past`` (L = 11609 and 11621: the last
-    work to fit in shared memory beside the beta kernel's static bytes, and
-    one past it), ``unaligned`` (x a view past an aligned address, dx
-    aligned)."""
+    block route), ``global`` (L = 30001: the wide route, its work in global
+    memory), ``smem_last`` and ``smem_past`` (L = 29055 and 29057: the last
+    wide work to fit in shared memory, and the first past it), ``unaligned``
+    (x a view past an aligned address, dx aligned)."""
     import chip_smoke as cs
 
     if kind != "flagship":
@@ -1806,9 +1805,9 @@ def test_ctc_kernels_match_plain_and_repeat_in_bits(cuda, dtype, kind):
     L = 2 * tg.shape[1] + 1
     assert (x.data_ptr() % 16 != 0) == (kind == "unaligned")
     route = scan_route(L)
-    assert route[0] == ("warp" if kind in ("flagship", "edges", "unaligned") else "block")
+    assert route[0] == ("wide" if kind in ("global", "smem_last", "smem_past") else "block")
     assert route[2] == (kind not in ("global", "smem_past"))
-    assert L == {"smem_last": 11609, "smem_past": 11621}.get(kind, L)
+    assert L == {"smem_last": 29055, "smem_past": 29057}.get(kind, L)
     before = dict(kernels.LAUNCHES)
     got = [kernels.ctc_fwd(x, tg, ll, tl) for _ in range(2)]
     torch.cuda.synchronize()
@@ -1838,6 +1837,33 @@ def test_ctc_kernels_match_plain_and_repeat_in_bits(cuda, dtype, kind):
     torch.testing.assert_close(dx[0].float(), ref.float(), rtol=dx_rtol, atol=dx_atol)
     past = ~frames
     assert not dx[0][past].any()
+
+
+@pytest.mark.parametrize("kind", CTC_KINDS)
+def test_ctc_beta_scan_matches_plain_and_repeats_in_bits(cuda, kind):
+    """K5b's beta scan alone (``kernels.ctc.ctc_betas``) against
+    ``ctc_betas_plain`` on the plain forward's lp, on the frames below
+    logit_len: the states some path reaches within the alpha check's
+    tolerance, the others at -1e30 as in the plain version; run twice, equal
+    bits. It counts no launch (``ctc_bwd`` counts K5b)."""
+    from wav2letter_tpu_torch.kernels.ctc import NEG_INF, ctc_betas, ctc_betas_plain
+
+    x, tg, ll, tl = ctc_inputs(kind, cuda, torch.float32)
+    B, T, N = x.shape
+    lp = kernels.ctc_fwd_plain(x, tg, ll, tl)[3]
+    before = dict(kernels.LAUNCHES)
+    got = [ctc_betas(lp, tg, ll, tl, N) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    want = ctc_betas_plain(lp, tg, ll, tl, N)
+    fr = torch.arange(T, device=cuda)[:, None] < ll[None, :]  # (T, B)
+    reached = want > NEG_INF / 2
+    live, dead = fr[:, :, None] & reached, fr[:, :, None] & ~reached
+    assert live.any()
+    rtol, _, _, _ = ctc_tolerances(torch.float32)
+    torch.testing.assert_close(got[0][live], want[live], rtol=rtol, atol=1e-3)
+    assert (got[0][dead] <= NEG_INF / 2).all()
+    assert torch.equal(got[0][fr], got[1][fr])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1873,20 +1899,21 @@ def test_ctc_function_matches_plain_autograd(cuda, dtype, kind):
 
 
 def test_ctc_plan_twins_match(cuda):
-    """The C twins of the scans' routes and the dx tile against the Python
-    plans the wrappers read."""
+    """The C twins of the scans' routes, their threads, the wide route's work
+    bytes and where they go and the ring's depth against the Python plans the
+    wrappers read."""
     from wav2letter_tpu_torch.kernels import ctc as K5
 
     lib = kernels.library()
-    for L in list(range(1, 1200, 7)) + [160, 161, 256, 257, 1023, 1024, 1025, 11609, 11610,
-                                        11611, 11621, 11622, 11623, 12001]:
-        assert lib.w2l_ctc_warp_states(L) == K5.warp_states(L), L
+    routes = [K5.BLOCK, K5.WIDE]
+    for L in list(range(1, 2200, 7)) + [160, 161, 256, 257, 959, 960, 961, 1023, 1024, 1025,
+                                        29055, 29056, 29057, 30001]:
+        assert routes[lib.w2l_ctc_route(L)] == K5.route(L), L
         assert lib.w2l_ctc_block_threads(L) == K5.block_threads(L), L
         assert lib.w2l_ctc_work_bytes(L) == K5.WORK_BYTES_PER_STATE * L, L
         assert lib.w2l_ctc_work_in_smem(L, kernels._build.MAX_SMEM_BYTES) == \
             K5.work_in_smem(L), L
-    for N in list(range(1, 40000, 97)) + [9998, 12288, 12289, 24577]:
-        assert lib.w2l_ctc_grad_tile(N) == K5.grad_tile(N), N
+    assert lib.w2l_ctc_ring_depth() == K5.RING_DEPTH
 
 
 def test_ctc_refuses_what_the_kernels_do_not_take(cuda):

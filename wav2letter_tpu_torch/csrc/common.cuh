@@ -1,10 +1,13 @@
 // Shared helpers for the port's CUDA kernels: element conversions between
 // the storage types the wrappers accept (float32, bfloat16) and the float32
-// every kernel computes in, and the dtype codes of the C interface.
+// every kernel computes in, the dtype codes of the C interface, and the
+// mbarriers and bulk copies of the kernels that stream through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace w2l {
 
@@ -22,6 +25,46 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers and the bulk copy (1-D TMA) of sm_90: one thread issues a copy
+// of 16-byte aligned bytes from device to shared memory, which completes its
+// bytes on an mbarrier that the readers wait on
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
+               "r"(bytes) : "memory");
+}
+// Waits until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(saddr(bar)), "r"(parity) : "memory");
+  }
+}
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from device to shared
+// memory; completes `bytes` of the barrier's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar)) : "memory");
 }
 
 // Lets a kernel use more than the default 48 KB of dynamic shared memory.

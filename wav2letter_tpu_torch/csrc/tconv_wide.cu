@@ -137,41 +137,15 @@ __host__ __device__ inline Plan plan(long long tiles, int bytes, int sms) {
   return p;
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(saddr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(saddr(bar)),
-               "r"(bytes) : "memory");
-}
-// Waits until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(saddr(bar)), "r"(parity) : "memory");
-  }
-}
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from device to shared
-// memory; completes `bytes` of the barrier's transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(saddr(dst)), "l"(src), "r"(bytes), "r"(saddr(bar)) : "memory");
-}
+// the mbarriers and the bulk copy (common.cuh)
+using w2l::bulk_load;
+using w2l::mbar_arrive;
+using w2l::mbar_arrive_tx;
+using w2l::mbar_fence_init;
+using w2l::mbar_init;
+using w2l::mbar_wait;
+using w2l::saddr;
+
 __device__ __forceinline__ void sync_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
 }

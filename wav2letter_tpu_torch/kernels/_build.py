@@ -80,11 +80,12 @@ SIGNATURES = {
     "w2l_mhsa_max_head_dim": [_I, _I],
     "w2l_ctc_fwd": [_P] * 10 + [_I] * 6 + [_P],
     "w2l_ctc_bwd": [_P] * 13 + [_I] * 6 + [_P],
-    "w2l_ctc_warp_states": [_I],
+    "w2l_ctc_betas": [_P] * 7 + [_I] * 5 + [_P],
+    "w2l_ctc_route": [_I],
+    "w2l_ctc_ring_depth": [],
     "w2l_ctc_block_threads": [_I],
     "w2l_ctc_work_bytes": [_I],
     "w2l_ctc_work_in_smem": [_I, _I],
-    "w2l_ctc_grad_tile": [_I],
 }
 
 # Launches per kernel since the last reset. A wrapper adds one where it

@@ -22,14 +22,18 @@ recursion line by line, a loop over T on (B, L) tensors, with the posterior
 by a scatter over the extended labels. On a CUDA tensor it launches K5 (two
 launches: the frame rows' logsumexp and gathered log-probabilities, then the
 alpha scan) and, where a gradient is wanted, records :class:`_CTCFn`, whose
-backward launches K5b (the beta scan with the posterior of each distinct
-token, then dx). Both scans take one of two routes for L = 2U + 1 states
-(``scan_route``; C twins ``w2l_ctc_warp_states``, ``w2l_ctc_block_threads``,
-``w2l_ctc_work_bytes``, ``w2l_ctc_work_in_smem``): a warp an utterance with K = ceil(L / 32) states a
-lane in registers where L <= 160, else a block of up to 1024 threads whose
-states go through shared memory, or through a global scratch where 20 bytes
-a state do not fit there beside the beta kernel's 256 static bytes (L >
-11,609). No L raises."""
+backward launches K5b (the beta scan into a scratch, with the row's token
+slots beside it, then dx, which writes each frame row with a zero posterior,
+forms the row's posterior from alpha, beta and logZ, and writes its tokens
+again). The scans are bare recursions: a state a thread, its constants in
+registers, lp brought ``RING_DEPTH`` frames ahead of the chain. They take
+one of two routes for L = 2U + 1 states (``scan_route``; C twins
+``w2l_ctc_route``, ``w2l_ctc_block_threads``, ``w2l_ctc_work_bytes``,
+``w2l_ctc_work_in_smem``): a block an utterance where L <= 960, the
+neighbours through shared memory and lp through a ring of frames in shared
+memory that a producer warp fills by bulk copies; else a wide block of 1024
+threads whose states are strided, its double buffer in shared memory, or in
+a global scratch where 8 bytes a state do not fit there (L > 29,056). No L raises."""
 
 from __future__ import annotations
 
@@ -41,48 +45,43 @@ import torch.nn.functional as F
 from . import _build
 
 NEG_INF = -1e30  # the JAX package's finite -inf
-WARP, BLOCK = "warp", "block"
-WARP_MAX_STATES = 5      # csrc/ctc.cu: states a lane holds on the warp route
+BLOCK, WIDE = "block", "wide"
+RING_DEPTH = 16          # csrc/ctc.cu: frames of lp the block route brings ahead of its chain
 BLOCK_MAX_THREADS = 1024
-WORK_BYTES_PER_STATE = 20  # the block route: beta x2, gamma x2, chain
-BLOCK_STATIC_SMEM = 256  # csrc/ctc.cu: the block route's beta kernel's static bytes
-GRAD_TILE_MAX = 12288    # classes a dx block stages in shared memory at once
+BLOCK_SCAN_MAX = 960     # the block route's scan threads, beside its producer and token warps
+WORK_BYTES_PER_STATE = 8  # the wide route's double buffer
 
 
-def warp_states(L: int) -> int:
-    """States a lane holds on the warp route (C twin ``w2l_ctc_warp_states``):
-    ceil(L / 32), 0 where that is past ``WARP_MAX_STATES``."""
-    k = -(-L // 32)
-    return k if k <= WARP_MAX_STATES else 0
+def _block_scan_threads(L: int) -> int:
+    """The block route's scan threads for L states, a state a thread (the
+    kernels add their producer and token warps), 0 past ``BLOCK_SCAN_MAX``."""
+    t = -(-L // 32) * 32
+    return t if t <= BLOCK_SCAN_MAX else 0
+
+
+def route(L: int) -> str:
+    """The scans' route for L states (C twin ``w2l_ctc_route``: 0, 1)."""
+    return BLOCK if _block_scan_threads(L) else WIDE
 
 
 def block_threads(L: int) -> int:
-    """Threads of the block route (C twin ``w2l_ctc_block_threads``)."""
-    return min(BLOCK_MAX_THREADS, -(-L // 32) * 32)
+    """Threads of a scan's chain (C twin ``w2l_ctc_block_threads``): the
+    block route's, 1024 on the wide route."""
+    return _block_scan_threads(L) or BLOCK_MAX_THREADS
 
 
 def work_in_smem(L: int) -> bool:
-    """Whether the block route's work (C twin ``w2l_ctc_work_bytes``) fits
-    in shared memory beside the beta kernel's static bytes (C twin
-    ``w2l_ctc_work_in_smem``); else it goes to a global scratch."""
-    return WORK_BYTES_PER_STATE * L + BLOCK_STATIC_SMEM <= _build.MAX_SMEM_BYTES
+    """Whether the wide route's work (C twin ``w2l_ctc_work_bytes``) fits in
+    shared memory (C twin ``w2l_ctc_work_in_smem``); else it goes to a
+    global scratch."""
+    return WORK_BYTES_PER_STATE * L <= _build.MAX_SMEM_BYTES
 
 
 def scan_route(L: int) -> Tuple[str, int, bool]:
-    """Where the scans run L states: (``WARP``, states a lane, True) or
-    (``BLOCK``, threads, :func:`work_in_smem`)."""
-    k = warp_states(L)
-    if k:
-        return WARP, k, True
-    return BLOCK, block_threads(L), work_in_smem(L)
-
-
-def grad_tile(N: int) -> int:
-    """Classes the dx kernel stages at once (C twin ``w2l_ctc_grad_tile``):
-    N in the fewest tiles of at most ``GRAD_TILE_MAX``, rounded up to 8."""
-    tiles = -(-N // GRAD_TILE_MAX)
-    per = -(-N // tiles)
-    return -(-per // 8) * 8
+    """Where the scans run L states: (``BLOCK``, threads, True) or
+    (``WIDE``, threads, :func:`work_in_smem`)."""
+    r = route(L)
+    return r, block_threads(L), r == BLOCK or work_in_smem(L)
 
 
 def prepare(x: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tensor,
@@ -154,23 +153,21 @@ def ctc_fwd_plain(x: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tenso
     return -logz, alpha, lse, lp, logz
 
 
-def ctc_bwd_plain(g: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
-                  logit_len: torch.Tensor, target_len: torch.Tensor, alpha: torch.Tensor,
-                  lse: torch.Tensor, lp: torch.Tensor, logz: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ctc_bwd`: ``_backward_betas`` and
-    ``_ctc_bwd`` line by line, the posterior by a scatter over the extended
-    labels. Returns dx of x's dtype."""
-    B, T, N = x.shape
+def ctc_betas_plain(lp: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tensor,
+                    target_len: torch.Tensor, N: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ctc_betas`: ``_backward_betas`` line by
+    line on lp (T, B, L) for N classes. Returns beta (T, B, L) fp32."""
+    T = lp.shape[0]
     ext = extended_labels(targets, N)
     L = ext.shape[1]
     allow_skip, valid = _masks(ext, target_len)
-    neg = torch.tensor(NEG_INF, device=x.device)
+    neg = torch.tensor(NEG_INF, device=lp.device)
     ll, tl = logit_len.long(), target_len.long()
-    pos = torch.arange(L, device=x.device)[None, :]
+    pos = torch.arange(L, device=lp.device)[None, :]
     skip_from = F.pad(allow_skip, (0, 2), value=False)[:, 2:]
     last = 2 * tl[:, None]
     final_beta = torch.where(((pos == last) | (pos == (last - 1).clamp(min=0))) & valid,
-                             torch.zeros((), device=x.device), neg)
+                             torch.zeros((), device=lp.device), neg)
     beta = torch.where(ll[:, None] == T, final_beta, neg)
     betas = [beta]
     for t in range(T - 2, -1, -1):
@@ -180,7 +177,21 @@ def ctc_bwd_plain(g: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
         comb = torch.where(valid, _lse3(b, b1, b2, neg), neg)
         beta = torch.where((ll == t + 1)[:, None], final_beta, comb)
         betas.append(beta)
-    betas = torch.stack(betas[::-1])
+    return torch.stack(betas[::-1])
+
+
+def ctc_bwd_plain(g: torch.Tensor, x: torch.Tensor, targets: torch.Tensor,
+                  logit_len: torch.Tensor, target_len: torch.Tensor, alpha: torch.Tensor,
+                  lse: torch.Tensor, lp: torch.Tensor, logz: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`ctc_bwd`: :func:`ctc_betas_plain`,
+    then ``_ctc_bwd`` line by line, the posterior by a scatter over the
+    extended labels. Returns dx of x's dtype."""
+    B, T, N = x.shape
+    ext = extended_labels(targets, N)
+    L = ext.shape[1]
+    _, valid = _masks(ext, target_len)
+    ll = logit_len.long()
+    betas = ctc_betas_plain(lp, targets, logit_len, target_len, N)
     gamma = torch.exp(torch.clamp(alpha + betas - logz[None, :, None], -80.0, 80.0))
     t_mask = torch.arange(T, device=x.device)[:, None] < ll[None, :]
     gamma = torch.where(t_mask[:, :, None] & valid[None], gamma, 0.0)
@@ -195,10 +206,14 @@ def _check(name, x, targets, logit_len, target_len):
     _build.require_cuda(name, x, targets, logit_len, target_len)
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{name}: logits {x.dtype} must be float32 or bfloat16")
-    if x.dim() != 3 or targets.dim() != 2 or targets.shape[0] != x.shape[0]:
-        raise ValueError(f"{name}: logits (B, T, N) and targets (B, U); got "
-                         f"{tuple(x.shape)}, {tuple(targets.shape)}")
-    B = x.shape[0]
+    if x.dim() != 3:
+        raise ValueError(f"{name}: logits (B, T, N); got {tuple(x.shape)}")
+    _check_ints(name, x.shape[0], targets, logit_len, target_len)
+
+
+def _check_ints(name, B, targets, logit_len, target_len):
+    if targets.dim() != 2 or targets.shape[0] != B:
+        raise ValueError(f"{name}: targets (B, U) for B = {B}; got {tuple(targets.shape)}")
     for t, what in ((targets, "targets"), (logit_len, "logit_len"), (target_len, "target_len")):
         if t.dtype != torch.int32:
             raise TypeError(f"{name}: {what} must be int32 (see prepare)")
@@ -207,10 +222,9 @@ def _check(name, x, targets, logit_len, target_len):
 
 
 def _work(L: int, B: int, device) -> torch.Tensor:
-    """The block route's global scratch, where its work does not fit in
+    """The wide route's global scratch, where its work does not fit in
     shared memory; None elsewhere."""
-    route, _, in_smem = scan_route(L)
-    if route == WARP or in_smem:
+    if route(L) != WIDE or work_in_smem(L):
         return None
     return torch.empty((B * WORK_BYTES_PER_STATE * L // 4,), dtype=torch.float32, device=device)
 
@@ -250,6 +264,47 @@ def ctc_fwd(x: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tensor,
     return loss, alpha, lse, lp, logz
 
 
+def _check_floats(name, device, *pairs):
+    """Each (tensor, shape) of ``pairs``: float32, that shape, contiguous, on
+    ``device``."""
+    for t, shape in pairs:
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous() \
+                or t.device != device:
+            raise ValueError(f"{name}: a float32 {shape} on {device} expected, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _scratch(B: int, T: int, U: int, device):
+    """K5b's scratch: the token slots (B, 2U + 1) int32 and beta (T, B, L)."""
+    return (torch.empty((B, 2 * U + 1), dtype=torch.int32, device=device),
+            torch.empty((T, B, 2 * U + 1), dtype=torch.float32, device=device))
+
+
+def ctc_betas(lp: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tensor,
+              target_len: torch.Tensor, N: int) -> torch.Tensor:
+    """K5b's first launch alone, the beta scan, on lp (T, B, L) from
+    :func:`ctc_fwd` and the integers from :func:`prepare`, for N classes:
+    beta (T, B, L) fp32, filled on frames below logit_len only. It is a
+    piece of K5b and counts no launch: :func:`ctc_bwd` counts K5b."""
+    if lp.device.type == "cpu":
+        return ctc_betas_plain(lp, targets, logit_len, target_len, N)
+    _build.require_cuda("ctc_betas", lp, targets, logit_len, target_len)
+    T, B, L = lp.shape
+    _check_ints("ctc_betas", B, targets, logit_len, target_len)
+    U = targets.shape[1]
+    _check_floats("ctc_betas", lp.device, (lp, (T, B, 2 * U + 1)))
+    slots, beta = _scratch(B, T, U, lp.device)
+    if B == 0 or T == 0:
+        return beta
+    work = _work(L, B, lp.device)
+    rc = _build.library().w2l_ctc_betas(
+        lp.data_ptr(), targets.data_ptr(), logit_len.data_ptr(), target_len.data_ptr(),
+        slots.data_ptr(), beta.data_ptr(), _ptr(work), B, T, N, U, _build.MAX_SMEM_BYTES,
+        _build.stream_ptr(lp))
+    _build.check(rc, "ctc_betas")
+    return beta
+
+
 def ctc_bwd(g: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, logit_len: torch.Tensor,
             target_len: torch.Tensor, alpha: torch.Tensor, lse: torch.Tensor, lp: torch.Tensor,
             logz: torch.Tensor) -> torch.Tensor:
@@ -261,22 +316,17 @@ def ctc_bwd(g: torch.Tensor, x: torch.Tensor, targets: torch.Tensor, logit_len: 
     B, T, N = x.shape
     U = targets.shape[1]
     L = 2 * U + 1
-    for t, shape in ((g, (B,)), (alpha, (T, B, L)), (lse, (B, T)), (lp, (T, B, L)),
-                     (logz, (B,))):
-        if t.shape != shape or t.dtype != torch.float32 or not t.is_contiguous() \
-                or t.device != x.device:
-            raise ValueError(f"ctc_bwd: a float32 {shape} on {x.device} expected, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    _check_floats("ctc_bwd", x.device, (g, (B,)), (alpha, (T, B, L)), (lse, (B, T)),
+                 (lp, (T, B, L)), (logz, (B,)))
     dx = torch.empty_like(x)
     if B == 0 or T == 0 or N == 0:
         return dx
-    post_tok = torch.empty((B, U + 1), dtype=torch.int32, device=x.device)
-    post_val = torch.empty((T, B, U + 1), dtype=torch.float32, device=x.device)
+    slots, beta = _scratch(B, T, U, x.device)
     work = _work(L, B, x.device)
     rc = _build.library().w2l_ctc_bwd(
         x.data_ptr(), lse.data_ptr(), lp.data_ptr(), alpha.data_ptr(), logz.data_ptr(),
         g.data_ptr(), targets.data_ptr(), logit_len.data_ptr(), target_len.data_ptr(),
-        post_tok.data_ptr(), post_val.data_ptr(), _ptr(work), dx.data_ptr(),
+        slots.data_ptr(), beta.data_ptr(), _ptr(work), dx.data_ptr(),
         _build.DTYPE_CODES[x.dtype], B, T, N, U, _build.MAX_SMEM_BYTES, _build.stream_ptr(x))
     _build.check(rc, "ctc_bwd")
     _build.LAUNCHES["ctc_bwd"] += 1

@@ -38,20 +38,18 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parents[2]
-# the dx kernel's softmax (two scalar loops and one over vectors) and its lse
-SM_SCALAR = "(expf(w2l::to_f(xt[i]) - ls) - post[i])"
-SM_VECTOR = "(expf(v[e] - ls) - post[i0 + e])"
+# the dx kernel's softmax (its one expression, ``grad``, that every class
+# goes through) and its lse
+SM = "(expf(v - ls) - p)"
 LSE = "const float ls = lse[static_cast<size_t>(b) * T_ + t];"
 ROUND_BF16 = "__bfloat162float(__float2bfloat16({}))"
 
 
 def mutant_sources(src: str) -> dict:
     """{name: source}: the unaltered ``ctc.cu`` and its two altered copies."""
-    if (src.count(SM_SCALAR), src.count(SM_VECTOR), src.count(LSE)) != (2, 1, 1):
+    if (src.count(SM), src.count(LSE)) != (1, 1):
         raise RuntimeError("probe_ctc: the dx kernel's softmax or lse not found in ctc.cu")
-    sm = src.replace(SM_SCALAR, "(" + ROUND_BF16.format("expf(w2l::to_f(xt[i]) - ls)")
-                     + " - post[i])")
-    sm = sm.replace(SM_VECTOR, "(" + ROUND_BF16.format("expf(v[e] - ls)") + " - post[i0 + e])")
+    sm = src.replace(SM, "(" + ROUND_BF16.format("expf(v - ls)") + " - p)")
     return {"control": src, "sm_bf16": sm, "lse_1e-3": src.replace(LSE, LSE[:-1] + " + 1e-3f;")}
 
 
@@ -83,8 +81,10 @@ def probe_mutants(cs) -> dict:
             sources.items())
         libs = dict(zip(sources, built))
     for lib in libs.values():
-        lib.w2l_ctc_bwd.argtypes = _build.SIGNATURES["w2l_ctc_bwd"]
-        lib.w2l_ctc_bwd.restype = ctypes.c_int
+        for entry, argtypes in _build.SIGNATURES.items():
+            if entry.startswith("w2l_ctc_"):
+                getattr(lib, entry).argtypes = argtypes
+                getattr(lib, entry).restype = ctypes.c_int
     library, summary = _build.library, {}
     try:
         for name, lib in libs.items():

@@ -4,19 +4,20 @@ targets of ``chip_smoke.py``'s training list (seed 1) and 9998 classes, and at
 its ``CTC_EDGES``, without the rest of its phases.
 
     python wav2letter_tpu_torch/kernels/time_ctc.py [--root DIR] [bfloat16] [float32]
-    python wav2letter_tpu_torch/kernels/time_ctc.py --warp-states 0,2,4,8 [bfloat16]
+    python wav2letter_tpu_torch/kernels/time_ctc.py --ring-depths 8,16 [bfloat16]
 
 Run on a machine with a card. ``--root`` (default: this checkout) is the
 checkout whose ``chip_smoke.py`` and port are timed. Prints, per type and
-batch, K5's and K5b's cold device time by the profiler (inputs in HBM), their
-bound in bytes, the plain versions' time and the library's (``log_softmax``
-then ``F.ctc_loss``: its forward, its backward alone, and the two), and fails
-if a check disagrees with the plain versions or a second run differs in a bit.
-``--warp-states`` instead builds copies of ``csrc/ctc.cu`` whose warp route
-takes at most each given number of states a lane (``WARP_MAX_STATES``; 0:
-the block route always) and times K5 and K5b of each, L2-warm by events, at
-the flagship's B = 16, T = 192, N = 9998 for targets of 16 to 128 labels.
-Nothing of the port imports this module.
+batch, K5's and K5b's cold device time by the profiler (inputs in HBM) and by
+launch (rows, alpha, beta, dx), their bound in bytes, the plain versions'
+time and the library's (``log_softmax`` then ``F.ctc_loss``: its forward,
+its backward alone, and the two), and fails if a check disagrees with the
+plain versions or a second run differs in a bit. ``--ring-depths`` instead
+builds copies of ``csrc/ctc.cu`` with ``RING_DEPTH`` (the frames of lp the
+scans bring ahead of their chains) set to each value, and times K5 and K5b
+of each, L2-warm, by events and by launch, at the flagship's B = 16, T = 192, N = 9998 for targets of 8 to 128
+labels (one copy after the other for each shape), with each copy's loss and
+dx against the plain versions. Nothing of the port imports this module.
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import argparse
 import ctypes
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -40,8 +40,8 @@ def main() -> None:
         sys.exit(2)
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]))
-    ap.add_argument("--warp-states", default="",
-                    help="comma-separated caps of the warp route's states a lane")
+    ap.add_argument("--ring-depths", default="",
+                    help="comma-separated RING_DEPTHs of csrc/ctc.cu to time")
     ap.add_argument("dtypes", nargs="*", default=["bfloat16", "float32"])
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -52,9 +52,9 @@ def main() -> None:
 
     kernels.disable_tf32()
     print(f"time_ctc: {cs.__file__}", flush=True)
-    if args.warp_states:
+    if args.ring_depths:
         for dt in args.dtypes:
-            sweep_warp_states(cs, [int(w) for w in args.warp_states.split(",")], dt)
+            sweep(cs, [int(v) for v in args.ring_depths.split(",")], dt)
         print(_smi())
         return
     with tempfile.TemporaryDirectory(prefix="time_ctc_") as tmp:
@@ -101,32 +101,31 @@ def _smi() -> str:
                           text=True).stdout.strip()
 
 
-_WARP_MAX = re.compile(r"constexpr int WARP_MAX_STATES = (\d+);")
+def sweep(cs, values, dtype_name):
+    """K5 and K5b of copies of ``csrc/ctc.cu`` with ``RING_DEPTH`` set to
+    each of ``values``: warm ms by events and by launch at the flagship's
+    shape for U = 8..128; each copy's loss and dx against the plain
+    versions."""
+    from concurrent.futures import ThreadPoolExecutor
 
-
-def sweep_warp_states(cs, caps, dtype_name):
-    """K5 and K5b of copies of ``csrc/ctc.cu`` with the warp route capped at
-    each of ``caps`` states a lane, warm ms by events, at the flagship's
-    shape for U = 16..128; each copy's loss against the plain version."""
     import numpy as np
 
     from wav2letter_tpu_torch import kernels
     from wav2letter_tpu_torch.kernels import _build
+    from wav2letter_tpu_torch.kernels.trace_ctc import with_ring_depth
     from wav2letter_tpu_torch.kernels.trace_k4 import build_traced
 
     src = (_build.CSRC / "ctc.cu").read_text()
-    if len(_WARP_MAX.findall(src)) != 1:
-        raise RuntimeError("time_ctc: WARP_MAX_STATES not found once in csrc/ctc.cu")
-    libs = {}
-    for cap in caps:
-        lib = build_traced(_WARP_MAX.sub(f"constexpr int WARP_MAX_STATES = {cap};", src),
-                           f"ctc_warp{cap}", "w2l_ctc_fwd")
+    with ThreadPoolExecutor(len(values)) as ex:
+        built = list(ex.map(lambda v: build_traced(
+            with_ring_depth(src, v), f"ctc_ring_depth{v}", "w2l_ctc_fwd"), values))
+    for lib in built:
         lib.w2l_ctc_bwd.argtypes = _build.SIGNATURES["w2l_ctc_bwd"]
         lib.w2l_ctc_bwd.restype = ctypes.c_int
-        libs[cap] = lib
+    libs = dict(zip(values, built))
     dtype = getattr(torch, dtype_name)
     code = _build.DTYPE_CODES[dtype]
-    for U in (16, 32, 64, 96, 128):
+    for U in (8, 16, 32, 64, 96, 128):
         rng = np.random.RandomState(U)
         B, T, N = 16, 192, 9998
         tl = rng.randint(U * 3 // 4, U + 1, size=B)
@@ -138,16 +137,17 @@ def sweep_warp_states(cs, caps, dtype_name):
         want = kernels.ctc_fwd_plain(x, tg, ll, tln)
         L = 2 * U + 1
         f32 = dict(dtype=torch.float32, device="cuda")
+        g = torch.ones((B,), **f32)
+        want_dx = kernels.ctc_bwd_plain(g, x, tg, ll, tln, *want[1:]).float()
         lse, lp, alpha = (torch.empty((B, T), **f32), torch.empty((T, B, L), **f32),
                           torch.empty((T, B, L), **f32))
-        loss, logz, g = (torch.empty((B,), **f32), torch.empty((B,), **f32),
-                         torch.ones((B,), **f32))
-        tok = torch.empty((B, U + 1), dtype=torch.int32, device="cuda")
-        val = torch.empty((T, B, U + 1), **f32)
+        loss, logz = torch.empty((B,), **f32), torch.empty((B,), **f32)
+        slots = torch.empty((B, 2 * U + 1), dtype=torch.int32, device="cuda")
+        beta = torch.empty((T, B, L), **f32)
         dx = torch.empty_like(x)
         stream = _build.stream_ptr(x)
         row = dict(dtype=dtype_name, U=U, L=L)
-        for cap, lib in libs.items():
+        for v, lib in libs.items():
             def fwd():
                 _build.check(lib.w2l_ctc_fwd(
                     x.data_ptr(), tg.data_ptr(), ll.data_ptr(), tln.data_ptr(), lse.data_ptr(),
@@ -158,13 +158,19 @@ def sweep_warp_states(cs, caps, dtype_name):
                 _build.check(lib.w2l_ctc_bwd(
                     x.data_ptr(), lse.data_ptr(), lp.data_ptr(), alpha.data_ptr(),
                     logz.data_ptr(), g.data_ptr(), tg.data_ptr(), ll.data_ptr(),
-                    tln.data_ptr(), tok.data_ptr(), val.data_ptr(), 0, dx.data_ptr(), code,
+                    tln.data_ptr(), slots.data_ptr(), beta.data_ptr(), 0, dx.data_ptr(), code,
                     B, T, N, U, _build.MAX_SMEM_BYTES, stream), "ctc_bwd")
 
             ms_f, ms_b = cs.cuda_ms(fwd), cs.cuda_ms(bwd)
-            err = (loss - want[0]).abs().max().item()
-            row[f"cap{cap}"] = dict(k5_ms=ms_f, k5b_ms=ms_b, loss_max_abs_err=err,
-                                    finite=bool(torch.isfinite(dx).all()))
+            split = {}
+            for fn in (fwd, bwd):
+                for key, ms in cs.device_split(fn, (), cold=False).items():
+                    split[cs._ctc_launch(key)] = split.get(cs._ctc_launch(key), 0.0) + ms
+            row[f"RING_DEPTH={v}"] = dict(
+                k5_ms=ms_f, k5b_ms=ms_b, split_ms=split,
+                loss_max_abs_err=(loss - want[0]).abs().max().item(),
+                dx_max_abs_err=(dx.float() - want_dx).abs().max().item(),
+                finite=bool(torch.isfinite(dx).all()))
         print(f"SWEEP {json.dumps(row)}", flush=True)
 
 
